@@ -1,0 +1,1 @@
+"""Ops layer of the PyTorch port (see the package docstring)."""

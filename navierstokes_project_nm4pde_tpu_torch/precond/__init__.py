@@ -1,0 +1,1 @@
+"""Precond layer of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,20 @@
+"""Velocity-block Jacobi data for the projection stepper.
+
+The counterpart of what the reference's projection path reads from
+`precond/blocks.py build_precond_state(..., skip_schur=True)`: the inverse
+diagonal of F with identity rows on Dirichlet nodes.  The frozen Schur
+path brings its own pressure-space data (models/base.py FrozenSchur), so
+nothing else of the block-preconditioner family is needed here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from navierstokes_project_nm4pde_tpu_torch.ops import operators as ops
+
+
+def inv_diag_Fhat(op: ops.NSOperator, nu, dt, conv: ops.ConvectionData | None) -> torch.Tensor:
+    """1 / diag(F) on free nodes, 1 on Dirichlet rows ([n_unodes])."""
+    dF = ops.diag_F(op, nu, dt, conv)
+    return 1.0 / torch.where(op.dirichlet_mask, torch.ones_like(dF), dF)

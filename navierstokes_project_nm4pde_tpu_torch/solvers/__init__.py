@@ -1,0 +1,1 @@
+"""Solvers layer of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,108 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions.
+
+These tests need an NVIDIA card (sm_90a for the build) and skip without
+one.  They import nothing of JAX, so on the card they run without the
+repository's JAX test configuration:
+
+    python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
+
+Tolerances: kernel and plain version sum the same f32 terms in another
+order (kernel B with shared-memory atomics), so results agree to a few
+f32 ulps of the largest entry; 1e-5 relative to max |plain| is stated.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
+
+RTOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    """The card, decided when the test runs (never at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU path runs the plain versions")
+    return torch.device("cuda")
+
+
+def _close(out, ref):
+    err = float((out - ref).abs().max())
+    assert err <= RTOL * float(ref.abs().max()), err
+
+
+def _lidx(B, c_blk, nloc, U, seed):
+    """A valid local slot table: each cell's nodes are distinct slots."""
+    rng = np.random.default_rng(seed)
+    li = np.stack([
+        np.stack([rng.choice(U, nloc, replace=False) for _ in range(c_blk)])
+        for _ in range(B)
+    ])
+    return torch.as_tensor(li.astype(np.int32))
+
+
+@pytest.mark.parametrize("B,U,C", [(1, 128, 3), (7, 128, 6), (33, 128, 1), (5, 64, 8), (3, 96, 3)])
+def test_macro_matvec_matches_plain(cuda, B, U, C):
+    g = torch.Generator(device=cuda).manual_seed(B * 100 + C)
+    FtT = torch.randn((B, U, U), generator=g, device=cuda)
+    x_b = torch.randn((B, U, C), generator=g, device=cuda)
+    before = mb.launch_counts["macro_matvec"]
+    y = mb.macro_matvec(FtT, x_b)
+    torch.cuda.synchronize()
+    assert mb.launch_counts["macro_matvec"] == before + 1
+    _close(y, mb.macro_matvec_plain(FtT, x_b))
+
+
+@pytest.mark.parametrize("B,c_blk,U,E_short", [(1, 20, 128, 0), (11, 20, 128, 7), (9, 5, 64, 4), (4, 3, 32, 0)])
+def test_macro_build_matches_plain(cuda, B, c_blk, U, E_short):
+    """Odd block counts, and a last block only partly filled with cells."""
+    nloc = 10
+    E = B * c_blk - E_short
+    lidx = _lidx(B, c_blk, nloc, U, seed=B + c_blk).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(E)
+    F_e = torch.randn((E, nloc, nloc), generator=g, device=cuda)
+    before = mb.launch_counts["macro_build"]
+    out = mb.macro_build(F_e, lidx, B, U)
+    torch.cuda.synchronize()
+    assert mb.launch_counts["macro_build"] == before + 1
+    _close(out, mb.macro_build_plain(F_e, lidx, B, U))
+
+
+def test_macro_build_then_matvec_is_the_element_apply(cuda):
+    """Block build and block matvec compose to sum_c F_c (x on the cell's
+    slots), computed here cell by cell."""
+    B, c_blk, U, nloc = 6, 4, 48, 10
+    lidx = _lidx(B, c_blk, nloc, U, seed=3)
+    g = torch.Generator().manual_seed(5)
+    F_e = torch.randn((B * c_blk, nloc, nloc), generator=g)
+    x_b = torch.randn((B, U, 3), generator=g)
+    y = mb.macro_matvec(mb.macro_build(F_e.to(cuda), lidx.to(cuda), B, U), x_b.to(cuda))
+    ref = torch.zeros((B, U, 3))
+    li = lidx.long()
+    for b in range(B):
+        for c in range(c_blk):
+            ref[b].index_add_(0, li[b, c], F_e[b * c_blk + c] @ x_b[b, li[b, c]])
+    _close(y.cpu(), ref)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    FtT = torch.randn((2, 32, 32), device=cuda)
+    x_b = torch.randn((2, 32, 3), device=cuda)
+    with pytest.raises(ValueError):
+        mb.macro_matvec(FtT.double(), x_b.double())
+    with pytest.raises(ValueError):
+        mb.macro_matvec(FtT.transpose(1, 2), x_b)
+    with pytest.raises(ValueError):
+        mb.macro_matvec(FtT, x_b[:, :16])
+    lidx = _lidx(2, 3, 10, 32, seed=0).to(cuda)
+    F_e = torch.randn((6, 10, 10), device=cuda)
+    with pytest.raises(ValueError):
+        mb.macro_build(F_e.double(), lidx, 2, 32)
+    with pytest.raises(ValueError):
+        mb.macro_build(F_e, lidx.long(), 2, 32)
+    with pytest.raises(ValueError):
+        mb.macro_build(F_e[:3], lidx, 2, 32)  # E does not fill the blocks
+    with pytest.raises(ValueError):
+        mb.macro_build(F_e, lidx, 2, 16)  # slots past U

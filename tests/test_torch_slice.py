@@ -1,0 +1,196 @@
+"""The PyTorch port's projection stepper against the JAX solver, end to end.
+
+Both solvers run the benchmark's solver settings (projection stepper,
+implicit convection, macro F, frozen banded Schur with the additive
+two-level preconditioner, restart 8, maxiter 60, tol_mode "b", quadratic
+velocity warm start, s_recycle 1, freeze_conv_diag) at float64 on a small
+DFG duct.  With equal per-step F and S iteration counts the two differ by
+summation order only, so u and p are held to rtol 1e-8 / 1e-7 (the
+reference's own macro-vs-element step tolerances, tests/test_macro.py) and
+the drag/lift coefficients and pressure difference to rtol 1e-8.
+"""
+
+import dataclasses
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d
+from navierstokes_project_nm4pde_tpu.models import Cylinder3DProblem as JaxCylinder3D
+from navierstokes_project_nm4pde_tpu.models import NavierStokesSolver as JaxSolver
+from navierstokes_project_nm4pde_tpu_torch.models import (
+    Cylinder3DProblem,
+    NavierStokesSolver,
+    state_from_numpy,
+    state_to_numpy,
+)
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "navierstokes_project_nm4pde_tpu_torch"
+
+
+def bench_config(dtype="float64"):
+    """The configuration chip_smoke.py drives (bench.py's defaults), at a
+    test dtype and with the reference stepping one step per chunk."""
+    cfg = chip_smoke.bench_config(dtype)
+    return dataclasses.replace(
+        cfg, numerics=dataclasses.replace(cfg.numerics, steps_per_chunk=1)
+    )
+
+
+def _jax_state_numpy(st):
+    return {
+        k: None if getattr(st, k) is None else np.asarray(getattr(st, k))
+        for k in ("u", "p", "t", "step", "u_prev", "p_prev", "u_prev2", "spool")
+    }
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """JAX: 2 steps, then 1 more; the port: 3 steps from the start."""
+    mesh = cylinder_duct_3d(lc=0.22, nz=3)
+    cfg = bench_config()
+    js = JaxSolver(mesh, JaxCylinder3D(test_case=2), cfg)
+    st2, d2 = js.run(2)
+    st3, d3 = js.run(1, state=st2)
+    ts = NavierStokesSolver(mesh, Cylinder3DProblem(test_case=2), cfg, device="cpu")
+    tst, td = ts.run(3)
+    return dict(js=js, st2=st2, st3=st3, d2=d2, d3=d3, ts=ts, tst=tst, td=td)
+
+
+def _cat(r, key):
+    return np.concatenate([getattr(r["d2"], key), getattr(r["d3"], key)])
+
+
+def test_port_mesh_and_plan_match_reference(runs):
+    js, ts = runs["js"], runs["ts"]
+    np.testing.assert_array_equal(ts.space.cells_u, js.space.cells_u)
+    np.testing.assert_array_equal(ts.macro.uidx.numpy(), np.asarray(js._macro.uidx))
+    assert ts.space.n_dofs == js.space.n_dofs
+
+
+def test_three_steps_match_reference_iteration_counts(runs):
+    np.testing.assert_array_equal(runs["td"].iters_f, _cat(runs, "iters_f"))
+    np.testing.assert_array_equal(runs["td"].iters_s, _cat(runs, "iters_s"))
+    assert np.all(runs["td"].iters_f < 60) and np.all(runs["td"].iters_s < 60)
+
+
+def test_three_steps_match_reference_state(runs):
+    st3, tst = runs["st3"], runs["tst"]
+    ju, jp = np.asarray(st3.u), np.asarray(st3.p)
+    np.testing.assert_allclose(tst.u.numpy(), ju, rtol=1e-8, atol=1e-10 * np.abs(ju).max())
+    np.testing.assert_allclose(tst.p.numpy(), jp, rtol=1e-7, atol=1e-9 * np.abs(jp).max())
+    assert tst.step == int(st3.step) == 3
+
+
+@pytest.mark.parametrize("key", ["c_d", "c_l", "delta_p"])
+def test_three_steps_match_reference_functionals(runs, key):
+    ref = _cat(runs, key)
+    np.testing.assert_allclose(getattr(runs["td"], key), ref, rtol=1e-8, atol=0.0)
+
+
+def test_state_carry_over_continues_the_reference_run(runs):
+    ts = runs["ts"]
+    s2 = state_from_numpy(_jax_state_numpy(runs["st2"]), "cpu")
+    st3, d3 = ts.run(1, state=s2)
+    np.testing.assert_array_equal(d3.iters_f, runs["d3"].iters_f)
+    np.testing.assert_array_equal(d3.iters_s, runs["d3"].iters_s)
+    ju = np.asarray(runs["st3"].u)
+    np.testing.assert_allclose(st3.u.numpy(), ju, rtol=1e-8, atol=1e-10 * np.abs(ju).max())
+    np.testing.assert_allclose(d3.c_d, runs["d3"].c_d, rtol=1e-8)
+    # and back: numpy arrays of the port's state load into the same state
+    back = state_from_numpy(state_to_numpy(st3), "cpu")
+    for k in ("u", "p", "u_prev", "p_prev", "u_prev2", "spool"):
+        assert torch.equal(getattr(back, k), getattr(st3, k))
+    assert (back.t, back.step) == (st3.t, st3.step)
+
+
+def test_solver_rejects_configs_outside_the_slice():
+    mesh = cylinder_duct_3d(lc=0.25, nz=3)
+    cfg = bench_config()
+    bad = [
+        dataclasses.replace(cfg, time=dataclasses.replace(cfg.time, stepper="monolithic")),
+        dataclasses.replace(cfg, time=dataclasses.replace(cfg.time, scheme="bdf2")),
+        dataclasses.replace(cfg, precond=dataclasses.replace(cfg.precond, s_recycle=0)),
+        dataclasses.replace(
+            cfg, numerics=dataclasses.replace(cfg.numerics, macro_split="on")
+        ),
+    ]
+    for c in bad:
+        with pytest.raises(ValueError):
+            NavierStokesSolver(mesh, Cylinder3DProblem(), c, device="cpu")
+
+
+def test_port_imports_no_jax_module():
+    """No module of the port imports jax, and of the reference package it
+    imports only the numpy-only modules (config, mesh, fem)."""
+    import ast
+
+    allowed = (
+        "navierstokes_project_nm4pde_tpu.config",
+        "navierstokes_project_nm4pde_tpu.mesh",
+        "navierstokes_project_nm4pde_tpu.fem",
+    )
+    files = sorted(PKG.rglob("*.py"))
+    assert files
+    for path in files:
+        text = path.read_text()
+        assert "import jax" not in text, path
+        for node in ast.walk(ast.parse(text)):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib"), (path, name)
+                if name.startswith("navierstokes_project_nm4pde_tpu."):
+                    assert name.startswith(allowed), (path, name)
+
+
+def test_port_slice_runs_without_jax():
+    """The port's slice in a fresh interpreter in which jax cannot be
+    imported at all."""
+    code = textwrap.dedent(
+        """
+        import sys
+
+        class _NoJax:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib"):
+                    raise ImportError("jax is blocked in this process")
+                return None
+
+        for k in [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib")]:
+            del sys.modules[k]
+        sys.meta_path.insert(0, _NoJax())
+        sys.path.insert(0, sys.argv[1])
+        import numpy as np
+        from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d
+        from navierstokes_project_nm4pde_tpu_torch.models import (
+            Cylinder3DProblem, NavierStokesSolver,
+        )
+        from chip_smoke import bench_config
+
+        s = NavierStokesSolver(
+            cylinder_duct_3d(lc=0.25, nz=3), Cylinder3DProblem(),
+            bench_config("float32"), device="cpu",
+        )
+        st, d = s.run(2)
+        assert np.all(np.isfinite(d.c_d)), d
+        assert not any(k.split(".")[0] == "jax" for k in sys.modules)
+        print("OK", d.iters_f.tolist(), d.iters_s.tolist())
+        """
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code, str(REPO)],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.startswith("OK"), res.stdout
