@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's main path once: the projection stepper on the DFG 3D
-duct at 965,265 DoF under the benchmark's solver settings (bench.py's
-default RunConfig, float32).  Before that it builds the hand-written CUDA
-kernels from `navierstokes_project_nm4pde_tpu_torch/csrc`, holds each
-against its plain PyTorch version at the shapes that path gives it, and
-holds a short run of the port on the card against the same run on the CPU
-in float64 (plain versions) on a small duct.
+Drives the port's two paths once each:
+  * the single run: the projection stepper on the DFG 3D duct at 965,265
+    DoF under the benchmark's solver settings (bench.py's default
+    RunConfig, float32), kernels A and B;
+  * the ensemble: 64 Reynolds-sweep members of 46,928 DoF each under
+    scripts/bench_ensemble.py's settings (float32), through
+    `run_ensemble`, kernels C and D;
+and runs the two TPU-era measurement probes (kernels E and F).  It builds
+the hand-written CUDA kernels from `navierstokes_project_nm4pde_tpu_torch/csrc`,
+holds each against its plain PyTorch version at the shapes its path gives
+it, and holds short runs of each path on the card against the same runs
+on the CPU in float64 (plain versions) on a small duct.
 
     python3 chip_smoke.py [--profile DIR]
 
@@ -26,12 +31,16 @@ import sys
 import time
 
 PKG = "navierstokes_project_nm4pde_tpu_torch"
-KERNEL_SOURCE = f"{PKG}/csrc/macro_kernels.cu"
-# kernel name -> (TPU kernel it replaces, relative tolerance against the
-# plain version: f32 sums in another order, measured against max |plain|)
+# kernel name -> (source, TPU kernel it replaces, relative tolerance against
+# the plain version, measured against max |plain|: f32 sums in another
+# order, or 0 for the copies)
 KERNELS = {
-    "macro_matvec": ("navierstokes_project_nm4pde_tpu/ops/macroblock.py:265", 1e-5),
-    "macro_build": ("scripts/prof_macro_build_kernel.py:127", 1e-5),
+    "macro_matvec": ("macro_kernels.cu", "navierstokes_project_nm4pde_tpu/ops/macroblock.py:265", 1e-5),
+    "macro_build": ("macro_kernels.cu", "scripts/prof_macro_build_kernel.py:127", 1e-5),
+    "slot_reduce": ("ensemble_kernels.cu", "navierstokes_project_nm4pde_tpu/ops/onehot.py:342", 1e-5),
+    "slot_gather": ("ensemble_kernels.cu", "navierstokes_project_nm4pde_tpu/ops/onehot.py:247", 0.0),
+    "sgemm_probe": ("probe_kernels.cu", "scripts/prof_macro_build_kernel.py:74", 1e-5),
+    "column_gather": ("probe_kernels.cu", "scripts/prof_pallas_gather.py:49", 0.0),
 }
 # Small-duct check, float32 on the card against float64 on the CPU: the
 # max error over the steps, relative to the max |reference| (for c_l, to
@@ -46,6 +55,14 @@ AGREE_RTOL = 1e-4
 WARMUP_STEPS = 20
 TIMED_STEPS = 40
 KERNEL_REPS = 10
+# The ensemble path: scripts/bench_ensemble.py's mesh and member count
+# (64 x 46,928 DoF), its warm-up and timed steps, and the members of the
+# small-duct check against the CPU.
+ENSEMBLE_MESH = dict(lc=0.08, nz=6)
+ENSEMBLE_MEMBERS = 64
+ENSEMBLE_WARMUP = 16
+ENSEMBLE_TIMED = 40
+ENSEMBLE_AGREE_MEMBERS = 4
 
 
 def bench_config(dtype: str = "float32"):
@@ -83,6 +100,41 @@ def bench_config(dtype: str = "float32"):
     )
 
 
+def ensemble_config(dtype: str = "float32"):
+    """The RunConfig of scripts/bench_ensemble.py:47-61 (its defaults:
+    maxiter 25, 8 steps a chunk, frozen Schur), at the given dtype.
+    precond.s_recycle keeps its default 0: the pressure runs plain CG."""
+    from navierstokes_project_nm4pde_tpu.config import (
+        NumericsConfig,
+        PrecondConfig,
+        RunConfig,
+        SolverConfig,
+        TimeConfig,
+    )
+
+    return RunConfig(
+        time=TimeConfig(dt=2e-4, t_end=4.0, stepper="projection"),
+        solver=SolverConfig(rtol=1e-6, restart=8, maxiter=25, tol_mode="b", guess_order=2),
+        precond=PrecondConfig(
+            kind="yosida", f_iters=0, s_iters=3, s_solver="mg2_cg", f_solver="gmres",
+            freeze_conv_diag=True, mg2_form="additive",
+        ),
+        numerics=NumericsConfig(
+            dtype=dtype, precise_dots=False, steps_per_chunk=8, reduce_plan="columns",
+            matmul_precision="highest", schur_agg=24, proj_schur="frozen",
+            coarse_solve="chol", schur_spmv="auto",
+        ),
+    )
+
+
+def sweep_nus(problem, members: int):
+    """The members' viscosities, Re = U D / nu over linspace(20, 300)
+    (bench_ensemble.py:68-70)."""
+    import numpy as np
+
+    return abs(problem.mean_velocity(0.0) or 1.0) * problem.diameter / np.linspace(20.0, 300.0, members)
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -107,9 +159,21 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def compare(name, out, ref) -> float:
+    """Max abs error of a kernel's output against its plain version; fails
+    above the kernel's tolerance (relative to max |plain|)."""
+    err = float((out - ref).abs().max())
+    rel = err / max(float(ref.abs().max()), 1e-30)
+    tol = KERNELS[name][2]
+    log(f"  {name}: max abs err {err:.3e}, max rel err {rel:.3e} (tol {tol:g})")
+    if not rel <= tol:
+        fail(f"{name} disagrees with its plain version: rel err {rel:.3e} > {tol:g}")
+    return err
+
+
 def check_kernels(solver, reps: int) -> dict:
-    """Each kernel against its plain version on the solver's own plan
-    (main-path shapes), with seeded random inputs; returns per-kernel
+    """Kernels A and B against their plain versions on the solver's own
+    plan (main-path shapes), with seeded random inputs; returns per-kernel
     records (launch counts filled in later)."""
     import torch
 
@@ -119,15 +183,6 @@ def check_kernels(solver, reps: int) -> dict:
     nloc = mp.lidx.shape[2]
     gen = torch.Generator(device=dev).manual_seed(0)
     rec = {}
-
-    def compare(name, out, ref):
-        err = float((out - ref).abs().max())
-        rel = err / max(float(ref.abs().max()), 1e-30)
-        tol = KERNELS[name][1]
-        log(f"  {name}: max abs err {err:.3e}, max rel err {rel:.3e} (tol {tol:g})")
-        if not rel <= tol:
-            fail(f"{name} disagrees with its plain version: rel err {rel:.3e} > {tol:g}")
-        return err
 
     F_e = torch.randn((mp.E, nloc, nloc), generator=gen, device=dev)
     log(f"kernel B macro_build: F_e {tuple(F_e.shape)}, lidx {tuple(mp.lidx.shape)} -> [{mp.B}, {mp.U}, {mp.U}]")
@@ -154,6 +209,85 @@ def check_kernels(solver, reps: int) -> dict:
         log(f"  macro_matvec C={C}: {times[C][0]:.4f} ms ({gbs:.1f} GB/s of values), plain {times[C][1]:.4f} ms")
     rec["macro_matvec"] = dict(err=max(errs), ms=times[3][0], plain_ms=times[3][1])
     return rec
+
+
+def check_slot_kernels(solver, reps: int) -> dict:
+    """Kernels C and D against their plain versions on the ensemble
+    solver's element plans, at the ensemble path's channel counts (B = 64:
+    192 for u-wide passes, 384 for the rhs/r0 reduce, 576 for the stacked
+    [hist | u0 | w] gather)."""
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
+
+    plans, dev = solver.op.onehot, solver.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    B = ENSEMBLE_MEMBERS
+    rec = {}
+    for name, fn, plain, widths, rows in (
+        ("slot_reduce", oh.onehot_reduce, oh.onehot_reduce_plain, (3 * B, 6 * B), plans.n_slots),
+        ("slot_gather", oh.onehot_gather, oh.onehot_gather_plain, (3 * B, 9 * B), plans.n_rows),
+    ):
+        errs, times = [], {}
+        for C in widths:
+            x = torch.randn((rows, C), generator=gen, device=dev)
+            log(f"kernel {name}: payload {tuple(x.shape)}, {plans.n_slots} slots -> {plans.n_rows} rows")
+            errs.append(compare(name, fn(plans, x), plain(plans, x)))
+            times[C] = (time_ms(lambda: fn(plans, x), reps), time_ms(lambda: plain(plans, x), reps))
+            # bytes a launch: every slot row once, every node row once
+            gbs = (plans.n_slots + plans.n_rows) * C * 4 / times[C][0] / 1e6
+            log(f"  {name} C={C}: {times[C][0]:.4f} ms ({gbs:.1f} GB/s), plain {times[C][1]:.4f} ms")
+            del x
+        rec[name] = dict(err=max(errs), ms=times[widths[0]][0], plain_ms=times[widths[0]][1])
+    return rec
+
+
+def run_probes(reps: int) -> dict:
+    """Probes E and F against their plain versions at the TPU scripts'
+    shapes, then timed.  Returns per-probe records, with the launches of
+    the timed probe runs."""
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch.ops import probes
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(2)
+    N = probes.SGEMM_N
+    a = torch.randn((N, N), generator=gen, device=dev)
+    b = torch.randn((N, N), generator=gen, device=dev)
+    log(f"probe sgemm_probe: A^T B at [{N}, {N}]^2 f32")
+    err_e = compare("sgemm_probe", probes.sgemm_probe(a, b), probes.sgemm_probe_plain(a, b))
+    cases = []
+    for n, w in probes.GATHER_SHAPES:
+        src = torch.randn((n, w), generator=gen, device=dev)
+        ci = probes.column_index(
+            torch.randint(0, n, (n, w), generator=gen, device=dev, dtype=torch.int32), n
+        )
+        log(f"probe column_gather: [{n}, {w}]")
+        cases.append((src, ci, compare(
+            "column_gather", probes.column_gather(src, ci), probes.column_gather_plain(src, ci)
+        )))
+
+    probes.reset_launch_counts()  # the probe runs: timed launches of each probe
+    ms_e = time_ms(lambda: probes.sgemm_probe(a, b), reps)
+    g_ms = [time_ms(lambda: probes.column_gather(src, ci), reps) for src, ci, _ in cases]
+    launches = dict(probes.launch_counts)
+    plain_e = time_ms(lambda: probes.sgemm_probe_plain(a, b), reps)
+    g_plain = [time_ms(lambda: probes.column_gather_plain(src, ci), reps) for src, ci, _ in cases]
+    flop = 2.0 * N ** 3
+    log(f"  sgemm_probe: {ms_e:.4f} ms ({flop / ms_e / 1e9:.2f} TFLOP/s f32 FMA), "
+        f"plain (cuBLAS, TF32 off) {plain_e:.4f} ms ({flop / plain_e / 1e9:.2f} TFLOP/s)")
+    for (src, _, _), t, tp in zip(cases, g_ms, g_plain):
+        n_el = src.numel()
+        log(f"  column_gather {tuple(src.shape)}: {t:.4f} ms ({t / n_el * 1e6:.3f} ns/elem), "
+            f"plain {tp:.4f} ms ({tp / n_el * 1e6:.3f} ns/elem)")
+    return {
+        "sgemm_probe": dict(err=err_e, ms=ms_e, plain_ms=plain_e, launches=launches["sgemm_probe"]),
+        "column_gather": dict(
+            err=max(e for _, _, e in cases), ms=g_ms[1], plain_ms=g_plain[1],
+            launches=launches["column_gather"],
+        ),
+    }
 
 
 def check_small_duct(device) -> None:
@@ -192,9 +326,52 @@ def check_small_duct(device) -> None:
             fail(f"small duct: {k} err {v:.3e} > {AGREE_RTOL:g} of max |ref|")
 
 
-def timed_steps(solver, state, n: int):
-    """`n` steps, one `run` call each, timed on the host clock up to a
-    device synchronise; returns (state, stacked diagnostics, ms per step)."""
+def check_small_ensemble(device) -> None:
+    """The port's ensemble on the card (f32, kernels C and D) against the
+    same ensemble on the CPU (f64, plain versions) on a small duct, each
+    member held to AGREE_RTOL of its own max |ref|."""
+    import numpy as np
+
+    from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d
+    from navierstokes_project_nm4pde_tpu_torch.models import (
+        Cylinder3DProblem,
+        NavierStokesSolver,
+    )
+    from navierstokes_project_nm4pde_tpu_torch.parallel import run_ensemble
+
+    mesh = cylinder_duct_3d(lc=0.22, nz=3)
+    problem = Cylinder3DProblem(test_case=2)
+    nus = sweep_nus(problem, ENSEMBLE_AGREE_MEMBERS)
+    (sg, dg), (sc, dc) = (
+        run_ensemble(
+            NavierStokesSolver(mesh, problem, ensemble_config(dtype), device=dev),
+            nus, AGREE_STEPS,
+        )
+        for dev, dtype in ((device, "float32"), ("cpu", "float64"))
+    )
+    log(f"small-duct ensemble (B={len(nus)}, {sc.u.shape[0]} velocity nodes), {AGREE_STEPS} steps: "
+        f"F iters card {dg.iters_f.tolist()} cpu {dc.iters_f.tolist()}, "
+        f"S iters card {dg.iters_s.tolist()} cpu {dc.iters_s.tolist()}")
+    worst = {}
+    for m in range(len(nus)):
+        ref = {k: getattr(sc, k)[..., m].numpy() for k in ("u", "p")}
+        out = {k: getattr(sg, k)[..., m].double().cpu().numpy() for k in ("u", "p")}
+        for k in ("c_d", "c_l", "delta_p"):
+            ref[k], out[k] = getattr(dc, k)[m], getattr(dg, k)[m]
+        for k in ref:
+            scale = np.abs(ref["c_d" if k == "c_l" else k]).max()
+            worst[k] = max(worst.get(k, 0.0), np.abs(out[k] - ref[k]).max() / scale)
+    log("  max err vs cpu f64 over the members, relative to max |ref|: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    for k, v in worst.items():
+        if not v <= AGREE_RTOL:
+            fail(f"small-duct ensemble: {k} err {v:.3e} > {AGREE_RTOL:g} of max |ref|")
+
+
+def timed_steps(advance, state, n: int):
+    """`n` steps, one `advance(state, 1)` call each (the path's run entry
+    point), timed on the host clock up to a device synchronise; returns
+    (state, diagnostics stacked along the step axis, ms per step)."""
     import dataclasses
 
     import numpy as np
@@ -203,20 +380,21 @@ def timed_steps(solver, state, n: int):
     step_ms, diags = [], []
     for _ in range(n):
         t0 = time.perf_counter()
-        state, dg = solver.run(1, state=state)
+        state, dg = advance(state, 1)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         diags.append(dg)
     d = type(diags[0])(**{
-        f.name: np.concatenate([getattr(x, f.name) for x in diags])
+        f.name: np.concatenate([getattr(x, f.name) for x in diags], axis=-1)
         for f in dataclasses.fields(diags[0])
     })
     return state, d, step_ms
 
 
-def profile_steps(solver, state, n: int, out_dir: str):
-    """Trace `n` steps with torch.profiler; write the kernel table and a
-    chrome trace under out_dir.  Returns the device-busy ms per step."""
+def profile_steps(advance, state, n: int, out_dir: str, tag: str):
+    """Trace `n` steps (`advance(state, n)`) with torch.profiler; write the
+    kernel table and a chrome trace under out_dir, named by `tag`.
+    Returns the device-busy ms per step."""
     import os
 
     import torch
@@ -227,7 +405,7 @@ def profile_steps(solver, state, n: int, out_dir: str):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, d = solver.run(n, state=state)
+        state, d = advance(state, n)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
@@ -237,19 +415,38 @@ def profile_steps(solver, state, n: int, out_dir: str):
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation
     ) / 1e3
     table = events.table(sort_by="self_device_time_total", row_limit=40)
-    with open(os.path.join(out_dir, "profile_table.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_{tag}_table.txt"), "w") as f:
         f.write(table)
-    prof.export_chrome_trace(os.path.join(out_dir, "profile_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"profile_{tag}_trace.json"))
     log(table)
-    log(f"profiled {n} steps (F iters {d.iters_f.tolist()}, S iters {d.iters_s.tolist()}): "
+    log(f"profiled {n} {tag} steps (F iters {d.iters_f.tolist()}, S iters {d.iters_s.tolist()}): "
         f"wall {wall:.3f} ms under the profiler, device busy {busy:.3f} ms "
         f"({busy / n:.3f} ms/step)")
     return busy / n
 
 
+def check_run(path: str, solver, state, d, launches: dict) -> None:
+    """Fail on a non-finite result, a timed step at maxiter (any member),
+    or a kernel of the path that was never launched."""
+    import numpy as np
+
+    maxit = solver.config.solver.maxiter
+    for k in ("c_d", "c_l", "delta_p", "residual"):
+        if not np.all(np.isfinite(getattr(d, k))):
+            fail(f"{path}: non-finite {k} in the timed steps")
+    if not (np.all(np.isfinite(state.u.cpu().numpy())) and np.all(np.isfinite(state.p.cpu().numpy()))):
+        fail(f"{path}: non-finite u or p after the timed steps")
+    if np.any(d.iters_f >= maxit) or np.any(d.iters_s >= maxit):
+        fail(f"{path}: a timed step reached maxiter={maxit}")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"{path}: the path never launched kernel {name}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", metavar="DIR", help="also trace 3 steps into DIR")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="also trace 3 single-run and 2 ensemble steps into DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -267,6 +464,8 @@ def main(argv=None) -> int:
     )
     from navierstokes_project_nm4pde_tpu_torch.ops import cuda_lib
     from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
+    from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
+    from navierstokes_project_nm4pde_tpu_torch.parallel import run_ensemble
 
     device = torch.device("cuda", torch.cuda.current_device())
     kind = torch.cuda.get_device_name(device)
@@ -310,7 +509,9 @@ def main(argv=None) -> int:
         f"F iters {dw.iters_f.tolist()}, S iters {dw.iters_s.tolist()}")
     torch.cuda.reset_peak_memory_stats(device)
     mb.reset_launch_counts()
-    state, d, step_ms = timed_steps(solver, state, TIMED_STEPS)
+    state, d, step_ms = timed_steps(
+        lambda st, k: solver.run(k, state=st), state, TIMED_STEPS
+    )
     launches = dict(mb.launch_counts)
     n, q = TIMED_STEPS, np.percentile(step_ms, [25, 50, 75])
     log(f"timed: {n} steps in {sum(step_ms) / 1e3:.4f} s: {1e3 * n / sum(step_ms):.4f} steps/s, "
@@ -322,29 +523,84 @@ def main(argv=None) -> int:
     log(f"  S iters per step {d.iters_s.tolist()} (mean {d.iters_s.mean():.2f})")
     log(f"  last step: c_d {d.c_d[-1]:.8g}, c_l {d.c_l[-1]:.8g}, delta_p {d.delta_p[-1]:.8g}, t {state.t:.6g}")
     log(f"  kernel launches in the timed run: {launches}")
+    check_run("single run", solver, state, d, launches)
 
-    maxit = solver.config.solver.maxiter
-    for k in ("c_d", "c_l", "delta_p", "residual"):
-        if not np.all(np.isfinite(getattr(d, k))):
-            fail(f"non-finite {k} in the timed steps")
-    if not (np.all(np.isfinite(state.u.cpu().numpy())) and np.all(np.isfinite(state.p.cpu().numpy()))):
-        fail("non-finite u or p after the timed steps")
-    if np.any(d.iters_f >= maxit) or np.any(d.iters_s >= maxit):
-        fail(f"a timed step reached maxiter={maxit}")
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"the main path never launched kernel {name}")
+    if args.profile:
+        busy = profile_steps(lambda st, k: solver.run(k, state=st), state, 3, args.profile, "single")
+        log(f"device idle share, profiled device ms/step against the timed mean: "
+            f"{1 - busy * n / sum(step_ms):.4f}")
+    del solver, state
+
+    # ---- 6. the ensemble: setup, kernels C and D, a small-duct check ------
+    t0 = time.perf_counter()
+    emesh = cylinder_duct_3d(**ENSEMBLE_MESH)
+    eproblem = Cylinder3DProblem(test_case=2)
+    esolver = NavierStokesSolver(emesh, eproblem, ensemble_config("float32"), device=device)
+    torch.cuda.synchronize()
+    e_setup = time.perf_counter() - t0
+    B = ENSEMBLE_MEMBERS
+    nus = sweep_nus(eproblem, B)
+    plans = esolver.op.onehot
+    log(f"ensemble setup: {emesh.n_cells} cells, {esolver.space.n_dofs} DoF a member "
+        f"({esolver.space.n_unodes} velocity / {esolver.space.n_pnodes} pressure nodes), "
+        f"B={B}: {B * esolver.space.n_dofs} DoF in all; {plans.n_slots} element slots, "
+        f"max valence {int(plans.reduce.lengths.max())}; host setup {e_setup:.2f} s")
+    rec.update(check_slot_kernels(esolver, KERNEL_REPS))
+    check_small_ensemble(device)
+
+    # ---- 7. the ensemble path ----------------------------------------------
+    t0 = time.perf_counter()
+    estate, ew = run_ensemble(esolver, nus, ENSEMBLE_WARMUP)
+    torch.cuda.synchronize()
+    log(f"ensemble warm-up: {ENSEMBLE_WARMUP} steps in {time.perf_counter() - t0:.2f} s; "
+        f"F iters a step (max over members) {ew.iters_f.max(axis=0).tolist()}, "
+        f"S {ew.iters_s.max(axis=0).tolist()}")
+    torch.cuda.reset_peak_memory_stats(device)
+    oh.reset_launch_counts()
+    estate, ed, e_ms = timed_steps(
+        lambda st, k: run_ensemble(esolver, nus, k, state=st), estate, ENSEMBLE_TIMED
+    )
+    launches.update(oh.launch_counts)
+    ne, q = ENSEMBLE_TIMED, np.percentile(e_ms, [25, 50, 75])
+    log(f"ensemble timed: {ne} steps of {B} members in {sum(e_ms) / 1e3:.4f} s: "
+        f"{1e3 * B * ne / sum(e_ms):.4f} member-steps/s, {sum(e_ms) / ne:.4f} ms/step mean; "
+        f"per step median {q[1]:.4f} ms, quartiles {q[0]:.4f} / {q[2]:.4f} ms, "
+        f"max {max(e_ms):.4f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB; host setup {e_setup:.2f} s")
+    log(f"  ms per step {[round(t, 3) for t in e_ms]}")
+    for k in ("iters_f", "iters_s"):
+        it = getattr(ed, k)
+        log(f"  {k} per member and step: max {it.max()}, mean {it.mean():.3f}; "
+            f"per step max {it.max(axis=0).tolist()}, mean {np.round(it.mean(axis=0), 2).tolist()}")
+    log(f"  last step, Re 20 / 300: c_d {ed.c_d[0, -1]:.8g} / {ed.c_d[-1, -1]:.8g}, "
+        f"c_l {ed.c_l[0, -1]:.8g} / {ed.c_l[-1, -1]:.8g}, "
+        f"delta_p {ed.delta_p[0, -1]:.8g} / {ed.delta_p[-1, -1]:.8g}, t {estate.t:.6g}")
+    log(f"  kernel launches in the timed run: {dict(oh.launch_counts)}")
+    check_run("ensemble", esolver, estate, ed, dict(oh.launch_counts))
+
+    if args.profile:
+        busy = profile_steps(
+            lambda st, k: run_ensemble(esolver, nus, k, state=st), estate, 2,
+            args.profile, "ensemble",
+        )
+        log(f"ensemble device idle share, profiled device ms/step against the timed mean: "
+            f"{1 - busy * ne / sum(e_ms):.4f}")
+    del esolver, estate
+
+    # ---- 8. the probes ------------------------------------------------------
+    prec = run_probes(KERNEL_REPS)
+    rec.update(prec)
+    launches.update({k: v["launches"] for k, v in prec.items()})
+    for name in prec:
+        if launches[name] <= 0:
+            fail(f"the probe run never launched kernel {name}")
     if any(m.split(".")[0] == "jax" for m in sys.modules):
         fail("jax was imported")
 
-    if args.profile:
-        busy = profile_steps(solver, state, 3, args.profile)
-        log(f"device idle share, profiled device ms/step against the timed mean: "
-            f"{1 - busy * n / sum(step_ms):.4f}")
-
     kernels = [
         dict(
-            name=name, route="cuda", source=KERNEL_SOURCE, replaces=KERNELS[name][0],
+            name=name, route="cuda", source=f"{PKG}/csrc/{KERNELS[name][0]}",
+            replaces=KERNELS[name][1],
             launches=launches[name], max_abs_err=rec[name]["err"],
             ms=rec[name]["ms"], plain_ms=rec[name]["plain_ms"],
         )

@@ -1,15 +1,17 @@
 """Time-stepping Navier-Stokes solver (PyTorch): setup, projection step, run.
 
-The counterpart of the reference's `models/base.py` for the configuration
-the benchmark runs (bench.py): the incremental pressure-correction
-(projection) stepper with implicit linearised convection, BDF1, the
-macro-element block-dense velocity operator (`ops/macroblock.py`), a
+The counterpart of the reference's `models/base.py` for the configurations
+the benchmark (bench.py) and the ensemble sweep (scripts/bench_ensemble.py,
+`cli.py ensemble --fast`) run: the incremental pressure-correction
+(projection) stepper with implicit linearised convection, BDF1, a
 Jacobi-preconditioned FGMRES velocity solve, and the frozen Schur pressure
-Poisson solved by recycled-projection CG over the banded S1 with the
-additive two-level preconditioner.  A configuration outside that slice is
-rejected with ValueError.
+Poisson over the banded S1 with the additive two-level preconditioner,
+solved by recycled-projection CG (precond.s_recycle >= 1) or plain CG
+(s_recycle = 0).  A configuration outside that slice is rejected with
+ValueError.
 
-One step (`step`, the macro branch of the reference's `_step_projection`):
+One single-run step (`step`, the macro branch of the reference's
+`_step_projection`):
 
   1. one slot gather of [hist | u0 | w]; w's element view from the slots;
   2. F_e = M/dt + nu A + C(w) per element (`convection_setup`), then the
@@ -17,9 +19,17 @@ One step (`step`, the macro branch of the reference's `_step_projection`):
   3. (M hist, F u0) from the slot view (kernel A), G p_n from the assembled
      gradient: b = M hist - G p_n, r0 = b - F u0;
   4. FGMRES on F du = r0 (kernel A every iteration), u* = u0 + du;
-  5. S1 phi = -D u* / dt with recycled CG; p = p_n + phi;
+  5. S1 phi = -D u* / dt with CG; p = p_n + phi;
      u = u* - dt diag(M)^-1 G phi on free nodes;
   6. drag, lift and the pressure difference.
+
+One ensemble step (`step_ensemble`, the element branch that the
+reference's vmapped `run_ensemble` takes) does the same for B members at
+once, each with its own nu, carried on a trailing member axis: the
+element passes move all members as packed channels through the slot
+gather and reduce (kernels D and C), and the Krylov solves are batched
+(`fgmres`, `cg` on [n, B] columns) with per-member tolerances and
+counts.
 """
 
 from __future__ import annotations
@@ -58,7 +68,11 @@ from navierstokes_project_nm4pde_tpu_torch.ops.scatter import (
 )
 from navierstokes_project_nm4pde_tpu_torch.precond.blocks import inv_diag_Fhat
 from navierstokes_project_nm4pde_tpu_torch.solvers.krylov import (
+    SolveInfo,
+    _cnorm,
+    _host,
     _norm,
+    cg,
     cg_recycled,
     fgmres,
 )
@@ -83,7 +97,10 @@ class ProblemSpec:
 
 @dataclasses.dataclass
 class State:
-    """Solver state.  There are no weights: this is what a run carries."""
+    """Solver state.  There are no weights: this is what a run carries.
+    An ensemble's state carries its B members on a trailing axis of every
+    array (u [n_unodes, dim, B], p [n_pnodes, B]); all members share t and
+    step."""
 
     u: torch.Tensor  # [n_unodes, dim]
     p: torch.Tensor  # [n_pnodes]
@@ -93,6 +110,7 @@ class State:
     p_prev: torch.Tensor | None = None  # p^{n-1}
     u_prev2: torch.Tensor | None = None  # u^{n-2} (guess_order=2)
     # [2, k, n_p]: recycled pressure directions and their exact S1 images
+    # (precond.s_recycle = k >= 1; None with plain CG)
     spool: torch.Tensor | None = None
 
 
@@ -168,6 +186,9 @@ _LAYOUT_ONLY = {
     "macro_wfuse": ("auto", "on"),
     "macro_split": ("auto", "off"),
     "schur_spmv": ("auto", "banded"),
+    # the reference's one-hot ensemble reductions accumulate in f32 (its
+    # MXU path); here every ensemble reduction is the exact kernel C
+    "ensemble_onehot": (False, True),
 }
 
 
@@ -182,7 +203,6 @@ def check_config(cfg: RunConfig, problem: ProblemSpec) -> None:
         ("numerics.dtype", cfg.numerics.dtype, ("float32", "float64")),
         ("numerics.fold_elem", cfg.numerics.fold_elem, (True,)),
         ("numerics.spatial_reorder", cfg.numerics.spatial_reorder, (True,)),
-        ("numerics.ensemble_onehot", cfg.numerics.ensemble_onehot, (False,)),
         ("precond.mg2_form", cfg.precond.mg2_form, ("additive",)),
         ("precond.f_iters", cfg.precond.f_iters, (0,)),
         ("precond.f_solver", cfg.precond.f_solver, ("gmres",)),
@@ -202,8 +222,8 @@ def check_config(cfg: RunConfig, problem: ProblemSpec) -> None:
                 f"the PyTorch port does not run {name}={val!r} yet "
                 f"(supported: {ok})"
             )
-    if cfg.precond.s_recycle < 1:
-        raise ValueError("the PyTorch port needs precond.s_recycle >= 1")
+    if cfg.precond.s_recycle < 0:
+        raise ValueError("precond.s_recycle must be >= 0")
 
 
 class NavierStokesSolver:
@@ -292,10 +312,13 @@ class NavierStokesSolver:
         )
 
     # ------------------------------------------------------------------
-    def initial_state(self) -> State:
+    def initial_state(self, members: int | None = None) -> State:
+        """The state at rest; with `members`, an ensemble state of that
+        many members (trailing member axis, no recycle pool)."""
         n, d = self.space.n_unodes, self.space.dim
-        u = torch.zeros((n, d), dtype=self.dtype, device=self.device)
-        p = torch.zeros(self.space.n_pnodes, dtype=self.dtype, device=self.device)
+        tail = () if members is None else (members,)
+        u = torch.zeros((n, d, *tail), dtype=self.dtype, device=self.device)
+        p = torch.zeros((self.space.n_pnodes, *tail), dtype=self.dtype, device=self.device)
         ext = self.config.solver.extrapolate_guess
         quad = ext and self.config.solver.guess_order >= 2
         return State(
@@ -303,13 +326,15 @@ class NavierStokesSolver:
             u_prev=u if ext else None,
             p_prev=p if ext else None,
             u_prev2=u if quad else None,
-            spool=self._zero_spool(),
+            spool=self._zero_spool() if members is None else None,
         )
 
-    def _zero_spool(self) -> torch.Tensor:
+    def _zero_spool(self) -> torch.Tensor | None:
+        k = self.config.precond.s_recycle
+        if k == 0:
+            return None
         return torch.zeros(
-            (2, self.config.precond.s_recycle, self.space.n_pnodes),
-            dtype=self.dtype, device=self.device,
+            (2, k, self.space.n_pnodes), dtype=self.dtype, device=self.device
         )
 
     def _ensure_pools(self, state: State) -> State:
@@ -347,20 +372,36 @@ class NavierStokesSolver:
             return u_guess, p_guess
         return state.u, state.p
 
+    def _norms(self, x: torch.Tensor):
+        """||x||: a float for a vector, [B] numpy for columns [N, B]."""
+        precise = self.config.numerics.precise_dots
+        return float(_norm(x, precise)) if x.dim() == 1 else _host(_cnorm(x, precise))
+
     def _tol_kwargs(self, b: torch.Tensor) -> dict:
         """Solver tolerance from the config's tol_mode (the solve is in
-        increment form, so "r0" maps to the solver's "b")."""
+        increment form, so "r0" maps to the solver's "b"); per member for
+        columns b [N, B]."""
         cfg = self.config
         if cfg.solver.tol_mode == "b":
-            bnorm = float(_norm(b, cfg.numerics.precise_dots))
             return dict(
-                rtol=0.0, atol=max(cfg.solver.rtol * bnorm, cfg.solver.atol),
+                rtol=0.0, atol=np.maximum(cfg.solver.rtol * self._norms(b), cfg.solver.atol),
                 tol_mode="abs",
             )
         return dict(
             rtol=cfg.solver.rtol, atol=cfg.solver.atol,
             tol_mode="b" if cfg.solver.tol_mode == "r0" else cfg.solver.tol_mode,
         )
+
+    def _poisson_tol(self, tol_kw: dict, rhs_p: torch.Tensor, dt_eff: float):
+        """(rtol, atol) of the pressure Poisson solve: the velocity solve's
+        absolute target, rescaled by 1/dt, but never above proj_div_cap *
+        ||rhs_p|| (an absolute target above the divergence signal lets the
+        pressure run open loop).  Per member for columns rhs_p [n_p, B]."""
+        cfg = self.config
+        cap = cfg.solver.proj_div_cap * self._norms(rhs_p)
+        if tol_kw["tol_mode"] == "abs":
+            return 0.0, np.minimum(np.maximum(tol_kw["rtol"], tol_kw["atol"]) / dt_eff, cap)
+        return cfg.solver.rtol, np.minimum(cfg.solver.atol / dt_eff, cap)
 
     # ------------------------------------------------------------------
     def step(self, state: State):
@@ -423,25 +464,22 @@ class NavierStokesSolver:
         def M2(v):
             return twolevel_apply_additive_g(op.coarse, solve_c, inv_d, v)
 
-        # The Poisson solve meets the velocity solve's absolute target,
-        # rescaled by 1/dt, but never above proj_div_cap * ||rhs_p||: an
-        # absolute target above the divergence signal lets the pressure
-        # run open loop.
-        rp_norm = float(_norm(rhs_p, precise))
-        cap = cfg.solver.proj_div_cap * rp_norm
-        if tol_kw["tol_mode"] == "abs":
-            s_rtol = 0.0
-            s_atol = min(max(tol_kw["rtol"], tol_kw["atol"]) / dt_eff, cap)
-        else:
-            s_rtol = cfg.solver.rtol
-            s_atol = min(cfg.solver.atol / dt_eff, cap)
+        s_rtol, s_atol = self._poisson_tol(tol_kw, rhs_p, dt_eff)
         phi0 = p_guess - state.p
-        phi, info_s, harvest = cg_recycled(
-            S, rhs_p, M2, phi0, state.spool[0], state.spool[1],
-            rtol=s_rtol, atol=s_atol, maxiter=cfg.solver.maxiter,
-            precise=precise,
-        )
-        spool_new = torch.cat([harvest[:, None, :], state.spool[:, :-1]], dim=1)
+        if cfg.precond.s_recycle > 0 and state.spool is not None:
+            phi, info_s, harvest = cg_recycled(
+                S, rhs_p, M2, phi0, state.spool[0], state.spool[1],
+                rtol=s_rtol, atol=s_atol, maxiter=cfg.solver.maxiter,
+                precise=precise,
+            )
+            spool_new = torch.cat([harvest[:, None, :], state.spool[:, :-1]], dim=1)
+        else:
+            phi, info = cg(
+                S, rhs_p[:, None], M=M2, x0=phi0[:, None], rtol=s_rtol,
+                atol=s_atol, maxiter=cfg.solver.maxiter, precise=precise,
+            )
+            phi, spool_new = phi[:, 0], None
+            info_s = SolveInfo(iters=int(info.iters[0]), residual=float(info.residual[0]))
 
         # ---- 3. update -------------------------------------------------
         p_new = state.p + phi
@@ -463,12 +501,105 @@ class NavierStokesSolver:
         )
         return new_state, diag
 
-    def _diagnostics(self, u, p, t) -> dict:
-        zero = torch.zeros((), dtype=self.dtype, device=self.device)
+    # ------------------------------------------------------------------
+    def step_ensemble(self, state: State, nu: torch.Tensor):
+        """One projection step of B members at once (the element branch of
+        the reference's `_step_projection`, as its vmapped `run_ensemble`
+        runs it), member m with viscosity nu[m]; `state` carries the
+        members on a trailing axis.  Returns (new_state, per-step
+        diagnostics dict of [B] numpy arrays and [B] tensors)."""
+        cfg = self.config
+        if cfg.precond.s_recycle != 0:
+            raise ValueError(
+                "the PyTorch port's ensemble solves the pressure with plain "
+                "CG: it needs precond.s_recycle=0"
+            )
+        op, fz = self.op, self.proj_schur
+        precise = cfg.numerics.precise_dots
+        dt = cfg.time.dt
+        t_new = (state.step + 1.0) * dt
+        w, hist, dt_eff = self._bdf_terms(state, dt)
+        n, d = self.space.n_unodes, self.space.dim
+        B = nu.shape[0]
+        mask = op.dirichlet_mask[:, None, None]
+
+        g = self._dirichlet_values(t_new)[:, :, None]
+        u_guess, p_guess = self._warm_guess(state)
+        u0 = torch.where(mask, g, u_guess)
+
+        # One element gather of [hist | u0 | w] (576 channels at B = 64).
+        st_e = ops.gather_u(op, torch.cat([hist, u0, w], dim=1))
+        h_e, u0_e, w_e = st_e[:, :, :d], st_e[:, :, d:2 * d], st_e[:, :, 2 * d:]
+        conv = ops.convection_setup(
+            op, w, fold=(nu, dt_eff), w_e=w_e,
+            with_diag=not cfg.precond.freeze_conv_diag, base_e=self.conv_base,
+        )
+
+        # ---- 1. tentative velocity -----------------------------------
+        b_u, r0_u = ops.apply_rhs_and_r0(
+            op, hist, state.p, nu, dt_eff, conv, u0, h_e=h_e, u0_e=u0_e
+        )
+        rhs_u = torch.where(mask, g, b_u)
+        r0_u = torch.where(mask, torch.zeros_like(r0_u), r0_u)
+
+        def Fop(v):
+            u = v.reshape(n, d, B)
+            return torch.where(mask, u, ops.apply_F(op, nu, dt_eff, conv, u)).reshape(n * d, B)
+
+        minv = inv_diag_Fhat(op, nu, dt_eff, conv)[:, None, :].expand(n, d, B).reshape(n * d, B)
+        tol_kw = self._tol_kwargs(rhs_u.reshape(n * d, B))
+        du, info_f = fgmres(
+            Fop, r0_u.reshape(n * d, B), M=lambda v: minv * v,
+            restart=cfg.solver.restart, maxiter=cfg.solver.maxiter,
+            precise=precise, **tol_kw,
+        )
+        u_star = u0 + du.reshape(n, d, B)
+
+        # ---- 2. pressure Poisson with the frozen S1 (shared) ----------
+        rhs_p = -ops.apply_divergence_e(op, ops.gather_u(op, u_star)) / dt_eff
+        solve_c = cho_solve_c(fz.cho_L)
+        inv_d = 1.0 / fz.diag1
+
+        def S(pv):
+            return banded_matvec(fz.band, pv)
+
+        def M2(v):
+            return twolevel_apply_additive_g(op.coarse, solve_c, inv_d, v)
+
+        s_rtol, s_atol = self._poisson_tol(tol_kw, rhs_p, dt_eff)
+        phi, info_s = cg(
+            S, rhs_p, M=M2, x0=p_guess - state.p, rtol=s_rtol, atol=s_atol,
+            maxiter=cfg.solver.maxiter, precise=precise,
+        )
+
+        # ---- 3. update (element gradient) --------------------------------
+        p_new = state.p + phi
+        u_new = u_star - (dt_eff * fz.inv1)[:, None, None] * ops.apply_gradient_e(op, phi)
+
+        ext = cfg.solver.extrapolate_guess
+        new_state = State(
+            u=u_new, p=p_new, t=t_new, step=state.step + 1,
+            u_prev=state.u if ext else None,
+            p_prev=state.p if ext else None,
+            u_prev2=state.u_prev if state.u_prev2 is not None else None,
+        )
+        diag = self._diagnostics(u_new, p_new, t_new, nu)
+        diag.update(
+            iters=info_f.iters + info_s.iters,
+            residual=np.maximum(info_f.residual, info_s.residual),
+            iters_f=info_f.iters, iters_s=info_s.iters,
+        )
+        return new_state, diag
+
+    def _diagnostics(self, u, p, t, nu=None) -> dict:
+        """drag, lift, c_d, c_l and delta_p: 0-d tensors, or [B] for an
+        ensemble (p [n_p, B], nu [B])."""
+        zero = torch.zeros(p.shape[1:], dtype=self.dtype, device=self.device)
         drag = lift = c_d = c_l = delta_p = zero
         pb = self.problem
+        nu = pb.nu if nu is None else nu
         if self.forces is not None:
-            drag, lift = fn.forces_3d(self.forces, u, p, pb.nu, pb.rho)
+            drag, lift = fn.forces_3d(self.forces, u, p, nu, pb.rho)
             if pb.mean_velocity is not None:
                 c_d, c_l = fn.drag_lift_coefficients(
                     drag, lift, pb.mean_velocity(t), pb.diameter, pb.span, pb.rho

@@ -68,9 +68,12 @@ def build_banded_schur(
 
 
 def banded_matvec(b: BandedSchur, p: torch.Tensor) -> torch.Tensor:
-    """S1 @ p."""
+    """S1 @ p for p [n] or [n, B] (one column per ensemble member: S1 is
+    shared, so all columns ride one pass over the band values)."""
+    P = p.reshape(p.shape[0], -1)
+    nc = P.shape[1]
     pad = b.n_tiles_pad * TILE - p.shape[0]
-    p2d = torch.nn.functional.pad(p, (0, pad)).reshape(-1, TILE)
+    p3d = torch.nn.functional.pad(P, (0, 0, 0, pad)).reshape(-1, TILE, nc)
     n_blk, T = b.tiles.shape
-    win = p2d[b.tiles].reshape(n_blk, T * TILE, 1)
-    return torch.bmm(b.vals, win).reshape(-1)[: b.n_rows]
+    win = p3d[b.tiles].reshape(n_blk, T * TILE, nc)
+    return torch.bmm(b.vals, win).reshape(-1, nc)[: b.n_rows].reshape(p.shape)

@@ -45,19 +45,26 @@ def host_coarse_dense(
     return Sc + shift * np.eye(nc)
 
 
+# Every function below takes r [n] or [n, B] (one column per ensemble
+# member; the coarse factor is shared).
 def restrict(cs: CoarseSchur, r: torch.Tensor) -> torch.Tensor:
     pad = cs.n_pad - r.shape[0]
-    rp = torch.nn.functional.pad(r, (0, pad)) if pad else r
-    return rp.reshape(cs.nc, cs.agg).sum(dim=1)
+    rp = torch.nn.functional.pad(r, (0, 0) * (r.dim() - 1) + (0, pad)) if pad else r
+    return rp.reshape(cs.nc, cs.agg, *r.shape[1:]).sum(dim=1)
 
 
 def prolong(cs: CoarseSchur, rc: torch.Tensor, n_p: int) -> torch.Tensor:
-    return torch.repeat_interleave(rc, cs.agg)[:n_p]
+    return torch.repeat_interleave(rc, cs.agg, dim=0)[:n_p]
 
 
 def cho_solve_c(cho_L: torch.Tensor):
     """Coarse solve from a dense lower Cholesky factor."""
-    return lambda rc: torch.cholesky_solve(rc[:, None], cho_L, upper=False)[:, 0]
+
+    def solve(rc):
+        R = rc.reshape(rc.shape[0], -1)
+        return torch.cholesky_solve(R, cho_L, upper=False).reshape(rc.shape)
+
+    return solve
 
 
 def twolevel_apply_additive_g(
@@ -67,4 +74,5 @@ def twolevel_apply_additive_g(
     """z = omega D^-1 r + R^T Sc^-1 R r (symmetric: safe inside CG; no S
     applies)."""
     zc = solve_c(restrict(cs, r))
-    return omega * inv_diag * r + prolong(cs, zc, r.shape[0])
+    d = inv_diag.reshape((-1,) + (1,) * (r.dim() - 1))
+    return omega * d * r + prolong(cs, zc, r.shape[0])

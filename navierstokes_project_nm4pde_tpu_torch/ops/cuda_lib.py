@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (`csrc/*.cu`).
 
-`nvcc` compiles the sources for sm_90a into a shared library with a plain
-C interface, loaded with ctypes; tensors pass as `data_ptr()` integers and
-kernels launch on PyTorch's current stream.  The library is built at first
-use into `build/` beside this package (named by a hash of the sources, so
-an edited kernel is rebuilt) and reused by later calls in the process.
+`nvcc` compiles each source for sm_90a into a shared library with a plain
+C interface (one process per source, all started together), loaded with
+ctypes; tensors pass as `data_ptr()` integers and kernels launch on
+PyTorch's current stream.  The libraries are built at first use into
+`build/` beside this package (each named by a hash of its source, so an
+edited kernel is rebuilt) and reused by later calls in the process.
 """
 
 from __future__ import annotations
@@ -14,15 +15,30 @@ import hashlib
 import os
 import shutil
 import subprocess
+import types
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "macro_kernels.cu",)
+_SOURCES = tuple(
+    _PKG / "csrc" / name
+    for name in ("macro_kernels.cu", "ensemble_kernels.cu", "probe_kernels.cu")
+)
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point -> argument types (every one returns a CUDA error code)
+_SIGNATURES = {
+    "ns_macro_matvec_f32": [_P, _P, _P, _I, _I, _I, _P],
+    "ns_macro_build_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ns_macro_max_channels": [],
+    "ns_slot_reduce_f32": [_P, _P, _P, _P, _I, _I, _P],
+    "ns_slot_gather_f32": [_P, _P, _P, ctypes.c_longlong, _I, _P],
+    "ns_sgemm_tn_f32": [_P, _P, _P, _I, _I, _I, _P],
+    "ns_column_gather_f32": [_P, _P, _P, _I, _I, _P],
+}
 
 _lib = None
 build_log = ""  # nvcc's output of this process's build (ptxas register use)
@@ -38,34 +54,67 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, compiled on first call."""
+def _build(todo) -> str:
+    """Compile (source, library) pairs, one nvcc each, all at once; returns
+    the compilers' output.  Raises (and stops every nvcc) on a failure."""
+    nvcc = _nvcc()
+    tmps = [so.with_name(f"{so.name}.{os.getpid()}.tmp") for _, so in todo]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for (src, _), tmp in zip(todo, tmps)
+    ]
+    logs, failed = [], []
+    try:
+        for (src, so), tmp, proc in zip(todo, tmps, procs):
+            out, _ = proc.communicate(timeout=900)
+            logs.append(f"[{src.name}]\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+            else:
+                os.replace(tmp, so)  # atomic: concurrent builders never see half a file
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for tmp in tmps:
+            tmp.unlink(missing_ok=True)
+    log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    return log
+
+
+def load() -> types.SimpleNamespace:
+    """The kernels' C entry points (argument types set), compiled on first
+    call."""
     global _lib, build_log
     if _lib is not None:
         return _lib
-    digest = hashlib.sha1()
+    libs = []
     for src in _SOURCES:
-        digest.update(src.read_bytes())
-    so = BUILD_DIR / f"libns_kernels_{digest.hexdigest()[:12]}.so"
-    if not so.exists():
+        digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+        libs.append((src, BUILD_DIR / f"libns_{src.stem}_{digest}.so"))
+    todo = [(src, so) for src, so in libs if not so.exists()]
+    if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-        os.replace(tmp, so)  # atomic: concurrent builders never see half a file
-    lib = ctypes.CDLL(str(so))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ns_macro_matvec_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
-    lib.ns_macro_matvec_f32.restype = i32
-    lib.ns_macro_build_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-    lib.ns_macro_build_f32.restype = i32
-    lib.ns_macro_max_channels.argtypes = []
-    lib.ns_macro_max_channels.restype = i32
-    _lib = lib
-    return lib
+        build_log = _build(todo)
+    fns = {}
+    for _, so in libs:
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            if hasattr(lib, name):
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                fns[name] = fn
+    missing = set(_SIGNATURES) - set(fns)
+    if missing:
+        raise RuntimeError(f"the kernel libraries lack {sorted(missing)}")
+    _lib = types.SimpleNamespace(**fns)
+    return _lib
 
 
 def check(rc: int, name: str) -> None:

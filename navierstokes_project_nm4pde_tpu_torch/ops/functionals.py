@@ -44,18 +44,24 @@ def build_force_tables(space, bt, tag: int, dtype, device) -> ForceTables:
 def forces_3d(ft: ForceTables, u: torch.Tensor, p: torch.Tensor, nu, rho=1.0):
     """(drag, lift) via the DFG 3D tangent-derivative formula with the
     reference's corrected contraction d(u.t)/dn = t . grad u . n (see the
-    reference's `forces_3d` docstring for the deviation it documents)."""
+    reference's `forces_3d` docstring for the deviation it documents).
+
+    An ensemble passes u [n, 3, B], p [n_p, B] and nu a [B] tensor (each
+    member's viscous force with its own nu) and gets [B] drag and lift."""
     u_e = u[ft.cells_u]
     p_e = p[ft.cells_p]
-    gu = torch.einsum("fqid,fic->fqcd", ft.grad_u, u_e)  # du_c/dx_d
-    p_q = torch.einsum("fqi,fi->fq", ft.phi_p, p_e)
+    gu = torch.einsum("fqid,fic...->fqcd...", ft.grad_u, u_e)  # du_c/dx_d
+    p_q = torch.einsum("fqi,fi...->fq...", ft.phi_p, p_e)
     n = -ft.normal
     nx, ny = n[:, 0], n[:, 1]
     t = torch.stack([ny, -nx, torch.zeros_like(nx)], dim=1)
     t2 = torch.sum(t * t, dim=1)
-    tgn = torch.einsum("fc,fqcd,fd->fq", t / t2[:, None], gu, n)
-    drag = torch.sum((rho * nu * tgn * ny[:, None] - p_q * nx[:, None]) * ft.jxw)
-    lift = -torch.sum((rho * nu * tgn * nx[:, None] + p_q * ny[:, None]) * ft.jxw)
+    tgn = torch.einsum("fc,fqcd...,fd->fq...", t / t2[:, None], gu, n)
+    ex = (None,) * (p.dim() - 1)
+    nx_, ny_ = nx[(slice(None), None) + ex], ny[(slice(None), None) + ex]
+    jxw = ft.jxw[(Ellipsis,) + ex]
+    drag = torch.sum((rho * nu * tgn * ny_ - p_q * nx_) * jxw, dim=(0, 1))
+    lift = -torch.sum((rho * nu * tgn * nx_ + p_q * ny_) * jxw, dim=(0, 1))
     return drag, lift
 
 
@@ -73,7 +79,8 @@ class PointProbe:
     bary: torch.Tensor  # [n_pts, dim+1] barycentric weights
 
     def pressure(self, p: torch.Tensor) -> torch.Tensor:
-        return torch.einsum("ki,ki->k", p[self.cells_p], self.bary)
+        """[n_pts] values of p [n_p], or [n_pts, B] of p [n_p, B]."""
+        return torch.einsum("ki...,ki->k...", p[self.cells_p], self.bary)
 
 
 def build_point_probe(space, geom, points, dtype, device) -> PointProbe:

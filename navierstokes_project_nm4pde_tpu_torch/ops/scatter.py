@@ -29,6 +29,7 @@ class SegmentPlan:
 
     perm: torch.Tensor  # [n_kept] int64 slot ids sorted by target row
     lengths: torch.Tensor  # [n_rows] int64 slots per row
+    offsets: torch.Tensor  # [n_rows + 1] int64 start of each row's run in perm
     n_slots: int
     n_rows: int
 
@@ -51,6 +52,9 @@ def build_segment_plan(
     return SegmentPlan(
         perm=torch.as_tensor(pos[order], device=device),
         lengths=torch.as_tensor(lengths, device=device),
+        offsets=torch.as_tensor(
+            np.concatenate([[0], np.cumsum(lengths)]), device=device
+        ),
         n_slots=n_slots,
         n_rows=n_rows,
     )

@@ -15,6 +15,8 @@ from navierstokes_project_nm4pde_tpu_torch.ops import operators as ops
 
 
 def inv_diag_Fhat(op: ops.NSOperator, nu, dt, conv: ops.ConvectionData | None) -> torch.Tensor:
-    """1 / diag(F) on free nodes, 1 on Dirichlet rows ([n_unodes])."""
+    """1 / diag(F) on free nodes, 1 on Dirichlet rows: [n_unodes], or
+    [n_unodes, B] for a [B] tensor nu (an ensemble)."""
     dF = ops.diag_F(op, nu, dt, conv)
-    return 1.0 / torch.where(op.dirichlet_mask, torch.ones_like(dF), dF)
+    mask = op.dirichlet_mask.reshape((-1,) + (1,) * (dF.dim() - 1))
+    return 1.0 / torch.where(mask, torch.ones_like(dF), dF)

@@ -7,8 +7,10 @@ repository's JAX test configuration:
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
 Tolerances: kernel and plain version sum the same f32 terms in another
-order (kernel B with shared-memory atomics), so results agree to a few
-f32 ulps of the largest entry; 1e-5 relative to max |plain| is stated.
+order (kernel B with shared-memory atomics, the slot reduce and the GEMM
+probe in their own fixed orders), so results agree to a few f32 ulps of
+the largest entry; 1e-5 relative to max |plain| is stated.  The slot
+gather and the column gather copy values: equality is exact.
 """
 
 import numpy as np
@@ -16,6 +18,8 @@ import pytest
 import torch
 
 from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
+from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
+from navierstokes_project_nm4pde_tpu_torch.ops import probes
 
 RTOL = 1e-5
 
@@ -106,3 +110,69 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         mb.macro_build(F_e[:3], lidx, 2, 32)  # E does not fill the blocks
     with pytest.raises(ValueError):
         mb.macro_build(F_e, lidx, 2, 16)  # slots past U
+
+
+def _cells(E, nloc, n_rows, seed):
+    """An element table with distinct nodes per cell; every row used."""
+    rng = np.random.default_rng(seed)
+    cells = np.stack([rng.choice(n_rows, nloc, replace=False) for _ in range(E)])
+    cells[: n_rows // nloc, :] = np.arange(n_rows // nloc * nloc).reshape(-1, nloc)
+    return cells
+
+
+@pytest.mark.parametrize("E,n_rows,C", [(40, 97, 3), (300, 500, 12), (64, 150, 192), (50, 120, 384), (7, 30, 5)])
+def test_slot_reduce_and_gather_match_plain(cuda, E, n_rows, C):
+    """Kernels C and D on both their paths: C % 4 == 0 (16-byte vectors)
+    and any other C (scalar)."""
+    plans = oh.build_onehot_plans(_cells(E, 10, n_rows, seed=E), n_rows, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(C)
+    y = torch.randn((plans.n_slots, C), generator=g, device=cuda)
+    x = torch.randn((n_rows, C), generator=g, device=cuda)
+    before = dict(oh.launch_counts)
+    out = oh.onehot_reduce(plans, y)
+    ye = oh.onehot_gather(plans, x)
+    torch.cuda.synchronize()
+    assert oh.launch_counts["slot_reduce"] == before["slot_reduce"] + 1
+    assert oh.launch_counts["slot_gather"] == before["slot_gather"] + 1
+    _close(out, oh.onehot_reduce_plain(plans, y))
+    assert torch.equal(ye, oh.onehot_gather_plain(plans, x))
+    # deterministic: a second reduce is bit-identical
+    assert torch.equal(oh.onehot_reduce(plans, y), out)
+
+
+def test_slot_kernels_reject_what_they_do_not_take(cuda):
+    plans = oh.build_onehot_plans(_cells(20, 10, 60, seed=1), 60, device=cuda)
+    with pytest.raises(ValueError):
+        oh.onehot_reduce(plans, torch.randn((plans.n_slots, 4), device=cuda).double())
+    with pytest.raises(ValueError):
+        oh.onehot_reduce(plans, torch.randn((plans.n_slots - 1, 4), device=cuda))
+    with pytest.raises(ValueError):
+        oh.onehot_gather(plans, torch.randn((4, 60), device=cuda).T)
+
+
+@pytest.mark.parametrize("K,M,N", [(2048, 2048, 2048), (100, 130, 257), (8, 128, 128)])
+def test_sgemm_probe_matches_plain(cuda, K, M, N):
+    g = torch.Generator(device=cuda).manual_seed(K + M + N)
+    a = torch.randn((K, M), generator=g, device=cuda)
+    b = torch.randn((K, N), generator=g, device=cuda)
+    before = probes.launch_counts["sgemm_probe"]
+    c = probes.sgemm_probe(a, b)
+    torch.cuda.synchronize()
+    assert probes.launch_counts["sgemm_probe"] == before + 1
+    _close(c, probes.sgemm_probe_plain(a, b))
+
+
+@pytest.mark.parametrize("n,w", probes.GATHER_SHAPES)
+def test_column_gather_matches_plain(cuda, n, w):
+    g = torch.Generator(device=cuda).manual_seed(n + w)
+    src = torch.randn((n, w), generator=g, device=cuda)
+    ci = probes.column_index(
+        torch.randint(0, n, (n, w), generator=g, device=cuda, dtype=torch.int32), n
+    )
+    before = probes.launch_counts["column_gather"]
+    out = probes.column_gather(src, ci)
+    torch.cuda.synchronize()
+    assert probes.launch_counts["column_gather"] == before + 1
+    assert torch.equal(out, probes.column_gather_plain(src, ci))
+    with pytest.raises(ValueError):
+        probes.column_index(ci.idx + n, n)  # rows past the source

@@ -117,7 +117,7 @@ def test_solver_rejects_configs_outside_the_slice():
     bad = [
         dataclasses.replace(cfg, time=dataclasses.replace(cfg.time, stepper="monolithic")),
         dataclasses.replace(cfg, time=dataclasses.replace(cfg.time, scheme="bdf2")),
-        dataclasses.replace(cfg, precond=dataclasses.replace(cfg.precond, s_recycle=0)),
+        dataclasses.replace(cfg, time=dataclasses.replace(cfg.time, convection="explicit")),
         dataclasses.replace(
             cfg, numerics=dataclasses.replace(cfg.numerics, macro_split="on")
         ),
@@ -127,15 +127,32 @@ def test_solver_rejects_configs_outside_the_slice():
             NavierStokesSolver(mesh, Cylinder3DProblem(), c, device="cpu")
 
 
+def test_plain_cg_single_run_matches_reference_iteration_counts():
+    """precond.s_recycle=0: the pressure Poisson runs plain CG on both sides
+    (the port's batched `cg` with one column)."""
+    mesh = cylinder_duct_3d(lc=0.22, nz=3)
+    cfg = bench_config()
+    cfg = dataclasses.replace(cfg, precond=dataclasses.replace(cfg.precond, s_recycle=0))
+    _, jd = JaxSolver(mesh, JaxCylinder3D(test_case=2), cfg).run(3)
+    ts = NavierStokesSolver(mesh, Cylinder3DProblem(test_case=2), cfg, device="cpu")
+    st, td = ts.run(3)
+    assert st.spool is None
+    np.testing.assert_array_equal(td.iters_f, np.asarray(jd.iters_f))
+    np.testing.assert_array_equal(td.iters_s, np.asarray(jd.iters_s))
+    np.testing.assert_allclose(td.c_d, np.asarray(jd.c_d), rtol=1e-8)
+
+
 def test_port_imports_no_jax_module():
     """No module of the port imports jax, and of the reference package it
-    imports only the numpy-only modules (config, mesh, fem)."""
+    imports only the numpy-only modules (config, mesh, fem, and cli, whose
+    module level imports only argparse, json, os, time and numpy)."""
     import ast
 
     allowed = (
         "navierstokes_project_nm4pde_tpu.config",
         "navierstokes_project_nm4pde_tpu.mesh",
         "navierstokes_project_nm4pde_tpu.fem",
+        "navierstokes_project_nm4pde_tpu.cli",
     )
     files = sorted(PKG.rglob("*.py"))
     assert files
