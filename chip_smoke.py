@@ -68,7 +68,7 @@ ENSEMBLE_AGREE_MEMBERS = 4
 def bench_config(dtype: str = "float32"):
     """The RunConfig that `python bench.py` builds with no environment
     (bench.py:128-231), at the given dtype."""
-    from navierstokes_project_nm4pde_tpu.config import (
+    from navierstokes_project_nm4pde_tpu_torch.config import (
         NumericsConfig,
         PrecondConfig,
         RunConfig,
@@ -104,7 +104,7 @@ def ensemble_config(dtype: str = "float32"):
     """The RunConfig of scripts/bench_ensemble.py:47-61 (its defaults:
     maxiter 25, 8 steps a chunk, frozen Schur), at the given dtype.
     precond.s_recycle keeps its default 0: the pressure runs plain CG."""
-    from navierstokes_project_nm4pde_tpu.config import (
+    from navierstokes_project_nm4pde_tpu_torch.config import (
         NumericsConfig,
         PrecondConfig,
         RunConfig,
@@ -295,7 +295,7 @@ def check_small_duct(device) -> None:
     (f64, plain versions) on a small duct."""
     import numpy as np
 
-    from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d
+    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
     from navierstokes_project_nm4pde_tpu_torch.models import (
         Cylinder3DProblem,
         NavierStokesSolver,
@@ -332,7 +332,7 @@ def check_small_ensemble(device) -> None:
     member held to AGREE_RTOL of its own max |ref|."""
     import numpy as np
 
-    from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d
+    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
     from navierstokes_project_nm4pde_tpu_torch.models import (
         Cylinder3DProblem,
         NavierStokesSolver,
@@ -457,7 +457,7 @@ def main(argv=None) -> int:
 
     import numpy as np
 
-    from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d
+    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
     from navierstokes_project_nm4pde_tpu_torch.models import (
         Cylinder3DProblem,
         NavierStokesSolver,
@@ -488,9 +488,9 @@ def main(argv=None) -> int:
     mesh = cylinder_duct_3d(lc=0.024, nz=14)
     t_mesh = time.perf_counter() - t0
     solver = NavierStokesSolver(mesh, Cylinder3DProblem(test_case=2), bench_config("float32"), device=device)
+    mp = solver.macro  # built at first use: part of this path's setup
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
-    mp = solver.macro
     log(f"setup: {mesh.n_cells} cells, {solver.space.n_dofs} DoF "
         f"({solver.space.n_unodes} velocity / {solver.space.n_pnodes} pressure nodes); "
         f"macro B={mp.B} U={mp.U} c_blk={mp.c_blk}; host setup {t_setup:.2f} s (mesh {t_mesh:.2f} s)")
@@ -536,11 +536,11 @@ def main(argv=None) -> int:
     emesh = cylinder_duct_3d(**ENSEMBLE_MESH)
     eproblem = Cylinder3DProblem(test_case=2)
     esolver = NavierStokesSolver(emesh, eproblem, ensemble_config("float32"), device=device)
+    plans = esolver.op.onehot  # built at first use: part of this path's setup
     torch.cuda.synchronize()
     e_setup = time.perf_counter() - t0
     B = ENSEMBLE_MEMBERS
     nus = sweep_nus(eproblem, B)
-    plans = esolver.op.onehot
     log(f"ensemble setup: {emesh.n_cells} cells, {esolver.space.n_dofs} DoF a member "
         f"({esolver.space.n_unodes} velocity / {esolver.space.n_pnodes} pressure nodes), "
         f"B={B}: {B * esolver.space.n_dofs} DoF in all; {plans.n_slots} element slots, "

@@ -23,6 +23,7 @@ import time
 import numpy as np
 
 from navierstokes_project_nm4pde_tpu.cli import _build_config, _common_flags
+from navierstokes_project_nm4pde_tpu_torch.device import pick_device
 
 _NOT_PORTED = ("cylinder2d", "cylinder3d", "convergence")
 
@@ -47,17 +48,16 @@ def _parser() -> argparse.ArgumentParser:
     pe.add_argument("--onehot", action="store_true",
                     help="the reference's one-hot reduction layout (the same "
                          "exact kernel C here)")
-    pe.add_argument("--device", type=str, default=None,
-                    help="torch device (default: cuda when available, else cpu)")
+    pe.add_argument("--device", type=str, default="cuda",
+                    help="torch device (default cuda; cpu runs the kernels' "
+                         "plain versions)")
     for name in _NOT_PORTED:
         sub.add_parser(name, help="not ported to PyTorch yet")
     return parser
 
 
-def _run_ensemble(args) -> None:
-    import torch
-
-    from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d, read_msh
+def _run_ensemble(args, device) -> None:
+    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d, read_msh
     from navierstokes_project_nm4pde_tpu_torch.io.csvlog import CSVLogger
     from navierstokes_project_nm4pde_tpu_torch.models import (
         Cylinder3DProblem,
@@ -66,7 +66,6 @@ def _run_ensemble(args) -> None:
     from navierstokes_project_nm4pde_tpu_torch.parallel import run_ensemble
 
     t0 = time.perf_counter()
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
     mesh = read_msh(args.mesh) if args.mesh else cylinder_duct_3d(lc=args.lc, nz=args.nz)
     problem = Cylinder3DProblem(test_case=args.test_case)
     cfg = _build_config(args, None)
@@ -105,7 +104,11 @@ def main(argv=None) -> int:
     if args.shard_batch:
         raise SystemExit("--shard-batch is not ported: the port's ensemble runs on one device")
     try:
-        _run_ensemble(args)
+        device = pick_device(args.device)
+    except RuntimeError as e:  # a CUDA device asked for on a machine without one
+        raise SystemExit(f"navierstokes-torch: {e} (--device cpu runs on the CPU)") from None
+    try:
+        _run_ensemble(args, device)
     except ValueError as e:  # a configuration outside the port's slice
         raise SystemExit(f"navierstokes-torch: {e}") from None
     return 0

@@ -35,6 +35,7 @@ counts.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from collections.abc import Mapping
 from typing import Callable, Optional
@@ -42,12 +43,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from navierstokes_project_nm4pde_tpu.config import RunConfig
 from navierstokes_project_nm4pde_tpu.fem.geometry import (
     boundary_tables,
     cell_geometry,
 )
 from navierstokes_project_nm4pde_tpu.fem.space import build_taylor_hood
+from navierstokes_project_nm4pde_tpu_torch.config import RunConfig
 from navierstokes_project_nm4pde_tpu_torch.device import pick_device, torch_dtype
 from navierstokes_project_nm4pde_tpu_torch.ops import functionals as fn
 from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
@@ -251,11 +252,6 @@ class NavierStokesSolver:
         self.op, host = ops.build_operator(
             space, self.geom, mask, dt_, dev, coarse_agg=cfg.numerics.schur_agg
         )
-        self.macro = mb.build_macro_plan(
-            space.cells_u, space.n_unodes, U=cfg.numerics.macro_u,
-            c_blk=cfg.numerics.macro_cblk, device=dev,
-        )
-        self.macro_mass = mb.build_macro_mass(self.macro, self.op.MHAT, self.op.detJ)
         self.conv_base = ops.conv_base(self.op)
 
         # Dirichlet node groups; later tags win at shared nodes.
@@ -310,6 +306,21 @@ class NavierStokesSolver:
             cho_L=torch.as_tensor(np.linalg.cholesky(Sc), dtype=dt_, device=dev),
             band=band,
         )
+
+    @functools.cached_property
+    def macro(self) -> mb.MacroPlan:
+        """The single run's macro-block plan, built at first use (the
+        ensemble step never reads it)."""
+        nc = self.config.numerics
+        return mb.build_macro_plan(
+            self.space.cells_u, self.space.n_unodes, U=nc.macro_u,
+            c_blk=nc.macro_cblk, device=self.device,
+        )
+
+    @functools.cached_property
+    def macro_mass(self) -> torch.Tensor:
+        """The mass matrix's macro blocks (single run; at first use)."""
+        return mb.build_macro_mass(self.macro, self.op.MHAT, self.op.detJ)
 
     # ------------------------------------------------------------------
     def initial_state(self, members: int | None = None) -> State:

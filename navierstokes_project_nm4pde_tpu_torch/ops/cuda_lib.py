@@ -1,11 +1,11 @@
 """Build and load the hand-written CUDA kernels (`csrc/*.cu`).
 
-`nvcc` compiles each source for sm_90a into a shared library with a plain
-C interface (one process per source, all started together), loaded with
-ctypes; tensors pass as `data_ptr()` integers and kernels launch on
-PyTorch's current stream.  The libraries are built at first use into
-`build/` beside this package (each named by a hash of its source, so an
-edited kernel is rebuilt) and reused by later calls in the process.
+`nvcc` compiles the sources for sm_90a (one process per source, all
+started together) and links them into one shared library with a plain C
+interface, loaded with ctypes; tensors pass as `data_ptr()` integers and
+kernels launch on PyTorch's current stream.  The library is built at first
+use into `build/` beside this package (named by a hash of the sources, so
+an edited kernel is rebuilt) and reused by later calls in the process.
 """
 
 from __future__ import annotations
@@ -15,7 +15,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import types
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -24,9 +23,9 @@ _SOURCES = tuple(
     for name in ("macro_kernels.cu", "ensemble_kernels.cu", "probe_kernels.cu")
 )
 BUILD_DIR = _PKG / "build"
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (every one returns a CUDA error code)
@@ -54,67 +53,59 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _build(todo) -> str:
-    """Compile (source, library) pairs, one nvcc each, all at once; returns
-    the compilers' output.  Raises (and stops every nvcc) on a failure."""
-    nvcc = _nvcc()
-    tmps = [so.with_name(f"{so.name}.{os.getpid()}.tmp") for _, so in todo]
+def _build(so: Path) -> str:
+    """Compile every source to an object at once, then link them into `so`;
+    returns nvcc's output.  Raises (and stops every nvcc) on a failure."""
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [so.with_name(f"{src.stem}.{tag}.o") for src in _SOURCES]
+    tmp = so.with_name(f"{so.name}.{tag}")
     procs = [
         subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        for (src, _), tmp in zip(todo, tmps)
+        for src, obj in zip(_SOURCES, objs)
     ]
-    logs, failed = [], []
     try:
-        for (src, so), tmp, proc in zip(todo, tmps, procs):
-            out, _ = proc.communicate(timeout=900)
-            logs.append(f"[{src.name}]\n{out}")
-            if proc.returncode != 0:
-                failed.append(src.name)
-            else:
-                os.replace(tmp, so)  # atomic: concurrent builders never see half a file
+        log = "\n".join(proc.communicate(timeout=900)[0] for proc in procs)
+        if any(proc.returncode for proc in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        res = subprocess.run(
+            [nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True, timeout=900,
+        )
+        log += res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({res.returncode}):\n{log}")
+        os.replace(tmp, so)  # atomic: concurrent builders never see half a file
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        for tmp in tmps:
-            tmp.unlink(missing_ok=True)
-    log = "\n".join(logs)
-    if failed:
-        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return log
 
 
-def load() -> types.SimpleNamespace:
-    """The kernels' C entry points (argument types set), compiled on first
-    call."""
+def load() -> ctypes.CDLL:
+    """The kernel library (argument types set), compiled on first call."""
     global _lib, build_log
     if _lib is not None:
         return _lib
-    libs = []
+    digest = hashlib.sha1()
     for src in _SOURCES:
-        digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-        libs.append((src, BUILD_DIR / f"libns_{src.stem}_{digest}.so"))
-    todo = [(src, so) for src, so in libs if not so.exists()]
-    if todo:
+        digest.update(src.read_bytes())
+    so = BUILD_DIR / f"libns_kernels_{digest.hexdigest()[:12]}.so"
+    if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        build_log = _build(todo)
-    fns = {}
-    for _, so in libs:
-        lib = ctypes.CDLL(str(so))
-        for name, argtypes in _SIGNATURES.items():
-            if hasattr(lib, name):
-                fn = getattr(lib, name)
-                fn.argtypes, fn.restype = argtypes, ctypes.c_int
-                fns[name] = fn
-    missing = set(_SIGNATURES) - set(fns)
-    if missing:
-        raise RuntimeError(f"the kernel libraries lack {sorted(missing)}")
-    _lib = types.SimpleNamespace(**fns)
-    return _lib
+        build_log = _build(so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    _lib = lib
+    return lib
 
 
 def check(rc: int, name: str) -> None:

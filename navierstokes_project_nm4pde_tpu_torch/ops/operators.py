@@ -23,6 +23,7 @@ per-member element matrices are then held as F_e[j, e, i, b] = F_e^(b)[e, i, j]
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -58,7 +59,6 @@ class NSOperator:
 
     cells_u: torch.Tensor  # [E, n_loc_u] int64
     cells_p: torch.Tensor  # [E, dim + 1] int64
-    onehot: OneHotPlans  # velocity element slots <-> [n_unodes] rows
     plan_p: SegmentPlan  # [E * (dim + 1)] pressure element slots -> [n_pnodes]
     detJ: torch.Tensor  # [E]
     Jinv: torch.Tensor  # [E, dim, dim]
@@ -75,6 +75,15 @@ class NSOperator:
     div: CSRMatrix  # D: [n_unodes, dim] -> [n_pnodes, 1]
     grad: CSRMatrix  # G = -D^T: [n_pnodes, 1] -> [n_unodes, dim]
     coarse: CoarseSchur
+
+    @functools.cached_property
+    def onehot(self) -> OneHotPlans:
+        """Velocity element slots <-> [n_unodes] rows, built at first use:
+        only the element passes read them (the ensemble step; in a single
+        run, only an unfrozen convection diagonal)."""
+        return build_onehot_plans(
+            self.cells_u.cpu().numpy(), self.diagM.shape[0], device=self.cells_u.device
+        )
 
 
 def build_operator(
@@ -107,7 +116,6 @@ def build_operator(
     op = NSOperator(
         cells_u=idx(space.cells_u),
         cells_p=idx(space.cells_p),
-        onehot=build_onehot_plans(space.cells_u, space.n_unodes, device=device),
         plan_p=build_segment_plan(space.cells_p, space.n_pnodes, device=device),
         detJ=dev(geom.detJ),
         Jinv=dev(geom.Jinv),

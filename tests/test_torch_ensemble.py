@@ -222,6 +222,36 @@ def test_ensemble_cli_refuses_what_is_not_ported(tmp_path):
         assert "PyTorch port" in str(exc.value)
 
 
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks a machine without a CUDA device")
+def test_ensemble_cli_needs_a_card_unless_told_cpu(tmp_path):
+    """The CLI's default device is cuda; without a card it stops with a
+    message instead of running on the CPU."""
+    from navierstokes_project_nm4pde_tpu_torch.cli import main
+
+    with pytest.raises(SystemExit) as exc:
+        main(["ensemble", "--fast", "--n-members", "2", "--lc", "0.25", "--nz", "3",
+              "--n-steps", "1", "--output-dir", str(tmp_path)])
+    assert "CUDA is not available" in str(exc.value)
+    assert not (tmp_path / "ensemble.csv").exists()
+
+
+@pytest.mark.parametrize("path", ["single", "ensemble"])
+def test_solver_builds_only_its_paths_structures(runs, path):
+    """The macro-block plan and macro mass belong to the single run's step,
+    the element-slot plans to the ensemble's: each is built at first use,
+    so a solver never holds the other path's."""
+    if path == "ensemble":
+        solver = runs["ts"]  # has run the ensemble
+    else:
+        solver = NavierStokesSolver(
+            runs["mesh"], Cylinder3DProblem(test_case=2), ensemble_config(), device="cpu"
+        )
+        solver.run(1)
+    built = {k for k in ("macro", "macro_mass") if k in vars(solver)}
+    built |= {"onehot"} & set(vars(solver.op))
+    assert built == ({"macro", "macro_mass"} if path == "single" else {"onehot"})
+
+
 def test_ensemble_rejects_recycled_pressure_pool(runs):
     cfg = ensemble_config()
     cfg = dataclasses.replace(cfg, precond=dataclasses.replace(cfg.precond, s_recycle=1))

@@ -142,12 +142,21 @@ def test_plain_cg_single_run_matches_reference_iteration_counts():
     np.testing.assert_allclose(td.c_d, np.asarray(jd.c_d), rtol=1e-8)
 
 
+def _imported_modules(path):
+    """Every module that an import statement of the file `path` names."""
+    import ast
+
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
 def test_port_imports_no_jax_module():
     """No module of the port imports jax, and of the reference package it
     imports only the numpy-only modules (config, mesh, fem, and cli, whose
     module level imports only argparse, json, os, time and numpy)."""
-    import ast
-
     allowed = (
         "navierstokes_project_nm4pde_tpu.config",
         "navierstokes_project_nm4pde_tpu.mesh",
@@ -157,18 +166,20 @@ def test_port_imports_no_jax_module():
     files = sorted(PKG.rglob("*.py"))
     assert files
     for path in files:
-        text = path.read_text()
-        assert "import jax" not in text, path
-        for node in ast.walk(ast.parse(text)):
-            names = []
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.module:
-                names = [node.module]
-            for name in names:
-                assert name.split(".")[0] not in ("jax", "jaxlib"), (path, name)
-                if name.startswith("navierstokes_project_nm4pde_tpu."):
-                    assert name.startswith(allowed), (path, name)
+        assert "import jax" not in path.read_text(), path
+        for name in _imported_modules(path):
+            assert name.split(".")[0] not in ("jax", "jaxlib"), (path, name)
+            if name.startswith("navierstokes_project_nm4pde_tpu."):
+                assert name.startswith(allowed), (path, name)
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py reaches the reference package's numpy-only modules
+    only through the port (its `config` and `mesh`), never directly."""
+    names = list(_imported_modules(REPO / "chip_smoke.py"))
+    assert "navierstokes_project_nm4pde_tpu_torch.config" in names
+    for name in names:
+        assert name.split(".")[0] not in ("jax", "jaxlib", "navierstokes_project_nm4pde_tpu"), name
 
 
 def test_port_slice_runs_without_jax():
