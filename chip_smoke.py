@@ -11,8 +11,9 @@ Drives the port's two paths once each:
 and runs the two TPU-era measurement probes (kernels E and F).  It builds
 the hand-written CUDA kernels from `navierstokes_project_nm4pde_tpu_torch/csrc`,
 holds each against its plain PyTorch version at the shapes its path gives
-it, and holds short runs of each path on the card against the same runs
-on the CPU in float64 (plain versions) on a small duct.
+it, times both (call time with CUDA events, device time with
+torch.profiler), and holds short runs of each path on the card against
+the same runs on the CPU in float64 (plain versions) on a small duct.
 
     python3 chip_smoke.py [--profile DIR]
 
@@ -144,7 +145,9 @@ def fail(msg: str) -> None:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` launches (CUDA events)."""
+    """Call time: mean ms of fn() over `reps` back-to-back calls between two
+    CUDA events, from an idle queue.  For a kernel of a few µs this is the
+    host's enqueue time, not the kernel's."""
     import torch
 
     fn()
@@ -157,6 +160,55 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _profiled_kernels(fn, calls: int) -> tuple[int, float]:
+    """(device activities recorded, their summed µs) over `calls` calls of
+    fn() under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [
+        e for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+    ]
+    return sum(e.count for e in dev), sum(e.self_device_time_total for e in dev)
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time: the summed duration of every device kernel that `reps`
+    calls of fn() launch (all of them, for a plain version that launches
+    several), under torch.profiler, over `reps`.  Host gaps between the
+    launches are not in it.  A profile of one call gives the kernels a call
+    launches; a run whose count is not `reps` times that lost activity
+    records (seen once on the card: 2 of 10) and is taken again."""
+    fn()
+    for _ in range(3):
+        per_call = _profiled_kernels(fn, 1)[0]
+        n, total_us = _profiled_kernels(fn, reps)
+        if per_call > 0 and n == per_call * reps and total_us > 0:
+            return total_us / 1e3 / reps
+        log(f"  device_ms: {n} device activities for {reps} calls of {per_call}; profiling again")
+    fail(f"torch.profiler recorded {n} device activities for {reps} calls, not {per_call} each")
+
+
+def kernel_times(fn, plain, reps: int) -> dict:
+    """Call and device times of a kernel and of its plain version, in turns."""
+    return dict(
+        ms=time_ms(fn, reps), plain_ms=time_ms(plain, reps),
+        device_ms=device_ms(fn, reps), plain_device_ms=device_ms(plain, reps),
+    )
+
+
+def fmt_times(t: dict) -> str:
+    return (f"call {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; "
+            f"device {t['device_ms']:.4f} ms, plain {t['plain_device_ms']:.4f} ms")
 
 
 def compare(name, out, ref) -> float:
@@ -188,10 +240,12 @@ def check_kernels(solver, reps: int) -> dict:
     log(f"kernel B macro_build: F_e {tuple(F_e.shape)}, lidx {tuple(mp.lidx.shape)} -> [{mp.B}, {mp.U}, {mp.U}]")
     FtT = mb.macro_build(F_e, mp.lidx, mp.B, mp.U)
     err_b = compare("macro_build", FtT, mb.macro_build_plain(F_e, mp.lidx, mp.B, mp.U))
-    ms_b = time_ms(lambda: mb.macro_build(F_e, mp.lidx, mp.B, mp.U), reps)
-    plain_b = time_ms(lambda: mb.macro_build_plain(F_e, mp.lidx, mp.B, mp.U), reps)
-    log(f"  macro_build: {ms_b:.4f} ms, plain {plain_b:.4f} ms")
-    rec["macro_build"] = dict(err=err_b, ms=ms_b, plain_ms=plain_b)
+    t = kernel_times(
+        lambda: mb.macro_build(F_e, mp.lidx, mp.B, mp.U),
+        lambda: mb.macro_build_plain(F_e, mp.lidx, mp.B, mp.U), reps,
+    )
+    log(f"  macro_build: {fmt_times(t)}")
+    rec["macro_build"] = dict(err=err_b, **t)
     del F_e
 
     errs, times = [], {}
@@ -201,13 +255,12 @@ def check_kernels(solver, reps: int) -> dict:
         errs.append(compare(
             "macro_matvec", mb.macro_matvec(FtT, x_b), mb.macro_matvec_plain(FtT, x_b)
         ))
-        times[C] = (
-            time_ms(lambda: mb.macro_matvec(FtT, x_b), reps),
-            time_ms(lambda: mb.macro_matvec_plain(FtT, x_b), reps),
+        t = times[C] = kernel_times(
+            lambda: mb.macro_matvec(FtT, x_b), lambda: mb.macro_matvec_plain(FtT, x_b), reps
         )
-        gbs = FtT.numel() * 4 / times[C][0] / 1e6
-        log(f"  macro_matvec C={C}: {times[C][0]:.4f} ms ({gbs:.1f} GB/s of values), plain {times[C][1]:.4f} ms")
-    rec["macro_matvec"] = dict(err=max(errs), ms=times[3][0], plain_ms=times[3][1])
+        gbs = FtT.numel() * 4 / t["device_ms"] / 1e6
+        log(f"  macro_matvec C={C}: {fmt_times(t)} ({gbs:.1f} GB/s of values on device)")
+    rec["macro_matvec"] = dict(err=max(errs), **times[3])
     return rec
 
 
@@ -233,12 +286,12 @@ def check_slot_kernels(solver, reps: int) -> dict:
             x = torch.randn((rows, C), generator=gen, device=dev)
             log(f"kernel {name}: payload {tuple(x.shape)}, {plans.n_slots} slots -> {plans.n_rows} rows")
             errs.append(compare(name, fn(plans, x), plain(plans, x)))
-            times[C] = (time_ms(lambda: fn(plans, x), reps), time_ms(lambda: plain(plans, x), reps))
+            t = times[C] = kernel_times(lambda: fn(plans, x), lambda: plain(plans, x), reps)
             # bytes a launch: every slot row once, every node row once
-            gbs = (plans.n_slots + plans.n_rows) * C * 4 / times[C][0] / 1e6
-            log(f"  {name} C={C}: {times[C][0]:.4f} ms ({gbs:.1f} GB/s), plain {times[C][1]:.4f} ms")
+            gbs = (plans.n_slots + plans.n_rows) * C * 4 / t["device_ms"] / 1e6
+            log(f"  {name} C={C}: {fmt_times(t)} ({gbs:.1f} GB/s on device)")
             del x
-        rec[name] = dict(err=max(errs), ms=times[widths[0]][0], plain_ms=times[widths[0]][1])
+        rec[name] = dict(err=max(errs), **times[widths[0]])
     return rec
 
 
@@ -269,23 +322,25 @@ def run_probes(reps: int) -> dict:
         )))
 
     probes.reset_launch_counts()  # the probe runs: timed launches of each probe
-    ms_e = time_ms(lambda: probes.sgemm_probe(a, b), reps)
-    g_ms = [time_ms(lambda: probes.column_gather(src, ci), reps) for src, ci, _ in cases]
+    t_e = kernel_times(lambda: probes.sgemm_probe(a, b), lambda: probes.sgemm_probe_plain(a, b), reps)
+    t_g = [
+        kernel_times(
+            lambda: probes.column_gather(src, ci), lambda: probes.column_gather_plain(src, ci), reps
+        )
+        for src, ci, _ in cases
+    ]
     launches = dict(probes.launch_counts)
-    plain_e = time_ms(lambda: probes.sgemm_probe_plain(a, b), reps)
-    g_plain = [time_ms(lambda: probes.column_gather_plain(src, ci), reps) for src, ci, _ in cases]
     flop = 2.0 * N ** 3
-    log(f"  sgemm_probe: {ms_e:.4f} ms ({flop / ms_e / 1e9:.2f} TFLOP/s f32 FMA), "
-        f"plain (cuBLAS, TF32 off) {plain_e:.4f} ms ({flop / plain_e / 1e9:.2f} TFLOP/s)")
-    for (src, _, _), t, tp in zip(cases, g_ms, g_plain):
+    log(f"  sgemm_probe: {fmt_times(t_e)} (plain: cuBLAS, TF32 off); on device "
+        f"{flop / t_e['device_ms'] / 1e9:.2f} TFLOP/s f32 FMA, plain {flop / t_e['plain_device_ms'] / 1e9:.2f}")
+    for (src, _, _), t in zip(cases, t_g):
         n_el = src.numel()
-        log(f"  column_gather {tuple(src.shape)}: {t:.4f} ms ({t / n_el * 1e6:.3f} ns/elem), "
-            f"plain {tp:.4f} ms ({tp / n_el * 1e6:.3f} ns/elem)")
+        log(f"  column_gather {tuple(src.shape)}: {fmt_times(t)}; on device "
+            f"{t['device_ms'] / n_el * 1e6:.4f} ns/elem, plain {t['plain_device_ms'] / n_el * 1e6:.4f}")
     return {
-        "sgemm_probe": dict(err=err_e, ms=ms_e, plain_ms=plain_e, launches=launches["sgemm_probe"]),
+        "sgemm_probe": dict(err=err_e, launches=launches["sgemm_probe"], **t_e),
         "column_gather": dict(
-            err=max(e for _, _, e in cases), ms=g_ms[1], plain_ms=g_plain[1],
-            launches=launches["column_gather"],
+            err=max(e for _, _, e in cases), launches=launches["column_gather"], **t_g[1]
         ),
     }
 
@@ -603,6 +658,7 @@ def main(argv=None) -> int:
             replaces=KERNELS[name][1],
             launches=launches[name], max_abs_err=rec[name]["err"],
             ms=rec[name]["ms"], plain_ms=rec[name]["plain_ms"],
+            device_ms=rec[name]["device_ms"], plain_device_ms=rec[name]["plain_device_ms"],
         )
         for name in KERNELS
     ]

@@ -32,6 +32,13 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
+def _raw_stream(t: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on t's card, without building
+    a `torch.cuda.Stream` object (PyTorch's own compiled kernels read it
+    the same way)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
 def _check_f32(name: str, *ts: torch.Tensor) -> None:
     for t in ts:
         if t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
@@ -63,9 +70,8 @@ def sgemm_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     N = b.shape[1]
     lib = cuda_lib.load()
     c = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
     cuda_lib.check(
-        lib.ns_sgemm_tn_f32(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K, stream),
+        lib.ns_sgemm_tn_f32(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K, _raw_stream(c)),
         "sgemm_probe",
     )
     launch_counts["sgemm_probe"] += 1
@@ -82,6 +88,7 @@ class ColumnIndex:
     idx: torch.Tensor  # [n, W] int32, each in [0, n_src)
     idx64: torch.Tensor  # the same as int64 (torch.gather's index type)
     n_src: int
+    src_shape: torch.Size  # [n_src, W], the source it gathers from
 
 
 def column_index(idx: torch.Tensor, n_src: int) -> ColumnIndex:
@@ -91,7 +98,8 @@ def column_index(idx: torch.Tensor, n_src: int) -> ColumnIndex:
     if lo < 0 or hi >= n_src:
         raise ValueError(f"column_index: rows in [{lo}, {hi}], outside [0, {n_src})")
     return ColumnIndex(
-        idx=idx.to(torch.int32).contiguous(), idx64=idx.to(torch.int64), n_src=n_src
+        idx=idx.to(torch.int32).contiguous(), idx64=idx.to(torch.int64), n_src=n_src,
+        src_shape=torch.Size((n_src, idx.shape[1])),
     )
 
 
@@ -100,26 +108,37 @@ def column_gather_plain(src: torch.Tensor, ci: ColumnIndex) -> torch.Tensor:
     return torch.gather(src, 0, ci.idx64)
 
 
+_gather_entry = None  # the C entry point, bound at the first launch
+
+
 def column_gather(src: torch.Tensor, ci: ColumnIndex) -> torch.Tensor:
-    """out[i, j] = src[idx[i, j], j] (probe F)."""
-    if src.device.type == "cpu":
-        return column_gather_plain(src, ci)
-    if src.device.type != "cuda" or ci.idx.device != src.device:
-        raise ValueError(f"column_gather: unsupported devices {src.device}, {ci.idx.device}")
-    _check_f32("column_gather", src)
-    if src.shape[0] != ci.n_src or ci.idx.shape[1] != src.shape[1]:
+    """out[i, j] = src[idx[i, j], j] (probe F).
+
+    The kernel takes a few µs on the card, so the host's work a call is
+    what its time is made of: the checks read plain attributes, the output
+    is `empty_like` where the shapes allow, the C entry point is bound
+    once, and the stream is read as a raw handle (building a
+    `torch.cuda.Stream` object costs about 3 µs)."""
+    global _gather_entry
+    if not src.is_cuda:
+        if src.device.type == "cpu":
+            return column_gather_plain(src, ci)
+        raise ValueError(f"column_gather: unsupported device {src.device}")
+    idx = ci.idx
+    if (
+        src.dtype != torch.float32 or src.shape != ci.src_shape
+        or not src.is_contiguous() or src.get_device() != idx.get_device()
+    ):
         raise ValueError(
-            f"column_gather: src {tuple(src.shape)} does not match an index "
-            f"built for {ci.n_src} rows and width {ci.idx.shape[1]}"
+            f"column_gather: expected a contiguous float32 {tuple(ci.src_shape)} source "
+            f"on the index's device {idx.device}, got {src.dtype} {tuple(src.shape)} on {src.device}"
         )
-    lib = cuda_lib.load()
-    out = torch.empty(ci.idx.shape, dtype=torch.float32, device=src.device)
-    stream = torch.cuda.current_stream(src.device).cuda_stream
+    if _gather_entry is None:
+        _gather_entry = cuda_lib.load().ns_column_gather_f32
+    n, w = idx.shape
+    out = torch.empty_like(src) if n == ci.n_src else src.new_empty((n, w))
     cuda_lib.check(
-        lib.ns_column_gather_f32(
-            src.data_ptr(), ci.idx.data_ptr(), out.data_ptr(), ci.idx.shape[0],
-            ci.idx.shape[1], stream,
-        ),
+        _gather_entry(src.data_ptr(), idx.data_ptr(), out.data_ptr(), n, w, _raw_stream(out)),
         "column_gather",
     )
     launch_counts["column_gather"] += 1

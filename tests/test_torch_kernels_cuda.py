@@ -150,7 +150,21 @@ def test_slot_kernels_reject_what_they_do_not_take(cuda):
         oh.onehot_gather(plans, torch.randn((4, 60), device=cuda).T)
 
 
-@pytest.mark.parametrize("K,M,N", [(2048, 2048, 2048), (100, 130, 257), (8, 128, 128)])
+def _offset_view(shape, gen, device, offset):
+    """A contiguous random tensor whose base is `offset` floats past an
+    allocation's (16-byte) alignment."""
+    n = int(np.prod(shape))
+    return torch.randn((n + offset,), generator=gen, device=device)[offset:].view(shape)
+
+
+# K, M, N: the probe's shape; an odd-sized one (4-byte copies); K shorter
+# than one k-tile, and K = 0; K over many ring stages with edge tiles on
+# the 16-byte path (M, N multiples of 4 but not of 128); one tile exactly;
+# a tail k-tile with M not a multiple of 4.
+@pytest.mark.parametrize("K,M,N", [
+    (2048, 2048, 2048), (100, 130, 257), (8, 128, 128), (5, 64, 64), (0, 16, 16),
+    (1000, 132, 260), (16, 128, 128), (33, 257, 130),
+])
 def test_sgemm_probe_matches_plain(cuda, K, M, N):
     g = torch.Generator(device=cuda).manual_seed(K + M + N)
     a = torch.randn((K, M), generator=g, device=cuda)
@@ -159,15 +173,30 @@ def test_sgemm_probe_matches_plain(cuda, K, M, N):
     c = probes.sgemm_probe(a, b)
     torch.cuda.synchronize()
     assert probes.launch_counts["sgemm_probe"] == before + 1
+    assert c.shape == (M, N)
     _close(c, probes.sgemm_probe_plain(a, b))
 
 
-@pytest.mark.parametrize("n,w", probes.GATHER_SHAPES)
-def test_column_gather_matches_plain(cuda, n, w):
-    g = torch.Generator(device=cuda).manual_seed(n + w)
-    src = torch.randn((n, w), generator=g, device=cuda)
+def test_sgemm_probe_takes_unaligned_bases(cuda):
+    """Operands 4 bytes past 16-byte alignment take the 4-byte copies."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a = _offset_view((96, 256), g, cuda, 1)
+    b = _offset_view((96, 384), g, cuda, 3)
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    _close(probes.sgemm_probe(a, b), probes.sgemm_probe_plain(a, b))
+
+
+# The probe's shapes; widths that are not multiples of 4 (scalar kernel);
+# fewer index rows than source rows.
+@pytest.mark.parametrize("n_src,n,w", [
+    *((n, n, w) for n, w in probes.GATHER_SHAPES), (1000, 1000, 7), (37, 37, 130),
+    (3000, 500, 12), (5, 5, 1),
+])
+def test_column_gather_matches_plain(cuda, n_src, n, w):
+    g = torch.Generator(device=cuda).manual_seed(n_src + n + w)
+    src = torch.randn((n_src, w), generator=g, device=cuda)
     ci = probes.column_index(
-        torch.randint(0, n, (n, w), generator=g, device=cuda, dtype=torch.int32), n
+        torch.randint(0, n_src, (n, w), generator=g, device=cuda, dtype=torch.int32), n_src
     )
     before = probes.launch_counts["column_gather"]
     out = probes.column_gather(src, ci)
@@ -175,4 +204,37 @@ def test_column_gather_matches_plain(cuda, n, w):
     assert probes.launch_counts["column_gather"] == before + 1
     assert torch.equal(out, probes.column_gather_plain(src, ci))
     with pytest.raises(ValueError):
-        probes.column_index(ci.idx + n, n)  # rows past the source
+        probes.column_index(ci.idx + n_src, n_src)  # rows past the source
+
+
+def test_column_gather_takes_an_unaligned_index(cuda):
+    """An int32 index 4 bytes past 16-byte alignment takes the scalar kernel."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    n, w = 256, 64
+    raw = torch.randint(0, n, (n * w + 1,), generator=g, device=cuda, dtype=torch.int32)
+    ci = probes.column_index(raw[1:].view(n, w), n)
+    assert ci.idx.data_ptr() % 16
+    src = torch.randn((n, w), generator=g, device=cuda)
+    assert torch.equal(probes.column_gather(src, ci), probes.column_gather_plain(src, ci))
+
+
+def test_probes_reject_what_the_kernels_do_not_take(cuda):
+    a = torch.randn((8, 16), device=cuda)
+    with pytest.raises(ValueError):
+        probes.sgemm_probe(a.double(), a.double())
+    with pytest.raises(ValueError):
+        probes.sgemm_probe(a.T, a)  # not contiguous
+    with pytest.raises(ValueError):
+        probes.sgemm_probe(a, torch.randn((9, 16), device=cuda))  # contraction axes differ
+    with pytest.raises(ValueError):
+        probes.sgemm_probe(a, a.cpu())
+    src = torch.randn((32, 8), device=cuda)
+    ci = probes.column_index(torch.zeros((32, 8), dtype=torch.int32, device=cuda), 32)
+    with pytest.raises(ValueError):
+        probes.column_gather(src.double(), ci)
+    with pytest.raises(ValueError):
+        probes.column_gather(src[:16], ci)  # not the index's source shape
+    with pytest.raises(ValueError):
+        probes.column_gather(torch.randn((8, 32), device=cuda).T, ci)  # not contiguous
+    with pytest.raises(ValueError):
+        probes.column_gather(src, probes.column_index(ci.idx.cpu(), 32))  # index on the CPU
