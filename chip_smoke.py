@@ -11,9 +11,13 @@ Drives the port's two paths once each:
 and runs the two TPU-era measurement probes (kernels E and F).  It builds
 the hand-written CUDA kernels from `navierstokes_project_nm4pde_tpu_torch/csrc`,
 holds each against its plain PyTorch version at the shapes its path gives
-it, times both (call time with CUDA events, device time with
-torch.profiler), and holds short runs of each path on the card against
-the same runs on the CPU in float64 (plain versions) on a small duct.
+it, times it, its plain version and the one PyTorch call that computes
+the same function (call time with CUDA events, device time with
+torch.profiler), gives each its bound (the least time the card could take
+for the same bytes and operations), times kernel B's two designs in
+turns, and holds short runs of each path on the card against the same
+runs on the CPU in float64 (plain versions) on a small duct.  It imports
+nothing of jax or of the JAX package, and fails if either was imported.
 
     python3 chip_smoke.py [--profile DIR]
 
@@ -56,6 +60,14 @@ AGREE_RTOL = 1e-4
 WARMUP_STEPS = 20
 TIMED_STEPS = 40
 KERNEL_REPS = 10
+# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): device-memory
+# bytes a second, and float32 operations a second outside the tensor cores.
+# A kernel's bound is the larger of its bytes (each input read once, each
+# output written once) and its operations over these.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Top-level modules the port and this script must never import.
+FORBIDDEN_MODULES = ("jax", "jaxlib", "navierstokes_project_nm4pde_tpu")
 # The ensemble path: scripts/bench_ensemble.py's mesh and member count
 # (64 x 46,928 DoF), its warm-up and timed steps, and the members of the
 # small-duct check against the CPU.
@@ -198,17 +210,32 @@ def device_ms(fn, reps: int) -> float:
     fail(f"torch.profiler recorded {n} device activities for {reps} calls, not {per_call} each")
 
 
-def kernel_times(fn, plain, reps: int) -> dict:
-    """Call and device times of a kernel and of its plain version, in turns."""
+def kernel_times(fn, plain, lib, reps: int) -> dict:
+    """Call and device times of a kernel, its plain version and the one
+    PyTorch call that computes the same function, in turns."""
     return dict(
-        ms=time_ms(fn, reps), plain_ms=time_ms(plain, reps),
+        ms=time_ms(fn, reps), plain_ms=time_ms(plain, reps), library_ms=time_ms(lib, reps),
         device_ms=device_ms(fn, reps), plain_device_ms=device_ms(plain, reps),
+        lib_device_ms=device_ms(lib, reps),
     )
 
 
-def fmt_times(t: dict) -> str:
-    return (f"call {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; "
-            f"device {t['device_ms']:.4f} ms, plain {t['plain_device_ms']:.4f} ms")
+def bound(nbytes: float, ops: float) -> dict:
+    """The least ms the card could take to move `nbytes` and do `ops` f32
+    operations, and which of the two bounds it."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return dict(
+        bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations",
+        bytes=nbytes, ops=ops,
+    )
+
+
+def fmt_times(t: dict, b: dict) -> str:
+    return (f"call {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms; "
+            f"device {t['device_ms']:.4f} ms, plain {t['plain_device_ms']:.4f} ms, "
+            f"library {t['lib_device_ms']:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+            f"({b['bytes'] / 1e6:.1f} MB, {b['ops'] / 1e9:.3f} Gop): "
+            f"{b['bound_ms'] / t['device_ms']:.1%} of bound on device")
 
 
 def compare(name, out, ref) -> float:
@@ -239,16 +266,46 @@ def check_kernels(solver, reps: int) -> dict:
     F_e = torch.randn((mp.E, nloc, nloc), generator=gen, device=dev)
     log(f"kernel B macro_build: F_e {tuple(F_e.shape)}, lidx {tuple(mp.lidx.shape)} -> [{mp.B}, {mp.U}, {mp.U}]")
     FtT = mb.macro_build(F_e, mp.lidx, mp.B, mp.U)
-    err_b = compare("macro_build", FtT, mb.macro_build_plain(F_e, mp.lidx, mp.B, mp.U))
+    ref = mb.macro_build_plain(F_e, mp.lidx, mp.B, mp.U)
+    err_b = compare("macro_build", FtT, ref)
+    err_v1 = float((mb.macro_build_v1(F_e, mp.lidx, mp.B, mp.U) - ref).abs().max())
+    log(f"  macro_build_v1 (the earlier one-CTA-a-block design): max abs err {err_v1:.3e}")
+    if not err_v1 <= KERNELS["macro_build"][2] * float(ref.abs().max()):
+        fail(f"macro_build_v1 disagrees with the plain version: {err_v1:.3e}")
+    del ref
+    # the library call: index_add_ into zeros, its flat index built once
+    UU = mp.U * mp.U
+    li = mp.lidx.to(torch.int64)
+    flat = (torch.arange(mp.B, device=dev).view(-1, 1, 1, 1) * UU
+            + li[:, :, None, :] * mp.U + li[:, :, :, None]).reshape(-1)[: mp.E * nloc * nloc]
+    F_flat, lib_out = F_e.reshape(-1), torch.empty(mp.B * UU, device=dev)
     t = kernel_times(
         lambda: mb.macro_build(F_e, mp.lidx, mp.B, mp.U),
-        lambda: mb.macro_build_plain(F_e, mp.lidx, mp.B, mp.U), reps,
+        lambda: mb.macro_build_plain(F_e, mp.lidx, mp.B, mp.U),
+        lambda: lib_out.zero_().index_add_(0, flat, F_flat), reps,
     )
-    log(f"  macro_build: {fmt_times(t)}")
-    rec["macro_build"] = dict(err=err_b, **t)
-    del F_e
+    b = bound((F_e.numel() + mp.lidx.numel() + FtT.numel()) * 4, F_e.numel())
+    log(f"  macro_build: {fmt_times(t, b)}")
+    # the two designs in turns: v1, new, new, v1
+    turns = [
+        (name, time_ms(f, reps), device_ms(f, reps))
+        for name, f in (
+            ("v1", lambda: mb.macro_build_v1(F_e, mp.lidx, mp.B, mp.U)),
+            ("new", lambda: mb.macro_build(F_e, mp.lidx, mp.B, mp.U)),
+            ("new", lambda: mb.macro_build(F_e, mp.lidx, mp.B, mp.U)),
+            ("v1", lambda: mb.macro_build_v1(F_e, mp.lidx, mp.B, mp.U)),
+        )
+    ]
+    log("  macro_build designs in turns (call ms, device ms): " + "; ".join(
+        f"{n} {c:.4f} / {d:.4f} ({b['bound_ms'] / d:.1%} of bound)" for n, c, d in turns))
+    v1 = [(c, d) for n, c, d in turns if n == "v1"]
+    rec["macro_build"] = dict(
+        err=err_b, **t, **b,
+        v1_ms=sum(c for c, _ in v1) / 2, v1_device_ms=sum(d for _, d in v1) / 2,
+    )
+    del F_e, F_flat, flat, lib_out, li
 
-    errs, times = [], {}
+    errs, times, bounds = [], {}, {}
     for C in (3, 6):
         x_b = torch.randn((mp.B, mp.U, C), generator=gen, device=dev)
         log(f"kernel A macro_matvec: FtT {tuple(FtT.shape)} x_b {tuple(x_b.shape)}")
@@ -256,11 +313,13 @@ def check_kernels(solver, reps: int) -> dict:
             "macro_matvec", mb.macro_matvec(FtT, x_b), mb.macro_matvec_plain(FtT, x_b)
         ))
         t = times[C] = kernel_times(
-            lambda: mb.macro_matvec(FtT, x_b), lambda: mb.macro_matvec_plain(FtT, x_b), reps
+            lambda: mb.macro_matvec(FtT, x_b), lambda: mb.macro_matvec_plain(FtT, x_b),
+            lambda: torch.bmm(FtT.transpose(1, 2), x_b), reps,
         )
+        b = bounds[C] = bound((FtT.numel() + 2 * x_b.numel()) * 4, 2.0 * FtT.numel() * C)
         gbs = FtT.numel() * 4 / t["device_ms"] / 1e6
-        log(f"  macro_matvec C={C}: {fmt_times(t)} ({gbs:.1f} GB/s of values on device)")
-    rec["macro_matvec"] = dict(err=max(errs), **times[3])
+        log(f"  macro_matvec C={C}: {fmt_times(t, b)} ({gbs:.1f} GB/s of values on device)")
+    rec["macro_matvec"] = dict(err=max(errs), **times[3], **bounds[3])
     return rec
 
 
@@ -277,21 +336,36 @@ def check_slot_kernels(solver, reps: int) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     B = ENSEMBLE_MEMBERS
     rec = {}
-    for name, fn, plain, widths, rows in (
-        ("slot_reduce", oh.onehot_reduce, oh.onehot_reduce_plain, (3 * B, 6 * B), plans.n_slots),
-        ("slot_gather", oh.onehot_gather, oh.onehot_gather_plain, (3 * B, 9 * B), plans.n_rows),
+    # index bytes each kernel reads: C the CSR order and row offsets, D the
+    # flat slot index (all int64)
+    idx_bytes = {
+        "slot_reduce": (plans.reduce.perm.numel() + plans.reduce.offsets.numel()) * 8,
+        "slot_gather": plans.gather.numel() * 8,
+    }
+    for name, fn, plain, lib, widths, rows in (
+        ("slot_reduce", oh.onehot_reduce, oh.onehot_reduce_plain,
+         lambda x: torch.zeros((plans.n_rows, x.shape[1]), device=dev).index_add_(0, plans.gather, x),
+         (3 * B, 6 * B), plans.n_slots),
+        ("slot_gather", oh.onehot_gather, oh.onehot_gather_plain,
+         lambda x: x.index_select(0, plans.gather), (3 * B, 9 * B), plans.n_rows),
     ):
-        errs, times = [], {}
+        errs, times, bounds = [], {}, {}
         for C in widths:
             x = torch.randn((rows, C), generator=gen, device=dev)
             log(f"kernel {name}: payload {tuple(x.shape)}, {plans.n_slots} slots -> {plans.n_rows} rows")
             errs.append(compare(name, fn(plans, x), plain(plans, x)))
-            t = times[C] = kernel_times(lambda: fn(plans, x), lambda: plain(plans, x), reps)
-            # bytes a launch: every slot row once, every node row once
+            t = times[C] = kernel_times(
+                lambda: fn(plans, x), lambda: plain(plans, x), lambda: lib(x), reps
+            )
+            # every slot row once, every node row once; C's sums are its operations
+            b = bounds[C] = bound(
+                (plans.n_slots + plans.n_rows) * C * 4 + idx_bytes[name],
+                plans.n_slots * C if name == "slot_reduce" else 0,
+            )
             gbs = (plans.n_slots + plans.n_rows) * C * 4 / t["device_ms"] / 1e6
-            log(f"  {name} C={C}: {fmt_times(t)} ({gbs:.1f} GB/s on device)")
+            log(f"  {name} C={C}: {fmt_times(t, b)} ({gbs:.1f} GB/s on device)")
             del x
-        rec[name] = dict(err=max(errs), **times[widths[0]])
+        rec[name] = dict(err=max(errs), **times[widths[0]], **bounds[widths[0]])
     return rec
 
 
@@ -322,25 +396,34 @@ def run_probes(reps: int) -> dict:
         )))
 
     probes.reset_launch_counts()  # the probe runs: timed launches of each probe
-    t_e = kernel_times(lambda: probes.sgemm_probe(a, b), lambda: probes.sgemm_probe_plain(a, b), reps)
+    t_e = kernel_times(
+        lambda: probes.sgemm_probe(a, b), lambda: probes.sgemm_probe_plain(a, b),
+        lambda: torch.mm(a.T, b), reps,
+    )
     t_g = [
         kernel_times(
-            lambda: probes.column_gather(src, ci), lambda: probes.column_gather_plain(src, ci), reps
+            lambda: probes.column_gather(src, ci), lambda: probes.column_gather_plain(src, ci),
+            lambda: torch.gather(src, 0, ci.idx64), reps,
         )
         for src, ci, _ in cases
     ]
     launches = dict(probes.launch_counts)
     flop = 2.0 * N ** 3
-    log(f"  sgemm_probe: {fmt_times(t_e)} (plain: cuBLAS, TF32 off); on device "
+    b_e = bound(3 * N * N * 4, flop)
+    log(f"  sgemm_probe: {fmt_times(t_e, b_e)} (plain and library: cuBLAS, TF32 off); on device "
         f"{flop / t_e['device_ms'] / 1e9:.2f} TFLOP/s f32 FMA, plain {flop / t_e['plain_device_ms'] / 1e9:.2f}")
-    for (src, _, _), t in zip(cases, t_g):
-        n_el = src.numel()
-        log(f"  column_gather {tuple(src.shape)}: {fmt_times(t)}; on device "
+    b_g = []
+    for (src, ci, _), t in zip(cases, t_g):
+        n_el, w = src.numel(), src.shape[1]
+        # the source elements this index reads (each once), the index, the output
+        used = torch.unique(ci.idx64 * w + torch.arange(w, device=dev)).numel()
+        b_g.append(bound((used + 2 * n_el) * 4, 0))
+        log(f"  column_gather {tuple(src.shape)}: {fmt_times(t, b_g[-1])}; on device "
             f"{t['device_ms'] / n_el * 1e6:.4f} ns/elem, plain {t['plain_device_ms'] / n_el * 1e6:.4f}")
     return {
-        "sgemm_probe": dict(err=err_e, launches=launches["sgemm_probe"], **t_e),
+        "sgemm_probe": dict(err=err_e, launches=launches["sgemm_probe"], **t_e, **b_e),
         "column_gather": dict(
-            err=max(e for _, _, e in cases), launches=launches["column_gather"], **t_g[1]
+            err=max(e for _, _, e in cases), launches=launches["column_gather"], **t_g[1], **b_g[1]
         ),
     }
 
@@ -649,19 +732,25 @@ def main(argv=None) -> int:
     for name in prec:
         if launches[name] <= 0:
             fail(f"the probe run never launched kernel {name}")
-    if any(m.split(".")[0] == "jax" for m in sys.modules):
-        fail("jax was imported")
+    imported = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN_MODULES)
+    if imported:
+        fail(f"imported modules of jax or of the JAX package: {imported[:10]}")
 
-    kernels = [
-        dict(
+    kernels = []
+    for name in KERNELS:
+        r = rec[name]
+        kernels.append(dict(
             name=name, route="cuda", source=f"{PKG}/csrc/{KERNELS[name][0]}",
             replaces=KERNELS[name][1],
-            launches=launches[name], max_abs_err=rec[name]["err"],
-            ms=rec[name]["ms"], plain_ms=rec[name]["plain_ms"],
-            device_ms=rec[name]["device_ms"], plain_device_ms=rec[name]["plain_device_ms"],
-        )
-        for name in KERNELS
-    ]
+            launches=launches[name], max_abs_err=r["err"],
+            ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+            device_ms=r["device_ms"], plain_device_ms=r["plain_device_ms"],
+            lib_device_ms=r["lib_device_ms"], share=r["bound_ms"] / r["device_ms"],
+            **{k: r[k] for k in ("v1_ms", "v1_device_ms") if k in r},
+        ))
+        log(f"{name}: device {r['device_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} ({r['bound_ms'] / r['device_ms']:.1%}), library {r['lib_device_ms']:.4f} ms")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({

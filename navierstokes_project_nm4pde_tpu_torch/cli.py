@@ -6,8 +6,8 @@
         [--device cuda]
 
 The same flags and configuration as the reference's `cli.py ensemble`
-(its `_common_flags` and `_build_config` are numpy-only and reused), run
-by the port's `run_ensemble`; it writes `ensemble.csv` with the
+(the port keeps its own copies of `_common_flags` and `_build_config`),
+run by the port's `run_ensemble`; it writes `ensemble.csv` with the
 reference's header.  `--onehot` selects only the reference's TPU
 reduction layout: the port's ensemble reductions are always kernel C.
 The reference's other subcommands, `--dim 2` and `--shard-batch` are not
@@ -22,10 +22,128 @@ import time
 
 import numpy as np
 
-from navierstokes_project_nm4pde_tpu.cli import _build_config, _common_flags
+from navierstokes_project_nm4pde_tpu_torch.config import (
+    NumericsConfig,
+    PrecondConfig,
+    RunConfig,
+    SolverConfig,
+    TimeConfig,
+)
 from navierstokes_project_nm4pde_tpu_torch.device import pick_device
 
 _NOT_PORTED = ("cylinder2d", "cylinder3d", "convergence")
+
+
+def _build_config(args, defaults):
+    """The RunConfig of the parsed flags: the JAX package's `cli.py
+    _build_config`, copied (same flags in, equal RunConfig out)."""
+    if getattr(args, "fast", False):
+        # The benchmarked projection stack (bench.py defaults; measured
+        # 2-2.5x over the conservative library defaults at every scale).
+        # Overrides the individual solver flags it touches.
+        return RunConfig(
+            time=TimeConfig(
+                dt=args.dt, t_end=args.t_end,
+                scheme=getattr(args, "scheme", "bdf1"),
+                stepper="projection",
+            ),
+            solver=SolverConfig(
+                rtol=args.rtol, restart=8, maxiter=args.maxiter,
+                tol_mode="b", guess_order=2,
+            ),
+            precond=PrecondConfig(
+                kind="yosida", f_iters=0, s_iters=3,
+                f_solver="gmres", s_solver="mg2_cg",
+                freeze_conv_diag=True, mg2_form="additive",
+            ),
+            numerics=NumericsConfig(
+                dtype=args.dtype, precise_dots=False,
+                steps_per_chunk=args.steps_per_chunk,
+                reduce_plan="columns", proj_schur="frozen",
+                coarse_solve="chol", schur_spmv="auto",
+                ensemble_onehot=getattr(args, "onehot", False),
+            ),
+            test_case=args.test_case if hasattr(args, "test_case") else 2,
+            output_dir=args.output_dir,
+            output_every=args.output_every,
+        )
+
+    return RunConfig(
+        time=TimeConfig(
+            dt=args.dt, t_end=args.t_end,
+            scheme=getattr(args, "scheme", "bdf1"),
+            stepper=getattr(args, "stepper", "monolithic"),
+        ),
+        solver=SolverConfig(
+            rtol=args.rtol, restart=args.restart, maxiter=args.maxiter,
+            tol_mode=getattr(args, "tol_mode", "r0"),
+        ),
+        precond=PrecondConfig(
+            kind=args.precond, f_iters=args.f_iters, s_iters=args.s_iters,
+            f_solver=args.f_solver, s_solver=args.s_solver,
+            alpha=0.5 if args.precond == "simple" else 1.0,
+        ),
+        numerics=NumericsConfig(
+            dtype=args.dtype,
+            precise_dots=not args.no_precise_dots,
+            steps_per_chunk=args.steps_per_chunk,
+            ensemble_onehot=getattr(args, "onehot", False),
+        ),
+        test_case=args.test_case if hasattr(args, "test_case") else 2,
+        output_dir=args.output_dir,
+        output_every=args.output_every,
+    )
+
+
+def _common_flags(p, dt, t_end, precond):
+    """The flags every subcommand takes: the JAX package's `cli.py
+    _common_flags`, copied.  --debug-nans, --checkpoint-every, --resume and
+    --shard-cells parse as there and have no effect in the port yet."""
+    p.add_argument("--mesh", type=str, default=None, help=".msh file (else built-in generator)")
+    p.add_argument("--dt", type=float, default=dt)
+    p.add_argument("--t-end", type=float, default=t_end)
+    p.add_argument("--n-steps", type=int, default=None, help="override step count")
+    p.add_argument("--precond", type=str, default=precond)
+    p.add_argument("--scheme", type=str, default="bdf1", choices=["bdf1", "bdf2"],
+                   help="time scheme (bdf2: live second-order variant)")
+    p.add_argument("--stepper", type=str, default="monolithic",
+                   choices=["monolithic", "projection"],
+                   help="monolithic saddle-point solve (reference parity) or "
+                        "incremental pressure-correction splitting (faster)")
+    p.add_argument("--fast", action="store_true",
+                   help="use the benchmarked projection stack (frozen banded "
+                        "Schur + additive two-level CG, plain-Jacobi FGMRES, "
+                        "quadratic warm start, rtol vs ||b||); overrides "
+                        "--stepper/--precond/--restart/--f-iters/--s-iters/"
+                        "--f-solver/--s-solver/--tol-mode")
+    p.add_argument("--rtol", type=float, default=1e-6)
+    p.add_argument("--tol-mode", type=str, default="r0",
+                   choices=["r0", "b", "abs"],
+                   help="stopping criterion: relative to the warm-start "
+                        "residual (r0, reference-like), to ||rhs|| (b, the "
+                        "scipy/PETSc convention), or absolute")
+    p.add_argument("--restart", type=int, default=50)
+    p.add_argument("--maxiter", type=int, default=200)
+    p.add_argument("--f-iters", type=int, default=6)
+    p.add_argument("--s-iters", type=int, default=30)
+    p.add_argument("--f-solver", type=str, default="gmres",
+                   choices=["gmres", "richardson", "chebyshev", "pmg"])
+    p.add_argument("--s-solver", type=str, default="cg",
+                   choices=["cg", "chebyshev", "mg2", "mg2_cg", "spai", "spai_cg"])
+    p.add_argument("--dtype", type=str, default="float32")
+    p.add_argument("--nu", type=float, default=None, help="kinematic viscosity override (Re sweeps)")
+    p.add_argument("--debug-nans", action="store_true", help="no effect in the port")
+    p.add_argument("--no-precise-dots", action="store_true")
+    p.add_argument("--steps-per-chunk", type=int, default=10)
+    p.add_argument("--output-dir", type=str, default=None)
+    p.add_argument("--output-every", type=int, default=0, help="VTU cadence (0=off)")
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--resume", type=str, default=None, help="checkpoint to resume from")
+    p.add_argument("--shard-cells", type=int, default=0,
+                   help="shard the element batch over N devices (domain "
+                        "decomposition; 0 = single device).  VTU snapshots "
+                        "gain the reference's `partitioning` subdomain field "
+                        "(ref: src/NavierStokes2D.cpp:662-665)")
 
 
 def _parser() -> argparse.ArgumentParser:

@@ -25,10 +25,11 @@ def set_precision_policy() -> None:
 
 
 def pick_device(name: str | torch.device | None = None) -> torch.device:
-    """Resolve `name` ("cpu", "cuda", "cuda:1", or None = "cpu") to a
-    `torch.device` and apply the precision policy.  A CUDA request without
-    a card raises instead of falling back to the CPU."""
-    dev = torch.device("cpu" if name is None else name)
+    """Resolve `name` ("cpu", "cuda", "cuda:1", or None = "cuda") to a
+    `torch.device` and apply the precision policy.  The port runs on the
+    card unless the caller asks for the CPU: a CUDA device, named or by
+    default, without a card raises instead of falling back to the CPU."""
+    dev = torch.device("cuda" if name is None else name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     set_precision_policy()

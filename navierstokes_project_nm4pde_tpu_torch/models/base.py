@@ -43,13 +43,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from navierstokes_project_nm4pde_tpu.fem.geometry import (
+from navierstokes_project_nm4pde_tpu_torch.config import RunConfig
+from navierstokes_project_nm4pde_tpu_torch.device import pick_device, torch_dtype
+from navierstokes_project_nm4pde_tpu_torch.fem.geometry import (
     boundary_tables,
     cell_geometry,
 )
-from navierstokes_project_nm4pde_tpu.fem.space import build_taylor_hood
-from navierstokes_project_nm4pde_tpu_torch.config import RunConfig
-from navierstokes_project_nm4pde_tpu_torch.device import pick_device, torch_dtype
+from navierstokes_project_nm4pde_tpu_torch.fem.space import build_taylor_hood
 from navierstokes_project_nm4pde_tpu_torch.ops import functionals as fn
 from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
 from navierstokes_project_nm4pde_tpu_torch.ops import operators as ops
@@ -228,7 +228,9 @@ def check_config(cfg: RunConfig, problem: ProblemSpec) -> None:
 
 
 class NavierStokesSolver:
-    """Projection-stepper solver for one `ProblemSpec` on one mesh."""
+    """Projection-stepper solver for one `ProblemSpec` on one mesh (the
+    port's own `mesh.Mesh`), on `device`: None means the card, and raises
+    without one; "cpu" runs the kernels' plain versions."""
 
     def __init__(self, mesh, problem: ProblemSpec, config: RunConfig, device=None):
         check_config(config, problem)

@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from navierstokes_project_nm4pde_tpu_torch.device import pick_device
 from navierstokes_project_nm4pde_tpu_torch.ops import cuda_lib
 from navierstokes_project_nm4pde_tpu_torch.ops.scatter import (
     SegmentPlan,
@@ -30,7 +31,8 @@ from navierstokes_project_nm4pde_tpu_torch.ops.scatter import (
     build_segment_plan,
 )
 
-# Shared memory a Hopper CTA may use (bytes); kernel B holds one [U, U] f32 tile.
+# Shared memory a Hopper CTA may use (bytes); kernel B holds two [U, U] f32
+# tiles and two stages of a block's inputs, its earlier design one tile.
 _MAX_SMEM = 232_448
 
 launch_counts = {"macro_build": 0, "macro_matvec": 0}
@@ -62,7 +64,9 @@ def build_macro_plan(
 ) -> MacroPlan:
     """Group RCM-consecutive cells into blocks of `c_blk` with <= U unique
     nodes each (c_blk shrinks by 2 until every block fits).  The last
-    block's padding cells repeat node cells[0, 0] and carry F_e = 0."""
+    block's padding cells repeat node cells[0, 0] and carry F_e = 0.  The
+    plan lives on `device` (None: the card)."""
+    device = pick_device(device)
     cells = np.asarray(cells_u, dtype=np.int64)
     E, nloc = cells.shape
     while c_blk > 1:
@@ -125,17 +129,14 @@ def macro_build_plain(
     return out.view(B, U, U)
 
 
-def macro_build(F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: int) -> torch.Tensor:
-    """Block values FtT [B, U, U] from element matrices F_e [E, nloc, nloc]
-    and the local slot table lidx [B, c_blk, nloc] (kernel B)."""
-    if F_e.device.type == "cpu":
-        return macro_build_plain(F_e, lidx, B, U)
+def _check_build_args(name: str, F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: int) -> None:
+    """Raise ValueError for inputs kernel B (either design) does not take."""
     if F_e.device.type != "cuda":
-        raise ValueError(f"macro_build: unsupported device {F_e.device}")
+        raise ValueError(f"{name}: unsupported device {F_e.device}")
     E, nloc, nloc2 = F_e.shape
     if F_e.dtype != torch.float32 or not F_e.is_contiguous() or nloc2 != nloc:
         raise ValueError(
-            "macro_build: F_e must be a contiguous float32 [E, nloc, nloc] "
+            f"{name}: F_e must be a contiguous float32 [E, nloc, nloc] "
             f"tensor, got {F_e.dtype} {tuple(F_e.shape)}"
         )
     if (
@@ -144,30 +145,69 @@ def macro_build(F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: int) -> torch.
         or lidx.shape[0] != B or lidx.shape[2] != nloc
     ):
         raise ValueError(
-            "macro_build: lidx must be a contiguous int32 [B, c_blk, nloc] "
+            f"{name}: lidx must be a contiguous int32 [B, c_blk, nloc] "
             "tensor on F_e's device"
         )
     c_blk = lidx.shape[1]
     if not (B - 1) * c_blk < E <= B * c_blk:
-        raise ValueError(f"macro_build: E={E} does not fill B={B} blocks of {c_blk}")
-    if U * U * 4 > _MAX_SMEM:
-        raise ValueError(f"macro_build: a [{U}, {U}] f32 tile exceeds shared memory")
+        raise ValueError(f"{name}: E={E} does not fill B={B} blocks of {c_blk}")
+    _check_slots(name, lidx, U)
+
+
+def _check_slots(name: str, lidx: torch.Tensor, U: int) -> None:
+    """Raise ValueError if lidx holds a slot outside [0, U).  The check
+    reads the table back to the host, so the table keeps a mark of it
+    (its version and U): a plan's table is checked once, not every step,
+    and again after an in-place write."""
+    mark = (lidx._version, U)
+    if getattr(lidx, "_slots_checked", None) == mark:
+        return
     lo, hi = (int(v) for v in torch.aminmax(lidx))
     if lo < 0 or hi >= U:
         # the kernel adds at these slots in shared memory, unchecked
-        raise ValueError(f"macro_build: lidx holds slots in [{lo}, {hi}], outside [0, {U})")
-    lib = cuda_lib.load()
+        raise ValueError(f"{name}: lidx holds slots in [{lo}, {hi}], outside [0, {U})")
+    lidx._slots_checked = mark
+
+
+def _launch_build(entry: str, F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: int) -> torch.Tensor:
     out = torch.empty((B, U, U), dtype=torch.float32, device=F_e.device)
     stream = torch.cuda.current_stream(F_e.device).cuda_stream
+    E, nloc, _ = F_e.shape
     cuda_lib.check(
-        lib.ns_macro_build_f32(
+        getattr(cuda_lib.load(), entry)(
             F_e.data_ptr(), lidx.data_ptr(), out.data_ptr(),
-            E, B, c_blk, nloc, U, stream,
+            E, B, lidx.shape[1], nloc, U, stream,
         ),
-        "macro_build",
+        entry,
     )
+    return out
+
+
+def macro_build(F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: int) -> torch.Tensor:
+    """Block values FtT [B, U, U] from element matrices F_e [E, nloc, nloc]
+    and the local slot table lidx [B, c_blk, nloc] (kernel B: persistent
+    CTAs, two shared-memory tiles, bulk-copy staging and write-out)."""
+    if F_e.device.type == "cpu":
+        return macro_build_plain(F_e, lidx, B, U)
+    _check_build_args("macro_build", F_e, lidx, B, U)
+    smem = cuda_lib.load().ns_macro_build_smem_bytes(lidx.shape[1], F_e.shape[1], U)
+    if U % 2 or smem > _MAX_SMEM:
+        raise ValueError(
+            f"macro_build: U={U} must be even and its {smem} bytes of shared "
+            f"memory at most {_MAX_SMEM}"
+        )
+    out = _launch_build("ns_macro_build_f32", F_e, lidx, B, U)
     launch_counts["macro_build"] += 1
     return out
+
+
+def macro_build_v1(F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: int) -> torch.Tensor:
+    """Kernel B's earlier design (one CTA a block, one tile), on CUDA
+    tensors only.  Not on any path: kept to time the designs in turns."""
+    _check_build_args("macro_build_v1", F_e, lidx, B, U)
+    if U * U * 4 > _MAX_SMEM:
+        raise ValueError(f"macro_build_v1: a [{U}, {U}] f32 tile exceeds shared memory")
+    return _launch_build("ns_macro_build_v1_f32", F_e, lidx, B, U)
 
 
 def build_macro_values(mp: MacroPlan, F_e: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from navierstokes_project_nm4pde_tpu_torch.device import pick_device
 from navierstokes_project_nm4pde_tpu_torch.ops import cuda_lib
 from navierstokes_project_nm4pde_tpu_torch.ops.scatter import (
     SegmentPlan,
@@ -52,7 +53,8 @@ class OneHotPlans:
 
 def build_onehot_plans(cells, n_rows: int, device=None) -> OneHotPlans:
     """Plans for the element table `cells` [E, n_loc] (any order; the sums
-    run in slot order within each row)."""
+    run in slot order within each row), on `device` (None: the card)."""
+    device = pick_device(device)
     flat = np.asarray(cells, dtype=np.int64).reshape(-1)
     if flat.size and (flat.min() < 0 or flat.max() >= n_rows):
         raise ValueError(f"element table holds rows outside [0, {n_rows})")

@@ -22,6 +22,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from navierstokes_project_nm4pde_tpu_torch.device import pick_device
+
 
 @dataclasses.dataclass
 class SegmentPlan:
@@ -38,7 +40,8 @@ def build_segment_plan(
     flat, n_rows: int, drop_row: int | None = None, device=None
 ) -> SegmentPlan:
     """Plan reducing slot i into row `flat[i]` (slots with
-    `flat[i] == drop_row` are discarded)."""
+    `flat[i] == drop_row` are discarded), on `device` (None: the card)."""
+    device = pick_device(device)
     flat = np.asarray(flat).reshape(-1).astype(np.int64)
     n_slots = flat.shape[0]
     pos = np.arange(n_slots, dtype=np.int64)
@@ -82,7 +85,9 @@ class InverseMap:
 
 def build_inverse_map(index_groups, n_rows: int, device=None) -> InverseMap:
     """`index_groups`: int arrays whose concatenation is unique.  Rows not
-    covered map to the pad slot after the last value."""
+    covered map to the pad slot after the last value.  On `device` (None:
+    the card)."""
+    device = pick_device(device)
     inv = np.full(n_rows, -1, dtype=np.int64)
     off = 0
     for g in index_groups:

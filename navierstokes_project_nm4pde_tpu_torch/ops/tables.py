@@ -1,8 +1,7 @@
 """Constant reference-element tensors for matrix-free operator application.
 
-(Copied verbatim from the reference's `ops/tables.py`: that module is numpy
-only, but importing it runs the reference `ops/__init__.py`, which imports
-jax.)
+The port's copy of the JAX package's `ops/tables.py` (numpy only), on the
+port's own `fem/` copies.
 
 This is the TPU replacement for the reference's per-cell `FEValues` loop
 (ref: src/NavierStokes2D.cpp:209-313): every bilinear form on affine simplices
@@ -33,8 +32,8 @@ import dataclasses
 
 import numpy as np
 
-from navierstokes_project_nm4pde_tpu.fem import quadrature as quad
-from navierstokes_project_nm4pde_tpu.fem import reference as ref
+from navierstokes_project_nm4pde_tpu_torch.fem import quadrature as quad
+from navierstokes_project_nm4pde_tpu_torch.fem import reference as ref
 
 
 @dataclasses.dataclass

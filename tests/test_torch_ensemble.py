@@ -36,19 +36,21 @@ import torch
 
 import chip_smoke
 from navierstokes_project_nm4pde_tpu.fem.space import build_taylor_hood
-from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d
+from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d as jax_duct
 from navierstokes_project_nm4pde_tpu.models import Cylinder3DProblem as JaxCylinder3D
 from navierstokes_project_nm4pde_tpu.models import NavierStokesSolver as JaxSolver
 from navierstokes_project_nm4pde_tpu.ops.onehot import build_onehot_plans as jax_plans
 from navierstokes_project_nm4pde_tpu.ops.onehot import onehot_gather as jax_gather
 from navierstokes_project_nm4pde_tpu.ops.onehot import onehot_reduce as jax_reduce
 from navierstokes_project_nm4pde_tpu.parallel import run_ensemble as jax_run_ensemble
+from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
 from navierstokes_project_nm4pde_tpu_torch.models import (
     Cylinder3DProblem,
     NavierStokesSolver,
 )
 from navierstokes_project_nm4pde_tpu_torch.ops import onehot as toh
 from navierstokes_project_nm4pde_tpu_torch.parallel import run_ensemble
+from test_torch_port_copies import jax_config
 
 REPO = Path(__file__).resolve().parent.parent
 STEPS = 3
@@ -76,13 +78,15 @@ def _members_last(x):
 # ----------------------------------------------------------------------
 @pytest.fixture(scope="module")
 def rcm_duct():
-    mesh = cylinder_duct_3d(lc=0.12, nz=4).reorder_spatial("rcm")
+    """The JAX package's element table; the port's plans are built on the
+    same numpy array."""
+    mesh = jax_duct(lc=0.12, nz=4).reorder_spatial("rcm")
     space = build_taylor_hood(mesh)
     cells = np.asarray(space.cells_u)
     return (
         cells, space.n_unodes,
         jax_plans(cells, mesh.n_vertices, space.n_unodes),
-        toh.build_onehot_plans(cells, space.n_unodes),
+        toh.build_onehot_plans(cells, space.n_unodes, device="cpu"),
     )
 
 
@@ -111,7 +115,7 @@ def test_slot_reduce_plain_is_exact_in_float64(rcm_duct):
     out = toh.onehot_reduce(tplans, torch.as_tensor(y)).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-14, atol=1e-14)
     with pytest.raises(ValueError):
-        toh.build_onehot_plans(cells, int(cells.max()))  # a row past n_rows
+        toh.build_onehot_plans(cells, int(cells.max()), device="cpu")  # a row past n_rows
 
 
 # ----------------------------------------------------------------------
@@ -122,7 +126,7 @@ def runs():
     mesh = cylinder_duct_3d(lc=0.22, nz=3)
     jp = JaxCylinder3D(test_case=2)
     nus = sweep_nus(jp)
-    js = JaxSolver(mesh, jp, ensemble_config())
+    js = JaxSolver(jax_duct(lc=0.22, nz=3), jp, jax_config(ensemble_config()))
     jst3, jd3 = jax_run_ensemble(js, nus, STEPS)
     ts = NavierStokesSolver(mesh, Cylinder3DProblem(test_case=2), ensemble_config(), device="cpu")
     tst, td = run_ensemble(ts, nus, STEPS)
@@ -175,19 +179,21 @@ def test_ensemble_member_equals_single_run(runs):
 
 def test_ensemble_cli_runs_without_jax(tmp_path):
     """The port's `cli.py ensemble` (and so run_ensemble) in a fresh
-    interpreter in which jax cannot be imported; it writes ensemble.csv
-    with the reference's header."""
+    interpreter in which neither jax nor the JAX package can be imported;
+    it writes ensemble.csv with the reference's header."""
     code = textwrap.dedent(
         """
         import sys
 
+        BLOCKED = ("jax", "jaxlib", "navierstokes_project_nm4pde_tpu")
+
         class _NoJax:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib"):
-                    raise ImportError("jax is blocked in this process")
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"{name} is blocked in this process")
                 return None
 
-        for k in [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib")]:
+        for k in [k for k in sys.modules if k.split(".")[0] in BLOCKED]:
             del sys.modules[k]
         sys.meta_path.insert(0, _NoJax())
         sys.path.insert(0, sys.argv[1])
@@ -196,7 +202,7 @@ def test_ensemble_cli_runs_without_jax(tmp_path):
         main(["ensemble", "--fast", "--onehot", "--n-members", "2", "--lc", "0.25",
               "--nz", "3", "--dt", "2e-4", "--maxiter", "25", "--n-steps", "2",
               "--device", "cpu", "--output-dir", sys.argv[2]])
-        assert not any(k.split(".")[0] == "jax" for k in sys.modules)
+        assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
         print("OK")
         """
     )
@@ -222,10 +228,11 @@ def test_ensemble_cli_refuses_what_is_not_ported(tmp_path):
         assert "PyTorch port" in str(exc.value)
 
 
-@pytest.mark.skipif(torch.cuda.is_available(), reason="checks a machine without a CUDA device")
 def test_ensemble_cli_needs_a_card_unless_told_cpu(tmp_path):
     """The CLI's default device is cuda; without a card it stops with a
     message instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks a machine without a CUDA device")
     from navierstokes_project_nm4pde_tpu_torch.cli import main
 
     with pytest.raises(SystemExit) as exc:

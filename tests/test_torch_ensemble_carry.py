@@ -11,10 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d
+from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d as jax_duct
 from navierstokes_project_nm4pde_tpu.models import Cylinder3DProblem as JaxCylinder3D
 from navierstokes_project_nm4pde_tpu.models import NavierStokesSolver as JaxSolver
 from navierstokes_project_nm4pde_tpu.parallel import run_ensemble as jax_run_ensemble
+from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
 from navierstokes_project_nm4pde_tpu_torch.models import (
     Cylinder3DProblem,
     NavierStokesSolver,
@@ -25,6 +26,7 @@ from navierstokes_project_nm4pde_tpu_torch.parallel import (
     run_ensemble,
 )
 from test_torch_ensemble import STEPS, _members_last, ensemble_config, sweep_nus
+from test_torch_port_copies import jax_config
 
 
 @pytest.fixture(scope="module")
@@ -32,7 +34,7 @@ def runs():
     mesh = cylinder_duct_3d(lc=0.22, nz=3)
     jp = JaxCylinder3D(test_case=2)
     nus = sweep_nus(jp)
-    js = JaxSolver(mesh, jp, ensemble_config())
+    js = JaxSolver(jax_duct(lc=0.22, nz=3), jp, jax_config(ensemble_config()))
     jst3, jd3 = jax_run_ensemble(js, nus, STEPS)
     jst2, _ = jax_run_ensemble(js, nus, STEPS - 1)
     ts = NavierStokesSolver(mesh, Cylinder3DProblem(test_case=2), ensemble_config(), device="cpu")

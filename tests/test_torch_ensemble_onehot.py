@@ -15,16 +15,18 @@ max |c_d|.  The per-member F and S counts were equal and must stay so.
 import numpy as np
 import pytest
 
-from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d
+from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d as jax_duct
 from navierstokes_project_nm4pde_tpu.models import Cylinder3DProblem as JaxCylinder3D
 from navierstokes_project_nm4pde_tpu.models import NavierStokesSolver as JaxSolver
 from navierstokes_project_nm4pde_tpu.parallel import run_ensemble as jax_run_ensemble
+from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
 from navierstokes_project_nm4pde_tpu_torch.models import (
     Cylinder3DProblem,
     NavierStokesSolver,
 )
 from navierstokes_project_nm4pde_tpu_torch.parallel import run_ensemble
 from test_torch_ensemble import STEPS, _members_last, ensemble_config, sweep_nus
+from test_torch_port_copies import jax_config
 
 
 @pytest.fixture(scope="module")
@@ -32,7 +34,7 @@ def runs():
     mesh = cylinder_duct_3d(lc=0.22, nz=3)
     jp = JaxCylinder3D(test_case=2)
     nus = sweep_nus(jp)
-    jh = JaxSolver(mesh, jp, ensemble_config(onehot=True))
+    jh = JaxSolver(jax_duct(lc=0.22, nz=3), jp, jax_config(ensemble_config(onehot=True)))
     hst3, hd3 = jax_run_ensemble(jh, nus, STEPS)
     ts = NavierStokesSolver(
         mesh, Cylinder3DProblem(test_case=2), ensemble_config(onehot=True), device="cpu"

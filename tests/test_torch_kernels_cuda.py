@@ -59,9 +59,21 @@ def test_macro_matvec_matches_plain(cuda, B, U, C):
     _close(y, mb.macro_matvec_plain(FtT, x_b))
 
 
-@pytest.mark.parametrize("B,c_blk,U,E_short", [(1, 20, 128, 0), (11, 20, 128, 7), (9, 5, 64, 4), (4, 3, 32, 0)])
+# Odd block counts and a last block only partly filled with cells; more
+# blocks than the persistent grid (132 CTAs at U = 128, a few per SM at
+# smaller U), so each CTA walks many blocks and reuses both tiles and both
+# stages; U < 128 with c_blk not dividing E, on the bulk-copy staging (even
+# c_blk) and on the global-memory reads (odd c_blk: lidx rows are not
+# 16-byte multiples).
+BUILD_SHAPES = [
+    (1, 20, 128, 0), (11, 20, 128, 7), (9, 5, 64, 4), (4, 3, 32, 0),
+    (1500, 20, 128, 7), (2000, 14, 64, 5), (3000, 3, 32, 2),
+]
+
+
+@pytest.mark.parametrize("B,c_blk,U,E_short", BUILD_SHAPES)
 def test_macro_build_matches_plain(cuda, B, c_blk, U, E_short):
-    """Odd block counts, and a last block only partly filled with cells."""
+    """Kernel B against its plain version (shapes: BUILD_SHAPES)."""
     nloc = 10
     E = B * c_blk - E_short
     lidx = _lidx(B, c_blk, nloc, U, seed=B + c_blk).to(cuda)
@@ -72,6 +84,25 @@ def test_macro_build_matches_plain(cuda, B, c_blk, U, E_short):
     torch.cuda.synchronize()
     assert mb.launch_counts["macro_build"] == before + 1
     _close(out, mb.macro_build_plain(F_e, lidx, B, U))
+
+
+@pytest.mark.parametrize("B,c_blk,U,E_short", [(11, 20, 128, 7), (9, 5, 64, 4), (300, 20, 128, 3)])
+def test_macro_build_v1_matches_plain_and_the_new_design(cuda, B, c_blk, U, E_short):
+    """Kernel B's earlier design, kept to be timed beside the new one: it
+    agrees with the plain version and with the new design, and launching
+    it does not count as a launch of kernel B."""
+    nloc = 10
+    E = B * c_blk - E_short
+    lidx = _lidx(B, c_blk, nloc, U, seed=B).to(cuda)
+    F_e = torch.randn((E, nloc, nloc), generator=torch.Generator(device=cuda).manual_seed(B), device=cuda)
+    before = mb.launch_counts["macro_build"]
+    out = mb.macro_build_v1(F_e, lidx, B, U)
+    torch.cuda.synchronize()
+    assert mb.launch_counts["macro_build"] == before
+    _close(out, mb.macro_build_plain(F_e, lidx, B, U))
+    _close(mb.macro_build(F_e, lidx, B, U), out)
+    with pytest.raises(ValueError):
+        mb.macro_build_v1(F_e.cpu(), lidx.cpu(), B, U)  # no plain fallback
 
 
 def test_macro_build_then_matvec_is_the_element_apply(cuda):
@@ -110,6 +141,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         mb.macro_build(F_e[:3], lidx, 2, 32)  # E does not fill the blocks
     with pytest.raises(ValueError):
         mb.macro_build(F_e, lidx, 2, 16)  # slots past U
+    with pytest.raises(ValueError):
+        mb.macro_build(F_e, lidx, 2, 33)  # odd U: the tile store moves 16-byte multiples
 
 
 def _cells(E, nloc, n_rows, seed):

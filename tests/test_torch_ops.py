@@ -12,6 +12,9 @@ counterpart at float64 on a small RCM-ordered duct.  Tolerances:
     rtol 1e-11;
   * Krylov: identical algorithms in float64 -> equal iteration counts,
     solutions to rtol 1e-10.
+
+Each package builds the mesh, space and geometry with its own modules
+(equal arrays: tests/test_torch_port_copies.py).
 """
 
 import jax.numpy as jnp
@@ -22,6 +25,9 @@ import torch
 from navierstokes_project_nm4pde_tpu.fem.geometry import boundary_tables, cell_geometry
 from navierstokes_project_nm4pde_tpu.fem.space import build_taylor_hood
 from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d
+from navierstokes_project_nm4pde_tpu_torch.fem import geometry as tgeometry
+from navierstokes_project_nm4pde_tpu_torch.fem import space as tspace
+from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d as port_duct
 from navierstokes_project_nm4pde_tpu.ops import banded as jbanded
 from navierstokes_project_nm4pde_tpu.ops import bsr as jbsr
 from navierstokes_project_nm4pde_tpu.ops import coarse as jcoarse
@@ -44,21 +50,26 @@ NU, DT = 1e-3, 2e-4
 
 @pytest.fixture(scope="module")
 def duct():
-    """Small RCM duct with both packages' operators and macro plans."""
+    """Small RCM duct with both packages' operators and macro plans, each
+    on its own package's mesh, space and geometry."""
     mesh = cylinder_duct_3d(lc=0.25, nz=3).reorder_spatial("rcm")
     space = build_taylor_hood(mesh)
     geom = cell_geometry(space)
     mask = space.dirichlet_mask([0, 2, 3])
+    tsp = tspace.build_taylor_hood(port_duct(lc=0.25, nz=3).reorder_spatial("rcm"))
+    tgeom = tgeometry.cell_geometry(tsp)
     jop, jhost = jops.build_operator(
         space, geom, mask, dtype=jnp.float64, coarse_agg=24,
         device_schur_assembly=False, want_host_schur=True,
     )
-    top, thost = tops.build_operator(space, geom, mask, F64, "cpu", coarse_agg=24)
+    top, thost = tops.build_operator(
+        tsp, tgeom, tsp.dirichlet_mask([0, 2, 3]), F64, "cpu", coarse_agg=24
+    )
     jmp = jmb.build_macro_plan(
         np.asarray(space.cells_u), space.n_unodes, U=128, c_blk=20,
         n_vertices=mesh.n_vertices,
     )
-    tmp = tmb.build_macro_plan(space.cells_u, space.n_unodes, U=128, c_blk=20)
+    tmp = tmb.build_macro_plan(tsp.cells_u, tsp.n_unodes, U=128, c_blk=20, device="cpu")
     rng = np.random.default_rng(0)
     fields = {
         k: rng.normal(size=(space.n_unodes, 3)) for k in ("u", "w", "hist", "u0")
@@ -66,7 +77,7 @@ def duct():
     fields["p"] = rng.normal(size=space.n_pnodes)
     return dict(
         mesh=mesh, space=space, geom=geom, mask=mask, jop=jop, jhost=jhost,
-        top=top, thost=thost, jmp=jmp, tmp=tmp, f=fields,
+        tspace=tsp, tgeom=tgeom, top=top, thost=thost, jmp=jmp, tmp=tmp, f=fields,
     )
 
 
@@ -150,7 +161,7 @@ def test_segment_plan_matches_gather_plan():
         jnp.asarray(vals),
     )
     out = tscatter.apply_segment_plan(
-        tscatter.build_segment_plan(flat, n_rows, drop_row=n_rows), _t(vals)
+        tscatter.build_segment_plan(flat, n_rows, drop_row=n_rows, device="cpu"), _t(vals)
     )
     _close(out.numpy(), ref, 1e-13)
     groups = [np.array([3, 7, 9]), np.array([0, 12])]
@@ -158,7 +169,7 @@ def test_segment_plan_matches_gather_plan():
     ref_inj = jscatter.apply_inverse_map(
         jscatter.build_inverse_map(groups, 20), jnp.asarray(gv)
     )
-    inj = tscatter.apply_inverse_map(tscatter.build_inverse_map(groups, 20), _t(gv))
+    inj = tscatter.apply_inverse_map(tscatter.build_inverse_map(groups, 20, device="cpu"), _t(gv))
     np.testing.assert_array_equal(inj.numpy(), np.asarray(ref_inj))
 
 
@@ -212,7 +223,7 @@ def test_macro_plan_matches_reference(duct):
 
 def test_macro_build_plain_matches_reference(duct):
     rng = np.random.default_rng(1)
-    E = duct["space"].cells_u.shape[0]
+    E = duct["tspace"].cells_u.shape[0]
     F_e = rng.normal(size=(E, 10, 10)) * 10.0 ** rng.uniform(-3, 3, size=(E, 1, 1))
     ref = jmb.build_macro_values(duct["jmp"], jnp.asarray(F_e), layout="vu")
     out = tmb.build_macro_values(duct["tmp"], _t(F_e))
@@ -260,6 +271,21 @@ def test_slot_expand_elem_is_the_element_gather(duct):
     np.testing.assert_array_equal(w_e.numpy(), w[duct["top"].cells_u].numpy())
 
 
+def test_macro_build_slot_check_runs_once_per_table():
+    """Kernel B's wrapper reads a slot table back to check its range once,
+    and again only after the table is written or U changes."""
+    lidx = torch.tensor([[[0, 5, 9]]], dtype=torch.int32)
+    tmb._check_slots("t", lidx, 10)
+    assert lidx._slots_checked == (lidx._version, 10)
+    with pytest.raises(ValueError):
+        tmb._check_slots("t", lidx, 9)  # another U: checked again
+    tmb._check_slots("t", lidx, 10)
+    assert not hasattr(lidx.clone(), "_slots_checked")  # a copy is checked anew
+    lidx[0, 0, 0] = 12  # written in place: checked again
+    with pytest.raises(ValueError):
+        tmb._check_slots("t", lidx, 10)
+
+
 def test_cpu_path_launches_no_kernel(duct):
     tmb.reset_launch_counts()
     tmp = duct["tmp"]
@@ -272,16 +298,17 @@ def test_cpu_path_launches_no_kernel(duct):
 # ----------------------------------------------------------------------
 def test_forces_and_probe_match_reference(duct):
     sp, geom, f = duct["space"], duct["geom"], duct["f"]
+    tsp, tgeom = duct["tspace"], duct["tgeom"]
     bt = boundary_tables(sp, geom, degree=4)
     jft = jfn.build_force_tables(sp, bt, tag=3, dtype=jnp.float64)
-    tft = tfn.build_force_tables(sp, bt, 3, F64, "cpu")
+    tft = tfn.build_force_tables(tsp, tgeometry.boundary_tables(tsp, tgeom, degree=4), 3, F64, "cpu")
     ref = jfn.forces_3d(jft, jnp.asarray(f["u"]), jnp.asarray(f["p"]), NU, 1.0)
     out = tfn.forces_3d(tft, _t(f["u"]), _t(f["p"]), NU, 1.0)
     for a, b in zip(out, ref):
         _close(float(a), float(b), 1e-12)
     pts = ((0.45, 0.2, 0.205), (0.55, 0.2, 0.205))
     jpr = jfn.build_point_probe(sp, geom, pts, dtype=jnp.float64)
-    tpr = tfn.build_point_probe(sp, geom, pts, F64, "cpu")
+    tpr = tfn.build_point_probe(tsp, tgeom, pts, F64, "cpu")
     _close(tpr.pressure(_t(f["p"])).numpy(), jpr.pressure(jnp.asarray(f["p"])), 1e-13)
     cd, cl = tfn.drag_lift_coefficients(out[0], out[1], 4.0, 0.1, 0.41)
     cd_j, cl_j = jfn.drag_lift_coefficients(ref[0], ref[1], 4.0, 0.1, 0.41)

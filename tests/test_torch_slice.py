@@ -7,7 +7,9 @@ velocity warm start, s_recycle 1, freeze_conv_diag) at float64 on a small
 DFG duct.  With equal per-step F and S iteration counts the two differ by
 summation order only, so u and p are held to rtol 1e-8 / 1e-7 (the
 reference's own macro-vs-element step tolerances, tests/test_macro.py) and
-the drag/lift coefficients and pressure difference to rtol 1e-8.
+the drag/lift coefficients and pressure difference to rtol 1e-8.  Each
+package builds the mesh and the configuration with its own modules
+(tests/test_torch_port_copies.py holds the copies equal).
 """
 
 import dataclasses
@@ -21,15 +23,19 @@ import pytest
 import torch
 
 import chip_smoke
-from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d
+from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d as jax_duct
 from navierstokes_project_nm4pde_tpu.models import Cylinder3DProblem as JaxCylinder3D
 from navierstokes_project_nm4pde_tpu.models import NavierStokesSolver as JaxSolver
+from navierstokes_project_nm4pde_tpu_torch.device import pick_device
+from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
 from navierstokes_project_nm4pde_tpu_torch.models import (
     Cylinder3DProblem,
     NavierStokesSolver,
     state_from_numpy,
     state_to_numpy,
 )
+from navierstokes_project_nm4pde_tpu_torch.ops import macroblock, onehot, scatter
+from test_torch_port_copies import jax_config
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "navierstokes_project_nm4pde_tpu_torch"
@@ -54,12 +60,13 @@ def _jax_state_numpy(st):
 @pytest.fixture(scope="module")
 def runs():
     """JAX: 2 steps, then 1 more; the port: 3 steps from the start."""
-    mesh = cylinder_duct_3d(lc=0.22, nz=3)
     cfg = bench_config()
-    js = JaxSolver(mesh, JaxCylinder3D(test_case=2), cfg)
+    js = JaxSolver(jax_duct(lc=0.22, nz=3), JaxCylinder3D(test_case=2), jax_config(cfg))
     st2, d2 = js.run(2)
     st3, d3 = js.run(1, state=st2)
-    ts = NavierStokesSolver(mesh, Cylinder3DProblem(test_case=2), cfg, device="cpu")
+    ts = NavierStokesSolver(
+        cylinder_duct_3d(lc=0.22, nz=3), Cylinder3DProblem(test_case=2), cfg, device="cpu"
+    )
     tst, td = ts.run(3)
     return dict(js=js, st2=st2, st3=st3, d2=d2, d3=d3, ts=ts, tst=tst, td=td)
 
@@ -130,11 +137,12 @@ def test_solver_rejects_configs_outside_the_slice():
 def test_plain_cg_single_run_matches_reference_iteration_counts():
     """precond.s_recycle=0: the pressure Poisson runs plain CG on both sides
     (the port's batched `cg` with one column)."""
-    mesh = cylinder_duct_3d(lc=0.22, nz=3)
     cfg = bench_config()
     cfg = dataclasses.replace(cfg, precond=dataclasses.replace(cfg.precond, s_recycle=0))
-    _, jd = JaxSolver(mesh, JaxCylinder3D(test_case=2), cfg).run(3)
-    ts = NavierStokesSolver(mesh, Cylinder3DProblem(test_case=2), cfg, device="cpu")
+    _, jd = JaxSolver(jax_duct(lc=0.22, nz=3), JaxCylinder3D(test_case=2), jax_config(cfg)).run(3)
+    ts = NavierStokesSolver(
+        cylinder_duct_3d(lc=0.22, nz=3), Cylinder3DProblem(test_case=2), cfg, device="cpu"
+    )
     st, td = ts.run(3)
     assert st.spool is None
     np.testing.assert_array_equal(td.iters_f, np.asarray(jd.iters_f))
@@ -153,54 +161,55 @@ def _imported_modules(path):
             yield node.module
 
 
+_FORBIDDEN = ("jax", "jaxlib", "navierstokes_project_nm4pde_tpu")
+
+
 def test_port_imports_no_jax_module():
-    """No module of the port imports jax, and of the reference package it
-    imports only the numpy-only modules (config, mesh, fem, and cli, whose
-    module level imports only argparse, json, os, time and numpy)."""
-    allowed = (
-        "navierstokes_project_nm4pde_tpu.config",
-        "navierstokes_project_nm4pde_tpu.mesh",
-        "navierstokes_project_nm4pde_tpu.fem",
-        "navierstokes_project_nm4pde_tpu.cli",
-    )
+    """No module of the port imports jax, jaxlib, or the JAX package or any
+    module of it (not even one that is numpy only): the port keeps its own
+    copies.  No file of the port names the JAX package as a module."""
     files = sorted(PKG.rglob("*.py"))
     assert files
     for path in files:
-        assert "import jax" not in path.read_text(), path
+        text = path.read_text()
+        assert "import jax" not in text, path
+        assert "navierstokes_project_nm4pde_tpu." not in text, path
+        assert "navierstokes_project_nm4pde_tpu " not in text, path
         for name in _imported_modules(path):
-            assert name.split(".")[0] not in ("jax", "jaxlib"), (path, name)
-            if name.startswith("navierstokes_project_nm4pde_tpu."):
-                assert name.startswith(allowed), (path, name)
+            assert name.split(".")[0] not in _FORBIDDEN, (path, name)
 
 
 def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py reaches the reference package's numpy-only modules
-    only through the port (its `config` and `mesh`), never directly."""
+    """chip_smoke.py imports the port (its `config`, `mesh`, models and
+    kernels) and nothing of jax or of the JAX package."""
     names = list(_imported_modules(REPO / "chip_smoke.py"))
     assert "navierstokes_project_nm4pde_tpu_torch.config" in names
+    assert "navierstokes_project_nm4pde_tpu_torch.mesh" in names
     for name in names:
-        assert name.split(".")[0] not in ("jax", "jaxlib", "navierstokes_project_nm4pde_tpu"), name
+        assert name.split(".")[0] not in _FORBIDDEN, name
 
 
 def test_port_slice_runs_without_jax():
-    """The port's slice in a fresh interpreter in which jax cannot be
-    imported at all."""
+    """The port's 2-step slice in a fresh interpreter in which neither jax
+    nor the JAX package can be imported at all."""
     code = textwrap.dedent(
         """
         import sys
 
+        BLOCKED = ("jax", "jaxlib", "navierstokes_project_nm4pde_tpu")
+
         class _NoJax:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib"):
-                    raise ImportError("jax is blocked in this process")
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"{name} is blocked in this process")
                 return None
 
-        for k in [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib")]:
+        for k in [k for k in sys.modules if k.split(".")[0] in BLOCKED]:
             del sys.modules[k]
         sys.meta_path.insert(0, _NoJax())
         sys.path.insert(0, sys.argv[1])
         import numpy as np
-        from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d
+        from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
         from navierstokes_project_nm4pde_tpu_torch.models import (
             Cylinder3DProblem, NavierStokesSolver,
         )
@@ -212,7 +221,7 @@ def test_port_slice_runs_without_jax():
         )
         st, d = s.run(2)
         assert np.all(np.isfinite(d.c_d)), d
-        assert not any(k.split(".")[0] == "jax" for k in sys.modules)
+        assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
         print("OK", d.iters_f.tolist(), d.iters_s.tolist())
         """
     )
@@ -222,3 +231,26 @@ def test_port_slice_runs_without_jax():
     )
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.startswith("OK"), res.stdout
+
+
+def test_entry_points_default_to_the_card():
+    """With no device the port builds on the card, and without one it
+    raises instead of running on the CPU; "cpu" is what the tests ask for."""
+    if torch.cuda.is_available():
+        pytest.skip("checks a machine without a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pick_device(None)
+    assert pick_device("cpu") == torch.device("cpu")
+    mesh = cylinder_duct_3d(lc=0.25, nz=3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        NavierStokesSolver(mesh, Cylinder3DProblem(), bench_config())
+    cells = np.arange(20).reshape(2, 10)
+    for build in (
+        lambda: macroblock.build_macro_plan(cells, 20, U=32, c_blk=2),
+        lambda: onehot.build_onehot_plans(cells, 20),
+        lambda: scatter.build_segment_plan(cells, 20),
+        lambda: scatter.build_inverse_map([cells[0]], 20),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    assert macroblock.build_macro_plan(cells, 20, U=32, c_blk=2, device="cpu").lidx.device.type == "cpu"
