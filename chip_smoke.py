@@ -1,10 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's two paths once each:
+Drives the port's paths once each:
   * the single run: the projection stepper on the DFG 3D duct at 965,265
     DoF under the benchmark's solver settings (bench.py's default
     RunConfig, float32), kernels A and B;
+  * the stepper's variants: IMEX convection at 965,265 DoF (bench.py with
+    NS_BENCH_CONV=imex: the assembled constant K plus the fine cells'
+    element pass, kernels C and D), explicit convection on the 46,928-DoF
+    duct where it is stable, and the velocity accelerators at 965,265 DoF
+    on the macro path (f_warmstart with the K/C split and the inverse
+    coarse solve; f_recycle with the V(1,1) two-level form; kernel A at
+    up to 15 channels);
   * the ensemble: 64 Reynolds-sweep members of 46,928 DoF each under
     scripts/bench_ensemble.py's settings (float32), through
     `run_ensemble`, kernels C and D;
@@ -15,11 +22,13 @@ it, times it, its plain version and the one PyTorch call that computes
 the same function (call time with CUDA events, device time with
 torch.profiler), gives each its bound (the least time the card could take
 for the same bytes and operations), times kernel B's two designs in
-turns, and holds short runs of each path on the card against the same
-runs on the CPU in float64 (plain versions) on a small duct.  It imports
-nothing of jax or of the JAX package, and fails if either was imported.
+turns, and holds short runs of each path and of each variant on the card
+against the same runs on the CPU in float64 (plain versions) on a small
+duct.  It imports nothing of jax or of the JAX package, and fails if
+either was imported.  On an H100 80GB HBM3 the whole script, the
+kernels' build included, took 92 s.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR]   # DIR: torch.profiler tables and traces
 
 Every phase that fails makes the exit code non-zero; without a CUDA device
 the script exits 1 before printing any result.  The last three lines of
@@ -34,6 +43,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 PKG = "navierstokes_project_nm4pde_tpu_torch"
 # kernel name -> (source, TPU kernel it replaces, relative tolerance against
@@ -56,10 +66,17 @@ AGREE_STEPS = 5
 AGREE_RTOL = 1e-4
 # The main path: steps from rest before the timed ones (iteration counts
 # settle over the first ~15), the timed steps, and launches per kernel
-# timing.
+# timing.  The IMEX and explicit runs take the same counts; the two
+# velocity-accelerator runs at 965k take 10 + 20.
 WARMUP_STEPS = 20
 TIMED_STEPS = 40
+ACCEL_WARMUP = 10
+ACCEL_TIMED = 20
 KERNEL_REPS = 10
+# Kernel A's channel counts: the single run's 3 (Krylov applies) and 6
+# (no path since the rhs pass split M and F), and the accelerators' wide
+# payloads: f_recycle = 2 (9), f_warmstart = 4 (15), f_recycle = 7 (24).
+MATVEC_WIDTHS = (3, 6, 9, 15, 24)
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): device-memory
 # bytes a second, and float32 operations a second outside the tensor cores.
 # A kernel's bound is the larger of its bytes (each input read once, each
@@ -76,6 +93,35 @@ ENSEMBLE_MEMBERS = 64
 ENSEMBLE_WARMUP = 16
 ENSEMBLE_TIMED = 40
 ENSEMBLE_AGREE_MEMBERS = 4
+# The explicit-convection run: the 46,928-DoF duct, where dt = 2e-4 is the
+# explicit mode's measured-stable point (config.py TimeConfig); it
+# diverges at 965k.
+EXPLICIT_MESH = dict(lc=0.08, nz=6)
+# Small-duct variants, card f32 against CPU f64: name -> (config changes,
+# mesh).  The IMEX one is a mixed partition (the reference's
+# tests/test_imex.py:117-140 setting).
+SMALL_DUCT = dict(lc=0.22, nz=3)
+VARIANT_CHECKS = {
+    "explicit": ({"time": dict(convection="explicit")}, SMALL_DUCT),
+    "imex mixed": ({"time": dict(convection="imex", imex_umax=9.0, imex_cfl=0.07, dt=1e-3)}, SMALL_DUCT),
+    "f_warmstart=2": ({"precond": dict(f_warmstart=2)}, SMALL_DUCT),
+    "f_recycle=3": ({"precond": dict(f_recycle=3)}, SMALL_DUCT),
+    "macro_split": ({"numerics": dict(macro_split="on")}, SMALL_DUCT),
+    "element F, rhs, D and G": ({"numerics": dict(
+        f_apply="element", macro_rhs="off", macro_wfuse="off", grad_apply="element",
+        div_apply="element")}, SMALL_DUCT),
+    "coarse_solve=inv": ({"numerics": dict(coarse_solve="inv")}, SMALL_DUCT),
+    "mg2_form=v11": ({"precond": dict(mg2_form="v11")}, SMALL_DUCT),
+}
+# The 965k variant runs: name -> config changes (bench.py's environment
+# knobs NS_BENCH_CONV, NS_BENCH_FWARM, NS_BENCH_MACRO_SPLIT,
+# NS_BENCH_COARSE_SOLVE, NS_BENCH_RECYCLE, NS_BENCH_MG2).
+IMEX_RUN = {"time": dict(convection="imex")}
+ACCEL_RUNS = {
+    "accel a (f_warmstart=2, macro_split, coarse inv)": {
+        "precond": dict(f_warmstart=2), "numerics": dict(macro_split="on", coarse_solve="inv")},
+    "accel b (f_recycle=4, V(1,1))": {"precond": dict(f_recycle=4, mg2_form="v11")},
+}
 
 
 def bench_config(dtype: str = "float32"):
@@ -111,6 +157,15 @@ def bench_config(dtype: str = "float32"):
             coarse_solve="chol", schur_spmv="auto",
         ),
     )
+
+
+def with_changes(cfg, changes: dict):
+    """`cfg` with {part: {field: value}} replaced."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, **{
+        part: dataclasses.replace(getattr(cfg, part), **kw) for part, kw in changes.items()
+    })
 
 
 def ensemble_config(dtype: str = "float32"):
@@ -174,40 +229,74 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _profiled_kernels(fn, calls: int) -> tuple[int, float]:
-    """(device activities recorded, their summed µs) over `calls` calls of
-    fn() under torch.profiler."""
+def _profiled_kernels(fn, calls: int) -> dict:
+    """{kernel name: (launches recorded, their summed µs)} over `calls`
+    calls of fn() under torch.profiler.  A short spin kernel
+    (`torch.cuda._sleep`, ATen's `spin_kernel`) opens and closes each
+    profile and is left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         for _ in range(calls):
             fn()
+        torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    dev = [
-        e for e in prof.key_averages()
+    return {
+        e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-    ]
-    return sum(e.count for e in dev), sum(e.self_device_time_total for e in dev)
+        and "spin" not in e.key and "sleep" not in e.key.lower()
+    }
 
 
 def device_ms(fn, reps: int) -> float:
-    """Device time: the summed duration of every device kernel that `reps`
-    calls of fn() launch (all of them, for a plain version that launches
-    several), under torch.profiler, over `reps`.  Host gaps between the
-    launches are not in it.  A profile of one call gives the kernels a call
-    launches; a run whose count is not `reps` times that lost activity
-    records (seen once on the card: 2 of 10) and is taken again."""
+    """Device time of one call of fn(): from torch.profiler, the summed
+    duration of the device kernels it launches.  On this machine the
+    profiler loses some records, more so late in a long process, so a call
+    that launches one kernel (every hand-written kernel) takes the mean
+    duration of that kernel's records over `reps` calls (when there are
+    no more records than calls and the mean agrees with a one-call
+    profile's record within a quarter), and a call that
+    launches several (plain versions, library calls) the sum over `reps`
+    calls when every kernel's record count is a whole multiple of one
+    call's profile; after three profiles that are not, the time comes from
+    CUDA events around `reps` calls queued behind `reps` others, and the
+    log says so."""
+    import torch
+
     fn()
     for _ in range(3):
-        per_call = _profiled_kernels(fn, 1)[0]
-        n, total_us = _profiled_kernels(fn, reps)
-        if per_call > 0 and n == per_call * reps and total_us > 0:
-            return total_us / 1e3 / reps
-        log(f"  device_ms: {n} device activities for {reps} calls of {per_call}; profiling again")
-    fail(f"torch.profiler recorded {n} device activities for {reps} calls, not {per_call} each")
+        one = _profiled_kernels(fn, 1)
+        many = _profiled_kernels(fn, reps)
+        if len(many) == 1 and len(one) <= 1:
+            # lost records leave the mean as it is; more records than
+            # launches, or a mean far from one call's, are not trusted
+            n, total_us = next(iter(many.values()))
+            n1, one_us = next(iter(one.values()), (0, 0.0))
+            agrees = n1 == 0 or (n1 == 1 and abs(total_us / max(n, 1) - one_us) <= 0.25 * one_us)
+            if 0 < n <= reps and total_us > 0 and agrees:
+                return total_us / n / 1e3
+        elif one and many.keys() == one.keys() and all(
+            many[k][0] == one[k][0] * reps for k in one
+        ):
+            return sum(t for _, t in many.values()) / reps / 1e3
+        log(f"  device_ms: {sum(n for n, _ in many.values())} device activities for {reps} calls "
+            f"of {sum(n for n, _ in one.values())}; profiling again")
+    for _ in range(reps):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    log(f"  device_ms: profiler records lost; {ms:.4f} ms from CUDA events behind a full queue")
+    return ms
 
 
 def kernel_times(fn, plain, lib, reps: int) -> dict:
@@ -306,7 +395,7 @@ def check_kernels(solver, reps: int) -> dict:
     del F_e, F_flat, flat, lib_out, li
 
     errs, times, bounds = [], {}, {}
-    for C in (3, 6):
+    for C in MATVEC_WIDTHS:
         x_b = torch.randn((mp.B, mp.U, C), generator=gen, device=dev)
         log(f"kernel A macro_matvec: FtT {tuple(FtT.shape)} x_b {tuple(x_b.shape)}")
         errs.append(compare(
@@ -319,7 +408,20 @@ def check_kernels(solver, reps: int) -> dict:
         b = bounds[C] = bound((FtT.numel() + 2 * x_b.numel()) * 4, 2.0 * FtT.numel() * C)
         gbs = FtT.numel() * 4 / t["device_ms"] / 1e6
         log(f"  macro_matvec C={C}: {fmt_times(t, b)} ({gbs:.1f} GB/s of values on device)")
-    rec["macro_matvec"] = dict(err=max(errs), **times[3], **bounds[3])
+        del x_b
+    try:
+        mb.macro_matvec(FtT, torch.zeros((mp.B, mp.U, MATVEC_WIDTHS[-1] + 1), device=dev))
+    except ValueError as e:
+        log(f"  macro_matvec C={MATVEC_WIDTHS[-1] + 1}: refused ({e})")
+    else:
+        fail(f"macro_matvec took {MATVEC_WIDTHS[-1] + 1} channels, past its width")
+    rec["macro_matvec"] = dict(
+        err=max(errs), **times[3], **bounds[3],
+        widths={C: dict(device_ms=times[C]["device_ms"], bound_ms=bounds[C]["bound_ms"],
+                        share=bounds[C]["bound_ms"] / times[C]["device_ms"],
+                        library_ms=times[C]["library_ms"], lib_device_ms=times[C]["lib_device_ms"])
+                for C in MATVEC_WIDTHS},
+    )
     return rec
 
 
@@ -428,9 +530,10 @@ def run_probes(reps: int) -> dict:
     }
 
 
-def check_small_duct(device) -> None:
+def check_small_duct(device, name: str = "bench", changes=None, mesh_kw=SMALL_DUCT) -> None:
     """The port on the card (f32, kernels) against the port on the CPU
-    (f64, plain versions) on a small duct."""
+    (f64, plain versions) on a small duct, under the bench configuration
+    with `changes`."""
     import numpy as np
 
     from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
@@ -439,14 +542,15 @@ def check_small_duct(device) -> None:
         NavierStokesSolver,
     )
 
-    mesh = cylinder_duct_3d(lc=0.22, nz=3)
+    mesh = cylinder_duct_3d(**mesh_kw)
     (sg, dg), (sc, dc) = (
         NavierStokesSolver(
-            mesh, Cylinder3DProblem(test_case=2), bench_config(dtype), device=dev
+            mesh, Cylinder3DProblem(test_case=2), with_changes(bench_config(dtype), changes or {}),
+            device=dev,
         ).run(AGREE_STEPS)
         for dev, dtype in ((device, "float32"), ("cpu", "float64"))
     )
-    log(f"small duct ({sc.u.shape[0]} velocity nodes), {AGREE_STEPS} steps: "
+    log(f"small duct, {name} ({sc.u.shape[0]} velocity nodes), {AGREE_STEPS} steps: "
         f"F iters card {dg.iters_f.tolist()} cpu {dc.iters_f.tolist()}, "
         f"S iters card {dg.iters_s.tolist()} cpu {dc.iters_s.tolist()}")
     ref = {k: getattr(sc, k).numpy() for k in ("u", "p")}
@@ -461,7 +565,7 @@ def check_small_duct(device) -> None:
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     for k, v in errs.items():
         if not v <= AGREE_RTOL:
-            fail(f"small duct: {k} err {v:.3e} > {AGREE_RTOL:g} of max |ref|")
+            fail(f"small duct, {name}: {k} err {v:.3e} > {AGREE_RTOL:g} of max |ref|")
 
 
 def check_small_ensemble(device) -> None:
@@ -563,9 +667,10 @@ def profile_steps(advance, state, n: int, out_dir: str, tag: str):
     return busy / n
 
 
-def check_run(path: str, solver, state, d, launches: dict) -> None:
-    """Fail on a non-finite result, a timed step at maxiter (any member),
-    or a kernel of the path that was never launched."""
+def check_run(path: str, solver, state, d, launches: dict, any_maxiter: bool = True) -> None:
+    """Fail on a non-finite result, a timed step at maxiter (any member;
+    with any_maxiter=False, only every step), or a kernel of the path that
+    was never launched."""
     import numpy as np
 
     maxit = solver.config.solver.maxiter
@@ -574,17 +679,139 @@ def check_run(path: str, solver, state, d, launches: dict) -> None:
             fail(f"{path}: non-finite {k} in the timed steps")
     if not (np.all(np.isfinite(state.u.cpu().numpy())) and np.all(np.isfinite(state.p.cpu().numpy()))):
         fail(f"{path}: non-finite u or p after the timed steps")
-    if np.any(d.iters_f >= maxit) or np.any(d.iters_s >= maxit):
-        fail(f"{path}: a timed step reached maxiter={maxit}")
+    at_max = (d.iters_f >= maxit) | (d.iters_s >= maxit)
+    if np.any(at_max) if any_maxiter else np.all(at_max):
+        fail(f"{path}: {'a' if any_maxiter else 'every'} timed step reached maxiter={maxit}")
     for name, count in launches.items():
         if count <= 0:
             fail(f"{path}: the path never launched kernel {name}")
 
 
+def drive_single(path: str, solver, warmup: int, timed: int, kernels, any_maxiter: bool = True):
+    """A single-run path through `solver.run`: `warmup` steps from rest,
+    then `timed` steps, each kernel's count set to 0 just before them and
+    read just after.  Logs steps/s, the per-step median and quartiles, F
+    and S a step, peak device memory and the launches (kernel A's by
+    channel count), and fails per `check_run` on the `kernels` the path
+    must launch.  Returns (state, diagnostics, ms per step, launches)."""
+    import numpy as np
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
+    from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
+
+    dev = solver.device
+    t0 = time.perf_counter()
+    state, dw = solver.run(warmup)
+    torch.cuda.synchronize()
+    log(f"{path}: warm-up: {warmup} steps in {time.perf_counter() - t0:.2f} s; "
+        f"F iters {dw.iters_f.tolist()}, S iters {dw.iters_s.tolist()}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    mb.reset_launch_counts()
+    oh.reset_launch_counts()
+    state, d, step_ms = timed_steps(lambda st, k: solver.run(k, state=st), state, timed)
+    launches = {**mb.launch_counts, **oh.launch_counts}
+    channels = dict(sorted(mb.matvec_channels.items()))
+    q = np.percentile(step_ms, [25, 50, 75])
+    log(f"{path}: timed: {timed} steps in {sum(step_ms) / 1e3:.4f} s: "
+        f"{1e3 * timed / sum(step_ms):.4f} steps/s, {sum(step_ms) / timed:.4f} ms/step mean; "
+        f"per step median {q[1]:.4f} ms, quartiles {q[0]:.4f} / {q[2]:.4f} ms, "
+        f"max {max(step_ms):.4f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    log(f"  ms per step {[round(t, 3) for t in step_ms]}")
+    log(f"  F iters per step {d.iters_f.tolist()} (mean {d.iters_f.mean():.2f})")
+    log(f"  S iters per step {d.iters_s.tolist()} (mean {d.iters_s.mean():.2f})")
+    log(f"  last step: c_d {d.c_d[-1]:.8g}, c_l {d.c_l[-1]:.8g}, delta_p {d.delta_p[-1]:.8g}, t {state.t:.6g}")
+    log(f"  kernel launches in the timed run: {launches}; per step "
+        + ", ".join(f"{k} {v / timed:.2f}" for k, v in launches.items())
+        + f"; kernel A launches by channel count {channels}")
+    check_run(path, solver, state, d, {k: launches[k] for k in kernels}, any_maxiter)
+    return state, d, step_ms, launches
+
+
+def free_card() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def coarse_solve_times(solver, reps: int) -> None:
+    """The coarse solve of one Schur CG iteration at the solver's coarse
+    size: the Cholesky factor's two triangular solves against one gemv
+    with the inverse (coarse_solve "chol" / "inv"), call and device ms."""
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch.ops.coarse import cho_solve_c, inv_solve_c
+
+    L = solver.proj_schur.cho_L
+    nc = L.shape[0]
+    Sc_inv = torch.cholesky_inverse(L)
+    rc = torch.randn(nc, generator=torch.Generator(device=L.device).manual_seed(3), device=L.device)
+    chol, inv = cho_solve_c(L), inv_solve_c(Sc_inv)
+    err = float((inv(rc) - chol(rc)).abs().max() / chol(rc).abs().max())
+    log(f"coarse solve at nc={nc} (f32): cholesky_solve call {time_ms(lambda: chol(rc), reps):.4f} ms, "
+        f"device {device_ms(lambda: chol(rc), reps):.4f} ms; inverse gemv call "
+        f"{time_ms(lambda: inv(rc), reps):.4f} ms, device "
+        f"{device_ms(lambda: inv(rc), reps):.4f} ms; "
+        f"max rel difference {err:.3e}")
+
+
+def imex_operator_times(solver, reps: int) -> None:
+    """The IMEX path's two per-iteration operators at [n, 3]: the assembled
+    K (gather, product, segmented sum) with its bound and the one PyTorch
+    call of the same product (a CSR `torch.sparse.mm`), and the fine
+    subset's element pass (kernels D and C)."""
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch.ops import operators as ops
+    from navierstokes_project_nm4pde_tpu_torch.ops.bsr import apply_csr_scalar
+
+    K, op, dev = solver.kcsr, solver.op, solver.device
+    n, nnz = K.n_rows, K.cols.numel()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((n, 3), generator=gen, device=dev)
+    perm = K.plan.perm
+    with warnings.catch_warnings():  # torch's notes that sparse CSR is in beta
+        warnings.simplefilter("ignore")
+        Ksp = torch.sparse_csr_tensor(K.plan.offsets, K.cols[perm], K.vals[perm, 0, 0], size=(n, n))
+    y, y_lib = apply_csr_scalar(K, x), torch.sparse.mm(Ksp, x)
+    err = float((y - y_lib).abs().max() / y_lib.abs().max())
+    t = dict(ms=time_ms(lambda: apply_csr_scalar(K, x), reps),
+             library_ms=time_ms(lambda: torch.sparse.mm(Ksp, x), reps),
+             device_ms=device_ms(lambda: apply_csr_scalar(K, x), reps),
+             lib_device_ms=device_ms(lambda: torch.sparse.mm(Ksp, x), reps))
+    # values, column ids and the sum order read once, row offsets, x, y
+    b = bound(nnz * (4 + 8 + 8) + (n + 1) * 8 * 2 + 2 * x.numel() * 4, 2.0 * nnz * 3)
+    log(f"K CSR apply at [{n}, 3], {nnz} entries: call {t['ms']:.4f} ms, device {t['device_ms']:.4f} ms; "
+        f"torch.sparse.mm call {t['library_ms']:.4f} ms, device {t['lib_device_ms']:.4f} ms "
+        f"(max rel difference {err:.3e}); bound {b['bound_ms']:.4f} ms by {b['bound_by']}: "
+        f"{b['bound_ms'] / t['device_ms']:.1%} of bound on device")
+    if solver.imex is not None:
+        from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
+
+        im = solver.imex
+        w_e = ops.gather_u(op, torch.randn((n, 3), generator=gen, device=dev))
+        C_ef = ops.convection_fine_fold(op, im, w_e[im.f_idx])
+        u_ef = oh.onehot_gather(im.plans, x).view(C_ef.shape[0], -1, 3)
+        y_ef = ops.element_apply(C_ef, u_ef).reshape(-1, 3)
+        parts = {
+            "all": lambda: ops.apply_convection_fine(im, C_ef, x),
+            "gather (kernel D)": lambda: oh.onehot_gather(im.plans, x),
+            "element product (element_apply)": lambda: ops.element_apply(C_ef, u_ef),
+            "the same as one batched GEMM (einsum)": lambda: torch.einsum("eij,ejc->eic", C_ef, u_ef),
+            "reduce (kernel C)": lambda: oh.onehot_reduce(im.plans, y_ef),
+        }
+        log(f"IMEX fine-subset pass at [{n}, 3], {im.f_idx.numel()} cells, call / device ms: " + "; ".join(
+            f"{k} {time_ms(f, reps):.4f} / {device_ms(f, reps):.4f}" for k, f in parts.items()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also trace 3 single-run and 2 ensemble steps into DIR")
+                    help="also trace 3 single-run, 3 IMEX and 2 ensemble steps into DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -601,7 +828,6 @@ def main(argv=None) -> int:
         NavierStokesSolver,
     )
     from navierstokes_project_nm4pde_tpu_torch.ops import cuda_lib
-    from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
     from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
     from navierstokes_project_nm4pde_tpu_torch.parallel import run_ensemble
 
@@ -636,40 +862,7 @@ def main(argv=None) -> int:
     # ---- 3. kernels against their plain versions --------------------------
     rec = check_kernels(solver, KERNEL_REPS)
 
-    # ---- 4. a short run against the CPU on a small duct -------------------
-    check_small_duct(device)
-
-    # ---- 5. the main path -------------------------------------------------
-    t0 = time.perf_counter()
-    state, dw = solver.run(WARMUP_STEPS)
-    torch.cuda.synchronize()
-    log(f"warm-up: {WARMUP_STEPS} steps in {time.perf_counter() - t0:.2f} s; "
-        f"F iters {dw.iters_f.tolist()}, S iters {dw.iters_s.tolist()}")
-    torch.cuda.reset_peak_memory_stats(device)
-    mb.reset_launch_counts()
-    state, d, step_ms = timed_steps(
-        lambda st, k: solver.run(k, state=st), state, TIMED_STEPS
-    )
-    launches = dict(mb.launch_counts)
-    n, q = TIMED_STEPS, np.percentile(step_ms, [25, 50, 75])
-    log(f"timed: {n} steps in {sum(step_ms) / 1e3:.4f} s: {1e3 * n / sum(step_ms):.4f} steps/s, "
-        f"{sum(step_ms) / n:.4f} ms/step mean; per step median {q[1]:.4f} ms, "
-        f"quartiles {q[0]:.4f} / {q[2]:.4f} ms, max {max(step_ms):.4f} ms; "
-        f"peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB")
-    log(f"  ms per step {[round(t, 3) for t in step_ms]}")
-    log(f"  F iters per step {d.iters_f.tolist()} (mean {d.iters_f.mean():.2f})")
-    log(f"  S iters per step {d.iters_s.tolist()} (mean {d.iters_s.mean():.2f})")
-    log(f"  last step: c_d {d.c_d[-1]:.8g}, c_l {d.c_l[-1]:.8g}, delta_p {d.delta_p[-1]:.8g}, t {state.t:.6g}")
-    log(f"  kernel launches in the timed run: {launches}")
-    check_run("single run", solver, state, d, launches)
-
-    if args.profile:
-        busy = profile_steps(lambda st, k: solver.run(k, state=st), state, 3, args.profile, "single")
-        log(f"device idle share, profiled device ms/step against the timed mean: "
-            f"{1 - busy * n / sum(step_ms):.4f}")
-    del solver, state
-
-    # ---- 6. the ensemble: setup, kernels C and D, a small-duct check ------
+    # ---- 4. the ensemble's setup and kernels C and D -----------------------
     t0 = time.perf_counter()
     emesh = cylinder_duct_3d(**ENSEMBLE_MESH)
     eproblem = Cylinder3DProblem(test_case=2)
@@ -684,9 +877,94 @@ def main(argv=None) -> int:
         f"B={B}: {B * esolver.space.n_dofs} DoF in all; {plans.n_slots} element slots, "
         f"max valence {int(plans.reduce.lengths.max())}; host setup {e_setup:.2f} s")
     rec.update(check_slot_kernels(esolver, KERNEL_REPS))
-    check_small_ensemble(device)
 
-    # ---- 7. the ensemble path ----------------------------------------------
+    # ---- 5. the probes (kernel timings first: the profiler loses records
+    # late in a long process) -----------------------------------------------
+    prec = run_probes(KERNEL_REPS)
+    rec.update(prec)
+    probe_launches = {k: v["launches"] for k, v in prec.items()}
+    for name, count in probe_launches.items():
+        if count <= 0:
+            fail(f"the probe run never launched kernel {name}")
+
+    # ---- 6. short runs against the CPU on a small duct: both paths, variants
+    check_small_ensemble(device)
+    check_small_duct(device)
+    for name, (changes, mesh_kw) in VARIANT_CHECKS.items():
+        check_small_duct(device, name, changes, mesh_kw)
+
+    # ---- 7. the main path -------------------------------------------------
+    state, d, step_ms, launches = drive_single(
+        "single run", solver, WARMUP_STEPS, TIMED_STEPS, ("macro_build", "macro_matvec")
+    )
+    launches = {k: launches[k] for k in ("macro_build", "macro_matvec")}
+    n = TIMED_STEPS
+    coarse_solve_times(solver, KERNEL_REPS)
+
+    if args.profile:
+        busy = profile_steps(lambda st, k: solver.run(k, state=st), state, 3, args.profile, "single")
+        log(f"device idle share, profiled device ms/step against the timed mean: "
+            f"{1 - busy * n / sum(step_ms):.4f}")
+    del solver, state
+    free_card()
+
+    # ---- 8. IMEX convection at 965k: K plus the fine cells (kernels C, D) --
+    t0 = time.perf_counter()
+    isolver = NavierStokesSolver(
+        mesh, Cylinder3DProblem(test_case=2), with_changes(bench_config("float32"), IMEX_RUN),
+        device=device,
+    )
+    isolver.op.onehot  # built at first use: part of this path's setup
+    torch.cuda.synchronize()
+    n_fine = 0 if isolver.imex is None else isolver.imex.f_idx.numel()
+    log(f"imex setup: implicit-cell fraction E_f {isolver.imex_frac:.6f} ({n_fine} of "
+        f"{mesh.n_cells} cells), K {isolver.kcsr.cols.numel()} entries; host setup "
+        f"{time.perf_counter() - t0:.2f} s (mesh reused)")
+    imex_operator_times(isolver, KERNEL_REPS)
+    istate, _, i_ms, _ = drive_single(
+        "imex", isolver, WARMUP_STEPS, TIMED_STEPS, ("slot_gather", "slot_reduce"), any_maxiter=False
+    )
+    if args.profile:
+        busy = profile_steps(lambda st, k: isolver.run(k, state=st), istate, 3, args.profile, "imex")
+        log(f"imex device idle share, profiled device ms/step against the timed mean: "
+            f"{1 - busy * TIMED_STEPS / sum(i_ms):.4f}")
+    del isolver, istate
+    free_card()
+
+    # ---- 9. the velocity accelerators at 965k on the macro path -----------
+    for name, changes in ACCEL_RUNS.items():
+        t0 = time.perf_counter()
+        asolver = NavierStokesSolver(
+            mesh, Cylinder3DProblem(test_case=2), with_changes(bench_config("float32"), changes),
+            device=device,
+        )
+        asolver.macro_mass  # built at first use (with the plan): this path's setup
+        if asolver.macro_split:
+            asolver.macro_stiff
+        torch.cuda.synchronize()
+        log(f"{name}: host setup {time.perf_counter() - t0:.2f} s (mesh reused)")
+        drive_single(name, asolver, ACCEL_WARMUP, ACCEL_TIMED, ("macro_build", "macro_matvec"),
+                     any_maxiter=False)
+        del asolver
+        free_card()
+    del mesh
+
+    # ---- 10. explicit convection on the 46,928-DoF duct ---------------------
+    t0 = time.perf_counter()
+    xsolver = NavierStokesSolver(
+        cylinder_duct_3d(**EXPLICIT_MESH), Cylinder3DProblem(test_case=2),
+        with_changes(bench_config("float32"), {"time": dict(convection="explicit")}), device=device,
+    )
+    xsolver.op.onehot
+    torch.cuda.synchronize()
+    log(f"explicit setup: {xsolver.space.n_dofs} DoF, dt {xsolver.config.time.dt:g}; host setup "
+        f"{time.perf_counter() - t0:.2f} s")
+    drive_single("explicit", xsolver, WARMUP_STEPS, TIMED_STEPS, ("slot_gather", "slot_reduce"),
+                 any_maxiter=False)
+    del xsolver
+    free_card()
+
+    # ---- 11. the ensemble path ---------------------------------------------
     t0 = time.perf_counter()
     estate, ew = run_ensemble(esolver, nus, ENSEMBLE_WARMUP)
     torch.cuda.synchronize()
@@ -699,6 +977,7 @@ def main(argv=None) -> int:
         lambda st, k: run_ensemble(esolver, nus, k, state=st), estate, ENSEMBLE_TIMED
     )
     launches.update(oh.launch_counts)
+    launches.update(probe_launches)
     ne, q = ENSEMBLE_TIMED, np.percentile(e_ms, [25, 50, 75])
     log(f"ensemble timed: {ne} steps of {B} members in {sum(e_ms) / 1e3:.4f} s: "
         f"{1e3 * B * ne / sum(e_ms):.4f} member-steps/s, {sum(e_ms) / ne:.4f} ms/step mean; "
@@ -725,13 +1004,6 @@ def main(argv=None) -> int:
             f"{1 - busy * ne / sum(e_ms):.4f}")
     del esolver, estate
 
-    # ---- 8. the probes ------------------------------------------------------
-    prec = run_probes(KERNEL_REPS)
-    rec.update(prec)
-    launches.update({k: v["launches"] for k, v in prec.items()})
-    for name in prec:
-        if launches[name] <= 0:
-            fail(f"the probe run never launched kernel {name}")
     imported = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN_MODULES)
     if imported:
         fail(f"imported modules of jax or of the JAX package: {imported[:10]}")
@@ -747,7 +1019,7 @@ def main(argv=None) -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             device_ms=r["device_ms"], plain_device_ms=r["plain_device_ms"],
             lib_device_ms=r["lib_device_ms"], share=r["bound_ms"] / r["device_ms"],
-            **{k: r[k] for k in ("v1_ms", "v1_device_ms") if k in r},
+            **{k: r[k] for k in ("v1_ms", "v1_device_ms", "widths") if k in r},
         ))
         log(f"{name}: device {r['device_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']} ({r['bound_ms'] / r['device_ms']:.1%}), library {r['lib_device_ms']:.4f} ms")

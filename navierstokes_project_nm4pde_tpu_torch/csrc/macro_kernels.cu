@@ -13,10 +13,24 @@
 //   bytes: the value stream (B*U*U*4 bytes, 712 MB at the 965k-DoF bench
 //   mesh) is read once per apply and each value is used C times.  Design:
 //   one CTA per block, one thread per output row u, f32 accumulators in
-//   registers, the block's [U, C] input panel staged in shared memory and
-//   broadcast to all threads; thread u reads column u of row v, so a warp
-//   reads 128 contiguous bytes per step (coalesced).  All C channels ride
-//   one pass over the values.
+//   registers, the block's [U, C] input panel staged in shared memory (rows
+//   padded to 16-byte vectors) and broadcast to all threads, four channels
+//   a load.  The block's values stream through a ring of 4 shared-memory
+//   stages of 16 rows (8 KB at U = 128), filled by 16-byte cp.async three
+//   stages ahead, so the bytes in flight do not depend on the registers
+//   the accumulators take: read straight from global memory, each thread
+//   kept 8 loads in flight, and the wider C's registers cut the threads
+//   an SM holds (C = 15: 0.3953 ms, C = 24: 0.5474, against bounds of
+//   0.2623 and 0.2922; 16-byte panel loads alone did not help: 0.4078 /
+//   0.5642; H100 80GB HBM3, 700 W).  Thread u reads column u of a staged
+//   row, so a warp reads 128 contiguous bytes (no bank conflict).  The
+//   block's output is staged in shared memory and stored coalesced.  All C
+//   channels ride
+//   one pass over the values, for any C up to kMaxC = 24: the widest
+//   payloads are the recycled-block GCR's wide round, 3 (k + 1) channels
+//   at f_recycle = k <= 7, and the warm-start rhs pass, 3 + 3k channels at
+//   f_warmstart = k <= 4.  A wider payload split into launches would read
+//   the values once per launch.
 //
 // Kernel B, macro_build: FtT[b, lidx[c, j], lidx[c, i]] += F_e[c, i, j]
 //   Replaces the Pallas prototypes _kern_cells / _kern_bd / _kern_cells16 /
@@ -60,8 +74,12 @@
 
 namespace {
 
-constexpr int kMaxC = 8;
-constexpr int kMatvecThreads = 128;
+constexpr int kMaxC = 24;
+// Kernel A: U <= kMatvecMaxU slots a block, FtT streamed through a ring
+// of kMatvecStages shared-memory stages of kMatvecRows rows.
+constexpr int kMatvecMaxU = 256;
+constexpr int kMatvecRows = 16;
+constexpr int kMatvecStages = 4;
 constexpr int kBuildV1Threads = 256;
 // Kernel B: one CTA of 1024 threads an SM; each thread adds kBuildAdds
 // values of a (c, i) row.  Hopper has no shared-memory f32 add: atomicAdd
@@ -72,33 +90,6 @@ constexpr int kBuildV1Threads = 256;
 // by prof/macro_build_parts.py on an H100 80GB HBM3 at 700 W).
 constexpr int kBuildThreads = 1024;
 constexpr int kBuildAdds = 2;
-
-template <int C>
-__global__ void __launch_bounds__(kMatvecThreads)
-macro_matvec_kernel(const float* __restrict__ FtT, const float* __restrict__ xb,
-                    float* __restrict__ yb, int U) {
-  extern __shared__ float panel[];  // [U, C] input slots of this block
-  const int b = blockIdx.x;
-  const float* xblk = xb + static_cast<size_t>(b) * U * C;
-  for (int i = threadIdx.x; i < U * C; i += blockDim.x) panel[i] = xblk[i];
-  __syncthreads();
-
-  const float* F = FtT + static_cast<size_t>(b) * U * U;
-  for (int u = threadIdx.x; u < U; u += blockDim.x) {
-    float acc[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = 0.f;
-#pragma unroll 8
-    for (int v = 0; v < U; ++v) {
-      const float f = __ldg(F + static_cast<size_t>(v) * U + u);
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] = fmaf(f, panel[v * C + c], acc[c]);
-    }
-    float* y = yb + (static_cast<size_t>(b) * U + u) * C;
-#pragma unroll
-    for (int c = 0; c < C; ++c) y[c] = acc[c];
-  }
-}
 
 __global__ void __launch_bounds__(kBuildV1Threads)
 macro_build_v1_kernel(const float* __restrict__ Fe, const int32_t* __restrict__ lidx,
@@ -276,11 +267,131 @@ macro_build_kernel(const float* __restrict__ Fe, const int32_t* __restrict__ lid
   if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// ---- kernel A ------------------------------------------------------------
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared memory of kernel A: the [U, C4] panel of 16-byte vectors, then
+// the ring of FtT stages, which at the end holds the [U, C | 1] output.
+size_t matvec_smem_bytes(int C, int U) {
+  const size_t ring = std::max(kMatvecStages * kMatvecRows, C | 1) * static_cast<size_t>(U);
+  return static_cast<size_t>(U) * ((C + 3) / 4) * sizeof(float4) + ring * sizeof(float);
+}
+
+// VEC: 16-byte copies of FtT (U % 4 == 0 and an aligned base), else 4-byte.
+template <int C, bool VEC>
+__global__ void __launch_bounds__(kMatvecMaxU)
+macro_matvec_kernel(const float* __restrict__ FtT, const float* __restrict__ xb,
+                    float* __restrict__ yb, int U) {
+  constexpr int C4 = (C + 3) / 4;
+  constexpr int CS = C | 1;  // odd row stride of the staged output: no bank conflicts
+  extern __shared__ float4 mv_smem[];
+  float4* panel = mv_smem;  // [U, C4]: rows padded with zero channels
+  float* ring = reinterpret_cast<float*>(mv_smem + U * C4);
+  const int tid = threadIdx.x, nthr = blockDim.x, b = blockIdx.x;
+  const float* F = FtT + static_cast<size_t>(b) * U * U;
+  const int stage = kMatvecRows * U;
+  const int nchunk = (U + kMatvecRows - 1) / kMatvecRows;
+
+  // every thread copies its share of rows [t * kMatvecRows, ...) into the
+  // stage t % kMatvecStages; one commit group a chunk (empty past the end)
+  auto load_chunk = [&](int t) {
+    if (t < nchunk) {
+      const int v0 = t * kMatvecRows;
+      const int n = min(kMatvecRows, U - v0) * U;
+      float* dst = ring + (t % kMatvecStages) * stage;
+      const float* src = F + static_cast<size_t>(v0) * U;
+      if (VEC) {
+        for (int i = 4 * tid; i < n; i += 4 * nthr) cp_async16(dst + i, src + i);
+      } else {
+        for (int i = tid; i < n; i += nthr) cp_async4(dst + i, src + i);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int t = 0; t < kMatvecStages - 1; ++t) load_chunk(t);
+
+  float* pf = reinterpret_cast<float*>(panel);
+  const float* xblk = xb + static_cast<size_t>(b) * U * C;
+  for (int i = tid; i < U * 4 * C4; i += nthr) {
+    const int v = i / (4 * C4), c = i - v * (4 * C4);
+    pf[i] = c < C ? xblk[v * C + c] : 0.f;
+  }
+
+  const int u = tid;
+  float acc[4 * C4];
+#pragma unroll
+  for (int c = 0; c < 4 * C4; ++c) acc[c] = 0.f;
+  for (int t = 0; t < nchunk; ++t) {
+    cp_async_wait<kMatvecStages - 2>();  // this thread's copies of chunk t have landed
+    __syncthreads();                     // everyone's, and chunk t - 1 is consumed
+    load_chunk(t + kMatvecStages - 1);   // into chunk t - 1's stage
+    if (u < U) {
+      const float* Fs = ring + (t % kMatvecStages) * stage;
+      const int v0 = t * kMatvecRows, nv = min(kMatvecRows, U - v0);
+#pragma unroll 4
+      for (int k = 0; k < nv; ++k) {
+        const float f = Fs[k * U + u];
+        const float4* xr = panel + (v0 + k) * C4;
+#pragma unroll
+        for (int q = 0; q < C4; ++q) {
+          const float4 x = xr[q];
+          acc[4 * q] = fmaf(f, x.x, acc[4 * q]);
+          acc[4 * q + 1] = fmaf(f, x.y, acc[4 * q + 1]);
+          acc[4 * q + 2] = fmaf(f, x.z, acc[4 * q + 2]);
+          acc[4 * q + 3] = fmaf(f, x.w, acc[4 * q + 3]);
+        }
+      }
+    }
+  }
+  // The block's [U, C] output is contiguous: staged in the ring, it goes
+  // out in coalesced stores (each thread's own row, C floats at a stride
+  // of C, touched a sector a store per thread: at C = 24 the stores, not
+  // the bytes, bounded the kernel).
+  __syncthreads();  // the ring's last stage is consumed
+  if (u < U) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) ring[u * CS + c] = acc[c];
+  }
+  __syncthreads();
+  float* yblk = yb + static_cast<size_t>(b) * U * C;
+  for (int i = tid; i < U * C; i += nthr) {
+    const int r = i / C;
+    yblk[i] = ring[r * CS + (i - r * C)];
+  }
+}
+
 template <int C>
-void launch_matvec(const float* FtT, const float* xb, float* yb, int B, int U,
-                   cudaStream_t s) {
-  const size_t smem = static_cast<size_t>(U) * C * sizeof(float);
-  macro_matvec_kernel<C><<<B, kMatvecThreads, smem, s>>>(FtT, xb, yb, U);
+int launch_matvec(const float* FtT, const float* xb, float* yb, int B, int U,
+                  cudaStream_t s) {
+  const size_t smem = matvec_smem_bytes(C, U);
+  const int threads = (U + 31) / 32 * 32;
+  const bool vec = U % 4 == 0 && reinterpret_cast<uintptr_t>(FtT) % 16 == 0;
+  auto kernel = vec ? macro_matvec_kernel<C, true> : macro_matvec_kernel<C, false>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<B, threads, smem, s>>>(FtT, xb, yb, U);
+  return 0;
 }
 
 }  // namespace
@@ -289,18 +400,24 @@ extern "C" int ns_macro_matvec_f32(const float* FtT, const float* xb, float* yb,
                                    int B, int U, int C, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0) return 0;
+  if (U < 1 || U > kMatvecMaxU) return static_cast<int>(cudaErrorInvalidValue);
+  static_assert(kMaxC == 24, "the cases below take C = 1 .. kMaxC");
+  int rc = 0;
   switch (C) {
-    case 1: launch_matvec<1>(FtT, xb, yb, B, U, s); break;
-    case 2: launch_matvec<2>(FtT, xb, yb, B, U, s); break;
-    case 3: launch_matvec<3>(FtT, xb, yb, B, U, s); break;
-    case 4: launch_matvec<4>(FtT, xb, yb, B, U, s); break;
-    case 5: launch_matvec<5>(FtT, xb, yb, B, U, s); break;
-    case 6: launch_matvec<6>(FtT, xb, yb, B, U, s); break;
-    case 7: launch_matvec<7>(FtT, xb, yb, B, U, s); break;
-    case kMaxC: launch_matvec<kMaxC>(FtT, xb, yb, B, U, s); break;
+#define NS_MATVEC_CASE(c) \
+  case c:                 \
+    rc = launch_matvec<c>(FtT, xb, yb, B, U, s); \
+    break;
+    NS_MATVEC_CASE(1) NS_MATVEC_CASE(2) NS_MATVEC_CASE(3) NS_MATVEC_CASE(4)
+    NS_MATVEC_CASE(5) NS_MATVEC_CASE(6) NS_MATVEC_CASE(7) NS_MATVEC_CASE(8)
+    NS_MATVEC_CASE(9) NS_MATVEC_CASE(10) NS_MATVEC_CASE(11) NS_MATVEC_CASE(12)
+    NS_MATVEC_CASE(13) NS_MATVEC_CASE(14) NS_MATVEC_CASE(15) NS_MATVEC_CASE(16)
+    NS_MATVEC_CASE(17) NS_MATVEC_CASE(18) NS_MATVEC_CASE(19) NS_MATVEC_CASE(20)
+    NS_MATVEC_CASE(21) NS_MATVEC_CASE(22) NS_MATVEC_CASE(23) NS_MATVEC_CASE(24)
+#undef NS_MATVEC_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int ns_macro_build_f32(const float* Fe, const int32_t* lidx, float* FtT,
@@ -349,3 +466,5 @@ extern "C" int ns_macro_build_smem_bytes(int c_blk, int nloc, int U) {
 }
 
 extern "C" int ns_macro_max_channels() { return kMaxC; }
+
+extern "C" int ns_macro_max_slots() { return kMatvecMaxU; }

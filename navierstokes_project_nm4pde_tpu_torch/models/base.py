@@ -1,24 +1,32 @@
 """Time-stepping Navier-Stokes solver (PyTorch): setup, projection step, run.
 
-The counterpart of the reference's `models/base.py` for the configurations
-the benchmark (bench.py) and the ensemble sweep (scripts/bench_ensemble.py,
-`cli.py ensemble --fast`) run: the incremental pressure-correction
-(projection) stepper with implicit linearised convection, BDF1, a
-Jacobi-preconditioned FGMRES velocity solve, and the frozen Schur pressure
-Poisson over the banded S1 with the additive two-level preconditioner,
-solved by recycled-projection CG (precond.s_recycle >= 1) or plain CG
-(s_recycle = 0).  A configuration outside that slice is rejected with
-ValueError.
+The counterpart of the reference's `models/base.py` for its incremental
+pressure-correction (projection) stepper with BDF1: the frozen Schur
+pressure Poisson over the banded S1 with a two-level preconditioner
+(additive or V(1,1); Cholesky or inverse coarse solve), solved by
+recycled-projection CG (precond.s_recycle >= 1) or plain CG; the velocity
+solved by Jacobi-preconditioned FGMRES, recycled-block GCR (f_recycle) or,
+with explicit convection, CG.  A configuration outside that slice is
+rejected with ValueError (`check_config`).
 
-One single-run step (`step`, the macro branch of the reference's
-`_step_projection`):
+One single-run step (`step`, the reference's `_step_projection`):
 
-  1. one slot gather of [hist | u0 | w]; w's element view from the slots;
-  2. F_e = M/dt + nu A + C(w) per element (`convection_setup`), then the
-     block values FtT (kernel B);
-  3. (M hist, F u0) from the slot view (kernel A), G p_n from the assembled
-     gradient: b = M hist - G p_n, r0 = b - F u0;
-  4. FGMRES on F du = r0 (kernel A every iteration), u* = u0 + du;
+  1. Dirichlet data and the warm start u0; one gather of the step's node
+     fields: the slot gather of [hist | u0 | warm-start pool | w] on the
+     macro path (w's element view from its slots), else one element gather
+     of [hist | u0 | w] (kernel D on the card);
+  2. convection: implicit folds F_e = M/dt + nu A + C(w) per element
+     (`convection_setup`; C_e(w) alone under the macro K/C split) and the
+     macro path builds the block values FtT (kernel B); IMEX weights C(w)
+     per cell and folds the fine subset's C_e; explicit evaluates
+     N(u) = C(u)u for the rhs;
+  3. b = M hist - G p_n and r0 = b - F u0: on the macro path from the slot
+     view (kernel A; the warm-start pool's images F D ride the same
+     launch), else in one element pass (IMEX fuses -(1 - s)N(w) into b);
+  4. the velocity solve F du = r0 on the operator of the path: macro
+     blocks (kernel A), the element fold (kernels D and C), or the
+     assembled constant K (`ops/bsr.py`) plus the IMEX fine subset
+     (kernels D and C on its own plan); u* = u0 + du;
   5. S1 phi = -D u* / dt with CG; p = p_n + phi;
      u = u* - dt diag(M)^-1 G phi on free nodes;
   6. drag, lift and the pressure difference.
@@ -29,7 +37,7 @@ once, each with its own nu, carried on a trailing member axis: the
 element passes move all members as packed channels through the slot
 gather and reduce (kernels D and C), and the Krylov solves are batched
 (`fgmres`, `cg` on [n, B] columns) with per-member tolerances and
-counts.
+counts.  It runs the base configuration only (`_ENSEMBLE_BASE`).
 """
 
 from __future__ import annotations
@@ -58,15 +66,23 @@ from navierstokes_project_nm4pde_tpu_torch.ops.banded import (
     banded_matvec,
     build_banded_schur,
 )
+from navierstokes_project_nm4pde_tpu_torch.ops.bsr import (
+    CSRMatrix,
+    apply_csr_scalar,
+    build_velocity_kcsr,
+)
 from navierstokes_project_nm4pde_tpu_torch.ops.coarse import (
     cho_solve_c,
     host_coarse_dense,
+    inv_solve_c,
     twolevel_apply_additive_g,
+    twolevel_apply_g,
 )
 from navierstokes_project_nm4pde_tpu_torch.ops.scatter import (
     apply_inverse_map,
     build_inverse_map,
 )
+from navierstokes_project_nm4pde_tpu_torch.ops.tables import build_ref_tables
 from navierstokes_project_nm4pde_tpu_torch.precond.blocks import inv_diag_Fhat
 from navierstokes_project_nm4pde_tpu_torch.solvers.krylov import (
     SolveInfo,
@@ -76,6 +92,8 @@ from navierstokes_project_nm4pde_tpu_torch.solvers.krylov import (
     cg,
     cg_recycled,
     fgmres,
+    gcr_recycled,
+    ls_warmstart,
 )
 
 
@@ -113,9 +131,16 @@ class State:
     # [2, k, n_p]: recycled pressure directions and their exact S1 images
     # (precond.s_recycle = k >= 1; None with plain CG)
     spool: torch.Tensor | None = None
+    # [k, n_unodes * dim]: the velocity GCR's recycled directions
+    # (precond.f_recycle = k >= 1); zeros are always valid
+    fpool: torch.Tensor | None = None
+    # [k, n_unodes * dim]: the last k velocity increments, whose images
+    # under each step's F ride its rhs pass (precond.f_warmstart = k >= 1);
+    # zeros are always valid
+    fwpool: torch.Tensor | None = None
 
 
-_STATE_ARRAYS = ("u", "p", "u_prev", "p_prev", "u_prev2", "spool")
+_STATE_ARRAYS = ("u", "p", "u_prev", "p_prev", "u_prev2", "spool", "fpool", "fwpool")
 
 
 def state_to_numpy(state: State) -> dict:
@@ -146,9 +171,8 @@ def state_from_numpy(arrays, device, dtype: torch.dtype | None = None) -> State:
         return torch.as_tensor(v, dtype=dtype or torch_dtype(str(v.dtype)), device=dev)
 
     return State(
-        u=conv("u"), p=conv("p"), t=float(np.asarray(get("t"))),
-        step=int(np.asarray(get("step"))), u_prev=conv("u_prev"),
-        p_prev=conv("p_prev"), u_prev2=conv("u_prev2"), spool=conv("spool"),
+        t=float(np.asarray(get("t"))), step=int(np.asarray(get("step"))),
+        **{k: conv(k) for k in _STATE_ARRAYS},
     )
 
 
@@ -171,7 +195,8 @@ class FrozenSchur:
 
     inv1: torch.Tensor  # [n_unodes] 1/diagM on free nodes, 0 constrained
     diag1: torch.Tensor  # [n_p] diagonal of S1
-    cho_L: torch.Tensor  # dense lower Cholesky factor of the coarse matrix
+    cho_L: torch.Tensor | None  # dense lower Cholesky factor of the coarse matrix
+    inv_c: torch.Tensor | None  # dense inverse of the coarse matrix (coarse_solve="inv")
     band: BandedSchur
 
 
@@ -180,39 +205,64 @@ class FrozenSchur:
 _LAYOUT_ONLY = {
     "macro_build": ("auto", "highest", "split3"),
     "macro_apply": ("auto", "highest", "split3"),
-    "grad_apply": ("auto", "bsr"),
-    "div_apply": ("auto", "bsr"),
-    "f_apply": ("auto", "macro"),
-    "macro_rhs": ("auto", "on"),
-    "macro_wfuse": ("auto", "on"),
-    "macro_split": ("auto", "off"),
+    "macro_conv_build": ("auto", "default", "highest", "split3"),
     "schur_spmv": ("auto", "banded"),
     # the reference's one-hot ensemble reductions accumulate in f32 (its
     # MXU path); here every ensemble reduction is the exact kernel C
     "ensemble_onehot": (False, True),
 }
 
+# The single run's variants, and the values the ensemble step runs (its
+# element branch with the additive Cholesky two-level Schur CG; ensemble
+# variants need one K per member, and are not ported).
+_VARIANTS = {
+    "time.convection": ("implicit", "explicit", "imex"),
+    "precond.mg2_form": ("additive", "v11"),
+    "numerics.coarse_solve": ("chol", "inv"),
+    "numerics.vel_apply": ("auto", "bsr", "element"),
+    "numerics.f_apply": ("auto", "macro", "element"),
+    "numerics.macro_rhs": ("auto", "on", "off"),
+    "numerics.macro_wfuse": ("auto", "on", "off"),
+    "numerics.macro_split": ("auto", "off", "on"),
+    "numerics.grad_apply": ("auto", "bsr", "element"),
+    "numerics.div_apply": ("auto", "bsr", "element"),
+}
+_ENSEMBLE_BASE = {
+    "time.convection": ("implicit",),
+    "precond.mg2_form": ("additive",),
+    "numerics.coarse_solve": ("chol",),
+    "numerics.f_apply": ("auto", "macro"),
+    "numerics.macro_rhs": ("auto", "on"),
+    "numerics.macro_wfuse": ("auto", "on"),
+    "numerics.macro_split": ("auto", "off"),
+    "numerics.grad_apply": ("auto", "bsr"),
+    "numerics.div_apply": ("auto", "bsr"),
+    "precond.f_recycle": (0,),
+    "precond.f_warmstart": (0,),
+}
+
+
+def _field(cfg: RunConfig, name: str):
+    part, key = name.split(".")
+    return getattr(getattr(cfg, part), key)
+
 
 def check_config(cfg: RunConfig, problem: ProblemSpec) -> None:
     """Raise ValueError for a configuration this port does not run yet."""
     req = [
         ("time.stepper", cfg.time.stepper, ("projection",)),
-        ("time.convection", cfg.time.convection, ("implicit",)),
         ("time.scheme", cfg.time.scheme, ("bdf1",)),
         ("numerics.proj_schur", cfg.numerics.proj_schur, ("frozen",)),
-        ("numerics.coarse_solve", cfg.numerics.coarse_solve, ("chol",)),
         ("numerics.dtype", cfg.numerics.dtype, ("float32", "float64")),
         ("numerics.fold_elem", cfg.numerics.fold_elem, (True,)),
         ("numerics.spatial_reorder", cfg.numerics.spatial_reorder, (True,)),
-        ("precond.mg2_form", cfg.precond.mg2_form, ("additive",)),
         ("precond.f_iters", cfg.precond.f_iters, (0,)),
         ("precond.f_solver", cfg.precond.f_solver, ("gmres",)),
-        ("precond.f_recycle", cfg.precond.f_recycle, (0,)),
-        ("precond.f_warmstart", cfg.precond.f_warmstart, (0,)),
         ("solver.tol_mode", cfg.solver.tol_mode, ("r0", "b", "abs")),
         ("solver.guess_order", cfg.solver.guess_order, (1, 2)),
         ("problem.dim", problem.dim, (3,)),
     ]
+    req += [(name, _field(cfg, name), ok) for name, ok in _VARIANTS.items()]
     req += [
         (f"numerics.{k}", getattr(cfg.numerics, k), ok)
         for k, ok in _LAYOUT_ONLY.items()
@@ -225,12 +275,31 @@ def check_config(cfg: RunConfig, problem: ProblemSpec) -> None:
             )
     if cfg.precond.s_recycle < 0:
         raise ValueError("precond.s_recycle must be >= 0")
+    if cfg.time.convection == "imex" and cfg.time.imex_umax is None:
+        raise ValueError(
+            "convection='imex' requires TimeConfig.imex_umax (the CFL "
+            "velocity scale of the per-cell explicit/implicit partition)"
+        )
+    if cfg.numerics.vel_apply == "bsr" and cfg.time.convection == "implicit":
+        raise ValueError(
+            "vel_apply='bsr' requires convection 'explicit' or 'imex' (the "
+            "velocity block must be constant)"
+        )
+    if cfg.numerics.f_apply == "macro" and cfg.time.convection != "implicit":
+        raise ValueError("f_apply='macro' requires implicit convection")
 
 
 class NavierStokesSolver:
     """Projection-stepper solver for one `ProblemSpec` on one mesh (the
     port's own `mesh.Mesh`), on `device`: None means the card, and raises
-    without one; "cpu" runs the kernels' plain versions."""
+    without one; "cpu" runs the kernels' plain versions.
+
+    Set-up resolves the configuration's paths (the reference's rules):
+    `kcsr` is the assembled constant K (vel_apply "bsr", the default with
+    explicit or IMEX convection), `imex` the IMEX fine subset, `f_apply`
+    "macro" (implicit convection without K) or "element", and the macro
+    rhs pass, its fused gather and the K/C split follow macro_rhs,
+    macro_wfuse and macro_split."""
 
     def __init__(self, mesh, problem: ProblemSpec, config: RunConfig, device=None):
         check_config(config, problem)
@@ -255,6 +324,51 @@ class NavierStokesSolver:
             space, self.geom, mask, dt_, dev, coarse_agg=cfg.numerics.schur_agg
         )
         self.conv_base = ops.conv_base(self.op)
+        nc, conv_mode = cfg.numerics, cfg.time.convection
+        if nc.grad_apply == "element":
+            self.op.grad = None
+        if nc.div_apply == "element":
+            self.op.div = None
+
+        # IMEX partition: a cell keeps its implicit C(w) iff
+        # u_max dt / h_cell > imex_cfl, h_cell its shortest edge.
+        self.imex = self.imex_frac = None
+        if conv_mode == "imex":
+            cc = self.mesh.coords[self.mesh.cells]  # [E, nvloc, dim]
+            h = None
+            for i in range(cc.shape[1]):
+                for j in range(i + 1, cc.shape[1]):
+                    e = np.linalg.norm(cc[:, i] - cc[:, j], axis=1)
+                    h = e if h is None else np.minimum(h, e)
+            implicit = cfg.time.imex_umax * cfg.time.dt / np.maximum(h, 1e-300) > cfg.time.imex_cfl
+            self.imex_frac = float(implicit.mean())
+            self.op.imex_scale = torch.as_tensor(implicit.astype(np.float64), dtype=dt_, device=dev)
+            if implicit.any():
+                self.imex = ops.build_imex_tables(
+                    space, self.geom, np.nonzero(implicit)[0], dt_, dev
+                )
+
+        # The constant K = M/dt + nu A as one assembled operator, where the
+        # velocity block is constant (explicit or IMEX convection, BDF1).
+        va = nc.vel_apply
+        if va == "auto":
+            va = "bsr" if conv_mode in ("explicit", "imex") else "element"
+        self.kcsr: CSRMatrix | None = None
+        if va == "bsr":
+            self.kcsr = build_velocity_kcsr(
+                space, self.geom, build_ref_tables(space.dim), self.problem.nu,
+                cfg.time.dt, dt_, dev,
+            )
+        fa = nc.f_apply
+        if fa == "auto":
+            fa = "macro" if conv_mode == "implicit" else "element"
+        self.f_apply = fa
+        self.macro_rhs = fa == "macro" and nc.macro_rhs != "off"
+        self.macro_wfuse = self.macro_rhs and nc.macro_wfuse != "off"
+        self.macro_split = self.macro_rhs and nc.macro_split == "on"
+        # the element FGMRES collects its applies' gathers into du_e, from
+        # which the element divergence needs no gather of its own
+        self.aux_div = fa == "element" and self.kcsr is None and self.op.div is None
 
         # Dirichlet node groups; later tags win at shared nodes.
         taken = np.zeros(space.n_unodes, dtype=bool)
@@ -302,10 +416,12 @@ class NavierStokesSolver:
                 "the RCM band of S1 is too wide for the banded form (the ELL "
                 "SpMV fallback is not ported)"
             )
+        inv = cfg.numerics.coarse_solve == "inv"
         self.proj_schur = FrozenSchur(
             inv1=torch.as_tensor(inv1, dtype=dt_, device=dev),
             diag1=torch.as_tensor(diag1, dtype=dt_, device=dev),
-            cho_L=torch.as_tensor(np.linalg.cholesky(Sc), dtype=dt_, device=dev),
+            cho_L=None if inv else torch.as_tensor(np.linalg.cholesky(Sc), dtype=dt_, device=dev),
+            inv_c=torch.as_tensor(np.linalg.inv(Sc), dtype=dt_, device=dev) if inv else None,
             band=band,
         )
 
@@ -324,10 +440,16 @@ class NavierStokesSolver:
         """The mass matrix's macro blocks (single run; at first use)."""
         return mb.build_macro_mass(self.macro, self.op.MHAT, self.op.detJ)
 
+    @functools.cached_property
+    def macro_stiff(self) -> torch.Tensor:
+        """The stiffness matrix's macro blocks, for the K/C split (kernel B
+        on GKd:AHAT; single run, at first use)."""
+        return mb.build_macro_values(self.macro, self.op.stiff_e)
+
     # ------------------------------------------------------------------
     def initial_state(self, members: int | None = None) -> State:
         """The state at rest; with `members`, an ensemble state of that
-        many members (trailing member axis, no recycle pool)."""
+        many members (trailing member axis, no recycle pools)."""
         n, d = self.space.n_unodes, self.space.dim
         tail = () if members is None else (members,)
         u = torch.zeros((n, d, *tail), dtype=self.dtype, device=self.device)
@@ -339,23 +461,32 @@ class NavierStokesSolver:
             u_prev=u if ext else None,
             p_prev=p if ext else None,
             u_prev2=u if quad else None,
-            spool=self._zero_spool() if members is None else None,
+            **{k: None if members else self._zero_pool(k) for k in self._pool_shapes()},
         )
 
-    def _zero_spool(self) -> torch.Tensor | None:
-        k = self.config.precond.s_recycle
-        if k == 0:
+    def _pool_shapes(self) -> dict:
+        """The single run's recycle pools and their shapes (0 rows: none)."""
+        pc, nd = self.config.precond, self.space.n_unodes * self.space.dim
+        return {
+            "spool": (2, pc.s_recycle, self.space.n_pnodes),
+            "fpool": (pc.f_recycle, nd),
+            "fwpool": (pc.f_warmstart, nd),
+        }
+
+    def _zero_pool(self, name: str) -> torch.Tensor | None:
+        shape = self._pool_shapes()[name]
+        if 0 in shape:
             return None
-        return torch.zeros(
-            (2, k, self.space.n_pnodes), dtype=self.dtype, device=self.device
-        )
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
     def _ensure_pools(self, state: State) -> State:
-        """Give an externally supplied state the recycle pool it lacks
+        """Give an externally supplied state the recycle pools it lacks
         (a zero pool is always valid)."""
-        if state.spool is None:
-            return dataclasses.replace(state, spool=self._zero_spool())
-        return state
+        upd = {
+            k: self._zero_pool(k) for k in self._pool_shapes()
+            if getattr(state, k) is None
+        }
+        return dataclasses.replace(state, **upd) if upd else state
 
     def _dirichlet_values(self, t: float) -> torch.Tensor:
         """[n_unodes, dim] with g(x, t) on constrained nodes, 0 elsewhere."""
@@ -421,7 +552,7 @@ class NavierStokesSolver:
         """One projection step; returns (new_state, per-step diagnostics
         dict of Python numbers and 0-d tensors)."""
         cfg = self.config
-        op, mp, fz = self.op, self.macro, self.proj_schur
+        op, fz, pc = self.op, self.proj_schur, cfg.precond
         nu = self.problem.nu
         precise = cfg.numerics.precise_dots
         dt = cfg.time.dt
@@ -429,57 +560,167 @@ class NavierStokesSolver:
         w, hist, dt_eff = self._bdf_terms(state, dt)
         mask = op.dirichlet_mask[:, None]
         n, d = self.space.n_unodes, self.space.dim
+        explicit = cfg.time.convection == "explicit"
 
         g = self._dirichlet_values(t_new)
         u_guess, p_guess = self._warm_guess(state)
         u0 = torch.where(mask, g, u_guess)
 
-        # One slot gather for the step: [hist | u0] feed the rhs pass, w's
-        # element view comes from its slots.
-        x_b = mb.slot_gather(mp, torch.cat([hist, u0, w], dim=1))
-        w_e = mb.slot_expand_elem(mp, x_b[..., 2 * d:])
-        conv = ops.convection_setup(
-            op, w, fold=(nu, dt_eff), w_e=w_e,
-            with_diag=not cfg.precond.freeze_conv_diag, base_e=self.conv_base,
-        )
-        FtT = mb.build_macro_values(mp, conv.F_e)
+        # One gather of the step's node fields.  Macro path: a slot gather
+        # of [hist | u0 | pool | w] feeds the rhs pass, and w's element view
+        # comes from its slots.  Element path: one element gather.
+        warm_f = self.macro_rhs and pc.f_warmstart > 0 and state.fwpool is not None
+        D_ch = None
+        if warm_f:
+            D_ch = state.fwpool.reshape(pc.f_warmstart, n, d).permute(1, 0, 2).reshape(n, -1)
+        x_b = h_e = u0_e = w_e = None
+        if self.macro_wfuse:
+            xs = [hist, u0] + ([D_ch] if warm_f else []) + [w]
+            x_b = mb.slot_gather(self.macro, torch.cat(xs, dim=1))
+            w_e = mb.slot_expand_elem(self.macro, x_b[..., -d:])
+            x_b = x_b[..., :-d]
+        elif self.macro_rhs:
+            w_e = ops.gather_u(op, w)
+        else:
+            st_e = ops.gather_u(op, torch.cat([hist, u0, w], dim=1))
+            h_e, u0_e, w_e = st_e[..., :d], st_e[..., d:2 * d], st_e[..., 2 * d:]
+
+        conv = conv_rhs = FtT = None
+        if explicit:
+            # N(u) = C(u)u on the rhs; the velocity block is K
+            conv_rhs = ops.apply_convection_self(op, w, w_e=w_e)
+        else:
+            conv = ops.convection_setup(
+                op, w, fold=(nu, dt_eff), w_e=w_e,
+                with_diag=not pc.freeze_conv_diag, base_e=self.conv_base,
+                conv_only=self.macro_split,
+            )
+            if self.f_apply == "macro":
+                FtT = mb.build_macro_values(self.macro, conv.F_e)
+                if conv.conv_only:  # K/C split: C's blocks + the setup-time M, A
+                    FtT = self.macro_mass * (1.0 / dt_eff) + nu * self.macro_stiff + FtT
 
         # ---- 1. tentative velocity -----------------------------------
-        Mh, Fu0 = mb.apply_rhs_and_r0_macro(
-            mp, self.macro_mass, FtT, hist, u0, x_b=x_b
-        )
-        b_u = Mh - ops.apply_gradient(op, state.p)
-        r0_u = b_u - Fu0
+        Yw = None
+        if self.macro_rhs:
+            out = mb.apply_rhs_and_r0_macro(
+                self.macro, self.macro_mass, FtT, hist, u0, extra=D_ch, x_b=x_b
+            )
+            b_u = out[0] - ops.apply_gradient(op, state.p)
+            r0_u = b_u - out[1]
+            if warm_f:  # the pool's images under this step's F, masked like Fop
+                FD = torch.where(mask, torch.zeros_like(out[2]), out[2])
+                Yw = FD.reshape(n, pc.f_warmstart, d).permute(1, 0, 2).reshape(pc.f_warmstart, -1)
+        else:
+            b_u, r0_u = ops.apply_rhs_and_r0(
+                op, hist, state.p, nu, dt_eff, conv, u0, h_e=h_e, u0_e=u0_e,
+                w_e=w_e if op.imex_scale is not None else None,
+            )
+        if explicit:
+            b_u = b_u - conv_rhs
+            r0_u = r0_u - conv_rhs
         rhs_u = torch.where(mask, g, b_u)
         r0_u = torch.where(mask, torch.zeros_like(r0_u), r0_u)
 
+        # Fcore: the unmasked operator on [n, C] for any channel count (the
+        # recycled GCR's wide round runs it unless the IMEX fine subset's
+        # pass rides every apply).
+        fine = self.kcsr is not None and self.imex is not None and not explicit
+        if self.kcsr is not None:
+            C_ef = ops.convection_fine_fold(op, self.imex, w_e[self.imex.f_idx]) if fine else None
+
+            def Fcore(u2):
+                y = apply_csr_scalar(self.kcsr, u2)
+                if C_ef is not None:
+                    y = y + ops.apply_convection_fine(self.imex, C_ef, u2)
+                return y
+        elif FtT is not None:
+            def Fcore(u2):
+                return mb.apply_macro(self.macro, FtT, u2)
+        else:
+            def Fcore(u2):
+                return ops.apply_F(op, nu, dt_eff, conv, u2)
+
         def Fop(v):
             u = v.reshape(n, d)
-            return torch.where(mask, u, mb.apply_macro(mp, FtT, u)).reshape(-1)
+            return torch.where(mask, u, Fcore(u)).reshape(-1)
 
         minv = inv_diag_Fhat(op, nu, dt_eff, conv)[:, None].expand(n, d).reshape(-1)
         tol_kw = self._tol_kwargs(rhs_u.reshape(-1))
-        du, info_f = fgmres(
-            Fop, r0_u.reshape(-1), M=lambda v: minv * v,
-            restart=cfg.solver.restart, maxiter=cfg.solver.maxiter,
-            precise=precise, **tol_kw,
-        )
+        r0 = r0_u.reshape(-1)
+        du_e = None
+        fpool_new, fwpool_new = state.fpool, state.fwpool
+        if pc.f_recycle > 0 and not explicit and not fine and state.fpool is not None:
+            def Fop_block(Vc):
+                u3 = Vc.reshape(n, d, -1)
+                y = Fcore(u3.reshape(n, -1)).reshape(u3.shape)
+                return torch.where(mask[..., None], u3, y).reshape(Vc.shape)
+
+            du, info_f, Dused = gcr_recycled(
+                Fop_block, r0, lambda Vc: minv[:, None] * Vc, state.fpool,
+                max_narrow=cfg.solver.maxiter, precise=precise, **tol_kw,
+            )
+            # next pool: the increment, the Jacobi direction, the first
+            # narrow directions
+            k = pc.f_recycle
+            fpool_new = torch.cat([du[None], Dused[:1], Dused[k + 1: 2 * k - 1]])[:k]
+        elif explicit:
+            # K is SPD on the free subspace: CG
+            if tol_kw["tol_mode"] == "abs":
+                cg_rtol, cg_atol = 0.0, max(float(tol_kw["rtol"]), float(tol_kw["atol"]))
+            else:
+                cg_rtol, cg_atol = tol_kw["rtol"], tol_kw["atol"]
+            du, info = cg(
+                lambda V: Fop(V[:, 0])[:, None], r0[:, None],
+                M=lambda V: minv[:, None] * V, rtol=cg_rtol, atol=cg_atol,
+                maxiter=cfg.solver.maxiter, precise=precise,
+            )
+            du, info_f = du[:, 0], SolveInfo(iters=int(info.iters[0]), residual=float(info.residual[0]))
+        elif self.aux_div:
+            def Fop_aux(v):
+                u = v.reshape(n, d)
+                u_e = ops.gather_u(op, u)
+                y = ops.apply_F(op, nu, dt_eff, conv, u, u_e=u_e)
+                return torch.where(mask, u, y).reshape(-1), u_e
+
+            du, info_f, du_e = fgmres(
+                Fop_aux, r0, M=lambda v: minv * v, restart=cfg.solver.restart,
+                maxiter=cfg.solver.maxiter, precise=precise, aux=True, **tol_kw,
+            )
+        else:
+            du_ws = None
+            if warm_f:  # project r0 on the pool's exact images first
+                du_ws, r0 = ls_warmstart(state.fwpool, Yw, r0, precise=precise)
+            du, info_f = fgmres(
+                Fop, r0, M=lambda v: minv * v, restart=cfg.solver.restart,
+                maxiter=cfg.solver.maxiter, precise=precise, **tol_kw,
+            )
+            if warm_f:  # harvest the increment beyond the pool's span
+                fwpool_new = torch.cat([du[None], state.fwpool[:-1]])
+                du = du + du_ws
         u_star = u0 + du.reshape(n, d)
 
         # ---- 2. pressure Poisson with the frozen S1 -------------------
-        rhs_p = -ops.apply_divergence(op, u_star) / dt_eff
-        solve_c = cho_solve_c(fz.cho_L)
+        if du_e is None:
+            rhs_p = -ops.apply_divergence(op, u_star) / dt_eff
+        else:  # u*'s element view from the step's gather and the Krylov applies
+            rhs_p = -ops.apply_divergence_e(op, u0_e + du_e) / dt_eff
+        solve_c = cho_solve_c(fz.cho_L) if fz.inv_c is None else inv_solve_c(fz.inv_c)
         inv_d = 1.0 / fz.diag1
 
         def S(pv):
             return banded_matvec(fz.band, pv)
 
-        def M2(v):
-            return twolevel_apply_additive_g(op.coarse, solve_c, inv_d, v)
+        if pc.mg2_form == "additive":
+            def M2(v):
+                return twolevel_apply_additive_g(op.coarse, solve_c, inv_d, v)
+        else:
+            def M2(v):
+                return twolevel_apply_g(op.coarse, solve_c, S, inv_d, v)
 
         s_rtol, s_atol = self._poisson_tol(tol_kw, rhs_p, dt_eff)
         phi0 = p_guess - state.p
-        if cfg.precond.s_recycle > 0 and state.spool is not None:
+        if pc.s_recycle > 0 and state.spool is not None:
             phi, info_s, harvest = cg_recycled(
                 S, rhs_p, M2, phi0, state.spool[0], state.spool[1],
                 rtol=s_rtol, atol=s_atol, maxiter=cfg.solver.maxiter,
@@ -491,7 +732,7 @@ class NavierStokesSolver:
                 S, rhs_p[:, None], M=M2, x0=phi0[:, None], rtol=s_rtol,
                 atol=s_atol, maxiter=cfg.solver.maxiter, precise=precise,
             )
-            phi, spool_new = phi[:, 0], None
+            phi, spool_new = phi[:, 0], state.spool
             info_s = SolveInfo(iters=int(info.iters[0]), residual=float(info.residual[0]))
 
         # ---- 3. update -------------------------------------------------
@@ -504,7 +745,7 @@ class NavierStokesSolver:
             u_prev=state.u if ext else None,
             p_prev=state.p if ext else None,
             u_prev2=state.u_prev if state.u_prev2 is not None else None,
-            spool=spool_new,
+            spool=spool_new, fpool=fpool_new, fwpool=fwpool_new,
         )
         diag = self._diagnostics(u_new, p_new, t_new)
         diag.update(
@@ -522,6 +763,12 @@ class NavierStokesSolver:
         members on a trailing axis.  Returns (new_state, per-step
         diagnostics dict of [B] numpy arrays and [B] tensors)."""
         cfg = self.config
+        for name, ok in _ENSEMBLE_BASE.items():
+            if _field(cfg, name) not in ok:
+                raise ValueError(
+                    f"the PyTorch port's ensemble step does not run "
+                    f"{name}={_field(cfg, name)!r} (supported: {ok})"
+                )
         if cfg.precond.s_recycle != 0:
             raise ValueError(
                 "the PyTorch port's ensemble solves the pressure with plain "

@@ -1,13 +1,17 @@
-"""Additive two-level preconditioner for the frozen Schur operator.
+"""Two-level preconditioners for the frozen Schur operator.
 
 The counterpart of the reference's `ops/coarse.py` on its frozen path
 (`build_coarse_schur(with_plan=False)`, `host_coarse_dense`, `cho_solve_c`,
-`twolevel_apply_additive_g`): aggregates of `agg` consecutive pressure
-nodes (spatially compact after the RCM reorder), so restriction is a
-reshape + sum and prolongation a repeat.  The dense coarse matrix is
-assembled and Cholesky-factorised once on the host in float64.
+`inv_solve_c`, `twolevel_apply_additive_g`, `twolevel_apply_g`):
+aggregates of `agg` consecutive pressure nodes (spatially compact after
+the RCM reorder), so restriction is a reshape + sum and prolongation a
+repeat.  The dense coarse matrix is assembled once on the host in float64
+and either Cholesky-factorised (coarse_solve="chol": two triangular
+solves an application) or inverted (coarse_solve="inv": one [nc, nc]
+gemv an application).
 
-    z = omega D^-1 r + R^T Sc^-1 R r
+    additive:  z = omega D^-1 r + R^T Sc^-1 R r
+    V(1,1):    smooth, coarse correction, smooth (two S applies)
 """
 
 from __future__ import annotations
@@ -65,6 +69,32 @@ def cho_solve_c(cho_L: torch.Tensor):
         return torch.cholesky_solve(R, cho_L, upper=False).reshape(rc.shape)
 
     return solve
+
+
+def inv_solve_c(Sc_inv: torch.Tensor):
+    """Coarse solve from the dense inverse of the coarse matrix: one
+    [nc, nc] product."""
+
+    def solve(rc):
+        return (Sc_inv @ rc.reshape(rc.shape[0], -1)).reshape(rc.shape)
+
+    return solve
+
+
+def twolevel_apply_g(
+    cs: CoarseSchur, solve_c, S, inv_diag: torch.Tensor, r: torch.Tensor,
+    omega: float = 0.7, post: bool = True,
+) -> torch.Tensor:
+    """Multiplicative two-level application z ~ S^-1 r: damped Jacobi,
+    coarse correction of the residual and, with `post`, a second Jacobi
+    sweep (the symmetric V(1,1), safe inside CG)."""
+    d = inv_diag.reshape((-1,) + (1,) * (r.dim() - 1))
+    z = omega * d * r
+    zc = solve_c(restrict(cs, r - S(z)))
+    z = z + prolong(cs, zc, r.shape[0])
+    if post:
+        z = z + omega * d * (r - S(z))
+    return z
 
 
 def twolevel_apply_additive_g(

@@ -29,13 +29,15 @@ NVCC_FLAGS = (
 )
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (each returns an int: a CUDA error code,
-# or for ns_macro_max_channels and ns_macro_build_smem_bytes a size)
+# or for ns_macro_max_channels, ns_macro_max_slots and
+# ns_macro_build_smem_bytes a size)
 _SIGNATURES = {
     "ns_macro_matvec_f32": [_P, _P, _P, _I, _I, _I, _P],
     "ns_macro_build_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ns_macro_build_v1_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ns_macro_build_smem_bytes": [_I, _I, _I],
     "ns_macro_max_channels": [],
+    "ns_macro_max_slots": [],
     "ns_slot_reduce_f32": [_P, _P, _P, _P, _I, _I, _P],
     "ns_slot_gather_f32": [_P, _P, _P, ctypes.c_longlong, _I, _P],
     "ns_sgemm_tn_f32": [_P, _P, _P, _I, _I, _I, _P],

@@ -13,7 +13,8 @@ reference's "vu" layout), which both kernels read and write coalesced.
 
 Each kernel wrapper runs the CUDA kernel for CUDA tensors (or raises) and
 its plain PyTorch version for CPU tensors; `launch_counts` counts the
-kernel launches only.
+kernel launches only, and `matvec_channels` kernel A's launches by channel
+count.
 """
 
 from __future__ import annotations
@@ -36,11 +37,13 @@ from navierstokes_project_nm4pde_tpu_torch.ops.scatter import (
 _MAX_SMEM = 232_448
 
 launch_counts = {"macro_build": 0, "macro_matvec": 0}
+matvec_channels: dict[int, int] = {}  # C -> kernel A launches at C channels
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    matvec_channels.clear()
 
 
 @dataclasses.dataclass
@@ -224,18 +227,24 @@ def macro_matvec_plain(FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
 
 
 def macro_matvec(FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
-    """Batched block matvec [B, U, U] x [B, U, C] -> [B, U, C] (kernel A)."""
+    """Batched block matvec [B, U, U] x [B, U, C] -> [B, U, C] (kernel A):
+    one launch, one pass over FtT, for every C the kernel takes (up to
+    `ns_macro_max_channels()`, 24); a wider payload raises rather than
+    being split into launches that would each read FtT again."""
     if FtT.device.type == "cpu":
         return macro_matvec_plain(FtT, x_b)
     if FtT.device.type != "cuda":
         raise ValueError(f"macro_matvec: unsupported device {FtT.device}")
     B, U, U2 = FtT.shape
-    if FtT.dtype != torch.float32 or not FtT.is_contiguous() or U2 != U:
-        raise ValueError(
-            "macro_matvec: FtT must be a contiguous float32 [B, U, U] tensor, "
-            f"got {FtT.dtype} {tuple(FtT.shape)}"
-        )
     lib = cuda_lib.load()
+    if (
+        FtT.dtype != torch.float32 or not FtT.is_contiguous() or U2 != U
+        or U > lib.ns_macro_max_slots()
+    ):
+        raise ValueError(
+            "macro_matvec: FtT must be a contiguous float32 [B, U, U] tensor "
+            f"with U <= {lib.ns_macro_max_slots()}, got {FtT.dtype} {tuple(FtT.shape)}"
+        )
     C = x_b.shape[-1] if x_b.dim() == 3 else -1
     if (
         x_b.dtype != torch.float32 or not x_b.is_contiguous()
@@ -256,6 +265,7 @@ def macro_matvec(FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
         "macro_matvec",
     )
     launch_counts["macro_matvec"] += 1
+    matvec_channels[C] = matvec_channels.get(C, 0) + 1
     return y
 
 
@@ -286,26 +296,32 @@ def apply_macro(mp: MacroPlan, FtT: torch.Tensor, u: torch.Tensor) -> torch.Tens
 
 def apply_rhs_and_r0_macro(
     mp: MacroPlan, MtT: torch.Tensor, FtT: torch.Tensor, hist: torch.Tensor,
-    u0: torch.Tensor, x_b: torch.Tensor | None = None,
+    u0: torch.Tensor, extra: torch.Tensor | None = None,
+    x_b: torch.Tensor | None = None,
 ):
-    """(M hist, F u0) from one slot gather and one node reduce: the mass
-    blocks MtT act on the hist channels, FtT on the u0 channels (two
-    kernel-A launches).  `x_b` is a pre-gathered [B, U, >= 2d] slot view
-    of [hist | u0 | ...]."""
+    """(M hist, F u0[, F extra]) from one slot gather and one node reduce:
+    the mass blocks MtT act on the hist channels, FtT on [u0 | extra] in
+    one kernel-A launch (the warm-start pool's images F D ride the u0
+    channels: 3 + 3k of them at f_warmstart = k).  `x_b` is a pre-gathered
+    [B, U, C] slot view of [hist | u0 | extra]."""
     d = hist.shape[1]
     if x_b is None:
-        x_b = slot_gather(mp, torch.cat([hist, u0], dim=1))
+        xs = [hist, u0] if extra is None else [hist, u0, extra]
+        x_b = slot_gather(mp, torch.cat(xs, dim=1))
     y_b = torch.cat(
         [
             macro_matvec(MtT, x_b[..., :d].contiguous()),
-            macro_matvec(FtT, x_b[..., d:2 * d].contiguous()),
+            macro_matvec(FtT, x_b[..., d:].contiguous()),
         ],
         dim=-1,
     )
     y = node_reduce(mp, y_b)
-    return y[:, :d], y[:, d:]
+    if extra is None:
+        return y[:, :d], y[:, d:]
+    return y[:, :d], y[:, d:2 * d], y[:, 2 * d:]
 
 
 def build_macro_mass(mp: MacroPlan, MHAT: torch.Tensor, detJ: torch.Tensor) -> torch.Tensor:
     """Setup-time macro form of the velocity mass M (values "vu")."""
     return build_macro_values(mp, MHAT[None] * detJ[:, None, None])
+

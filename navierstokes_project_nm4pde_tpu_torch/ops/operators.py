@@ -5,10 +5,14 @@ The counterpart of the reference's `ops/operators.py`, restricted to what
 the projection stepper reads: the host side of `build_operator` (geometry
 factors, reference tables, global diagonals, the divergence ELL and the
 frozen Schur host tables), the element gathers and reductions,
-`convection_setup` with the fold, and the element passes of the
-ensemble step (`apply_rhs_and_r0`, `apply_F`, `apply_divergence_e`,
-`apply_gradient_e`).  The single run's D and G are the assembled forms of
-`ops/bsr.py`.
+`convection_setup` with the fold (full, or convection only for the macro
+K/C split, and weighted per cell under IMEX), the element passes
+(`apply_rhs_and_r0`, `apply_F` with or without convection,
+`apply_divergence_e`, `apply_gradient_e`, the explicit rhs
+`apply_convection_self`) and the IMEX fine subset (`ImexTables`,
+`convection_fine_fold`, `apply_convection_fine`).  D and G are the
+assembled forms of `ops/bsr.py` unless the configuration asks for the
+element passes (`div` / `grad` None).
 
 Layout: velocity `u[n_unodes, dim]`, pressure `p[n_pnodes]`; every array
 lives on the device passed to `build_operator`.  An ensemble carries its
@@ -72,9 +76,13 @@ class NSOperator:
     diagM: torch.Tensor  # [n_unodes] mass diagonal (unscaled by dt)
     diagA: torch.Tensor  # [n_unodes] stiffness diagonal (unscaled by nu)
     dirichlet_mask: torch.Tensor  # [n_unodes] bool
-    div: CSRMatrix  # D: [n_unodes, dim] -> [n_pnodes, 1]
-    grad: CSRMatrix  # G = -D^T: [n_pnodes, 1] -> [n_unodes, dim]
+    div: CSRMatrix | None  # D: [n_unodes, dim] -> [n_pnodes, 1]; None: element pass
+    grad: CSRMatrix | None  # G = -D^T: [n_pnodes, 1] -> [n_unodes, dim]; None: element pass
     coarse: CoarseSchur
+    # Per-cell IMEX convection weight [E] (TimeConfig.convection="imex"):
+    # 1 keeps the cell's linearised C(w) inside F, 0 moves it to the
+    # explicit rhs.  None: fully implicit.
+    imex_scale: torch.Tensor | None = None
 
     @functools.cached_property
     def onehot(self) -> OneHotPlans:
@@ -84,6 +92,12 @@ class NSOperator:
         return build_onehot_plans(
             self.cells_u.cpu().numpy(), self.diagM.shape[0], device=self.cells_u.device
         )
+
+    @functools.cached_property
+    def stiff_e(self) -> torch.Tensor:
+        """Constant element stiffness GKd:AHAT [E, nloc, nloc] (computed
+        once, like the reference's DeviceData.conv_base)."""
+        return torch.einsum("ekl,klij->eij", self.GKd, self.AHAT)
 
 
 def build_operator(
@@ -204,18 +218,23 @@ def scatter_p(op: NSOperator, y_e: torch.Tensor) -> torch.Tensor:
 
 
 def conv_base(op: NSOperator) -> torch.Tensor:
-    """Constant element stiffness GKd:AHAT [E, nloc, nloc] (computed once
-    at setup, like the reference's DeviceData.conv_base)."""
-    return torch.einsum("ekl,klij->eij", op.GKd, op.AHAT)
+    """Constant element stiffness GKd:AHAT [E, nloc, nloc] (`op.stiff_e`)."""
+    return op.stiff_e
 
 
 def apply_divergence(op: NSOperator, u: torch.Tensor) -> torch.Tensor:
-    """y = D u: [n_unodes, dim] -> [n_pnodes]."""
+    """y = D u: [n_unodes, dim] -> [n_pnodes] (assembled, or the element
+    pass when `op.div` is None)."""
+    if op.div is None:
+        return apply_divergence_e(op, gather_u(op, u))
     return apply_csr(op.div, u)[:, 0]
 
 
 def apply_gradient(op: NSOperator, p: torch.Tensor) -> torch.Tensor:
-    """y = G p = -D^T p: [n_pnodes] -> [n_unodes, dim]."""
+    """y = G p = -D^T p: [n_pnodes] -> [n_unodes, dim] (assembled, or the
+    element pass when `op.grad` is None)."""
+    if op.grad is None:
+        return apply_gradient_e(op, p)
     return apply_csr(op.grad, p[:, None])
 
 
@@ -246,9 +265,28 @@ class ConvectionData:
     diagC: torch.Tensor | None  # global diag of C(w); None with with_diag=False
     # Folded per-element F_e = detJ/dt M^ + nu GKd:A^ + C_e(w) for the
     # (nu, dt) in `fold`: [E, nloc, nloc]; for a [B] tensor nu one matrix
-    # set per member, held as F_e[j, e, i, b] ([nloc, E, nloc, B]).
+    # set per member, held as F_e[j, e, i, b] ([nloc, E, nloc, B]).  With
+    # conv_only, F_e is C_e(w) alone (the macro K/C split recombines the
+    # constant part from setup-time blocks) and drives no element apply.
     F_e: torch.Tensor | None = None
     fold: tuple | None = None
+    conv_only: bool = False
+
+
+def _conv_quad(op: NSOperator, Jinv: torch.Tensor, w_e: torch.Tensor):
+    """(w_q, WG, divw) of C(w) at the quadrature points from an element view
+    w_e [E, nloc, dim, *rest] and its cells' Jinv."""
+    w_q = torch.einsum("qi,eic...->eqc...", op.PHI_U, w_e)
+    wtilde = torch.einsum("ekd,eqd...->eqk...", Jinv, w_q)
+    WG = torch.einsum("qik,eqk...->eqi...", op.GRAD_U, wtilde)
+    gref = torch.einsum("qik,eic...->eqkc...", op.GRAD_U, w_e)
+    divw = torch.einsum("eqkc...,ekc->eq...", gref, Jinv)
+    return w_q, WG, divw
+
+
+def _conv_elem(op: NSOperator, R: torch.Tensor) -> torch.Tensor:
+    """Unscaled element matrices sum_q W_q phi_i(x_q) R[e, q, j] [E, nloc, nloc]."""
+    return torch.einsum("qi,eqj->eij", op.W[:, None] * op.PHI_U, R)
 
 
 def convection_setup(
@@ -258,9 +296,12 @@ def convection_setup(
     w_e: torch.Tensor | None = None,
     with_diag: bool = True,
     base_e: torch.Tensor | None = None,
+    conv_only: bool = False,
 ) -> ConvectionData:
     """Tabulate the linearised convection + Temam term of C(w) at the
-    quadrature points and, with `fold=(nu, dt)`, fold the per-element F_e.
+    quadrature points and, with `fold=(nu, dt)`, fold the per-element F_e
+    (with `conv_only`, C_e(w) alone).  Under IMEX (`op.imex_scale`) every
+    C(w) term is weighted by the cell's implicit weight.
 
     `w` may carry trailing member axes ([n, dim, B]); nu in `fold` is then
     a [B] tensor.  `w_e` is a pre-gathered element view of w; `base_e` the
@@ -269,36 +310,45 @@ def convection_setup(
     if w_e is None:
         w_e = gather_u(op, w)
     tail = w_e.dim() - 3
-    w_q = torch.einsum("qi,eic...->eqc...", op.PHI_U, w_e)
-    wtilde = torch.einsum("ekd,eqd...->eqk...", op.Jinv, w_q)
-    WG = torch.einsum("qik,eqk...->eqi...", op.GRAD_U, wtilde)
-    gref = torch.einsum("qik,eic...->eqkc...", op.GRAD_U, w_e)
-    divw = torch.einsum("eqkc...,ekc->eq...", gref, op.Jinv)
+    _, WG, divw = _conv_quad(op, op.Jinv, w_e)
     R = WG + 0.5 * divw[:, :, None] * _tail(op.PHI_U[None], tail)
+    cdet = op.detJ if op.imex_scale is None else op.detJ * op.imex_scale
     diagC = None
     if with_diag:
         # sum_q jxw (WG_i phi_i + 0.5 divw phi_i^2)
         d_e = torch.einsum("q,eqi...,qi->ei...", op.W, R, op.PHI_U)
-        diagC = scatter_u(op, d_e * _tail(op.detJ[:, None], tail))
+        diagC = scatter_u(op, d_e * _tail(cdet[:, None], tail))
     F_e = None
     if fold is not None:
         nu, dt = fold
         base = conv_base(op) if base_e is None else base_e
-        F_e = op.MHAT[None] * (op.detJ / dt)[:, None, None]
-        WPHI = op.W[:, None] * op.PHI_U  # [q, i]
         if torch.is_tensor(nu) and nu.dim() == 1:
             # members: [j, E, i, B], the layout `element_apply` streams
-            F_e = F_e.permute(2, 0, 1)[..., None] + base.permute(2, 0, 1)[..., None] * nu
+            F_e = (op.MHAT[None] * (op.detJ / dt)[:, None, None]).permute(2, 0, 1)[..., None]
+            F_e = F_e + base.permute(2, 0, 1)[..., None] * nu
+            WPHI = op.W[:, None] * op.PHI_U  # [q, i]
             C_e = torch.einsum("qi,eqjb->jeib", WPHI, R) * op.detJ[None, :, None, None]
             F_e = (F_e + C_e).contiguous()
         else:
-            F_e = F_e + nu * base
-            F_e = F_e + torch.einsum("qi,eqj->eij", WPHI, R) * op.detJ[:, None, None]
-    return ConvectionData(WG=WG, divw=divw, diagC=diagC, F_e=F_e, fold=fold)
+            C_e = _conv_elem(op, R) * cdet[:, None, None]
+            if conv_only:
+                F_e = C_e
+            else:
+                F_e = op.MHAT[None] * (op.detJ / dt)[:, None, None] + nu * base
+                F_e = F_e + C_e
+    return ConvectionData(
+        WG=WG, divw=divw, diagC=diagC, F_e=F_e, fold=fold,
+        conv_only=conv_only and fold is not None,
+    )
 
 
 def _check_fold(conv: ConvectionData, nu, dt) -> None:
-    """Raise unless `conv` was folded for this (nu, dt)."""
+    """Raise unless `conv` was folded (in full) for this (nu, dt)."""
+    if conv.conv_only:
+        raise ValueError(
+            "ConvectionData was folded conv_only (macro K/C split): its F_e "
+            "is not the full velocity operator"
+        )
     if conv.F_e is None or conv.fold is None:
         raise ValueError("the element apply needs a folded ConvectionData")
     fnu, fdt = conv.fold
@@ -325,40 +375,127 @@ def element_apply(F_e: torch.Tensor, x_e: torch.Tensor) -> torch.Tensor:
     612,864 tiny (member, cell) products of the 64-member ensemble took
     3.9 ms an apply on an H100, this form 0.74 ms.)"""
     if F_e.dim() == 3:
-        return torch.einsum("eij,ejc...->eic...", F_e, x_e)
+        # one broadcast product and one sum over j: cuBLAS's batched GEMM
+        # over 198,086 [10, 10] x [10, 3] products took 1.3443 ms on an
+        # H100 (the IMEX fine subset at 965k), the gather and reduce
+        # around it 0.03 and 0.11
+        E, n = F_e.shape[:2]
+        y = (F_e[:, :, :, None] * x_e.reshape(E, n, 1, -1).transpose(1, 2)).sum(2)
+        return y.view(x_e.shape)
     y = F_e[0][:, :, None, :] * x_e[:, 0][:, None, :, :]
     for j in range(1, F_e.shape[0]):
         y.addcmul_(F_e[j][:, :, None, :], x_e[:, j][:, None, :, :])
     return y
 
 
-def apply_F(op: NSOperator, nu, dt, conv: ConvectionData, u: torch.Tensor) -> torch.Tensor:
-    """F u through the folded element matrices: [n, dim, *rest] (the
-    ensemble's velocity operator, and the element reference the macro
-    path is tested against)."""
+def _apply_K_e(op: NSOperator, nu, dt, u_e: torch.Tensor) -> torch.Tensor:
+    """Element contributions of K = M/dt + nu A (no convection) on an
+    element view u_e [E, nloc, dim] (a single run's nu and dt)."""
+    y_e = torch.einsum("ij,ejc->eic", op.MHAT, u_e) * (op.detJ / dt)[:, None, None]
+    return y_e + nu * element_apply(op.stiff_e, u_e)
+
+
+def apply_F(
+    op: NSOperator, nu, dt, conv: ConvectionData | None, u: torch.Tensor,
+    u_e: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """F u through the folded element matrices, [n, dim, *rest] (the
+    ensemble's velocity operator, a single run's element fallback and the
+    element reference the macro path is tested against); with conv=None
+    the convection-free K = M/dt + nu A.  `u_e` is a pre-gathered element
+    view of u."""
+    if u_e is None:
+        u_e = gather_u(op, u)
+    if conv is None:
+        return scatter_u(op, _apply_K_e(op, nu, dt, u_e))
     _check_fold(conv, nu, dt)
-    return scatter_u(op, element_apply(conv.F_e, gather_u(op, u)))
+    return scatter_u(op, element_apply(conv.F_e, u_e))
 
 
 def apply_rhs_and_r0(
     op: NSOperator, h: torch.Tensor, p: torch.Tensor, nu, dt,
-    conv: ConvectionData, u0: torch.Tensor,
+    conv: ConvectionData | None, u0: torch.Tensor,
     h_e: torch.Tensor | None = None, u0_e: torch.Tensor | None = None,
+    w_e: torch.Tensor | None = None,
 ):
     """(b, r0) = (M h - G p,  b - F u0) in one element pass and one
-    dual-channel reduction (the reference's einsum branch, folded F_e).
-    `h_e`/`u0_e` are pre-gathered element views of h/u0."""
-    _check_fold(conv, nu, dt)
+    dual-channel reduction (the reference's einsum branch; F folded, or K
+    alone with conv=None).  `h_e`/`u0_e` are pre-gathered element views of
+    h/u0.  Under IMEX, `w_e` (the element view of w) fuses the explicit
+    cells' rhs term -(1 - imex_scale) N(w) into b."""
     h_e = gather_u(op, h) if h_e is None else h_e
     u0_e = gather_u(op, u0) if u0_e is None else u0_e
     p_e = gather_p(op, p)
     det = _tail(op.detJ[:, None, None], h_e.dim() - 3)
     b_e = torch.einsum("ij,ejc...->eic...", op.MHAT, h_e) * det
     b_e = b_e + torch.einsum("ekc,kij,ei...->ejc...", op.Jinv, op.BHAT, p_e) * det
-    f_e = element_apply(conv.F_e, u0_e)
+    if conv is None:
+        f_e = _apply_K_e(op, nu, dt, u0_e)
+    else:
+        _check_fold(conv, nu, dt)
+        f_e = element_apply(conv.F_e, u0_e)
+    if conv is not None and op.imex_scale is not None and w_e is not None:
+        w_q = torch.einsum("qi,eic->eqc", op.PHI_U, w_e)
+        nw = torch.einsum("eqi,eic->eqc", conv.WG, w_e) + 0.5 * conv.divw[:, :, None] * w_q
+        nw = nw * (1.0 - op.imex_scale)[:, None, None]
+        b_e = b_e - torch.einsum("q,qi,eqc->eic", op.W, op.PHI_U, nw) * det
     y = scatter_u(op, torch.cat([b_e, b_e - f_e], dim=2))
     d = h.shape[1]
     return y[:, :d], y[:, d:]
+
+
+def apply_convection_self(
+    op: NSOperator, w: torch.Tensor, w_e: torch.Tensor | None = None
+) -> torch.Tensor:
+    """N(w) = C(w) w in one element pass: ((w.grad)w, v) + 0.5((div w) w, v)
+    at the quadrature points (the explicit-convection rhs; no fold, no
+    diagonal).  `w_e` is a pre-gathered element view of w."""
+    if w_e is None:
+        w_e = gather_u(op, w)
+    w_q, WG, divw = _conv_quad(op, op.Jinv, w_e)
+    r = torch.einsum("eqi,eic->eqc", WG, w_e) + 0.5 * divw[:, :, None] * w_q
+    y_e = torch.einsum("q,qi,eqc->eic", op.W, op.PHI_U, r) * op.detJ[:, None, None]
+    return scatter_u(op, y_e)
+
+
+@dataclasses.dataclass
+class ImexTables:
+    """The IMEX fine (implicit-convection) cell subset.  With K applied as
+    an assembled operator, only these cells pay a per-iteration element
+    pass: F u = K u + C_fine(w) u.  Its gather and reduce are kernels D and
+    C on a slot plan of the subset's cells."""
+
+    f_idx: torch.Tensor  # [E_f] int64 cell ids
+    Jinv_f: torch.Tensor  # [E_f, dim, dim]
+    detJ_f: torch.Tensor  # [E_f]
+    plans: OneHotPlans  # [E_f * nloc] slots <-> [n_unodes] rows
+
+
+def build_imex_tables(space, geom, implicit_cells, dtype, device) -> ImexTables:
+    """Tables of the implicit-convection subset (cell ids `implicit_cells`)."""
+    f = np.asarray(implicit_cells, dtype=np.int64)
+    return ImexTables(
+        f_idx=torch.as_tensor(f, device=device),
+        Jinv_f=torch.as_tensor(geom.Jinv[f], dtype=dtype, device=device),
+        detJ_f=torch.as_tensor(geom.detJ[f], dtype=dtype, device=device),
+        plans=build_onehot_plans(np.asarray(space.cells_u)[f], space.n_unodes, device=device),
+    )
+
+
+def convection_fine_fold(op: NSOperator, imex: ImexTables, w_ef: torch.Tensor) -> torch.Tensor:
+    """C_e(w) [E_f, nloc, nloc] on the fine subset (unweighted: fine cells
+    carry imex_scale 1) from its element view of w, w_ef [E_f, nloc, dim]."""
+    _, WG, divw = _conv_quad(op, imex.Jinv_f, w_ef)
+    R = WG + 0.5 * divw[:, :, None] * op.PHI_U[None]
+    return _conv_elem(op, R) * imex.detJ_f[:, None, None]
+
+
+def apply_convection_fine(imex: ImexTables, C_ef: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """C_fine(w) u, [n, C] -> [n, C]: subset gather (kernel D), the subset's
+    element product, subset reduce (kernel C)."""
+    n_f, C = C_ef.shape[0], u.shape[1]
+    u_ef = onehot_gather(imex.plans, u.contiguous()).view(n_f, -1, C)
+    return onehot_reduce(imex.plans, element_apply(C_ef, u_ef).reshape(-1, C))
 
 
 def diag_F(op: NSOperator, nu, dt, conv: ConvectionData | None) -> torch.Tensor:

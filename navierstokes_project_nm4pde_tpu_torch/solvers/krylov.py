@@ -1,8 +1,10 @@
-"""Krylov solvers in PyTorch: flexible GMRES, CG and recycled-projection CG.
+"""Krylov solvers in PyTorch: flexible GMRES, CG, recycled-projection CG,
+the least-squares warm start and recycled-block GCR.
 
-The counterparts of the reference's `solvers/krylov.py` `_norm`, `fgmres`,
-`cg` and `cg_recycled`, with the same algorithms and stopping rules, so
-that a float64 run takes the same iteration counts as the reference.
+The counterparts of the reference's `solvers/krylov.py` `_norm`, `fgmres`
+(with `aux`), `cg`, `cg_recycled`, `ls_warmstart` and `gcr_recycled`, with
+the same algorithms and stopping rules, so that a float64 run takes the
+same iteration counts as the reference.
 
 The reference runs its loops under `lax.while_loop` on the device.  Here
 the loops run in Python and read the residual norm back to the host once
@@ -102,6 +104,7 @@ def fgmres(
     maxiter: int = 200,
     precise: bool = True,
     tol_mode: str = "r0",
+    aux: bool = False,
 ):
     """Solve A x = b by right-preconditioned flexible GMRES (CGS2
     orthogonalisation, Givens rotations, restarts).  Returns (x, SolveInfo).
@@ -110,19 +113,40 @@ def fgmres(
     [n, B] column by column, `atol` is a float or a [B] array, and
     SolveInfo holds [B] numpy iterations and residuals).
     tol_mode: "r0" (rtol relative to ||b - A x0||), "b" (to ||b||) or
-    "abs" (absolute).  A zero guess (x0=None) skips the A(x0) apply."""
+    "abs" (absolute).  A zero guess (x0=None) skips the A(x0) apply.
+
+    aux=True: A returns (A z, f(z)) with f linear (for [n, B] columns, f's
+    output carries the members on its trailing axis), and the return is
+    (x, SolveInfo, f(x)) with f(x) combined from the iterations' values
+    (None when x0 is None and no iteration ran: then x = 0)."""
     if M is None:
         M = lambda v: v  # noqa: E731
     if b.dim() == 1:
-        x, info = fgmres(
-            lambda v: A(v[:, 0])[:, None], b[:, None], lambda v: M(v[:, 0])[:, None],
+        if aux:
+            def A1(v):
+                y, a = A(v[:, 0])
+                return y[:, None], a[..., None]
+        else:
+            A1 = lambda v: A(v[:, 0])[:, None]  # noqa: E731
+        out = fgmres(
+            A1, b[:, None], lambda v: M(v[:, 0])[:, None],
             None if x0 is None else x0[:, None], rtol=rtol, atol=atol,
             restart=restart, maxiter=maxiter, precise=precise, tol_mode=tol_mode,
+            aux=aux,
         )
-        return x[:, 0], SolveInfo(iters=int(info.iters[0]), residual=float(info.residual[0]))
+        x, info = out[0][:, 0], SolveInfo(iters=int(out[1].iters[0]), residual=float(out[1].residual[0]))
+        if aux:
+            return x, info, None if out[2] is None else out[2][..., 0]
+        return x, info
+    A_full = A if aux else (lambda z: (A(z), None))
     n, B = b.shape
     m = restart
-    r = b if x0 is None else b - A(x0)
+    aux_x = None
+    if x0 is None:
+        r = b
+    else:
+        w0, aux_x = A_full(x0)
+        r = b - w0
     res = _host(_cnorm(r, precise))
     if tol_mode == "r0":
         ref = res
@@ -152,6 +176,7 @@ def fgmres(
         g = np.zeros((B, m + 1))
         g[:, 0] = beta
         V[:, 0] = torch.where(beta_t[:, None] > 0, r / beta_t[:, None], r)
+        Zaux = []
         jm = np.zeros(B, np.int64)  # each member's inner iterations this cycle
         res_c = beta.copy()
         j = 0
@@ -160,7 +185,9 @@ def fgmres(
             if not live.any():
                 break
             z = M(V[:, j].T)
-            w = A(z).T.contiguous()
+            w, a = A_full(z)
+            w = w.T.contiguous()
+            Zaux.append(a)
             Vj = V[:, : j + 1]
             h1 = _bdots(Vj, w, precise)
             w = w - _bcomb(h1, Vj)
@@ -215,10 +242,16 @@ def fgmres(
         Crt = torch.as_tensor(Cr, dtype=b.dtype, device=b.device)
         x = torch.where(on, x + _bcomb(Yt, Z), x)
         r = torch.where(on, _bcomb(Crt, V), r)
+        if aux and Zaux:
+            # f(Z^T y) = sum_j y_j f(z_j); y is 0 for members not iterating
+            inc = sum(a * Yt[:, i] for i, a in enumerate(Zaux))
+            aux_x = inc if aux_x is None else aux_x + inc
         res = np.where(active, res_c, res)
         iters = iters + np.where(active, jm, 0)
         active = (res > tol) & (iters < maxiter)
     x = x.T.contiguous()
+    if aux:
+        return x, SolveInfo(iters=iters, residual=res), aux_x
     return x, SolveInfo(iters=iters, residual=res)
 
 
@@ -344,3 +377,118 @@ def cg_recycled(
         j += 1
     harvest = torch.stack([x - x_proj, r_proj - r])
     return x, SolveInfo(iters=j, residual=res), harvest
+
+
+# ----------------------------------------------------------------------
+# Least-squares warm start from (direction, image) pairs
+# ----------------------------------------------------------------------
+def ls_warmstart(D: torch.Tensor, Y: torch.Tensor, r0: torch.Tensor, precise: bool = True):
+    """The combination c minimising ||r0 - Y^T c|| over directions D [k, n]
+    with images Y = A D [k, n] (ridge-regularised normal equations); returns
+    (D^T c, r0 - Y^T c), or (0, r0) when the projection does not shrink the
+    residual (a zero or degenerate pool).  No operator apply and no host
+    sync: the guard is a device-side select."""
+    k = D.shape[0]
+    G = _matvec_dots(Y, Y.T, precise)  # [k, k]
+    rhs = _matvec_dots(Y, r0, precise)
+    ridge = 1e-8 * torch.clamp(torch.diagonal(G).max(), min=1e-30)
+    eye = torch.eye(k, dtype=G.dtype, device=G.device)
+    c = torch.linalg.solve_ex(G + ridge * eye, rhs).result
+    x0 = c @ D
+    r_new = r0 - c @ Y
+    ok = _norm(r_new, precise) < _norm(r0, precise)
+    return torch.where(ok, x0, torch.zeros_like(x0)), torch.where(ok, r_new, r0)
+
+
+# ----------------------------------------------------------------------
+# Recycled-block GCR
+# ----------------------------------------------------------------------
+def _solve_small(G: torch.Tensor, h: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """Solve the normalised Gram system on the `active` rows (ridge 1e-5 on
+    the diagonal); inactive rows are identity rows with zero rhs, so their
+    coefficients are exactly 0."""
+    K = G.shape[0]
+    eye = torch.eye(K, dtype=torch.bool, device=G.device)
+    Gm = torch.where(
+        eye,
+        torch.where(active, torch.diagonal(G) + 1e-5, torch.ones_like(h)),
+        torch.where(active[:, None] & active[None, :], G, torch.zeros_like(G)),
+    )
+    return torch.linalg.solve_ex(Gm, torch.where(active, h, torch.zeros_like(h))).result
+
+
+def gcr_recycled(
+    A_block: Callable,
+    b: torch.Tensor,
+    M: Callable,
+    pool: torch.Tensor,
+    *,
+    rtol: float = 1e-6,
+    atol=0.0,
+    tol_mode: str = "r0",
+    max_narrow: int = 8,
+    precise: bool = True,
+):
+    """Solve A x = b by least squares over recycled and fresh directions.
+
+    Round 1 applies A once to the block [M b, pool rows] ([n, 1 + k]
+    columns: one wide apply, whose cost is close to one narrow apply) and
+    takes the least-squares combination, refined once against the exact
+    residual; each narrow round then adds one direction M r and solves the
+    small normalised Gram system again against the exact residual.  Every
+    direction is applied with the current operator, so the converged x
+    meets ||b - A x|| <= tol.  `A_block` and `M` map [n, K] -> [n, K]
+    column by column; zero pool rows are ignored.  One host sync a round.
+
+    Returns (x, SolveInfo, D) with D [1 + k + max_narrow, n] the normalised
+    directions (row 0 = M b, rows 1..k = the pool, then the narrow
+    rounds'); SolveInfo.iters = 1 + the narrow rounds."""
+    n, dtype, dev = b.shape[0], b.dtype, b.device
+    k = pool.shape[0]
+    K = 1 + k + max_narrow
+    ref = 1.0 if tol_mode == "abs" else float(_norm(b, precise))
+    tol = max(rtol * ref, float(atol))
+
+    D = b.new_zeros((K, n))
+    W = b.new_zeros((K, n))
+    D0 = torch.cat([M(b[:, None]).T, pool], dim=0)
+    W0 = A_block(D0.T.contiguous()).T
+    S0 = torch.cat([W0, b[None, :]], dim=0)
+    G0 = _matvec_dots(S0, S0.T, precise)  # [k + 2, k + 2]
+    wnorm = torch.sqrt(torch.clamp(torch.diagonal(G0)[: 1 + k], min=0.0))
+    scale0 = torch.where(wnorm > 0, 1.0 / wnorm, torch.zeros_like(wnorm))
+    D[: 1 + k] = D0 * scale0[:, None]
+    W[: 1 + k] = W0 * scale0[:, None]
+    act = torch.arange(K, device=dev) < 1 + k
+    G = b.new_zeros((K, K))
+    G[: 1 + k, : 1 + k] = G0[: 1 + k, : 1 + k] * scale0[:, None] * scale0[None, :]
+    h0 = b.new_zeros(K)
+    h0[: 1 + k] = G0[: 1 + k, 1 + k] * scale0
+    c = _solve_small(G, h0, act)
+    r = b - c @ W
+    d1 = _solve_small(G, _matvec_dots(W, r, precise), act)
+    c = c + d1
+    r = r - d1 @ W
+    res = float(_norm(r, precise))  # the sync
+    j = 0
+    while res > tol and j < max_narrow:
+        i = 1 + k + j
+        d = M(r[:, None])[:, 0]
+        w = A_block(d[:, None])[:, 0]
+        T = _matvec_dots(torch.cat([W, w[None, :]], dim=0), torch.stack([w, r], dim=1), precise)
+        wn = torch.sqrt(torch.clamp(T[K, 0], min=0.0))
+        s = torch.where(wn > 0, 1.0 / wn, torch.zeros_like(wn))
+        D[i] = d * s
+        W[i] = w * s
+        gcol = T[:K, 0] * s
+        gcol[i] = (wn > 0).to(dtype)
+        G[:, i] = gcol
+        G[i, :] = gcol
+        hr = T[:K, 1].clone()
+        hr[i] = T[K, 1] * s
+        delta = _solve_small(G, hr, torch.arange(K, device=dev) <= i)
+        c = c + delta
+        r = r - delta @ W
+        res = float(_norm(r, precise))  # the sync
+        j += 1
+    return c @ D, SolveInfo(iters=1 + j, residual=res), D

@@ -13,6 +13,8 @@ the largest entry; 1e-5 relative to max |plain| is stated.  The slot
 gather and the column gather copy values: equality is exact.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -47,7 +49,31 @@ def _lidx(B, c_blk, nloc, U, seed):
     return torch.as_tensor(li.astype(np.int32))
 
 
-@pytest.mark.parametrize("B,U,C", [(1, 128, 3), (7, 128, 6), (33, 128, 1), (5, 64, 8), (3, 96, 3)])
+@pytest.mark.parametrize("C", range(1, 25))
+def test_macro_matvec_takes_every_width_in_one_launch(cuda, C):
+    """Every channel count up to 24 (the f_recycle = 7 wide round; 3 + 3k
+    for f_warmstart = k) in one launch; 25 is refused, not split."""
+    B, U = 37, 128
+    g = torch.Generator(device=cuda).manual_seed(C)
+    FtT = torch.randn((B, U, U), generator=g, device=cuda)
+    x_b = torch.randn((B, U, C), generator=g, device=cuda)
+    before = mb.launch_counts["macro_matvec"]
+    y = mb.macro_matvec(FtT, x_b)
+    torch.cuda.synchronize()
+    assert mb.launch_counts["macro_matvec"] == before + 1
+    _close(y, mb.macro_matvec_plain(FtT, x_b))
+    if C == 24:
+        with pytest.raises(ValueError, match="C <= 24"):
+            mb.macro_matvec(FtT, torch.randn((B, U, 25), generator=g, device=cuda))
+        assert mb.launch_counts["macro_matvec"] == before + 1
+
+
+# U not a multiple of 4 (4-byte copies of FtT); U = 250 and 256 (more than
+# 48 KB of shared memory at C = 24); U of one stage or less.
+@pytest.mark.parametrize("B,U,C", [
+    (1, 128, 3), (7, 128, 6), (33, 128, 1), (5, 64, 8), (3, 96, 3), (4, 30, 5), (3, 250, 24),
+    (2, 256, 24), (6, 12, 15), (2, 16, 2),
+])
 def test_macro_matvec_matches_plain(cuda, B, U, C):
     g = torch.Generator(device=cuda).manual_seed(B * 100 + C)
     FtT = torch.randn((B, U, U), generator=g, device=cuda)
@@ -171,6 +197,37 @@ def test_slot_reduce_and_gather_match_plain(cuda, E, n_rows, C):
     assert torch.equal(ye, oh.onehot_gather_plain(plans, x))
     # deterministic: a second reduce is bit-identical
     assert torch.equal(oh.onehot_reduce(plans, y), out)
+
+
+@pytest.mark.parametrize("C", [3, 12])
+def test_slot_kernels_on_a_fine_subset_plan(cuda, C):
+    """Kernels C and D on an IMEX fine-subset plan: a strict subset of the
+    cells against all the rows (rows outside the subset reduce to 0),
+    valence below the full table's."""
+    from navierstokes_project_nm4pde_tpu_torch.ops import operators as ops
+
+    n_rows, E = 400, 300
+    cells = _cells(E, 10, n_rows, seed=9)
+    sub = np.random.default_rng(9).choice(E, 60, replace=False)
+    full = oh.build_onehot_plans(cells, n_rows, device=cuda)
+    plans = oh.build_onehot_plans(cells[sub], n_rows, device=cuda)
+    assert int(plans.reduce.lengths.max()) < int(full.reduce.lengths.max())
+    assert int((plans.reduce.lengths == 0).sum()) > 0
+    g = torch.Generator(device=cuda).manual_seed(C)
+    x = torch.randn((n_rows, C), generator=g, device=cuda)
+    y = torch.randn((plans.n_slots, C), generator=g, device=cuda)
+    assert torch.equal(oh.onehot_gather(plans, x), oh.onehot_gather_plain(plans, x))
+    _close(oh.onehot_reduce(plans, y), oh.onehot_reduce_plain(plans, y))
+    # the fine pass built on it, against the same pass on the CPU
+    im = ops.ImexTables(
+        f_idx=torch.as_tensor(sub, device=cuda), Jinv_f=None, detJ_f=None, plans=plans
+    )
+    C_ef = torch.randn((sub.size, 10, 10), generator=g, device=cuda)
+    im_cpu = dataclasses.replace(
+        im, plans=oh.build_onehot_plans(cells[sub], n_rows, device="cpu")
+    )
+    _close(ops.apply_convection_fine(im, C_ef, x).cpu(),
+           ops.apply_convection_fine(im_cpu, C_ef.cpu(), x.cpu()))
 
 
 def test_slot_kernels_reject_what_they_do_not_take(cuda):
