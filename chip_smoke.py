@@ -17,16 +17,18 @@ Drives the port's paths once each:
     `run_ensemble`, kernels C and D;
 and runs the two TPU-era measurement probes (kernels E and F).  It builds
 the hand-written CUDA kernels from `navierstokes_project_nm4pde_tpu_torch/csrc`,
-holds each against its plain PyTorch version at the shapes its path gives
+holds each against its plain PyTorch version at the shapes its paths give
 it, times it, its plain version and the one PyTorch call that computes
-the same function (call time with CUDA events, device time with
-torch.profiler), gives each its bound (the least time the card could take
-for the same bytes and operations), times kernel B's two designs in
-turns, and holds short runs of each path and of each variant on the card
-against the same runs on the CPU in float64 (plain versions) on a small
-duct.  It imports nothing of jax or of the JAX package, and fails if
-either was imported.  On an H100 80GB HBM3 the whole script, the
-kernels' build included, took 92 s.
+the same function (call time with CUDA events from an idle queue, device
+time with CUDA events behind a queued spin kernel), gives each its bound
+(the least time the card could take for the same bytes and operations; a
+device time below the bound by more than 5% fails the run), times the
+earlier and the committed designs of kernels A, B, C and D in turns, and
+the K/C split's block build against the full one, and holds short runs
+of each path and of each variant on the card against the same runs on
+the CPU in float64 (plain versions) on a small duct.  It imports nothing
+of jax or of the JAX package, and fails if either was imported.  On an
+H100 80GB HBM3 the whole script, the kernels' build included, took 78 s.
 
     python3 chip_smoke.py [--profile DIR]   # DIR: torch.profiler tables and traces
 
@@ -73,16 +75,32 @@ TIMED_STEPS = 40
 ACCEL_WARMUP = 10
 ACCEL_TIMED = 20
 KERNEL_REPS = 10
-# Kernel A's channel counts: the single run's 3 (Krylov applies) and 6
-# (no path since the rhs pass split M and F), and the accelerators' wide
-# payloads: f_recycle = 2 (9), f_warmstart = 4 (15), f_recycle = 7 (24).
-MATVEC_WIDTHS = (3, 6, 9, 15, 24)
+# Kernel A's channel counts: the single run's 3 (Krylov applies), and the
+# accelerators' wide payloads: f_warmstart = 2 (9), f_recycle = 4 (15),
+# f_recycle = 7 (24).
+MATVEC_WIDTHS = (3, 9, 15, 24)
+# Kernels C and D at the variant paths' shapes: name -> (kernel -> channel
+# counts).  IMEX at 965k runs the fine subset's plan at 3 channels every
+# Krylov apply, and the full plan once a step (the rhs reduce at 6, the
+# stacked [hist | u0 | w] gather at 9); explicit at 47k the full plan
+# (N(u) and the rhs reduce at 3 and 6, the gather at 9).
+SLOT_NARROW_C = 16  # kernels C and D: the narrow kernels' widest payload
+SLOT_SHAPES = {
+    "imex fine": {"slot_reduce": (3,), "slot_gather": (3,)},
+    "imex full": {"slot_reduce": (6,), "slot_gather": (9,)},
+    "explicit full": {"slot_reduce": (3, 6), "slot_gather": (9,)},
+}
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): device-memory
 # bytes a second, and float32 operations a second outside the tensor cores.
 # A kernel's bound is the larger of its bytes (each input read once, each
-# output written once) and its operations over these.
+# output written once) and its operations over these.  A measured time
+# more than 5% under its bound is a fault of the measurement, and fails.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+MAX_SHARE = 1.05
+# torch.cuda._sleep counts clock cycles: at no more than 2 GHz, this many
+# cycles last at least a second.
+SPIN_CYCLES_PER_S = 2e9
 # Top-level modules the port and this script must never import.
 FORBIDDEN_MODULES = ("jax", "jaxlib", "navierstokes_project_nm4pde_tpu")
 # The ensemble path: scripts/bench_ensemble.py's mesh and member count
@@ -229,74 +247,34 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _profiled_kernels(fn, calls: int) -> dict:
-    """{kernel name: (launches recorded, their summed µs)} over `calls`
-    calls of fn() under torch.profiler.  A short spin kernel
-    (`torch.cuda._sleep`, ATen's `spin_kernel`) opens and closes each
-    profile and is left out."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-        for _ in range(calls):
-            fn()
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-    return {
-        e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-        and "spin" not in e.key and "sleep" not in e.key.lower()
-    }
-
-
 def device_ms(fn, reps: int) -> float:
-    """Device time of one call of fn(): from torch.profiler, the summed
-    duration of the device kernels it launches.  On this machine the
-    profiler loses some records, more so late in a long process, so a call
-    that launches one kernel (every hand-written kernel) takes the mean
-    duration of that kernel's records over `reps` calls (when there are
-    no more records than calls and the mean agrees with a one-call
-    profile's record within a quarter), and a call that
-    launches several (plain versions, library calls) the sum over `reps`
-    calls when every kernel's record count is a whole multiple of one
-    call's profile; after three profiles that are not, the time comes from
-    CUDA events around `reps` calls queued behind `reps` others, and the
-    log says so."""
+    """Device time of one call of fn(): CUDA events around `reps` calls
+    queued behind a spin kernel (`torch.cuda._sleep`) that outlasts their
+    enqueue, so that the device runs them back to back and the events time
+    its work, not the host's (for a call that launches several kernels,
+    with the gaps between its launches).  Fails if the spin ended before
+    the last call was queued."""
     import torch
 
     fn()
-    for _ in range(3):
-        one = _profiled_kernels(fn, 1)
-        many = _profiled_kernels(fn, reps)
-        if len(many) == 1 and len(one) <= 1:
-            # lost records leave the mean as it is; more records than
-            # launches, or a mean far from one call's, are not trusted
-            n, total_us = next(iter(many.values()))
-            n1, one_us = next(iter(one.values()), (0, 0.0))
-            agrees = n1 == 0 or (n1 == 1 and abs(total_us / max(n, 1) - one_us) <= 0.25 * one_us)
-            if 0 < n <= reps and total_us > 0 and agrees:
-                return total_us / n / 1e3
-        elif one and many.keys() == one.keys() and all(
-            many[k][0] == one[k][0] * reps for k in one
-        ):
-            return sum(t for _, t in many.values()) / reps / 1e3
-        log(f"  device_ms: {sum(n for n, _ in many.values())} device activities for {reps} calls "
-            f"of {sum(n for n, _ in one.values())}; profiling again")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # spin for twice the host's time of the same calls, and at least 1 ms
+    torch.cuda._sleep(int(2 * max(host_s, 1e-3) * SPIN_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
+    if start.query():
+        fail("device_ms: the spin kernel ended before the last call was queued")
     end.synchronize()
-    ms = start.elapsed_time(end) / reps
-    log(f"  device_ms: profiler records lost; {ms:.4f} ms from CUDA events behind a full queue")
-    return ms
+    return start.elapsed_time(end) / reps
 
 
 def kernel_times(fn, plain, lib, reps: int) -> dict:
@@ -317,6 +295,14 @@ def bound(nbytes: float, ops: float) -> dict:
         bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations",
         bytes=nbytes, ops=ops,
     )
+
+
+def share(name: str, b: dict, dev_ms: float) -> float:
+    """bound / device time; fails above MAX_SHARE."""
+    s = b["bound_ms"] / dev_ms
+    if not s <= MAX_SHARE:
+        fail(f"{name}: device time {dev_ms:.4f} ms is {s:.3f} of its {b['bound_ms']:.4f} ms bound")
+    return s
 
 
 def fmt_times(t: dict, b: dict) -> str:
@@ -374,6 +360,7 @@ def check_kernels(solver, reps: int) -> dict:
         lambda: lib_out.zero_().index_add_(0, flat, F_flat), reps,
     )
     b = bound((F_e.numel() + mp.lidx.numel() + FtT.numel()) * 4, F_e.numel())
+    t["share"] = share("macro_build", b, t["device_ms"])
     log(f"  macro_build: {fmt_times(t, b)}")
     # the two designs in turns: v1, new, new, v1
     turns = [
@@ -392,6 +379,7 @@ def check_kernels(solver, reps: int) -> dict:
         err=err_b, **t, **b,
         v1_ms=sum(c for c, _ in v1) / 2, v1_device_ms=sum(d for _, d in v1) / 2,
     )
+    share("macro_build_v1", b, rec["macro_build"]["v1_device_ms"])
     del F_e, F_flat, flat, lib_out, li
 
     errs, times, bounds = [], {}, {}
@@ -406,8 +394,29 @@ def check_kernels(solver, reps: int) -> dict:
             lambda: torch.bmm(FtT.transpose(1, 2), x_b), reps,
         )
         b = bounds[C] = bound((FtT.numel() + 2 * x_b.numel()) * 4, 2.0 * FtT.numel() * C)
+        t["share"] = share(f"macro_matvec C={C}", b, t["device_ms"])
         gbs = FtT.numel() * 4 / t["device_ms"] / 1e6
         log(f"  macro_matvec C={C}: {fmt_times(t, b)} ({gbs:.1f} GB/s of values on device)")
+        if C == 3:
+            # the two designs in turns at the main path's width: v1, new, new, v1
+            err_v1 = float((mb.macro_matvec_v1(FtT, x_b) - mb.macro_matvec_plain(FtT, x_b)).abs().max())
+            log(f"  macro_matvec_v1 (the earlier design): max abs err {err_v1:.3e}")
+            if not err_v1 <= KERNELS["macro_matvec"][2] * float(mb.macro_matvec_plain(FtT, x_b).abs().max()):
+                fail(f"macro_matvec_v1 disagrees with the plain version: {err_v1:.3e}")
+            turns = [
+                (name, time_ms(f, reps), device_ms(f, reps))
+                for name, f in (
+                    ("v1", lambda: mb.macro_matvec_v1(FtT, x_b)),
+                    ("new", lambda: mb.macro_matvec(FtT, x_b)),
+                    ("new", lambda: mb.macro_matvec(FtT, x_b)),
+                    ("v1", lambda: mb.macro_matvec_v1(FtT, x_b)),
+                )
+            ]
+            log("  macro_matvec designs in turns at C=3 (call ms, device ms): " + "; ".join(
+                f"{n} {c:.4f} / {d:.4f} ({b['bound_ms'] / d:.1%} of bound)" for n, c, d in turns))
+            v1 = [(c, d) for n, c, d in turns if n == "v1"]
+            v1_ms, v1_device_ms = sum(c for c, _ in v1) / 2, sum(d for _, d in v1) / 2
+            share("macro_matvec_v1 C=3", b, v1_device_ms)
         del x_b
     try:
         mb.macro_matvec(FtT, torch.zeros((mp.B, mp.U, MATVEC_WIDTHS[-1] + 1), device=dev))
@@ -416,59 +425,89 @@ def check_kernels(solver, reps: int) -> dict:
     else:
         fail(f"macro_matvec took {MATVEC_WIDTHS[-1] + 1} channels, past its width")
     rec["macro_matvec"] = dict(
-        err=max(errs), **times[3], **bounds[3],
+        err=max(errs), **times[3], **bounds[3], v1_ms=v1_ms, v1_device_ms=v1_device_ms,
         widths={C: dict(device_ms=times[C]["device_ms"], bound_ms=bounds[C]["bound_ms"],
-                        share=bounds[C]["bound_ms"] / times[C]["device_ms"],
+                        share=times[C]["share"], plain_device_ms=times[C]["plain_device_ms"],
                         library_ms=times[C]["library_ms"], lib_device_ms=times[C]["lib_device_ms"])
                 for C in MATVEC_WIDTHS},
     )
     return rec
 
 
-def check_slot_kernels(solver, reps: int) -> dict:
-    """Kernels C and D against their plain versions on the ensemble
-    solver's element plans, at the ensemble path's channel counts (B = 64:
-    192 for u-wide passes, 384 for the rhs/r0 reduce, 576 for the stacked
-    [hist | u0 | w] gather)."""
+def check_slot_kernels(plans, widths: dict, reps: int) -> dict:
+    """Kernels C and D against their plain versions on element `plans`,
+    at `widths` ({kernel: channel counts}), with seeded random inputs,
+    then timed; returns {kernel: dict(err=, widths={C: times and bound})}."""
     import torch
 
     from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
 
-    plans, dev = solver.op.onehot, solver.device
+    dev = plans.gather.device
     gen = torch.Generator(device=dev).manual_seed(1)
-    B = ENSEMBLE_MEMBERS
-    rec = {}
     # index bytes each kernel reads: C the CSR order and row offsets, D the
     # flat slot index (all int64)
     idx_bytes = {
         "slot_reduce": (plans.reduce.perm.numel() + plans.reduce.offsets.numel()) * 8,
         "slot_gather": plans.gather.numel() * 8,
     }
-    for name, fn, plain, lib, widths, rows in (
-        ("slot_reduce", oh.onehot_reduce, oh.onehot_reduce_plain,
-         lambda x: torch.zeros((plans.n_rows, x.shape[1]), device=dev).index_add_(0, plans.gather, x),
-         (3 * B, 6 * B), plans.n_slots),
-        ("slot_gather", oh.onehot_gather, oh.onehot_gather_plain,
-         lambda x: x.index_select(0, plans.gather), (3 * B, 9 * B), plans.n_rows),
-    ):
-        errs, times, bounds = [], {}, {}
-        for C in widths:
+    # kernel -> (wrapper, plain version, library call, payload rows, the
+    # wide design, timed against the narrow kernel in turns at C <= 16)
+    kernels = {
+        "slot_reduce": (oh.onehot_reduce, oh.onehot_reduce_plain,
+                        lambda x: torch.zeros((plans.n_rows, x.shape[1]), device=dev).index_add_(
+                            0, plans.gather, x),
+                        plans.n_slots, oh.onehot_reduce_wide),
+        "slot_gather": (oh.onehot_gather, oh.onehot_gather_plain,
+                        lambda x: x.index_select(0, plans.gather), plans.n_rows,
+                        oh.onehot_gather_wide),
+    }
+    rec = {}
+    for name, Cs in widths.items():
+        fn, plain, lib, rows, wide = kernels[name]
+        errs, per_width = [], {}
+        for C in Cs:
             x = torch.randn((rows, C), generator=gen, device=dev)
             log(f"kernel {name}: payload {tuple(x.shape)}, {plans.n_slots} slots -> {plans.n_rows} rows")
             errs.append(compare(name, fn(plans, x), plain(plans, x)))
-            t = times[C] = kernel_times(
-                lambda: fn(plans, x), lambda: plain(plans, x), lambda: lib(x), reps
-            )
+            t = kernel_times(lambda: fn(plans, x), lambda: plain(plans, x), lambda: lib(x), reps)
             # every slot row once, every node row once; C's sums are its operations
-            b = bounds[C] = bound(
+            b = bound(
                 (plans.n_slots + plans.n_rows) * C * 4 + idx_bytes[name],
                 plans.n_slots * C if name == "slot_reduce" else 0,
             )
+            t["share"] = share(f"{name} C={C}", b, t["device_ms"])
             gbs = (plans.n_slots + plans.n_rows) * C * 4 / t["device_ms"] / 1e6
             log(f"  {name} C={C}: {fmt_times(t, b)} ({gbs:.1f} GB/s on device)")
+            if C <= SLOT_NARROW_C:
+                # the narrow kernel sums in the wide one's order: equal bits
+                if not torch.equal(wide(plans, x), fn(plans, x)):
+                    fail(f"{name} C={C}: the narrow and the wide design differ")
+                turns = [
+                    (k, device_ms(f, reps)) for k, f in (
+                        ("wide", lambda: wide(plans, x)), ("narrow", lambda: fn(plans, x)),
+                        ("narrow", lambda: fn(plans, x)), ("wide", lambda: wide(plans, x)),
+                    )
+                ]
+                log(f"  {name} C={C} designs in turns (device ms): " + "; ".join(
+                    f"{k} {d:.4f} ({b['bound_ms'] / d:.1%} of bound)" for k, d in turns))
+                t["wide_device_ms"] = sum(d for k, d in turns if k == "wide") / 2
+                share(f"{name} wide design C={C}", b, t["wide_device_ms"])
+            per_width[C] = dict(**t, **b)
             del x
-        rec[name] = dict(err=max(errs), **times[widths[0]], **bounds[widths[0]])
+        rec[name] = dict(err=max(errs), widths=per_width)
     return rec
+
+
+def add_slot_shapes(rec: dict, label: str, plans, reps: int) -> None:
+    """Kernels C and D checked and timed on a variant path's plan
+    (SLOT_SHAPES[label]), added to their records under "shapes"."""
+    for name, r in check_slot_kernels(plans, SLOT_SHAPES[label], reps).items():
+        rec[name]["err"] = max(rec[name]["err"], r["err"])
+        for C, t in r["widths"].items():
+            rec[name].setdefault("shapes", {})[f"{label}, {plans.n_slots} slots, C={C}"] = {
+                k: t[k] for k in ("device_ms", "bound_ms", "share", "plain_device_ms",
+                                  "library_ms", "lib_device_ms", "wide_device_ms") if k in t
+            }
 
 
 def run_probes(reps: int) -> dict:
@@ -512,6 +551,7 @@ def run_probes(reps: int) -> dict:
     launches = dict(probes.launch_counts)
     flop = 2.0 * N ** 3
     b_e = bound(3 * N * N * 4, flop)
+    share("sgemm_probe", b_e, t_e["device_ms"])
     log(f"  sgemm_probe: {fmt_times(t_e, b_e)} (plain and library: cuBLAS, TF32 off); on device "
         f"{flop / t_e['device_ms'] / 1e9:.2f} TFLOP/s f32 FMA, plain {flop / t_e['plain_device_ms'] / 1e9:.2f}")
     b_g = []
@@ -520,6 +560,7 @@ def run_probes(reps: int) -> dict:
         # the source elements this index reads (each once), the index, the output
         used = torch.unique(ci.idx64 * w + torch.arange(w, device=dev)).numel()
         b_g.append(bound((used + 2 * n_el) * 4, 0))
+        share(f"column_gather {tuple(src.shape)}", b_g[-1], t["device_ms"])
         log(f"  column_gather {tuple(src.shape)}: {fmt_times(t, b_g[-1])}; on device "
             f"{t['device_ms'] / n_el * 1e6:.4f} ns/elem, plain {t['plain_device_ms'] / n_el * 1e6:.4f}")
     return {
@@ -788,7 +829,7 @@ def imex_operator_times(solver, reps: int) -> None:
     log(f"K CSR apply at [{n}, 3], {nnz} entries: call {t['ms']:.4f} ms, device {t['device_ms']:.4f} ms; "
         f"torch.sparse.mm call {t['library_ms']:.4f} ms, device {t['lib_device_ms']:.4f} ms "
         f"(max rel difference {err:.3e}); bound {b['bound_ms']:.4f} ms by {b['bound_by']}: "
-        f"{b['bound_ms'] / t['device_ms']:.1%} of bound on device")
+        f"{share('K CSR apply', b, t['device_ms']):.1%} of bound on device")
     if solver.imex is not None:
         from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
 
@@ -796,16 +837,61 @@ def imex_operator_times(solver, reps: int) -> None:
         w_e = ops.gather_u(op, torch.randn((n, 3), generator=gen, device=dev))
         C_ef = ops.convection_fine_fold(op, im, w_e[im.f_idx])
         u_ef = oh.onehot_gather(im.plans, x).view(C_ef.shape[0], -1, 3)
-        y_ef = ops.element_apply(C_ef, u_ef).reshape(-1, 3)
+        # its gather and reduce (kernels D and C) are timed on this plan by
+        # add_slot_shapes
         parts = {
             "all": lambda: ops.apply_convection_fine(im, C_ef, x),
-            "gather (kernel D)": lambda: oh.onehot_gather(im.plans, x),
             "element product (element_apply)": lambda: ops.element_apply(C_ef, u_ef),
             "the same as one batched GEMM (einsum)": lambda: torch.einsum("eij,ejc->eic", C_ef, u_ef),
-            "reduce (kernel C)": lambda: oh.onehot_reduce(im.plans, y_ef),
         }
         log(f"IMEX fine-subset pass at [{n}, 3], {im.f_idx.numel()} cells, call / device ms: " + "; ".join(
             f"{k} {time_ms(f, reps):.4f} / {device_ms(f, reps):.4f}" for k, f in parts.items()))
+
+
+def split_build_times(solver, reps: int) -> None:
+    """The step's velocity-block build on the macro path with the K/C split
+    off and on, in turns (off, on, on, off), at the solver's plan: the
+    fold of F_e and kernel B, against the fold of C_e alone, kernel B and
+    the in-place sum with the setup-time mass and stiffness blocks.  Logs
+    call and device ms, the device bytes each allocates at its peak, and
+    fails if the two disagree."""
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
+    from navierstokes_project_nm4pde_tpu_torch.ops import operators as ops
+
+    op, mp, dev = solver.op, solver.macro, solver.device
+    nu, dt = solver.problem.nu, solver.config.time.dt
+    w = torch.randn((solver.space.n_unodes, solver.space.dim),
+                    generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    w_e = ops.gather_u(op, w)
+
+    def build(split: bool):
+        conv = ops.convection_setup(op, w, fold=(nu, dt), w_e=w_e, with_diag=False, conv_only=split)
+        FtT = mb.build_macro_values(mp, conv.F_e)
+        if split:
+            FtT.add_(solver.macro_mass, alpha=1.0 / dt).add_(solver.macro_stiff, alpha=nu)
+        return FtT
+
+    ref = build(False)
+    err = float((build(True) - ref).abs().max() / ref.abs().max())
+    del ref
+    if not err <= KERNELS["macro_build"][2]:
+        fail(f"K/C split: the split build disagrees with the full one: rel err {err:.3e}")
+    rows = []
+    for split in (False, True, True, False):
+        free_card()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        build(split)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        f = lambda: build(split)  # noqa: E731
+        rows.append((split, time_ms(f, reps), device_ms(f, reps), peak))
+    log("K/C split, the step's block build in turns (call ms, device ms, peak bytes it allocates): "
+        + "; ".join(f"{'on' if s else 'off'} {c:.4f} / {d:.4f} / {p / 2**20:.1f} MiB"
+                    for s, c, d, p in rows)
+        + f"; max rel difference {err:.3e}")
 
 
 def main(argv=None) -> int:
@@ -813,6 +899,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="DIR",
                     help="also trace 3 single-run, 3 IMEX and 2 ensemble steps into DIR")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -876,10 +963,13 @@ def main(argv=None) -> int:
         f"({esolver.space.n_unodes} velocity / {esolver.space.n_pnodes} pressure nodes), "
         f"B={B}: {B * esolver.space.n_dofs} DoF in all; {plans.n_slots} element slots, "
         f"max valence {int(plans.reduce.lengths.max())}; host setup {e_setup:.2f} s")
-    rec.update(check_slot_kernels(esolver, KERNEL_REPS))
+    ens = check_slot_kernels(
+        plans, {"slot_reduce": (3 * B, 6 * B), "slot_gather": (3 * B, 9 * B)}, KERNEL_REPS
+    )
+    for name, r in ens.items():
+        rec[name] = dict(err=r["err"], **r["widths"][3 * B])
 
-    # ---- 5. the probes (kernel timings first: the profiler loses records
-    # late in a long process) -----------------------------------------------
+    # ---- 5. the probes --------------------------------------------------------
     prec = run_probes(KERNEL_REPS)
     rec.update(prec)
     probe_launches = {k: v["launches"] for k, v in prec.items()}
@@ -921,6 +1011,8 @@ def main(argv=None) -> int:
         f"{mesh.n_cells} cells), K {isolver.kcsr.cols.numel()} entries; host setup "
         f"{time.perf_counter() - t0:.2f} s (mesh reused)")
     imex_operator_times(isolver, KERNEL_REPS)
+    add_slot_shapes(rec, "imex fine", isolver.imex.plans, KERNEL_REPS)
+    add_slot_shapes(rec, "imex full", isolver.op.onehot, KERNEL_REPS)
     istate, _, i_ms, _ = drive_single(
         "imex", isolver, WARMUP_STEPS, TIMED_STEPS, ("slot_gather", "slot_reduce"), any_maxiter=False
     )
@@ -943,8 +1035,9 @@ def main(argv=None) -> int:
             asolver.macro_stiff
         torch.cuda.synchronize()
         log(f"{name}: host setup {time.perf_counter() - t0:.2f} s (mesh reused)")
-        drive_single(name, asolver, ACCEL_WARMUP, ACCEL_TIMED, ("macro_build", "macro_matvec"),
-                     any_maxiter=False)
+        if asolver.macro_split:
+            split_build_times(asolver, KERNEL_REPS)
+        drive_single(name, asolver, ACCEL_WARMUP, ACCEL_TIMED, ("macro_build", "macro_matvec"))
         del asolver
         free_card()
     del mesh
@@ -959,6 +1052,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"explicit setup: {xsolver.space.n_dofs} DoF, dt {xsolver.config.time.dt:g}; host setup "
         f"{time.perf_counter() - t0:.2f} s")
+    add_slot_shapes(rec, "explicit full", xsolver.op.onehot, KERNEL_REPS)
     drive_single("explicit", xsolver, WARMUP_STEPS, TIMED_STEPS, ("slot_gather", "slot_reduce"),
                  any_maxiter=False)
     del xsolver
@@ -1018,11 +1112,12 @@ def main(argv=None) -> int:
             ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             device_ms=r["device_ms"], plain_device_ms=r["plain_device_ms"],
-            lib_device_ms=r["lib_device_ms"], share=r["bound_ms"] / r["device_ms"],
-            **{k: r[k] for k in ("v1_ms", "v1_device_ms", "widths") if k in r},
+            lib_device_ms=r["lib_device_ms"], share=share(name, r, r["device_ms"]),
+            **{k: r[k] for k in ("v1_ms", "v1_device_ms", "widths", "shapes") if k in r},
         ))
         log(f"{name}: device {r['device_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']} ({r['bound_ms'] / r['device_ms']:.1%}), library {r['lib_device_ms']:.4f} ms")
+    log(f"chip_smoke: every phase, the kernels' build included, in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({

@@ -1,5 +1,5 @@
-// Element-slot data movement of the vmapped ensemble step, written for
-// Hopper (sm_90a).
+// Element-slot data movement of the vmapped ensemble step and of the
+// single run's element passes, written for Hopper (sm_90a).
 //
 // The ensemble packs its B members into the channels of one payload:
 // a velocity-space array is [n_rows, C] with C = dim * B (component-major,
@@ -20,6 +20,14 @@
 //   sums its slots one after another in that fixed order: no atomics, so
 //   the result is the same in every run, and no permuted copy of y is
 //   written first (the plain version's index_select + segment_reduce).
+//   Narrow payloads (C <= kNarrowC: the single run's element passes at 3,
+//   6 or 9 channels) would leave 29 of a warp's 32 lanes idle, so there one
+//   thread sums one (row, channel) over the row's slots, in the same order
+//   (the same result, bit for bit); C is a compile-time constant there, so
+//   splitting the thread index costs a multiply.  At IMEX's fine subset
+//   (C = 3, 1.98 M slots): 0.0254 ms, 54% of its bound, against the
+//   warp-a-row design's 0.1102 and index_add_'s 0.0529 (H100 80GB HBM3,
+//   700 W).
 //
 // Kernel D, slot_gather: y[s, :] = x[idx[s], :]
 //   Replaces the Pallas kernel _gather_kernel (navierstokes_project_nm4pde_tpu/
@@ -28,8 +36,17 @@
 //   device-memory bytes written (n_slots * C * 4: 73.5 MB at C = 192);
 //   the source (11.5 MB at C = 192) stays in the 50 MB L2.  Design: one
 //   thread per (slot, 4-channel vector), a coalesced row copy.  Exact.
+//   Narrow payloads (C <= kNarrowC) take kGatherPer (slot, channel)
+//   elements a thread, C a compile-time constant: with one element a
+//   thread and the index split by a run-time C (a 64-bit division), each
+//   thread kept one index-then-row chain of loads in flight (C = 3 at
+//   IMEX's fine subset: 0.0320 ms, 40% of bound, against index_select's
+//   0.0262; now 0.0193, 67%; H100 80GB HBM3, 700 W).
 //
-// Both entry points launch on the caller's stream, allocate nothing, and
+//   ns_slot_reduce_wide_f32 and ns_slot_gather_wide_f32 run the wide
+//   designs at any C, kept to time the two in turns at narrow C.
+//
+// Every entry point launches on the caller's stream, allocate nothing, and
 // return cudaGetLastError() so the Python wrapper can raise.  Indices are
 // validated when the plans are built (ops/onehot.py build_onehot_plans).
 
@@ -40,6 +57,9 @@ namespace {
 
 constexpr int kReduceWarps = 8;  // output rows per CTA, one warp each
 constexpr int kGatherThreads = 256;
+constexpr int kNarrowC = 16;  // widest payload of the narrow kernels
+constexpr int kNarrowThreads = 256;
+constexpr int kGatherPer = 4;  // elements a thread of the narrow gather
 
 template <int VEC>
 struct Vec;
@@ -107,14 +127,51 @@ slot_gather_kernel(const float* __restrict__ x, const int64_t* __restrict__ idx,
   reinterpret_cast<V*>(y)[t] = reinterpret_cast<const V*>(x)[r * nv + v];
 }
 
+// one thread a (row, channel): its row's slots in CSR order, as above
+template <int C>
+__global__ void __launch_bounds__(kNarrowThreads)
+slot_reduce_narrow_kernel(const float* __restrict__ y, const int64_t* __restrict__ perm,
+                          const int64_t* __restrict__ off, float* __restrict__ out,
+                          int total) {
+  const int t = blockIdx.x * kNarrowThreads + threadIdx.x;
+  if (t >= total) return;
+  const int row = t / C;
+  const int c = t - row * C;
+  const long long k1 = off[row + 1];
+  float acc = 0.f;
+#pragma unroll 4
+  for (long long k = off[row]; k < k1; ++k) acc += y[perm[k] * C + c];
+  out[t] = acc;
+}
+
+// kGatherPer (slot, channel) elements a thread, kNarrowThreads apart so
+// that each store is coalesced; their loads are independent, so a thread
+// keeps kGatherPer index-then-row chains in flight
+template <int C>
+__global__ void __launch_bounds__(kNarrowThreads)
+slot_gather_narrow_kernel(const float* __restrict__ x, const int64_t* __restrict__ idx,
+                          float* __restrict__ y, int total) {
+  const int base = blockIdx.x * (kNarrowThreads * kGatherPer) + threadIdx.x;
+  float v[kGatherPer];
+#pragma unroll
+  for (int i = 0; i < kGatherPer; ++i) {
+    const int t = base + i * kNarrowThreads;
+    if (t < total) {
+      const int s = t / C;
+      v[i] = x[idx[s] * C + (t - s * C)];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kGatherPer; ++i) {
+    const int t = base + i * kNarrowThreads;
+    if (t < total) y[t] = v[i];
+  }
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
-}  // namespace
-
-extern "C" int ns_slot_reduce_f32(const float* y, const int64_t* perm, const int64_t* off,
-                                  float* out, int n_rows, int C, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_rows <= 0 || C <= 0) return 0;
+int reduce_wide(const float* y, const int64_t* perm, const int64_t* off, float* out,
+                int n_rows, int C, cudaStream_t s) {
   const int blocks = (n_rows + kReduceWarps - 1) / kReduceWarps;
   if (C % 4 == 0 && aligned16(y) && aligned16(out)) {
     slot_reduce_kernel<4><<<blocks, kReduceWarps * 32, 0, s>>>(y, perm, off, out, n_rows, C);
@@ -124,10 +181,8 @@ extern "C" int ns_slot_reduce_f32(const float* y, const int64_t* perm, const int
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int ns_slot_gather_f32(const float* x, const int64_t* idx, float* y,
-                                  long long n_slots, int C, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_slots <= 0 || C <= 0) return 0;
+int gather_wide(const float* x, const int64_t* idx, float* y, long long n_slots, int C,
+                cudaStream_t s) {
   const bool vec = C % 4 == 0 && aligned16(x) && aligned16(y);
   const int nv = vec ? C / 4 : C;
   const long long total = n_slots * nv;
@@ -138,4 +193,74 @@ extern "C" int ns_slot_gather_f32(const float* x, const int64_t* idx, float* y,
     slot_gather_kernel<1><<<blocks, kGatherThreads, 0, s>>>(x, idx, y, n_slots, nv);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// the narrow kernel at C = 1 .. kNarrowC over `total` = rows (slots) x C
+// elements, `per` a thread; false if C is wider
+template <template <int> class Launch, typename... Args>
+bool launch_narrow(int C, long long total, int per, cudaStream_t s, Args... args) {
+  if (C < 1 || C > kNarrowC || total >= (1LL << 31) - kNarrowThreads * per) return false;
+  const long long chunk = static_cast<long long>(kNarrowThreads) * per;
+  const unsigned blocks = static_cast<unsigned>((total + chunk - 1) / chunk);
+  switch (C) {
+#define NS_NARROW_CASE(c) \
+  case c:                 \
+    Launch<c>::run(blocks, s, args..., static_cast<int>(total)); \
+    break;
+    NS_NARROW_CASE(1) NS_NARROW_CASE(2) NS_NARROW_CASE(3) NS_NARROW_CASE(4)
+    NS_NARROW_CASE(5) NS_NARROW_CASE(6) NS_NARROW_CASE(7) NS_NARROW_CASE(8)
+    NS_NARROW_CASE(9) NS_NARROW_CASE(10) NS_NARROW_CASE(11) NS_NARROW_CASE(12)
+    NS_NARROW_CASE(13) NS_NARROW_CASE(14) NS_NARROW_CASE(15) NS_NARROW_CASE(16)
+#undef NS_NARROW_CASE
+  }
+  return true;
+}
+
+template <int C>
+struct ReduceNarrow {
+  static void run(unsigned blocks, cudaStream_t s, const float* y, const int64_t* perm,
+                  const int64_t* off, float* out, int total) {
+    slot_reduce_narrow_kernel<C><<<blocks, kNarrowThreads, 0, s>>>(y, perm, off, out, total);
+  }
+};
+
+template <int C>
+struct GatherNarrow {
+  static void run(unsigned blocks, cudaStream_t s, const float* x, const int64_t* idx, float* y,
+                  int total) {
+    slot_gather_narrow_kernel<C><<<blocks, kNarrowThreads, 0, s>>>(x, idx, y, total);
+  }
+};
+
+}  // namespace
+
+extern "C" int ns_slot_reduce_f32(const float* y, const int64_t* perm, const int64_t* off,
+                                  float* out, int n_rows, int C, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_rows <= 0 || C <= 0) return 0;
+  static_assert(kNarrowC == 16, "launch_narrow's cases take C = 1 .. kNarrowC");
+  if (launch_narrow<ReduceNarrow>(C, static_cast<long long>(n_rows) * C, 1, s, y, perm, off, out))
+    return static_cast<int>(cudaGetLastError());
+  return reduce_wide(y, perm, off, out, n_rows, C, s);
+}
+
+extern "C" int ns_slot_gather_f32(const float* x, const int64_t* idx, float* y,
+                                  long long n_slots, int C, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_slots <= 0 || C <= 0) return 0;
+  if (launch_narrow<GatherNarrow>(C, n_slots * C, kGatherPer, s, x, idx, y))
+    return static_cast<int>(cudaGetLastError());
+  return gather_wide(x, idx, y, n_slots, C, s);
+}
+
+extern "C" int ns_slot_reduce_wide_f32(const float* y, const int64_t* perm, const int64_t* off,
+                                       float* out, int n_rows, int C, void* stream) {
+  if (n_rows <= 0 || C <= 0) return 0;
+  return reduce_wide(y, perm, off, out, n_rows, C, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ns_slot_gather_wide_f32(const float* x, const int64_t* idx, float* y,
+                                       long long n_slots, int C, void* stream) {
+  if (n_slots <= 0 || C <= 0) return 0;
+  return gather_wide(x, idx, y, n_slots, C, static_cast<cudaStream_t>(stream));
 }

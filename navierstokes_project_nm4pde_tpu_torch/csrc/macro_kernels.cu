@@ -30,7 +30,9 @@
 //   payloads are the recycled-block GCR's wide round, 3 (k + 1) channels
 //   at f_recycle = k <= 7, and the warm-start rhs pass, 3 + 3k channels at
 //   f_warmstart = k <= 4.  A wider payload split into launches would read
-//   the values once per launch.
+//   the values once per launch.  macro_matvec_v1 is the earlier design
+//   (FtT read straight from global memory, output stored at a stride of
+//   C, up to 8 channels), kept to time the two in turns.
 //
 // Kernel B, macro_build: FtT[b, lidx[c, j], lidx[c, i]] += F_e[c, i, j]
 //   Replaces the Pallas prototypes _kern_cells / _kern_bd / _kern_cells16 /
@@ -80,6 +82,9 @@ constexpr int kMaxC = 24;
 constexpr int kMatvecMaxU = 256;
 constexpr int kMatvecRows = 16;
 constexpr int kMatvecStages = 4;
+// Kernel A's earlier design: 128 threads a block, up to 8 channels.
+constexpr int kMatvecV1Threads = 128;
+constexpr int kMatvecV1MaxC = 8;
 constexpr int kBuildV1Threads = 256;
 // Kernel B: one CTA of 1024 threads an SM; each thread adds kBuildAdds
 // values of a (c, i) row.  Hopper has no shared-memory f32 add: atomicAdd
@@ -394,6 +399,43 @@ int launch_matvec(const float* FtT, const float* xb, float* yb, int B, int U,
   return 0;
 }
 
+// Kernel A's earlier design (up to kMatvecV1MaxC channels): each thread
+// reads its column of FtT straight from global memory and stores its row
+// of the output at a stride of C.  Kept to time the two designs in turns.
+template <int C>
+__global__ void __launch_bounds__(kMatvecV1Threads)
+macro_matvec_v1_kernel(const float* __restrict__ FtT, const float* __restrict__ xb,
+                       float* __restrict__ yb, int U) {
+  extern __shared__ float panel_v1[];  // [U, C] input slots of this block
+  const int b = blockIdx.x;
+  const float* xblk = xb + static_cast<size_t>(b) * U * C;
+  for (int i = threadIdx.x; i < U * C; i += blockDim.x) panel_v1[i] = xblk[i];
+  __syncthreads();
+
+  const float* F = FtT + static_cast<size_t>(b) * U * U;
+  for (int u = threadIdx.x; u < U; u += blockDim.x) {
+    float acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = 0.f;
+#pragma unroll 8
+    for (int v = 0; v < U; ++v) {
+      const float f = __ldg(F + static_cast<size_t>(v) * U + u);
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[c] = fmaf(f, panel_v1[v * C + c], acc[c]);
+    }
+    float* y = yb + (static_cast<size_t>(b) * U + u) * C;
+#pragma unroll
+    for (int c = 0; c < C; ++c) y[c] = acc[c];
+  }
+}
+
+template <int C>
+void launch_matvec_v1(const float* FtT, const float* xb, float* yb, int B, int U,
+                      cudaStream_t s) {
+  const size_t smem = static_cast<size_t>(U) * C * sizeof(float);
+  macro_matvec_v1_kernel<C><<<B, kMatvecV1Threads, smem, s>>>(FtT, xb, yb, U);
+}
+
 }  // namespace
 
 extern "C" int ns_macro_matvec_f32(const float* FtT, const float* xb, float* yb,
@@ -418,6 +460,25 @@ extern "C" int ns_macro_matvec_f32(const float* FtT, const float* xb, float* yb,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ns_macro_matvec_v1_f32(const float* FtT, const float* xb, float* yb,
+                                      int B, int U, int C, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0) return 0;
+  static_assert(kMatvecV1MaxC == 8, "the cases below take C = 1 .. kMatvecV1MaxC");
+  switch (C) {
+    case 1: launch_matvec_v1<1>(FtT, xb, yb, B, U, s); break;
+    case 2: launch_matvec_v1<2>(FtT, xb, yb, B, U, s); break;
+    case 3: launch_matvec_v1<3>(FtT, xb, yb, B, U, s); break;
+    case 4: launch_matvec_v1<4>(FtT, xb, yb, B, U, s); break;
+    case 5: launch_matvec_v1<5>(FtT, xb, yb, B, U, s); break;
+    case 6: launch_matvec_v1<6>(FtT, xb, yb, B, U, s); break;
+    case 7: launch_matvec_v1<7>(FtT, xb, yb, B, U, s); break;
+    case 8: launch_matvec_v1<8>(FtT, xb, yb, B, U, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int ns_macro_build_f32(const float* Fe, const int32_t* lidx, float* FtT,

@@ -323,7 +323,6 @@ class NavierStokesSolver:
         self.op, host = ops.build_operator(
             space, self.geom, mask, dt_, dev, coarse_agg=cfg.numerics.schur_agg
         )
-        self.conv_base = ops.conv_base(self.op)
         nc, conv_mode = cfg.numerics, cfg.time.convection
         if nc.grad_apply == "element":
             self.op.grad = None
@@ -592,13 +591,14 @@ class NavierStokesSolver:
         else:
             conv = ops.convection_setup(
                 op, w, fold=(nu, dt_eff), w_e=w_e,
-                with_diag=not pc.freeze_conv_diag, base_e=self.conv_base,
+                with_diag=not pc.freeze_conv_diag,
                 conv_only=self.macro_split,
             )
             if self.f_apply == "macro":
                 FtT = mb.build_macro_values(self.macro, conv.F_e)
-                if conv.conv_only:  # K/C split: C's blocks + the setup-time M, A
-                    FtT = self.macro_mass * (1.0 / dt_eff) + nu * self.macro_stiff + FtT
+                if conv.conv_only:  # K/C split: C's blocks + the setup-time M, A,
+                    # added in place (no [B, U, U] temporaries)
+                    FtT.add_(self.macro_mass, alpha=1.0 / dt_eff).add_(self.macro_stiff, alpha=nu)
 
         # ---- 1. tentative velocity -----------------------------------
         Yw = None
@@ -792,7 +792,7 @@ class NavierStokesSolver:
         h_e, u0_e, w_e = st_e[:, :, :d], st_e[:, :, d:2 * d], st_e[:, :, 2 * d:]
         conv = ops.convection_setup(
             op, w, fold=(nu, dt_eff), w_e=w_e,
-            with_diag=not cfg.precond.freeze_conv_diag, base_e=self.conv_base,
+            with_diag=not cfg.precond.freeze_conv_diag,
         )
 
         # ---- 1. tentative velocity -----------------------------------

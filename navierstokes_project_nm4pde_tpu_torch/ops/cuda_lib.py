@@ -33,6 +33,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # ns_macro_build_smem_bytes a size)
 _SIGNATURES = {
     "ns_macro_matvec_f32": [_P, _P, _P, _I, _I, _I, _P],
+    "ns_macro_matvec_v1_f32": [_P, _P, _P, _I, _I, _I, _P],
     "ns_macro_build_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ns_macro_build_v1_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ns_macro_build_smem_bytes": [_I, _I, _I],
@@ -40,6 +41,8 @@ _SIGNATURES = {
     "ns_macro_max_slots": [],
     "ns_slot_reduce_f32": [_P, _P, _P, _P, _I, _I, _P],
     "ns_slot_gather_f32": [_P, _P, _P, ctypes.c_longlong, _I, _P],
+    "ns_slot_reduce_wide_f32": [_P, _P, _P, _P, _I, _I, _P],
+    "ns_slot_gather_wide_f32": [_P, _P, _P, ctypes.c_longlong, _I, _P],
     "ns_sgemm_tn_f32": [_P, _P, _P, _I, _I, _I, _P],
     "ns_column_gather_f32": [_P, _P, _P, _I, _I, _P],
 }

@@ -256,17 +256,45 @@ def macro_matvec(FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
             f"on FtT's device with 1 <= C <= {lib.ns_macro_max_channels()}, "
             f"got {x_b.dtype} {tuple(x_b.shape)}"
         )
-    y = torch.empty((B, U, C), dtype=torch.float32, device=FtT.device)
-    stream = torch.cuda.current_stream(FtT.device).cuda_stream
-    cuda_lib.check(
-        lib.ns_macro_matvec_f32(
-            FtT.data_ptr(), x_b.data_ptr(), y.data_ptr(), B, U, C, stream
-        ),
-        "macro_matvec",
-    )
+    y = _launch_matvec("ns_macro_matvec_f32", FtT, x_b)
     launch_counts["macro_matvec"] += 1
     matvec_channels[C] = matvec_channels.get(C, 0) + 1
     return y
+
+
+def _launch_matvec(entry: str, FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
+    B, U, C = x_b.shape
+    y = torch.empty((B, U, C), dtype=torch.float32, device=FtT.device)
+    stream = torch.cuda.current_stream(FtT.device).cuda_stream
+    cuda_lib.check(
+        getattr(cuda_lib.load(), entry)(
+            FtT.data_ptr(), x_b.data_ptr(), y.data_ptr(), B, U, C, stream
+        ),
+        entry,
+    )
+    return y
+
+
+# the earlier design's widest payload
+MATVEC_V1_MAX_C = 8
+
+
+def macro_matvec_v1(FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
+    """Kernel A's earlier design (FtT read straight from global memory, up
+    to 8 channels), on CUDA tensors only.  Not on any path: kept to time
+    the designs in turns."""
+    B, U, _ = FtT.shape
+    if not (
+        FtT.is_cuda and FtT.dtype == torch.float32 and FtT.is_contiguous()
+        and FtT.shape[2] == U and x_b.dim() == 3 and x_b.device == FtT.device
+        and x_b.dtype == torch.float32 and x_b.is_contiguous()
+        and tuple(x_b.shape[:2]) == (B, U) and 1 <= x_b.shape[2] <= MATVEC_V1_MAX_C
+    ):
+        raise ValueError(
+            "macro_matvec_v1: FtT [B, U, U] and x_b [B, U, C <= "
+            f"{MATVEC_V1_MAX_C}] must be contiguous float32 CUDA tensors"
+        )
+    return _launch_matvec("ns_macro_matvec_v1_f32", FtT, x_b)
 
 
 # ----------------------------------------------------------------------

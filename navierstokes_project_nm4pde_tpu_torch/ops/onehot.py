@@ -92,19 +92,30 @@ def onehot_gather(plans: OneHotPlans, x: torch.Tensor) -> torch.Tensor:
         return onehot_gather_plain(plans, x)
     if x.device.type != "cuda":
         raise ValueError(f"onehot_gather: unsupported device {x.device}")
-    _check_payload("onehot_gather", x, plans.n_rows, plans)
-    lib = cuda_lib.load()
+    y = _launch_gather("onehot_gather", "ns_slot_gather_f32", plans, x)
+    launch_counts["slot_gather"] += 1
+    return y
+
+
+def onehot_gather_wide(plans: OneHotPlans, x: torch.Tensor) -> torch.Tensor:
+    """Kernel D's wide design at any C, on CUDA tensors only.  Not on any
+    path: kept to time it against the narrow kernel in turns."""
+    if x.device.type != "cuda":
+        raise ValueError("onehot_gather_wide: CUDA tensors only")
+    return _launch_gather("onehot_gather_wide", "ns_slot_gather_wide_f32", plans, x)
+
+
+def _launch_gather(name: str, entry: str, plans: OneHotPlans, x: torch.Tensor) -> torch.Tensor:
+    _check_payload(name, x, plans.n_rows, plans)
     C = x.shape[1]
     y = torch.empty((plans.n_slots, C), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     cuda_lib.check(
-        lib.ns_slot_gather_f32(
-            x.data_ptr(), plans.gather.data_ptr(), y.data_ptr(), plans.n_slots, C,
-            stream,
+        getattr(cuda_lib.load(), entry)(
+            x.data_ptr(), plans.gather.data_ptr(), y.data_ptr(), plans.n_slots, C, stream,
         ),
-        "onehot_gather",
+        name,
     )
-    launch_counts["slot_gather"] += 1
     return y
 
 
@@ -123,18 +134,30 @@ def onehot_reduce(plans: OneHotPlans, y: torch.Tensor) -> torch.Tensor:
         return onehot_reduce_plain(plans, y)
     if y.device.type != "cuda":
         raise ValueError(f"onehot_reduce: unsupported device {y.device}")
-    _check_payload("onehot_reduce", y, plans.n_slots, plans)
-    lib = cuda_lib.load()
+    out = _launch_reduce("onehot_reduce", "ns_slot_reduce_f32", plans, y)
+    launch_counts["slot_reduce"] += 1
+    return out
+
+
+def onehot_reduce_wide(plans: OneHotPlans, y: torch.Tensor) -> torch.Tensor:
+    """Kernel C's wide design (a warp a row) at any C, on CUDA tensors
+    only.  Not on any path: kept to time it against the narrow kernel in
+    turns."""
+    if y.device.type != "cuda":
+        raise ValueError("onehot_reduce_wide: CUDA tensors only")
+    return _launch_reduce("onehot_reduce_wide", "ns_slot_reduce_wide_f32", plans, y)
+
+
+def _launch_reduce(name: str, entry: str, plans: OneHotPlans, y: torch.Tensor) -> torch.Tensor:
+    _check_payload(name, y, plans.n_slots, plans)
     C = y.shape[1]
     out = torch.empty((plans.n_rows, C), dtype=torch.float32, device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
     cuda_lib.check(
-        lib.ns_slot_reduce_f32(
-            y.data_ptr(), plans.reduce.perm.data_ptr(),
-            plans.reduce.offsets.data_ptr(), out.data_ptr(), plans.n_rows, C,
-            stream,
+        getattr(cuda_lib.load(), entry)(
+            y.data_ptr(), plans.reduce.perm.data_ptr(), plans.reduce.offsets.data_ptr(),
+            out.data_ptr(), plans.n_rows, C, stream,
         ),
-        "onehot_reduce",
+        name,
     )
-    launch_counts["slot_reduce"] += 1
     return out

@@ -217,11 +217,6 @@ def scatter_p(op: NSOperator, y_e: torch.Tensor) -> torch.Tensor:
     return apply_segment_plan(op.plan_p, flat).view(op.plan_p.n_rows, *y_e.shape[2:])
 
 
-def conv_base(op: NSOperator) -> torch.Tensor:
-    """Constant element stiffness GKd:AHAT [E, nloc, nloc] (`op.stiff_e`)."""
-    return op.stiff_e
-
-
 def apply_divergence(op: NSOperator, u: torch.Tensor) -> torch.Tensor:
     """y = D u: [n_unodes, dim] -> [n_pnodes] (assembled, or the element
     pass when `op.div` is None)."""
@@ -295,7 +290,6 @@ def convection_setup(
     fold: tuple | None = None,
     w_e: torch.Tensor | None = None,
     with_diag: bool = True,
-    base_e: torch.Tensor | None = None,
     conv_only: bool = False,
 ) -> ConvectionData:
     """Tabulate the linearised convection + Temam term of C(w) at the
@@ -304,9 +298,8 @@ def convection_setup(
     C(w) term is weighted by the cell's implicit weight.
 
     `w` may carry trailing member axes ([n, dim, B]); nu in `fold` is then
-    a [B] tensor.  `w_e` is a pre-gathered element view of w; `base_e` the
-    setup-time `conv_base(op)`; `with_diag=False` skips diag(C) (the
-    stepper's freeze_conv_diag mode)."""
+    a [B] tensor.  `w_e` is a pre-gathered element view of w;
+    `with_diag=False` skips diag(C) (the stepper's freeze_conv_diag mode)."""
     if w_e is None:
         w_e = gather_u(op, w)
     tail = w_e.dim() - 3
@@ -321,7 +314,7 @@ def convection_setup(
     F_e = None
     if fold is not None:
         nu, dt = fold
-        base = conv_base(op) if base_e is None else base_e
+        base = op.stiff_e
         if torch.is_tensor(nu) and nu.dim() == 1:
             # members: [j, E, i, B], the layout `element_apply` streams
             F_e = (op.MHAT[None] * (op.detJ / dt)[:, None, None]).permute(2, 0, 1)[..., None]

@@ -85,6 +85,26 @@ def test_macro_matvec_matches_plain(cuda, B, U, C):
     _close(y, mb.macro_matvec_plain(FtT, x_b))
 
 
+@pytest.mark.parametrize("B,U,C", [(1, 128, 3), (37, 128, 8), (5, 30, 1)])
+def test_macro_matvec_v1_matches_plain_and_the_new_design(cuda, B, U, C):
+    """Kernel A's earlier design, kept to be timed beside the new one: it
+    agrees with the plain version and with the new design, and launching
+    it does not count as a launch of kernel A."""
+    g = torch.Generator(device=cuda).manual_seed(B + C)
+    FtT = torch.randn((B, U, U), generator=g, device=cuda)
+    x_b = torch.randn((B, U, C), generator=g, device=cuda)
+    before = mb.launch_counts["macro_matvec"]
+    y = mb.macro_matvec_v1(FtT, x_b)
+    torch.cuda.synchronize()
+    assert mb.launch_counts["macro_matvec"] == before
+    _close(y, mb.macro_matvec_plain(FtT, x_b))
+    _close(mb.macro_matvec(FtT, x_b), y)
+    with pytest.raises(ValueError):
+        mb.macro_matvec_v1(FtT.cpu(), x_b.cpu())  # no plain fallback
+    with pytest.raises(ValueError):
+        mb.macro_matvec_v1(FtT, torch.zeros((B, U, 9), device=cuda))
+
+
 # Odd block counts and a last block only partly filled with cells; more
 # blocks than the persistent grid (132 CTAs at U = 128, a few per SM at
 # smaller U), so each CTA walks many blocks and reuses both tiles and both
@@ -179,10 +199,13 @@ def _cells(E, nloc, n_rows, seed):
     return cells
 
 
-@pytest.mark.parametrize("E,n_rows,C", [(40, 97, 3), (300, 500, 12), (64, 150, 192), (50, 120, 384), (7, 30, 5)])
+@pytest.mark.parametrize("E,n_rows,C", [
+    (40, 97, 3), (300, 500, 12), (64, 150, 192), (50, 120, 384), (7, 30, 5), (60, 140, 1),
+    (45, 110, 16), (45, 110, 17), (33, 90, 20),
+])
 def test_slot_reduce_and_gather_match_plain(cuda, E, n_rows, C):
-    """Kernels C and D on both their paths: C % 4 == 0 (16-byte vectors)
-    and any other C (scalar)."""
+    """Kernels C and D on all their paths: C <= 16 (a thread a channel),
+    and wider C % 4 == 0 (16-byte vectors) and any other C (scalar)."""
     plans = oh.build_onehot_plans(_cells(E, 10, n_rows, seed=E), n_rows, device=cuda)
     g = torch.Generator(device=cuda).manual_seed(C)
     y = torch.randn((plans.n_slots, C), generator=g, device=cuda)
@@ -197,6 +220,25 @@ def test_slot_reduce_and_gather_match_plain(cuda, E, n_rows, C):
     assert torch.equal(ye, oh.onehot_gather_plain(plans, x))
     # deterministic: a second reduce is bit-identical
     assert torch.equal(oh.onehot_reduce(plans, y), out)
+
+
+@pytest.mark.parametrize("C", [1, 3, 6, 9, 16])
+def test_slot_kernels_narrow_and_wide_designs_agree_bit_for_bit(cuda, C):
+    """At C <= 16 the narrow kernels sum (and copy) in the wide designs'
+    order: the results are equal, and the wide designs (kept to be timed
+    beside them) do not count as launches."""
+    plans = oh.build_onehot_plans(_cells(200, 10, 350, seed=C), 350, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(C)
+    y = torch.randn((plans.n_slots, C), generator=g, device=cuda)
+    x = torch.randn((350, C), generator=g, device=cuda)
+    before = dict(oh.launch_counts)
+    out_w, ye_w = oh.onehot_reduce_wide(plans, y), oh.onehot_gather_wide(plans, x)
+    torch.cuda.synchronize()
+    assert oh.launch_counts == before
+    assert torch.equal(oh.onehot_reduce(plans, y), out_w)
+    assert torch.equal(oh.onehot_gather(plans, x), ye_w)
+    with pytest.raises(ValueError):
+        oh.onehot_reduce_wide(plans, y.cpu())  # no plain fallback
 
 
 @pytest.mark.parametrize("C", [3, 12])

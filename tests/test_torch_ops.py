@@ -193,9 +193,8 @@ def test_divergence_and_gradient_match_bsr(duct):
 # ----------------------------------------------------------------------
 def test_convection_setup_and_apply_F_match_reference(duct):
     jop, top, f = duct["jop"], duct["top"], duct["f"]
-    base = tops.conv_base(top)
     jconv = jops.convection_setup(jop, jnp.asarray(f["w"]), fold=(NU, DT))
-    tconv = tops.convection_setup(top, _t(f["w"]), fold=(NU, DT), base_e=base)
+    tconv = tops.convection_setup(top, _t(f["w"]), fold=(NU, DT))
     _close(tconv.F_e.numpy(), jconv.F_e, 1e-12)
     _close(tconv.diagC.numpy(), jconv.diagC, 1e-12, atol_scale=1e-12)
     _close(
