@@ -15,6 +15,11 @@ Drives the port's paths once each:
   * the ensemble: 64 Reynolds-sweep members of 46,928 DoF each under
     scripts/bench_ensemble.py's settings (float32), through
     `run_ensemble`, kernels C and D;
+  * the monolithic saddle-point stepper: the `cylinder3d` entry point at
+    its defaults through the CLI's `main` (142,692 DoF, yosida, float32,
+    the CSV files and final.npz checked), and at 965,265 DoF under
+    bench.py's monolithic settings; every element pass through kernels C
+    and D; host syncs a step counted by torch's sync debug mode;
 and runs the two TPU-era measurement probes (kernels E and F).  It builds
 the hand-written CUDA kernels from `navierstokes_project_nm4pde_tpu_torch/csrc`,
 holds each against its plain PyTorch version at the shapes its paths give
@@ -26,9 +31,13 @@ device time below the bound by more than 5% fails the run), times the
 earlier and the committed designs of kernels A, B, C and D in turns, and
 the K/C split's block build against the full one, and holds short runs
 of each path and of each variant on the card against the same runs on
-the CPU in float64 (plain versions) on a small duct.  It imports nothing
+the CPU in float64 (plain versions) on a small duct (the monolithic
+stepper's kinds and inner solvers to tolerances measured from the JAX
+package's own float32 spread, and one preconditioner application of each
+to 100 float32 epsilons).  It imports nothing
 of jax or of the JAX package, and fails if either was imported.  On an
-H100 80GB HBM3 the whole script, the kernels' build included, took 78 s.
+H100 80GB HBM3 the whole script, the kernels' build included, took
+184-243.5 s.
 
     python3 chip_smoke.py [--profile DIR]   # DIR: torch.profiler tables and traces
 
@@ -41,6 +50,8 @@ limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -89,6 +100,10 @@ SLOT_SHAPES = {
     "imex fine": {"slot_reduce": (3,), "slot_gather": (3,)},
     "imex full": {"slot_reduce": (6,), "slot_gather": (9,)},
     "explicit full": {"slot_reduce": (3, 6), "slot_gather": (9,)},
+    # the monolithic stepper: every element pass (F, D, G, M) at 3 channels,
+    # and diag C(w) (`convection_setup`, once a step) reduced at 1
+    "monolithic 142k": {"slot_reduce": (1, 3), "slot_gather": (3,)},
+    "monolithic 965k": {"slot_reduce": (1, 3), "slot_gather": (3,)},
 }
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): device-memory
 # bytes a second, and float32 operations a second outside the tensor cores.
@@ -131,6 +146,55 @@ VARIANT_CHECKS = {
     "coarse_solve=inv": ({"numerics": dict(coarse_solve="inv")}, SMALL_DUCT),
     "mg2_form=v11": ({"precond": dict(mg2_form="v11")}, SMALL_DUCT),
 }
+# Small-duct checks of the monolithic stepper, card f32 against CPU f64,
+# 5 steps on SMALL_DUCT: name -> (precond changes to the cylinder3d CLI's
+# defaults, tolerance relative to max |ref| as AGREE_RTOL is).  Each
+# tolerance is at least twice the JAX package's own float32-against-float64
+# spread on the same duct and steps, which
+# tests/test_torch_monolithic_f32.py measures and holds under half of it
+# (on the CPU: at most 2.7e-4 for the converging cases, 9.9e-3 for ayosida
+# and 5.3e-2 for block_triangular, which run at maxiter 200 there).  The
+# application itself is held far tighter (PRECOND_RTOL).
+MONO_CHECKS = {
+    "cylinder3d defaults (yosida)": ({}, 1e-3),
+    "asimple": ({"kind": "asimple"}, 1e-3),
+    "ayosida": ({"kind": "ayosida"}, 2e-2),
+    "block_triangular": ({"kind": "block_triangular"}, 2e-1),
+    "f_solver=richardson": ({"f_solver": "richardson"}, 1e-3),
+    "f_solver=chebyshev": ({"f_solver": "chebyshev"}, 1e-3),
+    "f_solver=pmg": ({"f_solver": "pmg"}, 1e-3),
+    "s_solver=mg2_cg": ({"s_solver": "mg2_cg"}, 1e-3),
+    "s_solver=spai_cg": ({"s_solver": "spai_cg"}, 1e-3),
+    "s_solver=chebyshev": ({"s_solver": "chebyshev"}, 1e-3),
+}
+# One `apply_precond` of each of the seven kinds and of each inner-solver
+# case of MONO_CHECKS, card f32 against CPU f64 on the same seeded
+# (w, v_u, v_p) on SMALL_DUCT, relative to max |ref| of z_u and of z_p.
+# The port's own CPU float32 run reads at most 13.4 float32 epsilons
+# (ayosida) from float64; one inner iteration fewer in each inner solve (the
+# planted fault the check also runs, and must see) reads at least 4.8e-4
+# (f_solver=pmg), 4000 epsilons.  The limit, 100 epsilons, lies between.
+PRECOND_RTOL = 100 * 2.0 ** -23
+# The projection paths on the per-step and the frozen ELL Schur (held to
+# AGREE_RTOL like the other variants); the frozen ELL fallback is forced by
+# a 1-byte limit on the banded form (`no_band`).
+SCHUR_CHECKS = {
+    "proj_schur=step": {"numerics": dict(proj_schur="step", schur_spmv="ell", grad_apply="ell")},
+    "f_iters=4": {"precond": dict(f_iters=4)},
+    "frozen ELL fallback": {},
+}
+# The cylinder3d entry point at its defaults (142,692 DoF, float32) through
+# the CLI: warm-up and timed steps, in chunks of CLI_CHUNK; its mesh.
+CLI_WARMUP = 2
+CLI_TIMED = 10
+CLI_CHUNK = 2
+CLI_MESH = dict(lc=0.05, nz=8)
+# The monolithic stepper at 965,265 DoF under bench.py's
+# NS_BENCH_STEPPER=monolithic settings (bench.py:56-99: yosida, f_iters 4,
+# s_iters 3, mg2_cg, restart 8, maxiter 60, tol_mode b).
+MONO_RUN = {"time": dict(stepper="monolithic"), "precond": dict(f_iters=4)}
+MONO_WARMUP = 2
+MONO_TIMED = 5
 # The 965k variant runs: name -> config changes (bench.py's environment
 # knobs NS_BENCH_CONV, NS_BENCH_FWARM, NS_BENCH_MACRO_SPLIT,
 # NS_BENCH_COARSE_SOLVE, NS_BENCH_RECYCLE, NS_BENCH_MG2).
@@ -184,6 +248,19 @@ def with_changes(cfg, changes: dict):
     return dataclasses.replace(cfg, **{
         part: dataclasses.replace(getattr(cfg, part), **kw) for part, kw in changes.items()
     })
+
+
+def cylinder3d_config(dtype: str = "float32", **precond):
+    """The RunConfig of the port's `cylinder3d` CLI with no flags (the
+    reference's: monolithic, yosida, f_iters 6, s_iters 30, restart 50,
+    maxiter 200, tol_mode r0, precise dots) at `dtype`, with `precond`
+    fields replaced."""
+    import dataclasses
+
+    from navierstokes_project_nm4pde_tpu_torch import cli
+
+    cfg = cli._build_config(cli._parser().parse_args(["cylinder3d", "--dtype", dtype]), None)
+    return dataclasses.replace(cfg, precond=dataclasses.replace(cfg.precond, **precond))
 
 
 def ensemble_config(dtype: str = "float32"):
@@ -275,6 +352,29 @@ def device_ms(fn, reps: int) -> float:
         fail("device_ms: the spin kernel ended before the last call was queued")
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_device_ms(fn, reps: int) -> float | None:
+    """Device time of one call of fn(), for a call with more launches than
+    the queue behind `device_ms`'s spin holds: fn captured once as a CUDA
+    graph, and `device_ms` of its replay (one launch each).  None if fn
+    cannot be captured."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    except RuntimeError as e:
+        log(f"graph_device_ms: capture failed: {e}")
+        torch.cuda.synchronize()
+        return None
+    return device_ms(graph.replay, reps)
 
 
 def kernel_times(fn, plain, lib, reps: int) -> dict:
@@ -571,10 +671,11 @@ def run_probes(reps: int) -> dict:
     }
 
 
-def check_small_duct(device, name: str = "bench", changes=None, mesh_kw=SMALL_DUCT) -> None:
+def check_small_duct(device, name: str = "bench", changes=None, mesh_kw=SMALL_DUCT,
+                     config=bench_config, rtol: float = AGREE_RTOL) -> None:
     """The port on the card (f32, kernels) against the port on the CPU
-    (f64, plain versions) on a small duct, under the bench configuration
-    with `changes`."""
+    (f64, plain versions) on a small duct, under `config(dtype)` with
+    `changes`, to `rtol`."""
     import numpy as np
 
     from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
@@ -586,7 +687,7 @@ def check_small_duct(device, name: str = "bench", changes=None, mesh_kw=SMALL_DU
     mesh = cylinder_duct_3d(**mesh_kw)
     (sg, dg), (sc, dc) = (
         NavierStokesSolver(
-            mesh, Cylinder3DProblem(test_case=2), with_changes(bench_config(dtype), changes or {}),
+            mesh, Cylinder3DProblem(test_case=2), with_changes(config(dtype), changes or {}),
             device=dev,
         ).run(AGREE_STEPS)
         for dev, dtype in ((device, "float32"), ("cpu", "float64"))
@@ -605,8 +706,101 @@ def check_small_duct(device, name: str = "bench", changes=None, mesh_kw=SMALL_DU
     log("  max err vs cpu f64, relative to max |ref|: "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     for k, v in errs.items():
-        if not v <= AGREE_RTOL:
-            fail(f"small duct, {name}: {k} err {v:.3e} > {AGREE_RTOL:g} of max |ref|")
+        if not v <= rtol:
+            fail(f"small duct, {name}: {k} err {v:.3e} > {rtol:g} of max |ref|")
+
+
+@contextlib.contextmanager
+def no_band():
+    """The port's frozen S1 with a 1-byte limit on its banded form: every
+    band is too wide, so the stepper takes its ELL fallback."""
+    from navierstokes_project_nm4pde_tpu_torch.models import base
+    from navierstokes_project_nm4pde_tpu_torch.ops.banded import build_banded_schur
+
+    base.build_banded_schur = functools.partial(build_banded_schur, max_bytes=1)
+    try:
+        yield
+    finally:
+        base.build_banded_schur = build_banded_schur
+
+
+def check_small_monolithic(device) -> None:
+    """The monolithic stepper (MONO_CHECKS) and the projection paths on the
+    per-step and the frozen ELL Schur (SCHUR_CHECKS), card against CPU on
+    the small duct."""
+    for name, (precond, rtol) in MONO_CHECKS.items():
+        check_small_duct(device, f"monolithic, {name}", config=functools.partial(
+            cylinder3d_config, **precond), rtol=rtol)
+    for name, changes in SCHUR_CHECKS.items():
+        with no_band() if name == "frozen ELL fallback" else contextlib.nullcontext():
+            check_small_duct(device, name, changes)
+
+
+def check_small_precond(device) -> None:
+    """One `apply_precond` of each kind and inner-solver case on the card (f32,
+    kernels C and D in every F apply) against the CPU (f64) on the same
+    seeded inputs, to PRECOND_RTOL; and the planted fault (one inner
+    iteration fewer in each inner solve) on the card, which must read above
+    it wherever the kind runs an inner solve."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
+    from navierstokes_project_nm4pde_tpu_torch.models import (
+        Cylinder3DProblem,
+        NavierStokesSolver,
+    )
+    from navierstokes_project_nm4pde_tpu_torch.ops import operators as ops
+    from navierstokes_project_nm4pde_tpu_torch.precond import blocks
+
+    mesh = cylinder_duct_3d(**SMALL_DUCT)
+    # f_solver pmg and s_solver spai_cg: each operator holds the P2 -> P1
+    # transfers and the SPAI values, so that every case runs on one pair
+    solvers = {
+        dev: NavierStokesSolver(mesh, Cylinder3DProblem(test_case=2), cylinder3d_config(
+            dtype, f_solver="pmg", s_solver="spai_cg"), device=dev)
+        for dev, dtype in ((device, "float32"), ("cpu", "float64"))
+    }
+    sc = solvers["cpu"]
+    n, n_p = sc.space.n_unodes, sc.space.n_pnodes
+    rng = np.random.default_rng(7)
+    w = rng.uniform(-2.25, 2.25, size=(n, 3))  # the inflow's peak speed
+    v_u, v_p = rng.normal(size=(n, 3)), rng.normal(size=n_p)
+    nu, dt = sc.problem.nu, sc.config.time.dt
+    base = cylinder3d_config().precond
+
+    def apply(s, pc):
+        T = lambda a: torch.as_tensor(a, dtype=s.dtype, device=s.device)  # noqa: E731
+        conv = ops.convection_setup(s.op, T(w), fold=(nu, dt))
+        st = blocks.build_precond_state(s.op, nu, dt, conv, pc.kind, s_solver=pc.s_solver,
+                                        f_solver=pc.f_solver, f_lam=s._f_lam0)
+        return [z.double().cpu().numpy() for z in blocks.apply_precond(
+            pc.kind, pc, s.op, st, nu, dt, T(v_u), T(v_p))]
+
+    def err(out, ref):
+        return max(float(np.abs(o - r).max() / np.abs(r).max()) for o, r in zip(out, ref))
+
+    cases = {
+        **{k: {"kind": k} for k in blocks.PRECOND_KINDS},
+        **{k: v for k, (v, _) in MONO_CHECKS.items() if v and "kind" not in v},
+    }
+    rows = []
+    for name, changes in cases.items():
+        pc = dataclasses.replace(base, **changes)
+        ref = apply(sc, pc)
+        e = err(apply(solvers[device], pc), ref)
+        fault = dataclasses.replace(pc, f_iters=pc.f_iters - 1, s_iters=pc.s_iters - 1)
+        e_fault = err(apply(solvers[device], fault), ref)
+        rows.append(f"{name} {e:.3e} (fault {e_fault:.3e})")
+        if not e <= PRECOND_RTOL:
+            fail(f"apply_precond, {name}: card f32 err {e:.3e} > {PRECOND_RTOL:.3e} of max |ref|")
+        if pc.kind not in ("identity", "block_identity") and not e_fault > PRECOND_RTOL:
+            fail(f"apply_precond, {name}: the planted fault reads {e_fault:.3e}, "
+                 f"within the {PRECOND_RTOL:.3e} limit")
+    log(f"small duct, one apply_precond each, card f32 against cpu f64 (limit {PRECOND_RTOL:.3e} "
+        f"of max |ref|; one inner iteration fewer in brackets): " + "; ".join(rows))
 
 
 def check_small_ensemble(device) -> None:
@@ -894,6 +1088,166 @@ def split_build_times(solver, reps: int) -> None:
         + f"; max rel difference {err:.3e}")
 
 
+def count_syncs(solver, state, steps: int):
+    """Host synchronisations in `steps` calls of `solver.step` (torch's
+    sync debug mode warns at each synchronising CUDA call); returns (state,
+    syncs, outer iterations of those steps)."""
+    import torch
+
+    iters = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(steps):
+                state, dg = solver.step(state)
+                iters += int(dg["iters"])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return state, sum("called a synchronizing" in str(w.message) for w in caught), iters
+
+
+def drive_cylinder3d_cli(device) -> dict:
+    """The cylinder3d entry point at its defaults through the CLI's `main`:
+    CLI_WARMUP + CLI_TIMED steps in chunks of CLI_CHUNK into a temporary
+    directory, kernel C's and D's counts set to 0 just before and read just
+    after.  A step's time is its chunk's wall time over the chunk's steps
+    and the set-up time is the first row's `time prec`, as the CLI logs
+    them in forces_results_3D_2case.csv; iterations come from gmres.csv.
+    Fails unless the CLI's files exist and the timed steps are finite and
+    under maxiter, or if C or D never launched."""
+    import csv
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch import cli
+    from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
+
+    n = CLI_WARMUP + CLI_TIMED
+    with tempfile.TemporaryDirectory() as out:
+        torch.cuda.reset_peak_memory_stats(device)
+        oh.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["cylinder3d", "--n-steps", str(n), "--steps-per-chunk", str(CLI_CHUNK),
+                       "--output-dir", out])
+        wall = time.perf_counter() - t0
+        launches = dict(oh.launch_counts)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        files = sorted(os.listdir(out))
+        for f in ("gmres.csv", "coeff_2.csv", "forces_results_3D_2case.csv", "final.npz"):
+            if f not in files:
+                fail(f"cylinder3d CLI: no {f} in its output ({files})")
+        with open(os.path.join(out, "gmres.csv")) as f:
+            iters = np.array([int(r[2]) for r in csv.reader(f)])
+        with open(os.path.join(out, "forces_results_3D_2case.csv")) as f:
+            forces = np.array([[float(v) for v in r] for r in list(csv.reader(f))[1:]])
+        with np.load(os.path.join(out, "final.npz")) as z:
+            final_step, final_u = int(z["step"]), z["u"]
+    if rc != 0 or len(iters) != n or forces.shape[0] != n or final_step != n:
+        fail(f"cylinder3d CLI: exit {rc}, {len(iters)} gmres rows, {forces.shape[0]} force rows, "
+             f"final step {final_step}, for {n} steps")
+    if not (np.all(np.isfinite(forces[:, :5])) and np.all(np.isfinite(final_u))):
+        fail("cylinder3d CLI: non-finite forces or final u")
+    maxit = cylinder3d_config().solver.maxiter
+    timed_it = iters[CLI_WARMUP:]
+    if np.any(timed_it >= maxit):
+        fail(f"cylinder3d CLI: a timed step reached maxiter={maxit}: {timed_it.tolist()}")
+    for k, v in launches.items():
+        if v <= 0:
+            fail(f"cylinder3d CLI: the path never launched kernel {k}")
+    step_ms = 1e3 * forces[CLI_WARMUP:, 6]
+    q = np.percentile(step_ms, [25, 50, 75])
+    log(f"cylinder3d CLI (its defaults, float32): {n} steps in chunks of {CLI_CHUNK}, "
+        f"{wall:.2f} s in main; set-up {forces[0, 5]:.2f} s; timed {CLI_TIMED} steps: "
+        f"{1e3 * CLI_TIMED / step_ms.sum():.4f} steps/s, per step median {q[1]:.4f} ms, "
+        f"quartiles {q[0]:.4f} / {q[2]:.4f} ms (a chunk's wall time over its steps); "
+        f"peak device memory {peak:.3f} GiB")
+    log(f"  outer FGMRES iterations per step {iters.tolist()} (timed mean {timed_it.mean():.2f})")
+    log(f"  last step: c_d {forces[-1, 3]:.8g}, c_l {forces[-1, 4]:.8g}")
+    log(f"  kernel launches over the {n} steps and the set-up: {launches}; per step "
+        + ", ".join(f"{k} {v / n:.2f}" for k, v in launches.items()))
+    return launches
+
+
+def monolithic_operator_times(solver, rec: dict, reps: int) -> None:
+    """The monolithic step's operations at the solver's size: kernels C and
+    D on its plan (checked, with bound and share), the per-step Schur ELL
+    assembly and the Schur ELL SpMV (device ms with bound and share), and
+    device ms of the composites: `coarse_factor`, one fixed GMRES(6) F
+    solve, and one full yosida `apply_precond` of the CLI's defaults."""
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch.ops import operators as ops
+    from navierstokes_project_nm4pde_tpu_torch.ops.coarse import coarse_factor
+    from navierstokes_project_nm4pde_tpu_torch.ops.schur_ell import (
+        assemble_schur_values,
+        schur_ell_matvec,
+    )
+    from navierstokes_project_nm4pde_tpu_torch.precond import blocks
+
+    op, dev, pc = solver.op, solver.device, solver.config.precond
+    nu, dt = solver.problem.nu, solver.config.time.dt
+    n, n_p = solver.space.n_unodes, solver.space.n_pnodes
+    gen = torch.Generator(device=dev).manual_seed(6)
+    w = torch.randn((n, 3), generator=gen, device=dev)
+    v_u, v_p = torch.randn((n, 3), generator=gen, device=dev), torch.randn(n_p, generator=gen, device=dev)
+    conv = ops.convection_setup(op, w, fold=(nu, dt))
+    pst = blocks.build_precond_state(op, nu, dt, conv, pc.kind, s_solver=pc.s_solver,
+                                     f_solver=pc.f_solver, f_lam=solver._f_lam0)
+    add_slot_shapes(rec, "monolithic 142k", op.onehot, reps)
+
+    s = op.schur
+    T, n_slots = s.prod_vals.numel(), s.mirror.numel()
+    n_pad = sum(c.numel() for c in s.cols)
+    vals = pst.schur_vals
+    rows = {
+        # products, their node ids, inv (read once), the run lengths, the
+        # mirror, the values written; a multiply and an add a product
+        "Schur ELL assembly": (lambda: assemble_schur_values(s, pst.schur_inv),
+                               bound(T * (4 + 8) + n * 4 + n_slots * (8 + 8 + 4), 2.0 * T)),
+        # values, mask and column ids of every padded slot, the row order,
+        # p read and y written; a mask product, a product and an add a slot
+        "Schur ELL SpMV": (lambda: schur_ell_matvec(s, vals, v_p),
+                           bound(n_pad * (4 + 4 + 8) + n_p * 8 + 2 * n_p * 4, 3.0 * n_pad)),
+    }
+    for name, (f, b) in rows.items():
+        t_call, t_dev = time_ms(f, reps), device_ms(f, reps)
+        log(f"{name} at {n_p} pressure rows, {T} products, {n_slots} slots ({n_pad} padded): "
+            f"call {t_call:.4f} ms, device {t_dev:.4f} ms; bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']}: {share(name, b, t_dev):.1%} of bound on device")
+    # The device's launch queue holds about a thousand launches behind a
+    # spin: a fixed solve (a few hundred) is timed one call at a time.  A
+    # yosida application (more than the queue holds) is timed whole as a
+    # CUDA graph, and by the sum of its parts' device times (two F solves,
+    # the S solve, D and D^T; the sum leaves out the glue between them).
+    y_p = v_p - ops.apply_divergence(op, v_u)
+    parts = {
+        "F solve": (2, lambda: blocks._solve_F(op, pst, nu, dt, v_u, pc)),
+        "S solve": (1, lambda: blocks._solve_S(op, pst, y_p, pc)),
+        "D": (1, lambda: ops.apply_divergence(op, v_u)),
+        "D^T": (1, lambda: blocks._dt_apply(op, v_p)),
+    }
+    part_ms = {k: (m, device_ms(f, 1)) for k, (m, f) in parts.items()}
+    log("monolithic composites, call / device ms: " + "; ".join(
+        f"{k} {time_ms(f, reps):.4f} / {d:.4f}" for k, f, d in (
+            (f"coarse_factor (nc={op.coarse.nc})", lambda: coarse_factor(op.coarse, vals),
+             device_ms(lambda: coarse_factor(op.coarse, vals), reps)),
+            (f"one fixed GMRES({pc.f_iters}) F solve", parts["F solve"][1], part_ms["F solve"][1]),
+        )))
+    app = lambda: blocks.apply_precond(pc.kind, pc, op, pst, nu, dt, v_u, v_p)  # noqa: E731
+    call, whole = time_ms(app, reps), graph_device_ms(app, reps)
+    log(f"{pc.kind} apply_precond (f_iters {pc.f_iters}, {pc.s_solver} {pc.s_iters}): call "
+        f"{call:.4f} ms (events around eager calls from an idle queue: host-bound); device "
+        + ("not measured (the capture failed)" if whole is None else
+           f"{whole:.4f} ms (the whole application as one CUDA graph, its replays queued "
+           f"behind a spin), {whole / call:.1%} of the eager call time")
+        + "; sum of parts " + " + ".join(f"{m} x {k} {t:.4f}" for k, (m, t) in part_ms.items())
+        + f" = {sum(m * t for m, t in part_ms.values()):.4f} ms")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -982,6 +1336,8 @@ def main(argv=None) -> int:
     check_small_duct(device)
     for name, (changes, mesh_kw) in VARIANT_CHECKS.items():
         check_small_duct(device, name, changes, mesh_kw)
+    check_small_monolithic(device)
+    check_small_precond(device)
 
     # ---- 7. the main path -------------------------------------------------
     state, d, step_ms, launches = drive_single(
@@ -1040,6 +1396,26 @@ def main(argv=None) -> int:
         drive_single(name, asolver, ACCEL_WARMUP, ACCEL_TIMED, ("macro_build", "macro_matvec"))
         del asolver
         free_card()
+
+    # ---- 9b. the monolithic stepper at 965k (bench.py's monolithic knobs) --
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(device)
+    msolver = NavierStokesSolver(
+        mesh, Cylinder3DProblem(test_case=2), with_changes(bench_config("float32"), MONO_RUN),
+        device=device,
+    )
+    torch.cuda.synchronize()
+    log(f"monolithic 965k: host setup {time.perf_counter() - t0:.2f} s (mesh reused), peak device "
+        f"memory {torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB after set-up; "
+        f"S~ {msolver.op.schur.prod_vals.numel()} pair products")
+    add_slot_shapes(rec, "monolithic 965k", msolver.op.onehot, KERNEL_REPS)
+    mstate, _, _, mono_launches = drive_single(
+        "monolithic 965k", msolver, MONO_WARMUP, MONO_TIMED, ("slot_gather", "slot_reduce")
+    )
+    _, syncs, its = count_syncs(msolver, mstate, 1)
+    log(f"  monolithic 965k: {syncs} host syncs in one step of {its} outer iterations")
+    del msolver, mstate
+    free_card()
     del mesh
 
     # ---- 10. explicit convection on the 46,928-DoF duct ---------------------
@@ -1098,6 +1474,23 @@ def main(argv=None) -> int:
             f"{1 - busy * ne / sum(e_ms):.4f}")
     del esolver, estate
 
+    # ---- 12. the cylinder3d entry point at its defaults (142,692 DoF) -------
+    cli_launches = drive_cylinder3d_cli(device)
+    csolver = NavierStokesSolver(
+        cylinder_duct_3d(**CLI_MESH), Cylinder3DProblem(test_case=2), cylinder3d_config("float32"),
+        device=device,
+    )
+    cstate, syncs, its = count_syncs(csolver, csolver.initial_state(), 2)
+    log(f"cylinder3d defaults: {syncs} host syncs in 2 steps of {its} outer iterations "
+        f"({syncs / 2:.1f} a step)")
+    monolithic_operator_times(csolver, rec, KERNEL_REPS)
+    del csolver, cstate
+    free_card()
+    for name in ("slot_reduce", "slot_gather"):
+        rec[name]["launches_by_path"] = {
+            "monolithic 965k": mono_launches[name], "cylinder3d CLI": cli_launches[name],
+        }
+
     imported = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN_MODULES)
     if imported:
         fail(f"imported modules of jax or of the JAX package: {imported[:10]}")
@@ -1113,7 +1506,8 @@ def main(argv=None) -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             device_ms=r["device_ms"], plain_device_ms=r["plain_device_ms"],
             lib_device_ms=r["lib_device_ms"], share=share(name, r, r["device_ms"]),
-            **{k: r[k] for k in ("v1_ms", "v1_device_ms", "widths", "shapes") if k in r},
+            **{k: r[k] for k in ("v1_ms", "v1_device_ms", "widths", "shapes", "launches_by_path")
+               if k in r},
         ))
         log(f"{name}: device {r['device_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']} ({r['bound_ms'] / r['device_ms']:.1%}), library {r['lib_device_ms']:.4f} ms")

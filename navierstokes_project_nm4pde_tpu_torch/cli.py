@@ -1,22 +1,35 @@
-"""Command line of the PyTorch port: the `ensemble` subcommand.
+"""Command line of the PyTorch port: the `cylinder3d` and `ensemble`
+subcommands.
 
+    python -m navierstokes_project_nm4pde_tpu_torch.cli cylinder3d \\
+        [--lc 0.05] [--nz 8] [--n-steps N] [--steps-per-chunk 10] \\
+        [--output-dir DIR] [--output-every K] [--checkpoint-every K] \\
+        [--resume CKPT] [--device cuda]
     python -m navierstokes_project_nm4pde_tpu_torch.cli ensemble --fast \\
         [--onehot] [--n-members 64] [--re-min 20] [--re-max 300] \\
         [--lc 0.08] [--nz 4] [--dt 0.01] [--n-steps N] [--output-dir DIR] \\
         [--device cuda]
 
-The same flags and configuration as the reference's `cli.py ensemble`
-(the port keeps its own copies of `_common_flags` and `_build_config`),
-run by the port's `run_ensemble`; it writes `ensemble.csv` with the
-reference's header.  `--onehot` selects only the reference's TPU
-reduction layout: the port's ensemble reductions are always kernel C.
-The reference's other subcommands, `--dim 2` and `--shard-batch` are not
-ported yet and fail with a message.
+The same flags and configuration as the reference's `cli.py` (the port
+keeps its own copies of `_common_flags` and `_build_config`).
+`cylinder3d` with no flags runs the reference's defaults: the monolithic
+saddle-point stepper with the Yosida block preconditioner on the
+142,692-DoF duct, writing the reference's CSV files (gmres.csv,
+coeff_2.csv, forces_results_3D_<case>case.csv), VTU snapshots every
+`--output-every` steps with a .pvd index, `checkpoint.npz` every
+`--checkpoint-every` steps and `final.npz`, which either package can
+`--resume` from.  `ensemble` runs the port's `run_ensemble` and writes
+`ensemble.csv` with the reference's header; `--onehot` selects only the
+reference's TPU reduction layout (the port's ensemble reductions are
+always kernel C).  `cylinder2d`, `convergence`, `--dim 2`,
+`--shard-batch`, `--shard-cells N > 0` and `--debug-nans` are not ported
+and fail with a message.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -31,7 +44,7 @@ from navierstokes_project_nm4pde_tpu_torch.config import (
 )
 from navierstokes_project_nm4pde_tpu_torch.device import pick_device
 
-_NOT_PORTED = ("cylinder2d", "cylinder3d", "convergence")
+_NOT_PORTED = ("cylinder2d", "convergence")
 
 
 def _build_config(args, defaults):
@@ -97,8 +110,8 @@ def _build_config(args, defaults):
 
 def _common_flags(p, dt, t_end, precond):
     """The flags every subcommand takes: the JAX package's `cli.py
-    _common_flags`, copied.  --debug-nans, --checkpoint-every, --resume and
-    --shard-cells parse as there and have no effect in the port yet."""
+    _common_flags`, copied.  --debug-nans and --shard-cells N > 0 parse as
+    there, and the port refuses them."""
     p.add_argument("--mesh", type=str, default=None, help=".msh file (else built-in generator)")
     p.add_argument("--dt", type=float, default=dt)
     p.add_argument("--t-end", type=float, default=t_end)
@@ -132,7 +145,7 @@ def _common_flags(p, dt, t_end, precond):
                    choices=["cg", "chebyshev", "mg2", "mg2_cg", "spai", "spai_cg"])
     p.add_argument("--dtype", type=str, default="float32")
     p.add_argument("--nu", type=float, default=None, help="kinematic viscosity override (Re sweeps)")
-    p.add_argument("--debug-nans", action="store_true", help="no effect in the port")
+    p.add_argument("--debug-nans", action="store_true", help="not ported (refused)")
     p.add_argument("--no-precise-dots", action="store_true")
     p.add_argument("--steps-per-chunk", type=int, default=10)
     p.add_argument("--output-dir", type=str, default=None)
@@ -146,12 +159,27 @@ def _common_flags(p, dt, t_end, precond):
                         "(ref: src/NavierStokes2D.cpp:662-665)")
 
 
+def _device_flag(p) -> None:
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device (default cuda; cpu runs the kernels' "
+                        "plain versions)")
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="navierstokes-torch",
         description="Navier-Stokes benchmarks on the PyTorch port",
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
+    p3 = sub.add_parser("cylinder3d", help="DFG 3D flow past a cylinder")
+    p3.add_argument("--u-m", type=float, default=None,
+                    help="peak inlet velocity; default 9.0 (Re=400); 0.45 "
+                         "gives the published DFG 3D-1Z steady case at Re=20")
+    _common_flags(p3, dt=2e-4, t_end=4.0, precond="yosida")
+    p3.add_argument("--lc", type=float, default=0.05)
+    p3.add_argument("--nz", type=int, default=8)
+    p3.add_argument("--test-case", type=int, default=2)
+    _device_flag(p3)
     pe = sub.add_parser("ensemble", help="Reynolds-sweep ensemble")
     _common_flags(pe, dt=0.01, t_end=0.5, precond="asimple")
     pe.add_argument("--dim", type=int, default=3, choices=[2, 3])
@@ -166,12 +194,121 @@ def _parser() -> argparse.ArgumentParser:
     pe.add_argument("--onehot", action="store_true",
                     help="the reference's one-hot reduction layout (the same "
                          "exact kernel C here)")
-    pe.add_argument("--device", type=str, default="cuda",
-                    help="torch device (default cuda; cpu runs the kernels' "
-                         "plain versions)")
+    _device_flag(pe)
     for name in _NOT_PORTED:
         sub.add_parser(name, help="not ported to PyTorch yet")
     return parser
+
+
+def _run_cylinder3d(args, device) -> None:
+    """The reference's `_run_cylinder(args, dim=3)`: set up, run in chunks
+    with the per-chunk callback (the four CSV logs, the force extrema
+    gated at t > 0.1, VTU and checkpoint cadences), then `final.npz` and
+    the summary lines."""
+    from navierstokes_project_nm4pde_tpu_torch.device import torch_dtype
+    from navierstokes_project_nm4pde_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from navierstokes_project_nm4pde_tpu_torch.io.csvlog import CSVLogger
+    from navierstokes_project_nm4pde_tpu_torch.io.vtu import write_pvd, write_vtu
+    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d, read_msh
+    from navierstokes_project_nm4pde_tpu_torch.models import (
+        Cylinder3DProblem,
+        NavierStokesSolver,
+    )
+    from navierstokes_project_nm4pde_tpu_torch.utils.signal import strouhal_number
+    from navierstokes_project_nm4pde_tpu_torch.utils.timers import Timer
+
+    t_total = Timer(sync=False).start()
+    mesh = read_msh(args.mesh) if args.mesh else cylinder_duct_3d(lc=args.lc, nz=args.nz)
+    print(f"Mesh: {mesh.n_cells} cells, {mesh.n_vertices} vertices")
+    nu_kw = {} if args.nu is None else {"nu": args.nu}
+    if args.u_m is not None:
+        nu_kw["u_m"] = args.u_m
+    problem = Cylinder3DProblem(test_case=args.test_case, **nu_kw)
+    cfg = _build_config(args, None)
+    solver = NavierStokesSolver(mesh, problem, cfg, device=device)
+    sp = solver.space
+    print(f"DoFs: velocity={sp.n_udofs} pressure={sp.n_pnodes} total={sp.n_dofs} (on {device})")
+
+    out_dir = args.output_dir or "output3D"
+    log = CSVLogger(out_dir)
+    vtu_entries = []
+    state = (
+        load_checkpoint(args.resume, dtype=torch_dtype(args.dtype), device=device)
+        if args.resume else solver.initial_state()
+    )
+    n_steps = args.n_steps or cfg.time.n_steps
+    out_every = args.output_every or 0
+    cd_max, cl_min = -np.inf, np.inf
+    done = {"n": int(state.step)}
+
+    # The run's true mean inlet velocity U(t) in numpy (the gmres.csv Re
+    # column and the Strouhal velocity), as the reference's CLI computes it.
+    u_m = args.u_m if args.u_m is not None else 9.0
+    base_mean = 4.0 * u_m / 9.0
+    ramped = args.test_case == 3
+
+    def inlet_mean_np(t):
+        t = np.asarray(t, dtype=float)
+        if args.test_case == 1:
+            return np.zeros_like(t)
+        return base_mean * (np.sin(np.pi * t / 8.0) if ramped else np.ones_like(t))
+
+    # `time solve` = the chunk's wall time over its steps; `time prec` =
+    # the one-time set-up on the first row, 0 after (the reference's CLI)
+    now0 = time.perf_counter()
+    clock = {"last": now0, "setup": now0 - t_total._t0}
+
+    def callback(solver, state, diags):
+        nonlocal cd_max, cl_min
+        now = time.perf_counter()
+        chunk_wall, clock["last"] = now - clock["last"], now
+        k = len(diags.iters)
+        steps = np.arange(done["n"] + 1, done["n"] + k + 1)
+        times = steps * cfg.time.dt
+        done["n"] += k
+        re = (problem.diameter * inlet_mean_np(times) / problem.nu).astype(int)
+        log.log_gmres(times, re, diags.iters)
+        log.log_coefficients(steps, diags.c_d, diags.c_l)
+        t_prec = np.zeros(k)
+        if clock["setup"] is not None:
+            t_prec[0], clock["setup"] = clock["setup"], None
+        log.log_forces(
+            f"forces_results_3D_{args.test_case}case.csv",
+            times, diags.drag, diags.lift, diags.c_d, diags.c_l,
+            t_prec=t_prec, t_solve=np.full(k, chunk_wall / k),
+        )
+        # force extrema from t > 0.1 on (the reference's 3D gate)
+        sel = times > 0.1
+        if np.any(sel):
+            cd_max = max(cd_max, np.max(diags.c_d[sel]))
+            cl_min = min(cl_min, np.min(diags.c_l[sel]))
+        it, res = diags.iters[-1], diags.residual[-1]
+        print(
+            f"n = {done['n']:4d}, t = {times[-1]:.4f}: {it} GMRES iters, "
+            f"residual {res:.3e}, c_d {diags.c_d[-1]:.4f}, c_l {diags.c_l[-1]:.4f}"
+        )
+        if out_every and (done["n"] % out_every == 0 or done["n"] >= n_steps):
+            path = os.path.join(out_dir, f"solution_{done['n']:06d}.vtu")
+            write_vtu(path, solver.space, state.u.cpu().numpy(), state.p.cpu().numpy())
+            vtu_entries.append((float(state.t), path))
+        if args.checkpoint_every and done["n"] % args.checkpoint_every == 0:
+            save_checkpoint(os.path.join(out_dir, "checkpoint.npz"), state)
+
+    state, diags = solver.run(n_steps - int(state.step), state=state, callback=callback)
+
+    if vtu_entries:
+        write_pvd(os.path.join(out_dir, "solution.pvd"), vtu_entries)
+    save_checkpoint(os.path.join(out_dir, "final.npz"), state)
+
+    print("=" * 47)
+    print(f"Drag Coefficient Max ----->   {cd_max}")
+    print(f"Lift Coefficient Min ----->   {cl_min}")
+    print(f"Pressure difference (P(A) - P(B)) = {diags.delta_p[-1] if len(diags.delta_p) else float('nan')}")
+    t_grid = np.arange(1, n_steps + 1) * cfg.time.dt
+    U_char = float(np.max(np.abs(inlet_mean_np(t_grid)))) if n_steps > 0 else 0.0
+    st = strouhal_number(diags.c_l, cfg.time.dt, diameter=problem.diameter, velocity=U_char or 1.0)
+    print(f"Strouhal number (from c_l) = {st:.4f}")
+    print(f"Total wall time: {t_total.stop():.2f} s")
 
 
 def _run_ensemble(args, device) -> None:
@@ -214,19 +351,25 @@ def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     if args.cmd in _NOT_PORTED:
         raise SystemExit(
-            f"the PyTorch port runs only the 'ensemble' subcommand so far; use "
-            f"the reference package's cli for '{args.cmd}'"
+            f"the PyTorch port runs the 'cylinder3d' and 'ensemble' subcommands; "
+            f"use the reference package's cli for '{args.cmd}'"
         )
-    if args.dim != 3:
-        raise SystemExit("the PyTorch port's ensemble runs the 3D duct only (--dim 3)")
-    if args.shard_batch:
-        raise SystemExit("--shard-batch is not ported: the port's ensemble runs on one device")
+    if args.debug_nans:
+        raise SystemExit("--debug-nans is not ported (it is a JAX debugging mode)")
+    if args.shard_cells:
+        raise SystemExit("--shard-cells is not ported: the port runs on one device")
+    if args.cmd == "ensemble":
+        if args.dim != 3:
+            raise SystemExit("the PyTorch port's ensemble runs the 3D duct only (--dim 3)")
+        if args.shard_batch:
+            raise SystemExit("--shard-batch is not ported: the port's ensemble runs on one device")
     try:
         device = pick_device(args.device)
     except RuntimeError as e:  # a CUDA device asked for on a machine without one
         raise SystemExit(f"navierstokes-torch: {e} (--device cpu runs on the CPU)") from None
+    run = _run_cylinder3d if args.cmd == "cylinder3d" else _run_ensemble
     try:
-        _run_ensemble(args, device)
+        run(args, device)
     except ValueError as e:  # a configuration outside the port's slice
         raise SystemExit(f"navierstokes-torch: {e}") from None
     return 0

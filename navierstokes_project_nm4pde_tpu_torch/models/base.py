@@ -1,13 +1,23 @@
-"""Time-stepping Navier-Stokes solver (PyTorch): setup, projection step, run.
+"""Time-stepping Navier-Stokes solver (PyTorch): setup, the two steppers,
+and the chunked run.
 
-The counterpart of the reference's `models/base.py` for its incremental
-pressure-correction (projection) stepper with BDF1: the frozen Schur
-pressure Poisson over the banded S1 with a two-level preconditioner
-(additive or V(1,1); Cholesky or inverse coarse solve), solved by
-recycled-projection CG (precond.s_recycle >= 1) or plain CG; the velocity
-solved by Jacobi-preconditioned FGMRES, recycled-block GCR (f_recycle) or,
-with explicit convection, CG.  A configuration outside that slice is
-rejected with ValueError (`check_config`).
+The counterpart of the reference's `models/base.py` with BDF1 for its two
+steppers.  The monolithic saddle-point stepper (`_step_monolithic`, the
+reference's `_step_dispatch`, the default of its CLI) solves the packed
+[3 n_u + n_p] system by flexible GMRES in increment form, preconditioned
+by a block preconditioner of `precond/blocks.py` (all seven kinds).  The
+incremental pressure-correction (projection) stepper solves the pressure
+Poisson over the frozen S1 (banded, or its ELL SpMV when the band is too
+wide or "ell" is asked for) or the step's assembled S~ (proj_schur
+"step"), with a two-level preconditioner (additive or V(1,1); Cholesky or
+inverse coarse solve), by recycled-projection CG (precond.s_recycle >= 1)
+or plain CG; the velocity by FGMRES preconditioned by Jacobi or, with
+f_iters > 0, the block preconditioners' fixed inner solve, by
+recycled-block GCR (f_recycle) or, with explicit convection, CG.  A
+configuration outside these is rejected with ValueError (`check_config`).
+
+`run` advances in chunks of numerics.steps_per_chunk steps and calls its
+callback after each (the CLI's CSV, VTU and checkpoint writer).
 
 One single-run step (`step`, the reference's `_step_projection`):
 
@@ -78,12 +88,27 @@ from navierstokes_project_nm4pde_tpu_torch.ops.coarse import (
     twolevel_apply_additive_g,
     twolevel_apply_g,
 )
+from navierstokes_project_nm4pde_tpu_torch.ops.pmg import build_velocity_pmg
 from navierstokes_project_nm4pde_tpu_torch.ops.scatter import (
     apply_inverse_map,
     build_inverse_map,
 )
+from navierstokes_project_nm4pde_tpu_torch.ops.schur_ell import (
+    schur_ell_matvec,
+    schur_from_host,
+)
+from navierstokes_project_nm4pde_tpu_torch.ops.spai import build_spai_values
 from navierstokes_project_nm4pde_tpu_torch.ops.tables import build_ref_tables
-from navierstokes_project_nm4pde_tpu_torch.precond.blocks import inv_diag_Fhat
+from navierstokes_project_nm4pde_tpu_torch.precond.blocks import (
+    F_SOLVERS,
+    PRECOND_KINDS,
+    S_SOLVERS,
+    _solve_F,
+    apply_precond,
+    build_precond_state,
+    f_lam_power,
+    inv_diag_Fhat,
+)
 from navierstokes_project_nm4pde_tpu_torch.solvers.krylov import (
     SolveInfo,
     _cnorm,
@@ -197,7 +222,8 @@ class FrozenSchur:
     diag1: torch.Tensor  # [n_p] diagonal of S1
     cho_L: torch.Tensor | None  # dense lower Cholesky factor of the coarse matrix
     inv_c: torch.Tensor | None  # dense inverse of the coarse matrix (coarse_solve="inv")
-    band: BandedSchur
+    band: BandedSchur | None  # None: the ELL SpMV over vals1 (op.schur's layout)
+    vals1: torch.Tensor | None = None  # [n_slots] S1's ELL values (without a band)
 
 
 # Values that only chose a TPU layout or engine; every one of them is the
@@ -206,7 +232,6 @@ _LAYOUT_ONLY = {
     "macro_build": ("auto", "highest", "split3"),
     "macro_apply": ("auto", "highest", "split3"),
     "macro_conv_build": ("auto", "default", "highest", "split3"),
-    "schur_spmv": ("auto", "banded"),
     # the reference's one-hot ensemble reductions accumulate in f32 (its
     # MXU path); here every ensemble reduction is the exact kernel C
     "ensemble_onehot": (False, True),
@@ -216,20 +241,32 @@ _LAYOUT_ONLY = {
 # element branch with the additive Cholesky two-level Schur CG; ensemble
 # variants need one K per member, and are not ported).
 _VARIANTS = {
+    "time.stepper": ("projection", "monolithic"),
     "time.convection": ("implicit", "explicit", "imex"),
+    "precond.kind": PRECOND_KINDS,
+    "precond.f_solver": F_SOLVERS,
+    "precond.s_solver": S_SOLVERS,
     "precond.mg2_form": ("additive", "v11"),
+    "numerics.proj_schur": ("frozen", "step"),
+    "numerics.schur_spmv": ("auto", "banded", "ell"),
     "numerics.coarse_solve": ("chol", "inv"),
     "numerics.vel_apply": ("auto", "bsr", "element"),
     "numerics.f_apply": ("auto", "macro", "element"),
     "numerics.macro_rhs": ("auto", "on", "off"),
     "numerics.macro_wfuse": ("auto", "on", "off"),
     "numerics.macro_split": ("auto", "off", "on"),
-    "numerics.grad_apply": ("auto", "bsr", "element"),
+    # "ell" is the reference's assembled-transpose G: the same assembled
+    # operator as "bsr" here (ops/bsr.py)
+    "numerics.grad_apply": ("auto", "bsr", "ell", "element"),
     "numerics.div_apply": ("auto", "bsr", "element"),
 }
 _ENSEMBLE_BASE = {
+    "time.stepper": ("projection",),
     "time.convection": ("implicit",),
     "precond.mg2_form": ("additive",),
+    "precond.f_iters": (0,),
+    "numerics.proj_schur": ("frozen",),
+    "numerics.schur_spmv": ("auto", "banded"),
     "numerics.coarse_solve": ("chol",),
     "numerics.f_apply": ("auto", "macro"),
     "numerics.macro_rhs": ("auto", "on"),
@@ -248,16 +285,13 @@ def _field(cfg: RunConfig, name: str):
 
 
 def check_config(cfg: RunConfig, problem: ProblemSpec) -> None:
-    """Raise ValueError for a configuration this port does not run yet."""
+    """Raise ValueError, naming the field, for a configuration this port
+    does not run (yet), or that the reference refuses."""
     req = [
-        ("time.stepper", cfg.time.stepper, ("projection",)),
         ("time.scheme", cfg.time.scheme, ("bdf1",)),
-        ("numerics.proj_schur", cfg.numerics.proj_schur, ("frozen",)),
         ("numerics.dtype", cfg.numerics.dtype, ("float32", "float64")),
         ("numerics.fold_elem", cfg.numerics.fold_elem, (True,)),
         ("numerics.spatial_reorder", cfg.numerics.spatial_reorder, (True,)),
-        ("precond.f_iters", cfg.precond.f_iters, (0,)),
-        ("precond.f_solver", cfg.precond.f_solver, ("gmres",)),
         ("solver.tol_mode", cfg.solver.tol_mode, ("r0", "b", "abs")),
         ("solver.guess_order", cfg.solver.guess_order, (1, 2)),
         ("problem.dim", problem.dim, (3,)),
@@ -273,33 +307,44 @@ def check_config(cfg: RunConfig, problem: ProblemSpec) -> None:
                 f"the PyTorch port does not run {name}={val!r} yet "
                 f"(supported: {ok})"
             )
-    if cfg.precond.s_recycle < 0:
-        raise ValueError("precond.s_recycle must be >= 0")
+    if cfg.precond.s_recycle < 0 or cfg.precond.f_iters < 0:
+        raise ValueError("precond.s_recycle and precond.f_iters must be >= 0")
+    monolithic = cfg.time.stepper == "monolithic"
+    if monolithic and cfg.time.convection != "implicit":
+        raise ValueError(
+            f"convection={cfg.time.convection!r} requires the projection stepper "
+            "(the monolithic saddle-point path keeps linearised-implicit convection)"
+        )
     if cfg.time.convection == "imex" and cfg.time.imex_umax is None:
         raise ValueError(
             "convection='imex' requires TimeConfig.imex_umax (the CFL "
             "velocity scale of the per-cell explicit/implicit partition)"
         )
-    if cfg.numerics.vel_apply == "bsr" and cfg.time.convection == "implicit":
+    if cfg.numerics.vel_apply == "bsr" and (monolithic or cfg.time.convection == "implicit"):
         raise ValueError(
-            "vel_apply='bsr' requires convection 'explicit' or 'imex' (the "
-            "velocity block must be constant)"
+            "vel_apply='bsr' requires the projection stepper with convection "
+            "'explicit' or 'imex' (the velocity block must be constant)"
         )
-    if cfg.numerics.f_apply == "macro" and cfg.time.convection != "implicit":
-        raise ValueError("f_apply='macro' requires implicit convection")
+    if cfg.numerics.f_apply == "macro" and (monolithic or cfg.time.convection != "implicit"):
+        raise ValueError(
+            "f_apply='macro' requires the projection stepper with implicit convection"
+        )
 
 
 class NavierStokesSolver:
-    """Projection-stepper solver for one `ProblemSpec` on one mesh (the
-    port's own `mesh.Mesh`), on `device`: None means the card, and raises
-    without one; "cpu" runs the kernels' plain versions.
+    """Solver for one `ProblemSpec` on one mesh (the port's own
+    `mesh.Mesh`), on `device`: None means the card, and raises without
+    one; "cpu" runs the kernels' plain versions.
 
-    Set-up resolves the configuration's paths (the reference's rules):
-    `kcsr` is the assembled constant K (vel_apply "bsr", the default with
-    explicit or IMEX convection), `imex` the IMEX fine subset, `f_apply`
-    "macro" (implicit convection without K) or "element", and the macro
-    rhs pass, its fused gather and the K/C split follow macro_rhs,
-    macro_wfuse and macro_split."""
+    Set-up resolves the configuration's paths (the reference's rules): the
+    node order (RCM for the banded frozen Schur or the one-hot ensemble,
+    else Morton), `kcsr` the assembled constant K (vel_apply "bsr", the
+    default with explicit or IMEX convection), `imex` the IMEX fine
+    subset, `f_apply` "macro" (the projection stepper with implicit
+    convection and no K) or "element", the macro rhs pass, its fused
+    gather and the K/C split (macro_rhs, macro_wfuse, macro_split), and
+    only the Schur data the stepper reads: the frozen S1 (projection), or
+    S~'s per-step assembly tables (monolithic, proj_schur "step")."""
 
     def __init__(self, mesh, problem: ProblemSpec, config: RunConfig, device=None):
         check_config(config, problem)
@@ -312,21 +357,30 @@ class NavierStokesSolver:
     # ------------------------------------------------------------------
     def _setup(self, mesh):
         cfg, dev, dt_ = self.config, self.device, self.dtype
-        # RCM: the banded Schur and the macro blocks both need bounded
-        # index windows.
-        self.mesh = mesh.reorder_spatial("rcm")
+        nc, pc, conv_mode = cfg.numerics, cfg.precond, cfg.time.convection
+        monolithic = cfg.time.stepper == "monolithic"
+        frozen = not monolithic and nc.proj_schur == "frozen"
+        # The reference's rule: RCM where the banded frozen Schur (or the
+        # ensemble's one-hot windows) wants bounded index windows, Morton
+        # otherwise.
+        wants_banded = frozen and nc.schur_spmv in ("auto", "banded")
+        self.mesh = mesh.reorder_spatial("rcm" if nc.ensemble_onehot or wants_banded else "morton")
         self.space = build_taylor_hood(self.mesh)
         self.geom = cell_geometry(self.space)
         space = self.space
         dtags = sorted(self.problem.dirichlet.keys())
         mask = space.dirichlet_mask(dtags)
+        # the frozen S1 is assembled once on the host; the monolithic
+        # stepper's block preconditioners and proj_schur="step" assemble S~
+        # every step on the device
         self.op, host = ops.build_operator(
-            space, self.geom, mask, dt_, dev, coarse_agg=cfg.numerics.schur_agg
+            space, self.geom, mask, dt_, dev, coarse_agg=nc.schur_agg,
+            device_schur_assembly=not frozen,
         )
-        nc, conv_mode = cfg.numerics, cfg.time.convection
-        if nc.grad_apply == "element":
+        default_assembled = "element" if monolithic else "bsr"
+        if (default_assembled if nc.grad_apply == "auto" else nc.grad_apply) == "element":
             self.op.grad = None
-        if nc.div_apply == "element":
+        if (default_assembled if nc.div_apply == "auto" else nc.div_apply) == "element":
             self.op.div = None
 
         # IMEX partition: a cell keeps its implicit C(w) iff
@@ -360,14 +414,26 @@ class NavierStokesSolver:
             )
         fa = nc.f_apply
         if fa == "auto":
-            fa = "macro" if conv_mode == "implicit" else "element"
+            fa = "macro" if conv_mode == "implicit" and not monolithic else "element"
         self.f_apply = fa
         self.macro_rhs = fa == "macro" and nc.macro_rhs != "off"
         self.macro_wfuse = self.macro_rhs and nc.macro_wfuse != "off"
-        self.macro_split = self.macro_rhs and nc.macro_split == "on"
+        # the smoothers apply F through the element fold, which a
+        # convection-only fold cannot drive: f_iters > 0 turns the split off
+        self.macro_split = self.macro_rhs and nc.macro_split == "on" and pc.f_iters == 0
         # the element FGMRES collects its applies' gathers into du_e, from
         # which the element divergence needs no gather of its own
         self.aux_div = fa == "element" and self.kcsr is None and self.op.div is None
+
+        # what the inner velocity solves read: the monolithic stepper's
+        # preconditioners always, the projection stepper's with f_iters > 0
+        inner_f = monolithic or pc.f_iters > 0
+        if pc.f_solver == "pmg" and inner_f:
+            self.op.pmg = build_velocity_pmg(space, self.geom, np.asarray(mask), dt_, dev)
+        if monolithic and pc.s_solver.startswith("spai"):
+            self.op.spai_vals = torch.as_tensor(
+                build_spai_values(self.op, host, self.problem.nu, cfg.time.dt), dtype=dt_, device=dev,
+            )
 
         # Dirichlet node groups; later tags win at shared nodes.
         taken = np.zeros(space.n_unodes, dtype=bool)
@@ -396,33 +462,48 @@ class NavierStokesSolver:
                 space, self.geom, self.problem.probe_points, dt_, dev
             )
 
+        # A set-up bound on lam_max(diag(F)^-1 F) of the convection-free F,
+        # for the damped smoothers: 8 power iterations.
+        self._f_lam0 = None
+        if pc.f_solver in ("richardson", "chebyshev", "pmg") and inner_f:
+            nu, dt = self.problem.nu, cfg.time.dt
+            self._f_lam0 = f_lam_power(self.op, nu, dt, None, inv_diag_Fhat(self.op, nu, dt, None), iters=8)
+
         # Frozen Schur S1 = D diag(M)^-1 D^T, its coarse factor and banded
-        # form, once on the host in float64.
-        mask_np = np.asarray(mask, dtype=bool)
-        inv1 = np.where(mask_np, 0.0, 1.0 / host["diagM"])
-        vals1 = host["vals1"]
-        diag1 = vals1[host["diag_slot"]]
-        diag1 = np.where(diag1 > 0, diag1, 1.0)
-        cs = self.op.coarse
-        Sc = host_coarse_dense(host, vals1, cs.nc, cs.agg)
-        smask = host["smask"]
-        band = build_banded_schur(
-            host["srow"][smask], host["scol"][smask], vals1[smask],
-            n_rows=len(diag1), dtype=dt_, device=dev,
-        )
-        if band is None:
-            raise ValueError(
-                "the RCM band of S1 is too wide for the banded form (the ELL "
-                "SpMV fallback is not ported)"
+        # form (or its ELL values, when the band is too wide or "ell" is
+        # asked for), once on the host in float64.
+        self.proj_schur = None
+        if frozen:
+            mask_np = np.asarray(mask, dtype=bool)
+            inv1 = np.where(mask_np, 0.0, 1.0 / host["diagM"])
+            vals1 = host["vals1"]
+            diag1 = vals1[host["diag_slot"]]
+            diag1 = np.where(diag1 > 0, diag1, 1.0)
+            cs = self.op.coarse
+            Sc = host_coarse_dense(host, vals1, cs.nc, cs.agg)
+            band = None
+            if nc.schur_spmv in ("auto", "banded"):
+                smask = host["smask"]
+                band = build_banded_schur(
+                    host["srow"][smask], host["scol"][smask], vals1[smask],
+                    n_rows=len(diag1), dtype=dt_, device=dev,
+                )
+                if band is None and nc.schur_spmv == "banded":
+                    raise ValueError(
+                        "schur_spmv='banded': the RCM band is too wide for the "
+                        "dense form; use 'auto' or 'ell'"
+                    )
+            if band is None:  # the ELL SpMV over S1's values
+                self.op.schur = schur_from_host(host, dt_, dev)
+            inv = nc.coarse_solve == "inv"
+            self.proj_schur = FrozenSchur(
+                inv1=torch.as_tensor(inv1, dtype=dt_, device=dev),
+                diag1=torch.as_tensor(diag1, dtype=dt_, device=dev),
+                cho_L=None if inv else torch.as_tensor(np.linalg.cholesky(Sc), dtype=dt_, device=dev),
+                inv_c=torch.as_tensor(np.linalg.inv(Sc), dtype=dt_, device=dev) if inv else None,
+                band=band,
+                vals1=None if band is not None else torch.as_tensor(vals1, dtype=dt_, device=dev),
             )
-        inv = cfg.numerics.coarse_solve == "inv"
-        self.proj_schur = FrozenSchur(
-            inv1=torch.as_tensor(inv1, dtype=dt_, device=dev),
-            diag1=torch.as_tensor(diag1, dtype=dt_, device=dev),
-            cho_L=None if inv else torch.as_tensor(np.linalg.cholesky(Sc), dtype=dt_, device=dev),
-            inv_c=torch.as_tensor(np.linalg.inv(Sc), dtype=dt_, device=dev) if inv else None,
-            band=band,
-        )
 
     @functools.cached_property
     def macro(self) -> mb.MacroPlan:
@@ -474,7 +555,7 @@ class NavierStokesSolver:
 
     def _zero_pool(self, name: str) -> torch.Tensor | None:
         shape = self._pool_shapes()[name]
-        if 0 in shape:
+        if 0 in shape or self.config.time.stepper != "projection":
             return None
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
@@ -482,8 +563,8 @@ class NavierStokesSolver:
         """Give an externally supplied state the recycle pools it lacks
         (a zero pool is always valid)."""
         upd = {
-            k: self._zero_pool(k) for k in self._pool_shapes()
-            if getattr(state, k) is None
+            k: pool for k in self._pool_shapes()
+            if getattr(state, k) is None and (pool := self._zero_pool(k)) is not None
         }
         return dataclasses.replace(state, **upd) if upd else state
 
@@ -535,21 +616,83 @@ class NavierStokesSolver:
             tol_mode="b" if cfg.solver.tol_mode == "r0" else cfg.solver.tol_mode,
         )
 
-    def _poisson_tol(self, tol_kw: dict, rhs_p: torch.Tensor, dt_eff: float):
+    def _poisson_tol(self, tol_kw: dict, rhs_p: torch.Tensor, a_scale: float):
         """(rtol, atol) of the pressure Poisson solve: the velocity solve's
-        absolute target, rescaled by 1/dt, but never above proj_div_cap *
-        ||rhs_p|| (an absolute target above the divergence signal lets the
-        pressure run open loop).  Per member for columns rhs_p [n_p, B]."""
+        absolute target, times a_scale (1/dt for the frozen S1, whose system
+        is rescaled by it), but never above proj_div_cap * ||rhs_p|| (an
+        absolute target above the divergence signal lets the pressure run
+        open loop).  Per member for columns rhs_p [n_p, B]."""
         cfg = self.config
         cap = cfg.solver.proj_div_cap * self._norms(rhs_p)
         if tol_kw["tol_mode"] == "abs":
-            return 0.0, np.minimum(np.maximum(tol_kw["rtol"], tol_kw["atol"]) / dt_eff, cap)
-        return cfg.solver.rtol, np.minimum(cfg.solver.atol / dt_eff, cap)
+            return 0.0, np.minimum(np.maximum(tol_kw["rtol"], tol_kw["atol"]) * a_scale, cap)
+        return cfg.solver.rtol, np.minimum(cfg.solver.atol * a_scale, cap)
 
     # ------------------------------------------------------------------
     def step(self, state: State):
-        """One projection step; returns (new_state, per-step diagnostics
-        dict of Python numbers and 0-d tensors)."""
+        """One step of the configured stepper; returns (new_state, per-step
+        diagnostics dict of Python numbers and 0-d tensors)."""
+        if self.config.time.stepper == "monolithic":
+            return self._step_monolithic(state)
+        return self._step_projection(state)
+
+    def _pack(self, u: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        return torch.cat([u.reshape(-1), p])
+
+    def _unpack(self, x: torch.Tensor):
+        n, d = self.space.n_unodes, self.space.dim
+        return x[: n * d].view(n, d), x[n * d:]
+
+    def _step_monolithic(self, state: State):
+        """One step of the monolithic saddle-point stepper (the reference's
+        `_step_dispatch`): the folded F_e and diag C of the step
+        (`convection_setup`), the block preconditioner's state, b = (M hist
+        with Dirichlet rows g, 0), and flexible GMRES on the increment from
+        the extrapolated guess, A = `apply_system`, M = `apply_precond`."""
+        cfg = self.config
+        op, pc = self.op, cfg.precond
+        nu = self.problem.nu
+        dt = cfg.time.dt
+        t_new = (state.step + 1.0) * dt
+        w, hist, dt_eff = self._bdf_terms(state, dt)
+        mask = op.dirichlet_mask[:, None]
+        conv = ops.convection_setup(op, w, fold=(nu, dt_eff))
+        pst = build_precond_state(
+            op, nu, dt_eff, conv, pc.kind, s_solver=pc.s_solver, f_solver=pc.f_solver,
+            f_lam=self._f_lam0,
+        )
+        g = self._dirichlet_values(t_new)
+        rhs_u = torch.where(mask, g, ops.apply_mass(op, hist))
+        rhs_p = torch.zeros(self.space.n_pnodes, dtype=self.dtype, device=self.device)
+
+        def A(x):
+            return self._pack(*ops.apply_system(op, nu, dt_eff, conv, *self._unpack(x)))
+
+        def M(x):
+            return self._pack(*apply_precond(pc.kind, pc, op, pst, nu, dt_eff, *self._unpack(x)))
+
+        b = self._pack(rhs_u, rhs_p)
+        u_guess, p_guess = self._warm_guess(state)
+        x0 = self._pack(torch.where(mask, g, u_guess), p_guess)
+        # increment form: the M/dt bulk of b cancels analytically
+        dx, info = fgmres(
+            A, b - A(x0), M=M, restart=cfg.solver.restart, maxiter=cfg.solver.maxiter,
+            precise=cfg.numerics.precise_dots, **self._tol_kwargs(b),
+        )
+        u_new, p_new = self._unpack(x0 + dx)
+        ext = cfg.solver.extrapolate_guess
+        new_state = State(
+            u=u_new, p=p_new, t=t_new, step=state.step + 1,
+            u_prev=state.u if ext else None,
+            p_prev=state.p if ext else None,
+            u_prev2=state.u_prev if state.u_prev2 is not None else None,
+        )
+        diag = self._diagnostics(u_new, p_new, t_new)
+        diag.update(iters=info.iters, residual=info.residual, iters_f=info.iters, iters_s=0)
+        return new_state, diag
+
+    def _step_projection(self, state: State):
+        """One projection step (the reference's `_step_projection`)."""
         cfg = self.config
         op, fz, pc = self.op, self.proj_schur, cfg.precond
         nu = self.problem.nu
@@ -645,7 +788,26 @@ class NavierStokesSolver:
             u = v.reshape(n, d)
             return torch.where(mask, u, Fcore(u)).reshape(-1)
 
-        minv = inv_diag_Fhat(op, nu, dt_eff, conv)[:, None].expand(n, d).reshape(-1)
+        # the F preconditioner: plain Jacobi, or with f_iters > 0 the block
+        # preconditioners' fixed inner solve; without the frozen S1, the
+        # step's S~ and its coarse factor come from the same state (built
+        # only when one of the two reads it)
+        pst = None
+        if pc.f_iters > 0 or fz is None:
+            pst = build_precond_state(
+                op, nu, dt_eff, conv, "yosida", s_solver="mg2", f_solver=pc.f_solver,
+                f_lam=self._f_lam0, skip_schur=fz is not None,
+            )
+            inv_F = pst.inv_diag_Fhat
+        else:
+            inv_F = inv_diag_Fhat(op, nu, dt_eff, conv)
+        minv = inv_F[:, None].expand(n, d).reshape(-1)
+        if pc.f_iters > 0:
+            def Mf(v):
+                return _solve_F(op, pst, nu, dt_eff, v.reshape(n, d), pc).reshape(-1)
+        else:
+            def Mf(v):
+                return minv * v
         tol_kw = self._tol_kwargs(rhs_u.reshape(-1))
         r0 = r0_u.reshape(-1)
         du_e = None
@@ -672,7 +834,7 @@ class NavierStokesSolver:
                 cg_rtol, cg_atol = tol_kw["rtol"], tol_kw["atol"]
             du, info = cg(
                 lambda V: Fop(V[:, 0])[:, None], r0[:, None],
-                M=lambda V: minv[:, None] * V, rtol=cg_rtol, atol=cg_atol,
+                M=lambda V: Mf(V[:, 0])[:, None], rtol=cg_rtol, atol=cg_atol,
                 maxiter=cfg.solver.maxiter, precise=precise,
             )
             du, info_f = du[:, 0], SolveInfo(iters=int(info.iters[0]), residual=float(info.residual[0]))
@@ -684,7 +846,7 @@ class NavierStokesSolver:
                 return torch.where(mask, u, y).reshape(-1), u_e
 
             du, info_f, du_e = fgmres(
-                Fop_aux, r0, M=lambda v: minv * v, restart=cfg.solver.restart,
+                Fop_aux, r0, M=Mf, restart=cfg.solver.restart,
                 maxiter=cfg.solver.maxiter, precise=precise, aux=True, **tol_kw,
             )
         else:
@@ -692,7 +854,7 @@ class NavierStokesSolver:
             if warm_f:  # project r0 on the pool's exact images first
                 du_ws, r0 = ls_warmstart(state.fwpool, Yw, r0, precise=precise)
             du, info_f = fgmres(
-                Fop, r0, M=lambda v: minv * v, restart=cfg.solver.restart,
+                Fop, r0, M=Mf, restart=cfg.solver.restart,
                 maxiter=cfg.solver.maxiter, precise=precise, **tol_kw,
             )
             if warm_f:  # harvest the increment beyond the pool's span
@@ -700,16 +862,28 @@ class NavierStokesSolver:
                 du = du + du_ws
         u_star = u0 + du.reshape(n, d)
 
-        # ---- 2. pressure Poisson with the frozen S1 -------------------
-        if du_e is None:
-            rhs_p = -ops.apply_divergence(op, u_star) / dt_eff
-        else:  # u*'s element view from the step's gather and the Krylov applies
-            rhs_p = -ops.apply_divergence_e(op, u0_e + du_e) / dt_eff
-        solve_c = cho_solve_c(fz.cho_L) if fz.inv_c is None else inv_solve_c(fz.inv_c)
-        inv_d = 1.0 / fz.diag1
+        # ---- 2. pressure Poisson: S~ phi = -D u* ---------------------
+        rhs_p = -ops.apply_divergence(op, u_star) if du_e is None else (
+            # u*'s element view from the step's gather and the Krylov applies
+            -ops.apply_divergence_e(op, u0_e + du_e)
+        )
+        if fz is not None:
+            # S~ = dt S1 with S1 frozen at set-up: solve S1 phi = rhs / dt
+            rhs_p = rhs_p / dt_eff
+            inv_d, a_scale, upd_inv = 1.0 / fz.diag1, 1.0 / dt_eff, dt_eff * fz.inv1
+            solve_c = cho_solve_c(fz.cho_L) if fz.inv_c is None else inv_solve_c(fz.inv_c)
+            if fz.band is not None:
+                def S(pv):
+                    return banded_matvec(fz.band, pv)
+            else:
+                def S(pv):
+                    return schur_ell_matvec(op.schur, fz.vals1, pv)
+        else:  # the step's S~ (proj_schur="step"), the Cholesky coarse solve
+            inv_d, a_scale, upd_inv = 1.0 / pst.schur_diag, 1.0, pst.schur_inv
+            solve_c = cho_solve_c(pst.schur_cho_L)
 
-        def S(pv):
-            return banded_matvec(fz.band, pv)
+            def S(pv):
+                return schur_ell_matvec(op.schur, pst.schur_vals, pv)
 
         if pc.mg2_form == "additive":
             def M2(v):
@@ -718,9 +892,9 @@ class NavierStokesSolver:
             def M2(v):
                 return twolevel_apply_g(op.coarse, solve_c, S, inv_d, v)
 
-        s_rtol, s_atol = self._poisson_tol(tol_kw, rhs_p, dt_eff)
+        s_rtol, s_atol = self._poisson_tol(tol_kw, rhs_p, a_scale)
         phi0 = p_guess - state.p
-        if pc.s_recycle > 0 and state.spool is not None:
+        if pc.s_recycle > 0 and fz is not None and state.spool is not None:
             phi, info_s, harvest = cg_recycled(
                 S, rhs_p, M2, phi0, state.spool[0], state.spool[1],
                 rtol=s_rtol, atol=s_atol, maxiter=cfg.solver.maxiter,
@@ -737,7 +911,7 @@ class NavierStokesSolver:
 
         # ---- 3. update -------------------------------------------------
         p_new = state.p + phi
-        u_new = u_star - (dt_eff * fz.inv1)[:, None] * ops.apply_gradient(op, phi)
+        u_new = u_star - upd_inv[:, None] * ops.apply_gradient(op, phi)
 
         ext = cfg.solver.extrapolate_guess
         new_state = State(
@@ -775,6 +949,11 @@ class NavierStokesSolver:
                 "CG: it needs precond.s_recycle=0"
             )
         op, fz = self.op, self.proj_schur
+        if fz.band is None:
+            raise ValueError(
+                "the PyTorch port's ensemble applies the banded S1 only: "
+                "numerics.schur_spmv='ell' or a band too wide for the dense form"
+            )
         precise = cfg.numerics.precise_dots
         dt = cfg.time.dt
         t_new = (state.step + 1.0) * dt
@@ -826,7 +1005,7 @@ class NavierStokesSolver:
         def M2(v):
             return twolevel_apply_additive_g(op.coarse, solve_c, inv_d, v)
 
-        s_rtol, s_atol = self._poisson_tol(tol_kw, rhs_p, dt_eff)
+        s_rtol, s_atol = self._poisson_tol(tol_kw, rhs_p, 1.0 / dt_eff)
         phi, info_s = cg(
             S, rhs_p, M=M2, x0=p_guess - state.p, rtol=s_rtol, atol=s_atol,
             maxiter=cfg.solver.maxiter, precise=precise,
@@ -870,30 +1049,56 @@ class NavierStokesSolver:
         return dict(drag=drag, lift=lift, c_d=c_d, c_l=c_l, delta_p=delta_p)
 
     # ------------------------------------------------------------------
-    def run(self, n_steps: int, state: State | None = None):
-        """Advance `n_steps` in a Python loop; returns (state, stacked
-        StepDiagnostics as numpy arrays)."""
+    def run(self, n_steps: int, state: State | None = None, callback: Callable | None = None):
+        """Advance `n_steps` in chunks of numerics.steps_per_chunk steps (the
+        reference's `run`).  After each chunk its diagnostics come to the
+        host as numpy arrays (one sync a chunk), a non-finite residual raises
+        FloatingPointError, a chunk whose every step hit maxiter warns, and
+        `callback(solver, state, diags_chunk)` fires (the CLI's CSV, VTU and
+        checkpoint writer).  Returns (state, the stacked StepDiagnostics)."""
         state = self.initial_state() if state is None else self._ensure_pools(state)
-        rows = []
-        for _ in range(max(n_steps, 0)):
-            state, dg = self.step(state)
-            if not np.isfinite(dg["residual"]):
-                raise FloatingPointError(
-                    f"solver diverged: non-finite residual at step {state.step}"
-                )
-            rows.append(dg)
+        if n_steps <= 0:  # e.g. resuming a finished run
+            return state, _stack_diagnostics([])
+        chunk = max(1, self.config.numerics.steps_per_chunk)
         maxit = self.config.solver.maxiter
-        if rows and all(max(r["iters_f"], r["iters_s"]) >= maxit for r in rows):
-            warnings.warn(
-                f"every step hit maxiter={maxit}; the solution may be inaccurate",
-                stacklevel=2,
-            )
-        fields = [f.name for f in dataclasses.fields(StepDiagnostics)]
-        cols = {}
-        for k in fields:
-            vals = [r[k] for r in rows]
-            if vals and isinstance(vals[0], torch.Tensor):
-                cols[k] = torch.stack(vals).cpu().numpy()
-            else:
-                cols[k] = np.asarray(vals, dtype=np.int64 if "iters" in k else np.float64)
-        return state, StepDiagnostics(**cols)
+        chunks, done = [], 0
+        while done < n_steps:
+            k = min(chunk, n_steps - done)
+            rows = []
+            for _ in range(k):
+                state, dg = self.step(state)
+                rows.append(dg)
+            d = _stack_diagnostics(rows)
+            done += k
+            chunks.append(d)
+            if not np.all(np.isfinite(d.residual)):
+                raise FloatingPointError(
+                    f"solver diverged: non-finite residual at step {done} "
+                    f"(residuals {d.residual})"
+                )
+            if np.all(np.maximum(d.iters_f, d.iters_s) >= maxit):
+                warnings.warn(
+                    f"outer GMRES hit maxiter={maxit} for an entire chunk at step "
+                    f"{done}; solution may be inaccurate (consider stronger "
+                    "preconditioning)",
+                    stacklevel=2,
+                )
+            if callback is not None:
+                callback(self, state, d)
+        return state, StepDiagnostics(**{
+            f.name: np.concatenate([getattr(c, f.name) for c in chunks])
+            for f in dataclasses.fields(StepDiagnostics)
+        })
+
+
+def _stack_diagnostics(rows: list) -> StepDiagnostics:
+    """Per-step diagnostics dicts -> StepDiagnostics of numpy arrays (the
+    tensors in one stack and one copy to the host)."""
+    cols = {}
+    for f in dataclasses.fields(StepDiagnostics):
+        vals = [r[f.name] for r in rows]
+        if vals and isinstance(vals[0], torch.Tensor):
+            cols[f.name] = torch.stack(vals).cpu().numpy()
+        else:
+            cols[f.name] = np.asarray(vals, dtype=np.int64 if "iters" in f.name else np.float64)
+    return StepDiagnostics(**cols)

@@ -1,14 +1,17 @@
-"""Two-level preconditioners for the frozen Schur operator.
+"""Two-level preconditioners for the Schur operator.
 
-The counterpart of the reference's `ops/coarse.py` on its frozen path
-(`build_coarse_schur(with_plan=False)`, `host_coarse_dense`, `cho_solve_c`,
-`inv_solve_c`, `twolevel_apply_additive_g`, `twolevel_apply_g`):
-aggregates of `agg` consecutive pressure nodes (spatially compact after
-the RCM reorder), so restriction is a reshape + sum and prolongation a
-repeat.  The dense coarse matrix is assembled once on the host in float64
-and either Cholesky-factorised (coarse_solve="chol": two triangular
-solves an application) or inverted (coarse_solve="inv": one [nc, nc]
-gemv an application).
+The counterpart of the reference's `ops/coarse.py` (`build_coarse_schur`,
+`host_coarse_dense`, `coarse_dense`, `coarse_factor`, `coarse_inverse`,
+`cho_solve_c`, `inv_solve_c`, `twolevel_apply`, `twolevel_apply_g`,
+`twolevel_apply_additive_g`): aggregates of `agg` consecutive pressure
+nodes (spatially compact after the spatial reorder), so restriction is a
+reshape + sum and prolongation a repeat.  The frozen S1's dense coarse
+matrix is assembled once on the host in float64; a per-step S~ (the block
+preconditioners, proj_schur="step") reduces its flat ELL values into the
+dense [nc, nc] matrix through the plan `build_coarse_schur` builds from the
+slot layout, on the device.  Either is Cholesky-factorised
+(`cholesky_ex`, no host sync: two triangular solves an application) or
+inverted (one [nc, nc] gemv an application).
 
     additive:  z = omega D^-1 r + R^T Sc^-1 R r
     V(1,1):    smooth, coarse correction, smooth (two S applies)
@@ -21,17 +24,52 @@ import dataclasses
 import numpy as np
 import torch
 
+from navierstokes_project_nm4pde_tpu_torch.ops.scatter import (
+    SegmentPlan,
+    apply_segment_plan,
+    build_segment_plan,
+)
+
 
 @dataclasses.dataclass
 class CoarseSchur:
     nc: int  # coarse rows
     agg: int  # aggregate size
     n_pad: int  # nc * agg
+    # flat S~ slots -> the nc * nc dense entries (masked slots dropped);
+    # None for the frozen S1, whose coarse matrix is assembled on the host
+    plan: SegmentPlan | None = None
 
 
-def build_coarse_schur(n_p: int, agg: int = 24) -> CoarseSchur:
+def build_coarse_schur(n_p: int, agg: int = 24, host: dict | None = None, device=None) -> CoarseSchur:
+    """The aggregation of n_p pressure nodes; with the S~ host slot layout
+    `host` (srow, scol, smask), also the plan of `coarse_dense`."""
     nc = (n_p + agg - 1) // agg
-    return CoarseSchur(nc=nc, agg=agg, n_pad=nc * agg)
+    plan = None
+    if host is not None:
+        a, b = host["srow"] // agg, host["scol"] // agg
+        flat = np.where(host["smask"], a * nc + b, nc * nc)  # masked -> dropped
+        plan = build_segment_plan(flat, nc * nc, drop_row=nc * nc, device=device)
+    return CoarseSchur(nc=nc, agg=agg, n_pad=nc * agg, plan=plan)
+
+
+def coarse_dense(cs: CoarseSchur, vals_flat: torch.Tensor) -> torch.Tensor:
+    """Dense coarse matrix Sc = R S~ R^T from S~'s flat ELL values,
+    symmetrised and Tikhonov-shifted for the constant null space."""
+    Sc = apply_segment_plan(cs.plan, vals_flat[:, None])[:, 0].view(cs.nc, cs.nc)
+    Sc = 0.5 * (Sc + Sc.T)
+    shift = 1e-6 * torch.trace(Sc) / cs.nc
+    return Sc + shift * torch.eye(cs.nc, dtype=Sc.dtype, device=Sc.device)
+
+
+def coarse_factor(cs: CoarseSchur, vals_flat: torch.Tensor) -> torch.Tensor:
+    """The per-step lower Cholesky factor of the dense coarse matrix."""
+    return torch.linalg.cholesky_ex(coarse_dense(cs, vals_flat)).L
+
+
+def coarse_inverse(cs: CoarseSchur, vals_flat: torch.Tensor) -> torch.Tensor:
+    """The dense inverse of the coarse matrix (through its Cholesky factor)."""
+    return torch.cholesky_inverse(coarse_factor(cs, vals_flat))
 
 
 def host_coarse_dense(
@@ -95,6 +133,14 @@ def twolevel_apply_g(
     if post:
         z = z + omega * d * (r - S(z))
     return z
+
+
+def twolevel_apply(
+    cs: CoarseSchur, cho_L: torch.Tensor, S, inv_diag: torch.Tensor, r: torch.Tensor,
+    omega: float = 0.7, post: bool = True,
+) -> torch.Tensor:
+    """`twolevel_apply_g` with the coarse solve of a Cholesky factor."""
+    return twolevel_apply_g(cs, cho_solve_c(cho_L), S, inv_diag, r, omega, post)
 
 
 def twolevel_apply_additive_g(

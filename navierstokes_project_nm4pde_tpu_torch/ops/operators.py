@@ -1,18 +1,22 @@
-"""Matrix-free velocity operator F = M/dt + nu A + C(w) and the static
-per-mesh operator data (PyTorch).
+"""Matrix-free velocity operator F = M/dt + nu A + C(w), the saddle-point
+operator, and the static per-mesh operator data (PyTorch).
 
-The counterpart of the reference's `ops/operators.py`, restricted to what
-the projection stepper reads: the host side of `build_operator` (geometry
-factors, reference tables, global diagonals, the divergence ELL and the
-frozen Schur host tables), the element gathers and reductions,
+The counterpart of the reference's `ops/operators.py`: the host side of
+`build_operator` (geometry factors, reference tables, global diagonals,
+the divergence ELL, and the Schur host tables: the frozen S1's, or the
+per-step assembly's), the element gathers and reductions,
 `convection_setup` with the fold (full, or convection only for the macro
 K/C split, and weighted per cell under IMEX), the element passes
 (`apply_rhs_and_r0`, `apply_F` with or without convection,
 `apply_divergence_e`, `apply_gradient_e`, the explicit rhs
-`apply_convection_self`) and the IMEX fine subset (`ImexTables`,
-`convection_fine_fold`, `apply_convection_fine`).  D and G are the
-assembled forms of `ops/bsr.py` unless the configuration asks for the
-element passes (`div` / `grad` None).
+`apply_convection_self`), the constant blocks (`apply_mass`,
+`apply_stiffness`, `apply_pressure_mass`), the monolithic stepper's
+saddle-point operator `apply_system` (F and G in one element pass and one
+reduction, the divergence rows from the same gather, Dirichlet rows
+masked) and the IMEX fine subset (`ImexTables`, `convection_fine_fold`,
+`apply_convection_fine`).  D and G are the assembled forms of
+`ops/bsr.py` unless the configuration asks for the element passes
+(`div` / `grad` None).
 
 Layout: velocity `u[n_unodes, dim]`, pressure `p[n_pnodes]`; every array
 lives on the device passed to `build_operator`.  An ensemble carries its
@@ -53,7 +57,12 @@ from navierstokes_project_nm4pde_tpu_torch.ops.scatter import (
     apply_segment_plan,
     build_segment_plan,
 )
-from navierstokes_project_nm4pde_tpu_torch.ops.schur_ell import build_schur_frozen
+from navierstokes_project_nm4pde_tpu_torch.ops.schur_ell import (
+    SchurELL,
+    build_schur_ell,
+    build_schur_frozen,
+    schur_from_host,
+)
 from navierstokes_project_nm4pde_tpu_torch.ops.tables import build_ref_tables
 
 
@@ -71,14 +80,26 @@ class NSOperator:
     PHI_U: torch.Tensor  # [q, nloc]
     GRAD_U: torch.Tensor  # [q, nloc, dim]
     MHAT: torch.Tensor  # [nloc, nloc]
+    MPHAT: torch.Tensor  # [nloc_p, nloc_p] reference pressure mass
     AHAT: torch.Tensor  # [dim, dim, nloc, nloc]
     BHAT: torch.Tensor  # [dim, nloc_p, nloc] reference divergence table
     diagM: torch.Tensor  # [n_unodes] mass diagonal (unscaled by dt)
     diagA: torch.Tensor  # [n_unodes] stiffness diagonal (unscaled by nu)
+    lumpM: torch.Tensor  # [n_unodes] abs-lumped mass (unscaled by dt)
+    diagMp: torch.Tensor  # [n_pnodes] pressure-mass diagonal
     dirichlet_mask: torch.Tensor  # [n_unodes] bool
     div: CSRMatrix | None  # D: [n_unodes, dim] -> [n_pnodes, 1]; None: element pass
     grad: CSRMatrix | None  # G = -D^T: [n_pnodes, 1] -> [n_unodes, dim]; None: element pass
     coarse: CoarseSchur
+    # S~'s ELL structure: with its assembly tables when the Schur block is
+    # assembled every step (the block preconditioners, proj_schur="step"),
+    # or the frozen S1's SpMV layout (its ELL fallback); None when nothing
+    # reads it
+    schur: SchurELL | None = None
+    # frozen SPAI values on S~'s slots (s_solver "spai"/"spai_cg")
+    spai_vals: torch.Tensor | None = None
+    # the P2 -> P1 two-level velocity structure (f_solver "pmg")
+    pmg: object | None = None
     # Per-cell IMEX convection weight [E] (TimeConfig.convection="imex"):
     # 1 keeps the cell's linearised C(w) inside F, 0 moves it to the
     # explicit rhs.  None: fully implicit.
@@ -99,28 +120,57 @@ class NSOperator:
         once, like the reference's DeviceData.conv_base)."""
         return torch.einsum("ekl,klij->eij", self.GKd, self.AHAT)
 
+    @property
+    def dim(self) -> int:
+        return self.Jinv.shape[-1]
+
+    @property
+    def n_unodes(self) -> int:
+        return self.diagM.shape[0]
+
+    @property
+    def n_pnodes(self) -> int:
+        return self.diagMp.shape[0]
+
 
 def build_operator(
-    space, geom, dirichlet_mask: np.ndarray, dtype, device, coarse_agg: int = 24
+    space, geom, dirichlet_mask: np.ndarray, dtype, device, coarse_agg: int = 24,
+    device_schur_assembly: bool = False,
 ):
-    """Build the operator and the host Schur dict for the frozen projection
-    Schur (float64 numpy; `vals1`, slot layout, `diagM`, `D_cols`,
-    `D_vals`).  Returns (op, schur_host)."""
+    """Build the operator and the host Schur dict (float64 numpy: slot
+    layout, `diagM`, `D_cols`, `D_vals`).  Returns (op, schur_host).
+
+    device_schur_assembly=False: the frozen projection Schur; the host dict
+    holds S1's values `vals1` and `op.schur` is None (the stepper builds
+    the SpMV layout only if its ELL fallback runs).  True: S~ is assembled
+    every step on the device, so `op.schur` carries the pair-product tables
+    and `op.coarse` the plan of the per-step coarse matrix."""
     t = build_ref_tables(space.dim)
     GK = np.einsum("ekd,eld->ekl", geom.Jinv, geom.Jinv)
     GKd = GK * geom.detJ[:, None, None]
 
     diagM = np.zeros(space.n_unodes)
     diagA = np.zeros(space.n_unodes)
+    lumpM = np.zeros(space.n_unodes)
+    diagMp = np.zeros(space.n_pnodes)
     mdiag_e = geom.detJ[:, None] * np.diag(t.MHAT)[None, :]
     adiag_e = np.einsum("ekl,kli->ei", GKd, np.einsum("klii->kli", t.AHAT))
+    lump_e = geom.detJ[:, None] * np.sum(np.abs(t.MHAT), axis=1)[None, :]
+    mpdiag_e = geom.detJ[:, None] * np.diag(t.MPHAT)[None, :]
     np.add.at(diagM, space.cells_u, mdiag_e)
     np.add.at(diagA, space.cells_u, adiag_e)
+    np.add.at(lumpM, space.cells_u, lump_e)
+    np.add.at(diagMp, space.cells_p, mpdiag_e)
 
     mask = np.asarray(dirichlet_mask, dtype=bool)
     D_cols, D_vals = _assemble_divergence_ell(space, geom, t)
-    inv1 = np.where(mask, 0.0, 1.0 / diagM)
-    schur_host = build_schur_frozen(D_cols, D_vals, inv1, space.n_unodes)
+    schur = None
+    if device_schur_assembly:
+        schur_host = build_schur_ell(D_cols, D_vals)
+        schur = schur_from_host(schur_host, dtype, device, assembly=True)
+    else:
+        inv1 = np.where(mask, 0.0, 1.0 / diagM)
+        schur_host = build_schur_frozen(D_cols, D_vals, inv1, space.n_unodes)
     schur_host["diagM"] = diagM
     schur_host["D_cols"] = D_cols
     schur_host["D_vals"] = D_vals
@@ -138,10 +188,13 @@ def build_operator(
         PHI_U=dev(t.PHI_U),
         GRAD_U=dev(t.GRAD_U),
         MHAT=dev(t.MHAT),
+        MPHAT=dev(t.MPHAT),
         AHAT=dev(t.AHAT),
         BHAT=dev(t.BHAT),
         diagM=dev(diagM),
         diagA=dev(diagA),
+        lumpM=dev(lumpM),
+        diagMp=dev(diagMp),
         dirichlet_mask=torch.as_tensor(mask, device=device),
         div=build_divergence_csr(
             schur_host, space.n_unodes, space.n_pnodes, dtype, device
@@ -149,7 +202,11 @@ def build_operator(
         grad=build_gradient_csr(
             schur_host, space.n_unodes, space.n_pnodes, dtype, device
         ),
-        coarse=build_coarse_schur(space.n_pnodes, agg=coarse_agg),
+        coarse=build_coarse_schur(
+            space.n_pnodes, agg=coarse_agg,
+            host=schur_host if device_schur_assembly else None, device=device,
+        ),
+        schur=schur,
     )
     return op, schur_host
 
@@ -393,16 +450,68 @@ def apply_F(
     u_e: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """F u through the folded element matrices, [n, dim, *rest] (the
-    ensemble's velocity operator, a single run's element fallback and the
-    element reference the macro path is tested against); with conv=None
-    the convection-free K = M/dt + nu A.  `u_e` is a pre-gathered element
-    view of u."""
+    ensemble's velocity operator, a single run's element fallback, the
+    block preconditioners' inner solves and the element reference the
+    macro path is tested against); with conv=None the convection-free
+    K = M/dt + nu A.  `u_e` is a pre-gathered element view of u.
+
+    A bfloat16 `u` (the preconditioners' low_precision mode) moves
+    bfloat16 values: its gather payload and the element contributions the
+    reduce sums are rounded to bfloat16 (carried in the operator's dtype,
+    which kernels C and D take), the products run in the operator's dtype,
+    and the result is bfloat16."""
+    lowp = u.dtype == torch.bfloat16
+    if lowp:
+        u = u.to(op.MHAT.dtype)  # exact: a bfloat16 value is representable
     if u_e is None:
         u_e = gather_u(op, u)
     if conv is None:
-        return scatter_u(op, _apply_K_e(op, nu, dt, u_e))
-    _check_fold(conv, nu, dt)
-    return scatter_u(op, element_apply(conv.F_e, u_e))
+        y_e = _apply_K_e(op, nu, dt, u_e)
+    else:
+        _check_fold(conv, nu, dt)
+        y_e = element_apply(conv.F_e, u_e)
+    if lowp:
+        return scatter_u(op, y_e.to(torch.bfloat16).to(y_e.dtype)).to(torch.bfloat16)
+    return scatter_u(op, y_e)
+
+
+def apply_mass(op: NSOperator, u: torch.Tensor) -> torch.Tensor:
+    """y = M u (velocity mass, unscaled): one element pass."""
+    y_e = torch.einsum("ij,ejc->eic", op.MHAT, gather_u(op, u)) * op.detJ[:, None, None]
+    return scatter_u(op, y_e)
+
+
+def apply_stiffness(op: NSOperator, u: torch.Tensor) -> torch.Tensor:
+    """y = A u (vector Laplacian, unscaled by nu): one element pass."""
+    return scatter_u(op, element_apply(op.stiff_e, gather_u(op, u)))
+
+
+def apply_pressure_mass(op: NSOperator, p: torch.Tensor) -> torch.Tensor:
+    """y = Mp p (pressure mass, unscaled)."""
+    y_e = torch.einsum("ij,ej->ei", op.MPHAT, gather_p(op, p)) * op.detJ[:, None]
+    return scatter_p(op, y_e)
+
+
+def apply_system(op: NSOperator, nu, dt, conv: ConvectionData, u, p, mask_rows: bool = True):
+    """The saddle-point operator [[F, G], [D, 0]] on (u, p): F u + G p in one
+    element pass and one velocity reduction (kernel C), D u from the same
+    gather (kernel D), and identity rows on Dirichlet velocity nodes with
+    `mask_rows` (the reference's row elimination)."""
+    u_e = gather_u(op, u)
+    p_e = gather_p(op, p)
+    if conv is None:
+        y_e = _apply_K_e(op, nu, dt, u_e)
+    else:
+        _check_fold(conv, nu, dt)
+        y_e = element_apply(conv.F_e, u_e)
+    det = op.detJ[:, None, None]
+    y_e = y_e - torch.einsum("ekc,kij,ei->ejc", op.Jinv, op.BHAT, p_e) * det
+    y_u = scatter_u(op, y_e)
+    y_pe = torch.einsum("ekc,kij,ejc->ei", op.Jinv, op.BHAT, u_e) * op.detJ[:, None]
+    y_p = scatter_p(op, y_pe)
+    if mask_rows:
+        y_u = torch.where(op.dirichlet_mask[:, None], u, y_u)
+    return y_u, y_p
 
 
 def apply_rhs_and_r0(

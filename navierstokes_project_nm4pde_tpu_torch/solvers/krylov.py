@@ -1,10 +1,12 @@
 """Krylov solvers in PyTorch: flexible GMRES, CG, recycled-projection CG,
-the least-squares warm start and recycled-block GCR.
+the least-squares warm start, recycled-block GCR, and the fixed-iteration
+inner solves of the block preconditioners.
 
 The counterparts of the reference's `solvers/krylov.py` `_norm`, `fgmres`
-(with `aux`), `cg`, `cg_recycled`, `ls_warmstart` and `gcr_recycled`, with
-the same algorithms and stopping rules, so that a float64 run takes the
-same iteration counts as the reference.
+(with `aux`), `cg`, `cg_recycled`, `ls_warmstart`, `gcr_recycled`,
+`cg_fixed` and `gmres_fixed`, with the same algorithms and stopping rules,
+so that a float64 run takes the same iteration counts as the reference.
+The fixed-iteration solves never read a value back to the host.
 
 The reference runs its loops under `lax.while_loop` on the device.  Here
 the loops run in Python and read the residual norm back to the host once
@@ -492,3 +494,62 @@ def gcr_recycled(
         res = float(_norm(r, precise))  # the sync
         j += 1
     return c @ D, SolveInfo(iters=1 + j, residual=res), D
+
+
+# ----------------------------------------------------------------------
+# Fixed-iteration inner solvers (for the block preconditioners)
+# ----------------------------------------------------------------------
+def cg_fixed(A: Callable, b: torch.Tensor, M: Callable, iters: int, precise: bool = False):
+    """`iters` steps of preconditioned CG, no convergence checks (the
+    reference's `cg_fixed`).  The guards on p.Ap and r.z are device-side
+    selects: no host sync."""
+    x = torch.zeros_like(b)
+    r = b
+    z = M(r)
+    p = z
+    rz = _dot(r, z, precise)
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    for _ in range(iters):
+        Ap = A(p)
+        pAp = _dot(p, Ap, precise)
+        alpha = torch.where(pAp > 0, rz / pAp, zero)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rz_new = _dot(r, z, precise)
+        beta = torch.where(rz > 0, rz_new / rz, zero)
+        p = z + beta * p
+        rz = rz_new
+    return x
+
+
+def gmres_fixed(A: Callable, b: torch.Tensor, M: Callable, iters: int, precise: bool = False):
+    """One `iters`-step right-preconditioned GMRES cycle, no checks (the
+    reference's `gmres_fixed`): single-pass batched classical Gram-Schmidt,
+    then the least squares on the Hessenberg by its normal equations (with
+    the reference's 1e-30 ridge), solved on the device by `solve_ex`
+    (`torch.linalg.solve` would read its error flag back): no host sync."""
+    n = b.shape[0]
+    m = iters
+    beta = _norm(b, precise)
+    V = b.new_zeros((m + 1, n))
+    Z = b.new_zeros((m, n))
+    H = b.new_zeros((m + 1, m + 1))
+    V[0] = torch.where(beta > 0, b / beta, b)
+    for j in range(m):
+        z = M(V[j])
+        w = A(z)
+        # rows > j of V are zero, so the full product is the partial one
+        hcol = _matvec_dots(V, w, precise)
+        w = w - V.T @ hcol
+        hlast = _norm(w, precise)
+        V[j + 1] = torch.where(hlast > 0, w / hlast, w)
+        Z[j] = z
+        hcol[j + 1] = hlast
+        H[:, j] = hcol
+    Hm = H[:, :m]
+    e1 = b.new_zeros(m + 1)
+    e1[0] = beta
+    HtH = Hm.T @ Hm + 1e-30 * torch.eye(m, dtype=b.dtype, device=b.device)
+    y = torch.linalg.solve_ex(HtH, Hm.T @ e1).result
+    return Z.T @ y

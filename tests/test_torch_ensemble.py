@@ -222,7 +222,7 @@ def test_ensemble_cli_runs_without_jax(tmp_path):
 def test_ensemble_cli_refuses_what_is_not_ported(tmp_path):
     from navierstokes_project_nm4pde_tpu_torch.cli import main
 
-    for argv in (["cylinder3d"], ["ensemble", "--fast", "--dim", "2"]):
+    for argv in (["cylinder2d"], ["convergence"], ["ensemble", "--fast", "--dim", "2"]):
         with pytest.raises(SystemExit) as exc:
             main(argv + ["--output-dir", str(tmp_path)] if argv[0] == "ensemble" else argv)
         assert "PyTorch port" in str(exc.value)

@@ -370,3 +370,25 @@ def test_probes_reject_what_the_kernels_do_not_take(cuda):
         probes.column_gather(torch.randn((8, 32), device=cuda).T, ci)  # not contiguous
     with pytest.raises(ValueError):
         probes.column_gather(src, probes.column_index(ci.idx.cpu(), 32))  # index on the CPU
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_slot_kernels_on_the_monolithic_paths_plan(cuda, C):
+    """Kernels C and D on the element plan the monolithic stepper builds
+    (a DFG duct in its Morton order) at the widths its element passes
+    move: 3 channels (every F apply, D u, G p, M hist) and 1."""
+    from navierstokes_project_nm4pde_tpu_torch.fem.space import build_taylor_hood
+    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
+
+    space = build_taylor_hood(cylinder_duct_3d(lc=0.12, nz=4).reorder_spatial("morton"))
+    plans = oh.build_onehot_plans(space.cells_u, space.n_unodes, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(C)
+    y = torch.randn((plans.n_slots, C), generator=g, device=cuda)
+    x = torch.randn((space.n_unodes, C), generator=g, device=cuda)
+    before = dict(oh.launch_counts)
+    out, ye = oh.onehot_reduce(plans, y), oh.onehot_gather(plans, x)
+    torch.cuda.synchronize()
+    assert oh.launch_counts["slot_reduce"] == before["slot_reduce"] + 1
+    assert oh.launch_counts["slot_gather"] == before["slot_gather"] + 1
+    _close(out, oh.onehot_reduce_plain(plans, y))
+    assert torch.equal(ye, oh.onehot_gather_plain(plans, x))

@@ -1,7 +1,9 @@
 """The port's own copies of the JAX package's host modules, against the JAX
 package: `config.py`, `mesh/` (generators, reordering, the Gmsh reader),
 `fem/` (reference elements, quadrature, the Taylor-Hood space, cell and
-boundary geometry) and the CLI's `_common_flags` / `_build_config`.
+boundary geometry), the CLI's `_common_flags` / `_build_config`, and the
+output modules `io/csvlog.py` (all its logs), `io/vtu.py` (VTU, PVTU and
+PVD files, byte for byte) and `utils/signal.py` (`strouhal_number`).
 
 Both sides run the same numpy code on the same inputs, so every array is
 held equal exactly.  The mesh is the small DFG duct
@@ -17,6 +19,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from navierstokes_project_nm4pde_tpu import cli as jcli
 from navierstokes_project_nm4pde_tpu import config as jconfig
@@ -24,18 +27,24 @@ from navierstokes_project_nm4pde_tpu.fem import geometry as jgeometry
 from navierstokes_project_nm4pde_tpu.fem import quadrature as jquad
 from navierstokes_project_nm4pde_tpu.fem import reference as jref
 from navierstokes_project_nm4pde_tpu.fem import space as jspace
+from navierstokes_project_nm4pde_tpu.io import csvlog as jcsvlog
+from navierstokes_project_nm4pde_tpu.io import vtu as jvtu
 from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d as jax_duct
 from navierstokes_project_nm4pde_tpu.mesh import read_msh as jax_read_msh
 from navierstokes_project_nm4pde_tpu.mesh.msh_io import write_msh, write_msh_v41
+from navierstokes_project_nm4pde_tpu.utils import signal as jsignal
 from navierstokes_project_nm4pde_tpu_torch import cli as tcli
 from navierstokes_project_nm4pde_tpu_torch import config as tconfig
 from navierstokes_project_nm4pde_tpu_torch.fem import geometry as tgeometry
 from navierstokes_project_nm4pde_tpu_torch.fem import quadrature as tquad
 from navierstokes_project_nm4pde_tpu_torch.fem import reference as tref
 from navierstokes_project_nm4pde_tpu_torch.fem import space as tspace
+from navierstokes_project_nm4pde_tpu_torch.io import csvlog as tcsvlog
+from navierstokes_project_nm4pde_tpu_torch.io import vtu as tvtu
 from navierstokes_project_nm4pde_tpu_torch.mesh import Mesh
 from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d as port_duct
 from navierstokes_project_nm4pde_tpu_torch.mesh import read_msh as port_read_msh
+from navierstokes_project_nm4pde_tpu_torch.utils import signal as tsignal
 
 MESH_FIELDS = ("coords", "cells", "bface_verts", "bface_tag")
 SPACE_FIELDS = (
@@ -44,6 +53,18 @@ SPACE_FIELDS = (
 )
 GEOM_FIELDS = ("J", "Jinv", "detJ")
 BOUNDARY_FIELDS = ("tag", "cell", "phi_u", "grad_u", "phi_p", "jxw", "normal", "points")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's small-duct runs in one torch thread per test process: the
+    test runner's parallel workers would otherwise each start a thread per
+    core, and their spinning threads then slow every small op many times
+    over.  Restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_config(cfg):
@@ -161,3 +182,55 @@ def test_read_msh_copy_matches_reference(tmp_path, fmt):
     assert isinstance(out, Mesh)
     for field in MESH_FIELDS:
         np.testing.assert_array_equal(getattr(out, field), getattr(ref, field))
+
+
+def _tree(root):
+    return {p.relative_to(root).as_posix(): p.read_bytes() for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def test_csvlog_copy_writes_the_reference_files(tmp_path):
+    """Every log of the CSV logger, twice (a header only once), from the
+    same numpy diagnostics: the same files byte for byte."""
+    rng = np.random.default_rng(0)
+    t, it = np.arange(1, 5) * 2e-4, rng.integers(5, 30, 4).astype(np.int32)
+    cols = [rng.normal(size=4) for _ in range(6)]
+    for mod, name in ((jcsvlog, "jax"), (tcsvlog, "port")):
+        log = mod.CSVLogger(str(tmp_path / name))
+        for _ in range(2):
+            log.log_gmres(t, (t * 1e4).astype(int), it)
+            log.log_coefficients(np.arange(1, 5), cols[0], cols[1])
+            log.log_forces("forces_results_3D_2case.csv", t, *cols[:4], t_prec=cols[4], t_solve=cols[5])
+            log.log_forces("forces_plain.csv", t, *cols[:4])
+            log.log_table("ensemble.csv", "Re,nu", [(20.0, 5e-4), (300.0, 3e-5)])
+            log.log_convergence([0.5, 0.25], cols[0][:2], cols[1][:2])
+    ref = _tree(tmp_path / "jax")
+    assert len(ref) == 6
+    assert _tree(tmp_path / "port") == ref
+
+
+def test_vtu_copy_writes_the_reference_files(meshes, tmp_path):
+    """A VTU snapshot (with and without the partitioning field), a
+    multi-piece PVTU record and a PVD index: the same bytes."""
+    _, _, js, ts = meshes
+    rng = np.random.default_rng(1)
+    u, p = rng.normal(size=(ts.n_unodes, 3)), rng.normal(size=ts.n_pnodes)
+    part = (np.arange(ts.cells_u.shape[0]) % 3).astype(np.int32)
+    for mod, space, name in ((jvtu, js, "jax"), (tvtu, ts, "port")):
+        d = tmp_path / name
+        d.mkdir()
+        mod.write_vtu(str(d / "a.vtu"), space, u, p)
+        mod.write_vtu(str(d / "b.vtu"), space, u, p, partitioning=part)
+        mod.write_vtu_with_pvtu_record(str(d), "c", space, u, p, partitioning=part)
+        mod.write_pvd(str(d / "s.pvd"), [(0.1, "a.vtu"), (0.2, "b.vtu")])
+    ref = _tree(tmp_path / "jax")
+    assert len(ref) >= 5
+    assert _tree(tmp_path / "port") == ref
+
+
+@pytest.mark.parametrize("n", [4, 64, 1000])
+def test_strouhal_copy_matches_reference(n):
+    t = np.arange(n) * 1e-3
+    lift = np.sin(2 * np.pi * 3.0 * t) + 0.1 * np.random.default_rng(n).normal(size=n)
+    ref = jsignal.strouhal_number(lift, 1e-3, diameter=0.1, velocity=2.0)
+    out = tsignal.strouhal_number(lift, 1e-3, diameter=0.1, velocity=2.0)
+    assert (np.isnan(out) and np.isnan(ref)) or out == ref

@@ -126,15 +126,17 @@ def test_solver_rejects_configs_outside_the_slice():
     def rep(part, **kw):
         return dataclasses.replace(cfg, **{part: dataclasses.replace(getattr(cfg, part), **kw)})
 
+    mono = rep("time", stepper="monolithic")
     bad = [
-        (rep("time", stepper="monolithic"), "time.stepper"),
         (rep("time", scheme="bdf2"), "time.scheme"),
-        (rep("numerics", proj_schur="step"), "numerics.proj_schur"),
-        (rep("numerics", schur_spmv="ell"), "numerics.schur_spmv"),
-        (rep("numerics", grad_apply="ell"), "numerics.grad_apply"),
-        (rep("precond", f_iters=4), "precond.f_iters"),
+        (rep("numerics", fold_elem=False), "numerics.fold_elem"),
+        (rep("numerics", spatial_reorder=False), "numerics.spatial_reorder"),
         (rep("time", convection="imex", imex_umax=None), "imex_umax"),
         (rep("numerics", vel_apply="bsr"), "vel_apply"),
+        (dataclasses.replace(mono, time=dataclasses.replace(mono.time, convection="explicit")),
+         "convection='explicit' requires the projection stepper"),
+        (dataclasses.replace(mono, numerics=dataclasses.replace(mono.numerics, f_apply="macro")),
+         "f_apply='macro'"),
     ]
     for c, name in bad:
         with pytest.raises(ValueError, match=name):
