@@ -20,6 +20,12 @@ Drives the port's paths once each:
     the CSV files and final.npz checked), and at 965,265 DoF under
     bench.py's monolithic settings; every element pass through kernels C
     and D; host syncs a step counted by torch's sync debug mode;
+  * the `cylinder2d` entry point at its defaults through the CLI (5,372
+    DoF, monolithic, asimple; kernels C and D at 1 and 2 channels) and
+    `--fast` on the 118,071-DoF channel under bdf1 and bdf2 (kernels A at
+    2 channels and B at 6 local nodes); the `convergence` entry point at
+    its defaults (the Ethier-Steinman ladder 2 4 8 16, up to 112,724 DoF;
+    the last pair's rates and the errors against the CPU float64 run);
 and runs the two TPU-era measurement probes (kernels E and F).  It builds
 the hand-written CUDA kernels from `navierstokes_project_nm4pde_tpu_torch/csrc`,
 holds each against its plain PyTorch version at the shapes its paths give
@@ -32,12 +38,14 @@ earlier and the committed designs of kernels A, B, C and D in turns, and
 the K/C split's block build against the full one, and holds short runs
 of each path and of each variant on the card against the same runs on
 the CPU in float64 (plain versions) on a small duct (the monolithic
-stepper's kinds and inner solvers to tolerances measured from the JAX
-package's own float32 spread, and one preconditioner application of each
-to 100 float32 epsilons).  It imports nothing
+stepper's kinds and inner solvers, and the 2D channel, BDF2 and
+Ethier-Steinman cases, to tolerances measured from the JAX package's own
+float32 spread, and one preconditioner application of each to 100
+float32 epsilons).  It imports nothing
 of jax or of the JAX package, and fails if either was imported.  On an
-H100 80GB HBM3 the whole script, the kernels' build included, took
-184-243.5 s.
+H100 80GB HBM3 at 700 W the whole script, the kernels' build included,
+took 184-243.5 s, and 222.0-361.3 s with the 2D, BDF2 and convergence
+phases.
 
     python3 chip_smoke.py [--profile DIR]   # DIR: torch.profiler tables and traces
 
@@ -88,8 +96,10 @@ ACCEL_TIMED = 20
 KERNEL_REPS = 10
 # Kernel A's channel counts: the single run's 3 (Krylov applies), and the
 # accelerators' wide payloads: f_warmstart = 2 (9), f_recycle = 4 (15),
-# f_recycle = 7 (24).
-MATVEC_WIDTHS = (3, 9, 15, 24)
+# f_recycle = 7 (24), and past one launch's 24 channels (split into
+# launches of at most 24, each reading FtT once): f_recycle = 8 (27, here
+# 25) and f_recycle = 15 (48).
+MATVEC_WIDTHS = (3, 9, 15, 24, 25, 48)
 # Kernels C and D at the variant paths' shapes: name -> (kernel -> channel
 # counts).  IMEX at 965k runs the fine subset's plan at 3 channels every
 # Krylov apply, and the full plan once a step (the rhs reduce at 6, the
@@ -104,6 +114,10 @@ SLOT_SHAPES = {
     # and diag C(w) (`convection_setup`, once a step) reduced at 1
     "monolithic 142k": {"slot_reduce": (1, 3), "slot_gather": (3,)},
     "monolithic 965k": {"slot_reduce": (1, 3), "slot_gather": (3,)},
+    # the cylinder2d CLI's defaults (monolithic, triangles of 6 nodes): 2
+    # channels, diag C(w) at 1; the convergence CLI's top level (cube_mesh(16))
+    "cylinder2d defaults": {"slot_reduce": (1, 2), "slot_gather": (2,)},
+    "convergence n=16": {"slot_reduce": (1, 3), "slot_gather": (3,)},
 }
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): device-memory
 # bytes a second, and float32 operations a second outside the tensor cores.
@@ -139,6 +153,11 @@ VARIANT_CHECKS = {
     "imex mixed": ({"time": dict(convection="imex", imex_umax=9.0, imex_cfl=0.07, dt=1e-3)}, SMALL_DUCT),
     "f_warmstart=2": ({"precond": dict(f_warmstart=2)}, SMALL_DUCT),
     "f_recycle=3": ({"precond": dict(f_recycle=3)}, SMALL_DUCT),
+    # kernel A past 24 channels: the wide round's 27 (f_recycle=8), the rhs
+    # pass's 18 and 27 (f_warmstart=5, 8)
+    "f_recycle=8": ({"precond": dict(f_recycle=8)}, SMALL_DUCT),
+    "f_warmstart=5": ({"precond": dict(f_warmstart=5)}, SMALL_DUCT),
+    "f_warmstart=8": ({"precond": dict(f_warmstart=8)}, SMALL_DUCT),
     "macro_split": ({"numerics": dict(macro_split="on")}, SMALL_DUCT),
     "element F, rhs, D and G": ({"numerics": dict(
         f_apply="element", macro_rhs="off", macro_wfuse="off", grad_apply="element",
@@ -167,6 +186,30 @@ MONO_CHECKS = {
     "s_solver=spai_cg": ({"s_solver": "spai_cg"}, 1e-3),
     "s_solver=chebyshev": ({"s_solver": "chebyshev"}, 1e-3),
 }
+# The 2D, BDF2 and Ethier-Steinman small checks, card f32 against CPU f64:
+# name -> (geometry, configuration, steps, tolerance relative to max |ref|
+# as AGREE_RTOL is).  Geometries (`small_geometry`): "channel" the 2D
+# channel cylinder_channel_2d(**SMALL_CHANNEL) with the cylinder2d problem
+# (case 2), "duct" SMALL_DUCT with the 3D problem (case 2), "cube"
+# cube_mesh(SMALL_CUBE) with the Ethier-Steinman problem (its Neumann face
+# and initial state).  Configurations (`small_config`): ("cli", argv) the
+# port's CLI at those flags, ("bench", changes) bench_config with changes.
+# Each tolerance is at least twice the JAX package's own float32 spread on
+# the same case, which tests/test_torch_slice_f32.py measures and holds
+# under half of it.
+SMALL_CHANNEL = dict(lc=0.12)
+SMALL_CUBE = 4
+SMALL_CHECKS = {
+    "cylinder2d defaults (monolithic, asimple)": ("channel", ("cli", ["cylinder2d"]), AGREE_STEPS, 1e-4),
+    "cylinder2d --fast": ("channel", ("cli", ["cylinder2d", "--fast"]), AGREE_STEPS, 1e-4),
+    "cylinder2d bdf2 (monolithic)": (
+        "channel", ("cli", ["cylinder2d", "--scheme", "bdf2"]), AGREE_STEPS, 1e-4),
+    "cylinder2d --fast bdf2 (projection, macro)": (
+        "channel", ("cli", ["cylinder2d", "--fast", "--scheme", "bdf2"]), AGREE_STEPS, 1e-4),
+    "explicit bdf2 (AB2), small duct": (
+        "duct", ("bench", {"time": dict(convection="explicit", scheme="bdf2")}), AGREE_STEPS, 1e-2),
+    "Ethier-Steinman n=4, one step (convergence CLI)": ("cube", ("cli", ["convergence"]), 1, 1e-4),
+}
 # One `apply_precond` of each of the seven kinds and of each inner-solver
 # case of MONO_CHECKS, card f32 against CPU f64 on the same seeded
 # (w, v_u, v_p) on SMALL_DUCT, relative to max |ref| of z_u and of z_p.
@@ -189,6 +232,25 @@ CLI_WARMUP = 2
 CLI_TIMED = 10
 CLI_CHUNK = 2
 CLI_MESH = dict(lc=0.05, nz=8)
+# The cylinder2d entry point at its defaults (monolithic, asimple, 5,372
+# DoF): warm-up and timed steps in chunks of CLI_CHUNK; `--fast` on the
+# 118,071-DoF channel (FAST_2D_MESH) under bdf1 and bdf2 through the
+# solver's run, FAST_2D_WARMUP + FAST_2D_TIMED steps each.
+CLI_2D_WARMUP = 2
+CLI_2D_TIMED = 20
+CLI_2D_MESH = dict(lc=0.05)
+FAST_2D_MESH = dict(lc=0.01)
+FAST_2D_WARMUP = 10
+FAST_2D_TIMED = 40
+# The convergence entry point at its defaults (levels 2 4 8 16, float32):
+# the last pair's rates must exceed the reference's bounds
+# (tests/test_ethier_steinman.py:68-69), and the errors at CONV_CPU_LEVELS
+# agree with the port's CPU float64 run within CONV_RTOL of their value
+# (the f32 solution error, 6.6e-7 of max |u| in the reference's own run at
+# n=4, against an L2 error of at least 4e-3 there).
+CONV_MIN_RATES = {"L2": 2.4, "H1": 1.6}
+CONV_CPU_LEVELS = (2, 4, 8)
+CONV_RTOL = 5e-3
 # The monolithic stepper at 965,265 DoF under bench.py's
 # NS_BENCH_STEPPER=monolithic settings (bench.py:56-99: yosida, f_iters 4,
 # s_iters 3, mg2_cg, restart 8, maxiter 60, tol_mode b).
@@ -263,6 +325,27 @@ def cylinder3d_config(dtype: str = "float32", **precond):
     return dataclasses.replace(cfg, precond=dataclasses.replace(cfg.precond, **precond))
 
 
+def small_config(spec, dtype: str = "float32"):
+    """The RunConfig of a SMALL_CHECKS configuration at `dtype`."""
+    kind, arg = spec
+    if kind == "cli":
+        from navierstokes_project_nm4pde_tpu_torch import cli
+
+        return cli._build_config(cli._parser().parse_args([*arg, "--dtype", dtype]), None)
+    return with_changes(bench_config(dtype), arg)
+
+
+def small_geometry(name: str):
+    """(mesh, problem) of a SMALL_CHECKS geometry (the port's)."""
+    from navierstokes_project_nm4pde_tpu_torch import mesh, models
+
+    if name == "channel":
+        return mesh.cylinder_channel_2d(**SMALL_CHANNEL), models.Cylinder2DProblem(test_case=2)
+    if name == "duct":
+        return mesh.cylinder_duct_3d(**SMALL_DUCT), models.Cylinder3DProblem(test_case=2)
+    return mesh.cube_mesh(SMALL_CUBE), models.EthierSteinmanProblem()
+
+
 def ensemble_config(dtype: str = "float32"):
     """The RunConfig of scripts/bench_ensemble.py:47-61 (its defaults:
     maxiter 25, 8 steps a chunk, frozen Schur), at the given dtype.
@@ -329,8 +412,9 @@ def device_ms(fn, reps: int) -> float:
     queued behind a spin kernel (`torch.cuda._sleep`) that outlasts their
     enqueue, so that the device runs them back to back and the events time
     its work, not the host's (for a call that launches several kernels,
-    with the gaps between its launches).  Fails if the spin ended before
-    the last call was queued."""
+    with the gaps between its launches).  A reading whose spin ended before
+    the last call was queued is discarded and taken again behind a longer
+    spin; fails after three such."""
     import torch
 
     fn()
@@ -342,16 +426,20 @@ def device_ms(fn, reps: int) -> float:
     host_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    # spin for twice the host's time of the same calls, and at least 1 ms
-    torch.cuda._sleep(int(2 * max(host_s, 1e-3) * SPIN_CYCLES_PER_S))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    if start.query():
-        fail("device_ms: the spin kernel ended before the last call was queued")
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    # spin for twice the host's time of the same calls, and at least 1 ms;
+    # if the host was slower this time (a shared machine), again with a
+    # spin four times as long
+    for attempt in range(3):
+        torch.cuda._sleep(int(2 * 4**attempt * max(host_s, 1e-3) * SPIN_CYCLES_PER_S))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        if not start.query():
+            end.synchronize()
+            return start.elapsed_time(end) / reps
+        torch.cuda.synchronize()
+    fail("device_ms: the spin kernel ended before the last call was queued, three times")
 
 
 def graph_device_ms(fn, reps: int) -> float | None:
@@ -425,10 +513,11 @@ def compare(name, out, ref) -> float:
     return err
 
 
-def check_kernels(solver, reps: int) -> dict:
-    """Kernels A and B against their plain versions on the solver's own
-    plan (main-path shapes), with seeded random inputs; returns per-kernel
-    records (launch counts filled in later)."""
+def check_kernels(solver, reps: int, widths=MATVEC_WIDTHS, main: bool = True) -> dict:
+    """Kernels A (at `widths` channels) and B against their plain versions
+    on the solver's own plan, with seeded random inputs; returns per-kernel
+    records (launch counts filled in later).  With `main`, the earlier
+    designs are timed in turns beside them."""
     import torch
 
     from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
@@ -443,10 +532,11 @@ def check_kernels(solver, reps: int) -> dict:
     FtT = mb.macro_build(F_e, mp.lidx, mp.B, mp.U)
     ref = mb.macro_build_plain(F_e, mp.lidx, mp.B, mp.U)
     err_b = compare("macro_build", FtT, ref)
-    err_v1 = float((mb.macro_build_v1(F_e, mp.lidx, mp.B, mp.U) - ref).abs().max())
-    log(f"  macro_build_v1 (the earlier one-CTA-a-block design): max abs err {err_v1:.3e}")
-    if not err_v1 <= KERNELS["macro_build"][2] * float(ref.abs().max()):
-        fail(f"macro_build_v1 disagrees with the plain version: {err_v1:.3e}")
+    if main:
+        err_v1 = float((mb.macro_build_v1(F_e, mp.lidx, mp.B, mp.U) - ref).abs().max())
+        log(f"  macro_build_v1 (the earlier one-CTA-a-block design): max abs err {err_v1:.3e}")
+        if not err_v1 <= KERNELS["macro_build"][2] * float(ref.abs().max()):
+            fail(f"macro_build_v1 disagrees with the plain version: {err_v1:.3e}")
     del ref
     # the library call: index_add_ into zeros, its flat index built once
     UU = mp.U * mp.U
@@ -462,6 +552,9 @@ def check_kernels(solver, reps: int) -> dict:
     b = bound((F_e.numel() + mp.lidx.numel() + FtT.numel()) * 4, F_e.numel())
     t["share"] = share("macro_build", b, t["device_ms"])
     log(f"  macro_build: {fmt_times(t, b)}")
+    rec["macro_build"] = dict(err=err_b, **t, **b)
+    if not main:
+        return _check_matvec(rec, FtT, mp, gen, widths, reps, main)
     # the two designs in turns: v1, new, new, v1
     turns = [
         (name, time_ms(f, reps), device_ms(f, reps))
@@ -475,29 +568,43 @@ def check_kernels(solver, reps: int) -> dict:
     log("  macro_build designs in turns (call ms, device ms): " + "; ".join(
         f"{n} {c:.4f} / {d:.4f} ({b['bound_ms'] / d:.1%} of bound)" for n, c, d in turns))
     v1 = [(c, d) for n, c, d in turns if n == "v1"]
-    rec["macro_build"] = dict(
-        err=err_b, **t, **b,
-        v1_ms=sum(c for c, _ in v1) / 2, v1_device_ms=sum(d for _, d in v1) / 2,
-    )
+    rec["macro_build"].update(v1_ms=sum(c for c, _ in v1) / 2, v1_device_ms=sum(d for _, d in v1) / 2)
     share("macro_build_v1", b, rec["macro_build"]["v1_device_ms"])
     del F_e, F_flat, flat, lib_out, li
+    return _check_matvec(rec, FtT, mp, gen, widths, reps, main)
 
+
+def _check_matvec(rec: dict, FtT, mp, gen, widths, reps: int, main: bool) -> dict:
+    """Kernel A's part of `check_kernels`: at each of `widths` channels,
+    checked, timed with bound and share, and (with `main`, at C = 3) its
+    earlier design in turns.  A payload past 24 channels runs as
+    ceil(C / 24) launches, each reading FtT once."""
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
+
+    dev = FtT.device
     errs, times, bounds = [], {}, {}
-    for C in MATVEC_WIDTHS:
+    v1_ms = v1_device_ms = None
+    for C in widths:
         x_b = torch.randn((mp.B, mp.U, C), generator=gen, device=dev)
-        log(f"kernel A macro_matvec: FtT {tuple(FtT.shape)} x_b {tuple(x_b.shape)}")
-        errs.append(compare(
-            "macro_matvec", mb.macro_matvec(FtT, x_b), mb.macro_matvec_plain(FtT, x_b)
-        ))
+        before = mb.launch_counts["macro_matvec"]
+        y = mb.macro_matvec(FtT, x_b)
+        reads = mb.launch_counts["macro_matvec"] - before
+        log(f"kernel A macro_matvec: FtT {tuple(FtT.shape)} x_b {tuple(x_b.shape)}: "
+            f"{reads} launch(es), FtT read {reads} time(s)")
+        errs.append(compare("macro_matvec", y, mb.macro_matvec_plain(FtT, x_b)))
+        del y
         t = times[C] = kernel_times(
             lambda: mb.macro_matvec(FtT, x_b), lambda: mb.macro_matvec_plain(FtT, x_b),
             lambda: torch.bmm(FtT.transpose(1, 2), x_b), reps,
         )
+        t["ftt_reads"] = reads
         b = bounds[C] = bound((FtT.numel() + 2 * x_b.numel()) * 4, 2.0 * FtT.numel() * C)
         t["share"] = share(f"macro_matvec C={C}", b, t["device_ms"])
         gbs = FtT.numel() * 4 / t["device_ms"] / 1e6
         log(f"  macro_matvec C={C}: {fmt_times(t, b)} ({gbs:.1f} GB/s of values on device)")
-        if C == 3:
+        if C == 3 and main:
             # the two designs in turns at the main path's width: v1, new, new, v1
             err_v1 = float((mb.macro_matvec_v1(FtT, x_b) - mb.macro_matvec_plain(FtT, x_b)).abs().max())
             log(f"  macro_matvec_v1 (the earlier design): max abs err {err_v1:.3e}")
@@ -518,20 +625,32 @@ def check_kernels(solver, reps: int) -> dict:
             v1_ms, v1_device_ms = sum(c for c, _ in v1) / 2, sum(d for _, d in v1) / 2
             share("macro_matvec_v1 C=3", b, v1_device_ms)
         del x_b
-    try:
-        mb.macro_matvec(FtT, torch.zeros((mp.B, mp.U, MATVEC_WIDTHS[-1] + 1), device=dev))
-    except ValueError as e:
-        log(f"  macro_matvec C={MATVEC_WIDTHS[-1] + 1}: refused ({e})")
-    else:
-        fail(f"macro_matvec took {MATVEC_WIDTHS[-1] + 1} channels, past its width")
+    C0 = widths[0]
     rec["macro_matvec"] = dict(
-        err=max(errs), **times[3], **bounds[3], v1_ms=v1_ms, v1_device_ms=v1_device_ms,
+        err=max(errs), **times[C0], **bounds[C0],
         widths={C: dict(device_ms=times[C]["device_ms"], bound_ms=bounds[C]["bound_ms"],
                         share=times[C]["share"], plain_device_ms=times[C]["plain_device_ms"],
-                        library_ms=times[C]["library_ms"], lib_device_ms=times[C]["lib_device_ms"])
-                for C in MATVEC_WIDTHS},
+                        library_ms=times[C]["library_ms"], lib_device_ms=times[C]["lib_device_ms"],
+                        ftt_reads=times[C]["ftt_reads"])
+                for C in widths},
     )
+    if main:
+        rec["macro_matvec"].update(v1_ms=v1_ms, v1_device_ms=v1_device_ms)
     return rec
+
+
+def add_macro_shapes(rec: dict, label: str, solver, widths, reps: int) -> None:
+    """Kernels A (at `widths`) and B checked and timed on another path's
+    macro plan, added to their records under "shapes"."""
+    mp = solver.macro
+    label = f"{label}, B={mp.B} U={mp.U} c_blk={mp.c_blk} nloc={mp.lidx.shape[2]}"
+    r = check_kernels(solver, reps, widths, main=False)
+    keys = ("device_ms", "bound_ms", "share", "plain_device_ms", "library_ms", "lib_device_ms")
+    rec["macro_build"]["err"] = max(rec["macro_build"]["err"], r["macro_build"]["err"])
+    rec["macro_build"].setdefault("shapes", {})[label] = {k: r["macro_build"][k] for k in keys}
+    rec["macro_matvec"]["err"] = max(rec["macro_matvec"]["err"], r["macro_matvec"]["err"])
+    for C, t in r["macro_matvec"]["widths"].items():
+        rec["macro_matvec"].setdefault("shapes", {})[f"{label}, C={C}"] = t
 
 
 def check_slot_kernels(plans, widths: dict, reps: int) -> dict:
@@ -673,41 +792,53 @@ def run_probes(reps: int) -> dict:
 
 def check_small_duct(device, name: str = "bench", changes=None, mesh_kw=SMALL_DUCT,
                      config=bench_config, rtol: float = AGREE_RTOL) -> None:
-    """The port on the card (f32, kernels) against the port on the CPU
-    (f64, plain versions) on a small duct, under `config(dtype)` with
-    `changes`, to `rtol`."""
+    """`check_small` on a small duct of the 3D problem under `config(dtype)`
+    with `changes`."""
+    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
+    from navierstokes_project_nm4pde_tpu_torch.models import Cylinder3DProblem
+
+    check_small(device, f"small duct, {name}", cylinder_duct_3d(**mesh_kw), Cylinder3DProblem(test_case=2),
+                lambda dtype: with_changes(config(dtype), changes or {}), AGREE_STEPS, rtol)
+
+
+def small_errors(out: dict, ref: dict) -> dict:
+    """Max error over the steps of each of u, p, c_d, c_l, delta_p relative
+    to max |ref| (c_l to max |c_d|: lift is a small difference of force
+    integrals on drag's scale); a quantity the problem does not have (all
+    zero, as the Ethier-Steinman run's forces) is left out."""
     import numpy as np
 
-    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
-    from navierstokes_project_nm4pde_tpu_torch.models import (
-        Cylinder3DProblem,
-        NavierStokesSolver,
-    )
+    errs = {}
+    for k in ref:
+        scale = np.abs(ref["c_d" if k == "c_l" else k]).max()
+        if scale > 0:
+            errs[k] = np.abs(out[k] - ref[k]).max() / scale
+    return errs
 
-    mesh = cylinder_duct_3d(**mesh_kw)
+
+def check_small(device, name: str, mesh, problem, config, steps: int, rtol: float) -> None:
+    """The port on the card (f32, kernels) against the port on the CPU (f64,
+    plain versions): `steps` steps under `config(dtype)`, every quantity of
+    `small_errors` within `rtol`."""
+    from navierstokes_project_nm4pde_tpu_torch.models import NavierStokesSolver
+
     (sg, dg), (sc, dc) = (
-        NavierStokesSolver(
-            mesh, Cylinder3DProblem(test_case=2), with_changes(config(dtype), changes or {}),
-            device=dev,
-        ).run(AGREE_STEPS)
+        NavierStokesSolver(mesh, problem, config(dtype), device=dev).run(steps)
         for dev, dtype in ((device, "float32"), ("cpu", "float64"))
     )
-    log(f"small duct, {name} ({sc.u.shape[0]} velocity nodes), {AGREE_STEPS} steps: "
+    log(f"{name} ({sc.u.shape[0]} velocity nodes), {steps} steps: "
         f"F iters card {dg.iters_f.tolist()} cpu {dc.iters_f.tolist()}, "
         f"S iters card {dg.iters_s.tolist()} cpu {dc.iters_s.tolist()}")
     ref = {k: getattr(sc, k).numpy() for k in ("u", "p")}
     out = {k: getattr(sg, k).double().cpu().numpy() for k in ("u", "p")}
     for k in ("c_d", "c_l", "delta_p"):
         ref[k], out[k] = getattr(dc, k), getattr(dg, k)
-    errs = {
-        k: np.abs(out[k] - ref[k]).max() / np.abs(ref["c_d" if k == "c_l" else k]).max()
-        for k in ref
-    }
+    errs = small_errors(out, ref)
     log("  max err vs cpu f64, relative to max |ref|: "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     for k, v in errs.items():
         if not v <= rtol:
-            fail(f"small duct, {name}: {k} err {v:.3e} > {rtol:g} of max |ref|")
+            fail(f"{name}: {k} err {v:.3e} > {rtol:g} of max |ref|")
 
 
 @contextlib.contextmanager
@@ -1107,15 +1238,15 @@ def count_syncs(solver, state, steps: int):
     return state, sum("called a synchronizing" in str(w.message) for w in caught), iters
 
 
-def drive_cylinder3d_cli(device) -> dict:
-    """The cylinder3d entry point at its defaults through the CLI's `main`:
-    CLI_WARMUP + CLI_TIMED steps in chunks of CLI_CHUNK into a temporary
+def drive_cylinder_cli(device, dim: int = 3, warmup: int = CLI_WARMUP, timed: int = CLI_TIMED) -> dict:
+    """The cylinder<dim>d entry point at its defaults through the CLI's
+    `main`: warmup + timed steps in chunks of CLI_CHUNK into a temporary
     directory, kernel C's and D's counts set to 0 just before and read just
     after.  A step's time is its chunk's wall time over the chunk's steps
     and the set-up time is the first row's `time prec`, as the CLI logs
-    them in forces_results_3D_2case.csv; iterations come from gmres.csv.
-    Fails unless the CLI's files exist and the timed steps are finite and
-    under maxiter, or if C or D never launched."""
+    them in forces_results_<dim>D_2case.csv; iterations come from
+    gmres.csv.  Fails unless the CLI's files exist and the timed steps are
+    finite and under maxiter, or if C or D never launched."""
     import csv
     import os
     import tempfile
@@ -1126,43 +1257,44 @@ def drive_cylinder3d_cli(device) -> dict:
     from navierstokes_project_nm4pde_tpu_torch import cli
     from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
 
-    n = CLI_WARMUP + CLI_TIMED
+    n, name = warmup + timed, f"cylinder{dim}d"
+    forces_csv = f"forces_results_{dim}D_2case.csv"
     with tempfile.TemporaryDirectory() as out:
         torch.cuda.reset_peak_memory_stats(device)
         oh.reset_launch_counts()
         t0 = time.perf_counter()
-        rc = cli.main(["cylinder3d", "--n-steps", str(n), "--steps-per-chunk", str(CLI_CHUNK),
+        rc = cli.main([name, "--n-steps", str(n), "--steps-per-chunk", str(CLI_CHUNK),
                        "--output-dir", out])
         wall = time.perf_counter() - t0
         launches = dict(oh.launch_counts)
         peak = torch.cuda.max_memory_allocated(device) / 2**30
         files = sorted(os.listdir(out))
-        for f in ("gmres.csv", "coeff_2.csv", "forces_results_3D_2case.csv", "final.npz"):
+        for f in ("gmres.csv", "coeff_2.csv", forces_csv, "final.npz"):
             if f not in files:
-                fail(f"cylinder3d CLI: no {f} in its output ({files})")
+                fail(f"{name} CLI: no {f} in its output ({files})")
         with open(os.path.join(out, "gmres.csv")) as f:
             iters = np.array([int(r[2]) for r in csv.reader(f)])
-        with open(os.path.join(out, "forces_results_3D_2case.csv")) as f:
+        with open(os.path.join(out, forces_csv)) as f:
             forces = np.array([[float(v) for v in r] for r in list(csv.reader(f))[1:]])
         with np.load(os.path.join(out, "final.npz")) as z:
             final_step, final_u = int(z["step"]), z["u"]
     if rc != 0 or len(iters) != n or forces.shape[0] != n or final_step != n:
-        fail(f"cylinder3d CLI: exit {rc}, {len(iters)} gmres rows, {forces.shape[0]} force rows, "
+        fail(f"{name} CLI: exit {rc}, {len(iters)} gmres rows, {forces.shape[0]} force rows, "
              f"final step {final_step}, for {n} steps")
     if not (np.all(np.isfinite(forces[:, :5])) and np.all(np.isfinite(final_u))):
-        fail("cylinder3d CLI: non-finite forces or final u")
-    maxit = cylinder3d_config().solver.maxiter
-    timed_it = iters[CLI_WARMUP:]
+        fail(f"{name} CLI: non-finite forces or final u")
+    maxit = cylinder3d_config().solver.maxiter  # the CLI's default, both dims
+    timed_it = iters[warmup:]
     if np.any(timed_it >= maxit):
-        fail(f"cylinder3d CLI: a timed step reached maxiter={maxit}: {timed_it.tolist()}")
+        fail(f"{name} CLI: a timed step reached maxiter={maxit}: {timed_it.tolist()}")
     for k, v in launches.items():
         if v <= 0:
-            fail(f"cylinder3d CLI: the path never launched kernel {k}")
-    step_ms = 1e3 * forces[CLI_WARMUP:, 6]
+            fail(f"{name} CLI: the path never launched kernel {k}")
+    step_ms = 1e3 * forces[warmup:, 6]
     q = np.percentile(step_ms, [25, 50, 75])
-    log(f"cylinder3d CLI (its defaults, float32): {n} steps in chunks of {CLI_CHUNK}, "
-        f"{wall:.2f} s in main; set-up {forces[0, 5]:.2f} s; timed {CLI_TIMED} steps: "
-        f"{1e3 * CLI_TIMED / step_ms.sum():.4f} steps/s, per step median {q[1]:.4f} ms, "
+    log(f"{name} CLI (its defaults, float32): {n} steps in chunks of {CLI_CHUNK}, "
+        f"{wall:.2f} s in main; set-up {forces[0, 5]:.2f} s; timed {timed} steps: "
+        f"{1e3 * timed / step_ms.sum():.4f} steps/s, per step median {q[1]:.4f} ms, "
         f"quartiles {q[0]:.4f} / {q[2]:.4f} ms (a chunk's wall time over its steps); "
         f"peak device memory {peak:.3f} GiB")
     log(f"  outer FGMRES iterations per step {iters.tolist()} (timed mean {timed_it.mean():.2f})")
@@ -1170,6 +1302,115 @@ def drive_cylinder3d_cli(device) -> dict:
     log(f"  kernel launches over the {n} steps and the set-up: {launches}; per step "
         + ", ".join(f"{k} {v / n:.2f}" for k, v in launches.items()))
     return launches
+
+
+def read_convergence(out: str):
+    """(h, eL2, eH1) columns of a convergence CLI's convergence.csv."""
+    import csv
+    import os
+
+    import numpy as np
+
+    with open(os.path.join(out, "convergence.csv")) as f:
+        rows = np.array([[float(v) for v in r] for r in list(csv.reader(f))[1:]])
+    return rows[:, 0], rows[:, 1], rows[:, 2]
+
+
+def drive_convergence_cli(device) -> dict:
+    """The convergence entry point at its defaults (levels 2 4 8 16, float32)
+    through the CLI's `main` on the card, kernel C's and D's counts set to
+    0 just before and read just after; then the same CLI on the CPU at
+    float64 on CONV_CPU_LEVELS.  Fails unless the last pair's rates exceed
+    CONV_MIN_RATES and the card's errors at CONV_CPU_LEVELS are within
+    CONV_RTOL of the CPU's, or if C or D never launched.  Returns the
+    launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch import cli
+    from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
+
+    with tempfile.TemporaryDirectory() as out, tempfile.TemporaryDirectory() as ref_out:
+        torch.cuda.reset_peak_memory_stats(device)
+        oh.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["convergence", "--output-dir", out])
+        wall = time.perf_counter() - t0
+        launches = dict(oh.launch_counts)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        h, l2, h1 = read_convergence(out)
+        t0 = time.perf_counter()
+        cli.main(["convergence", "--levels", *map(str, CONV_CPU_LEVELS), "--dtype", "float64",
+                  "--device", "cpu", "--output-dir", ref_out])
+        cpu_wall = time.perf_counter() - t0
+        _, l2_ref, h1_ref = read_convergence(ref_out)
+    rates = {k: np.log(e[:-1] / e[1:]) / np.log(h[:-1] / h[1:]) for k, e in (("L2", l2), ("H1", h1))}
+    log(f"convergence CLI (its defaults, float32, levels {[round(2 / x) for x in h]}): exit {rc}, "
+        f"{wall:.2f} s in main, peak device memory {peak:.3f} GiB; L2 {l2.tolist()}, "
+        f"H1 {h1.tolist()}; rates L2 {np.round(rates['L2'], 4).tolist()}, "
+        f"H1 {np.round(rates['H1'], 4).tolist()}; kernel launches {launches}")
+    k = len(CONV_CPU_LEVELS)
+    errs = np.abs(np.concatenate([l2[:k] / l2_ref - 1, h1[:k] / h1_ref - 1]))
+    log(f"  against the CPU float64 run of levels {list(CONV_CPU_LEVELS)} ({cpu_wall:.2f} s): "
+        f"L2 {l2_ref.tolist()}, H1 {h1_ref.tolist()}; max relative difference {errs.max():.3e} "
+        f"(limit {CONV_RTOL:g})")
+    if rc != 0 or len(h) != 4 or not np.all(np.isfinite(np.concatenate([l2, h1]))):
+        fail(f"convergence CLI: exit {rc}, {len(h)} levels, L2 {l2}, H1 {h1}")
+    for name, lo in CONV_MIN_RATES.items():
+        if not rates[name][-1] > lo:
+            fail(f"convergence CLI: the last pair's {name} rate {rates[name][-1]:.4f} is not above {lo}")
+    if not errs.max() <= CONV_RTOL:
+        fail(f"convergence CLI: errors differ from the CPU float64 run by {errs.max():.3e} > {CONV_RTOL:g}")
+    for name, v in launches.items():
+        if v <= 0:
+            fail(f"convergence CLI: the path never launched kernel {name}")
+    return launches
+
+
+def drive_cylinder2d(device, rec: dict) -> dict:
+    """The 2D paths: the cylinder2d CLI at its defaults (C and D on its
+    plan), then `--fast` on the 118,071-DoF channel under bdf1 and bdf2
+    (A at 2 channels and B at 6 local nodes on its macro plan, then
+    FAST_2D_WARMUP + FAST_2D_TIMED steps each through the solver's run).
+    Returns the launches of each path."""
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch import cli
+    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_channel_2d
+    from navierstokes_project_nm4pde_tpu_torch.models import Cylinder2DProblem, NavierStokesSolver
+
+    out = {}
+    t0 = time.perf_counter()
+    out["cylinder2d CLI"] = drive_cylinder_cli(device, 2, CLI_2D_WARMUP, CLI_2D_TIMED)
+    dsolver = NavierStokesSolver(
+        cylinder_channel_2d(**CLI_2D_MESH), Cylinder2DProblem(test_case=2),
+        cli._build_config(cli._parser().parse_args(["cylinder2d"]), None), device=device,
+    )
+    add_slot_shapes(rec, "cylinder2d defaults", dsolver.op.onehot, KERNEL_REPS)
+    del dsolver
+    log(f"cylinder2d defaults: {time.perf_counter() - t0:.1f} s")
+    mesh = cylinder_channel_2d(**FAST_2D_MESH)
+    for scheme in ("bdf1", "bdf2"):
+        t0 = time.perf_counter()
+        cfg = cli._build_config(cli._parser().parse_args(["cylinder2d", "--fast", "--scheme", scheme]), None)
+        fsolver = NavierStokesSolver(mesh, Cylinder2DProblem(test_case=2), cfg, device=device)
+        mp = fsolver.macro
+        torch.cuda.synchronize()
+        log(f"cylinder2d --fast {scheme}: {mesh.n_cells} cells, {fsolver.space.n_dofs} DoF; macro "
+            f"B={mp.B} U={mp.U} c_blk={mp.c_blk}; host setup {time.perf_counter() - t0:.2f} s")
+        if scheme == "bdf1":
+            add_macro_shapes(rec, "cylinder2d --fast", fsolver, (2,), KERNEL_REPS)
+        _, _, _, launches = drive_single(
+            f"cylinder2d --fast {scheme}", fsolver, FAST_2D_WARMUP, FAST_2D_TIMED,
+            ("macro_build", "macro_matvec"),
+        )
+        out[f"cylinder2d --fast {scheme}"] = launches
+        del fsolver
+        free_card()
+        log(f"cylinder2d --fast {scheme}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def monolithic_operator_times(solver, rec: dict, reps: int) -> None:
@@ -1263,12 +1504,14 @@ def main(argv=None) -> int:
 
     import numpy as np
 
-    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
+    from navierstokes_project_nm4pde_tpu_torch.mesh import cube_mesh, cylinder_duct_3d
     from navierstokes_project_nm4pde_tpu_torch.models import (
         Cylinder3DProblem,
+        EthierSteinmanProblem,
         NavierStokesSolver,
     )
     from navierstokes_project_nm4pde_tpu_torch.ops import cuda_lib
+    from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
     from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
     from navierstokes_project_nm4pde_tpu_torch.parallel import run_ensemble
 
@@ -1335,9 +1578,15 @@ def main(argv=None) -> int:
     check_small_ensemble(device)
     check_small_duct(device)
     for name, (changes, mesh_kw) in VARIANT_CHECKS.items():
+        mb.reset_launch_counts()
         check_small_duct(device, name, changes, mesh_kw)
+        log(f"  kernel A launches by channel count on the card: {dict(sorted(mb.matvec_channels.items()))}")
     check_small_monolithic(device)
     check_small_precond(device)
+    t0 = time.perf_counter()
+    for name, (geometry, spec, steps, rtol) in SMALL_CHECKS.items():
+        check_small(device, name, *small_geometry(geometry), functools.partial(small_config, spec), steps, rtol)
+    log(f"small 2D, BDF2 and Ethier-Steinman checks: {time.perf_counter() - t0:.1f} s")
 
     # ---- 7. the main path -------------------------------------------------
     state, d, step_ms, launches = drive_single(
@@ -1475,7 +1724,7 @@ def main(argv=None) -> int:
     del esolver, estate
 
     # ---- 12. the cylinder3d entry point at its defaults (142,692 DoF) -------
-    cli_launches = drive_cylinder3d_cli(device)
+    cli_launches = drive_cylinder_cli(device)
     csolver = NavierStokesSolver(
         cylinder_duct_3d(**CLI_MESH), Cylinder3DProblem(test_case=2), cylinder3d_config("float32"),
         device=device,
@@ -1486,10 +1735,23 @@ def main(argv=None) -> int:
     monolithic_operator_times(csolver, rec, KERNEL_REPS)
     del csolver, cstate
     free_card()
-    for name in ("slot_reduce", "slot_gather"):
-        rec[name]["launches_by_path"] = {
-            "monolithic 965k": mono_launches[name], "cylinder3d CLI": cli_launches[name],
-        }
+
+    # ---- 13. the cylinder2d and convergence entry points ------------------
+    t0 = time.perf_counter()
+    paths = drive_cylinder2d(device, rec)
+    t_2d = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths["convergence CLI"] = drive_convergence_cli(device)
+    nsolver = NavierStokesSolver(
+        cube_mesh(16), EthierSteinmanProblem(), small_config(("cli", ["convergence"])), device=device,
+    )
+    add_slot_shapes(rec, "convergence n=16", nsolver.op.onehot, KERNEL_REPS)
+    del nsolver
+    free_card()
+    log(f"this slice's entry points: cylinder2d {t_2d:.1f} s, convergence {time.perf_counter() - t0:.1f} s")
+    paths.update({"monolithic 965k": mono_launches, "cylinder3d CLI": cli_launches})
+    for name in ("slot_reduce", "slot_gather", "macro_build", "macro_matvec"):
+        rec[name]["launches_by_path"] = {k: v[name] for k, v in paths.items() if v.get(name)}
 
     imported = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN_MODULES)
     if imported:

@@ -1,29 +1,37 @@
-"""Command line of the PyTorch port: the `cylinder3d` and `ensemble`
-subcommands.
+"""Command line of the PyTorch port: the reference's three executables
+(`cylinder2d`, `cylinder3d`, `convergence`) and the `ensemble` sweep.
 
+    python -m navierstokes_project_nm4pde_tpu_torch.cli cylinder2d \\
+        [--lc 0.05] [--test-case 2] [--u-m 1.5] [--fast] [--scheme bdf1] \\
+        [--n-steps N] [--steps-per-chunk 10] [--output-dir DIR] [--device cuda]
     python -m navierstokes_project_nm4pde_tpu_torch.cli cylinder3d \\
         [--lc 0.05] [--nz 8] [--n-steps N] [--steps-per-chunk 10] \\
         [--output-dir DIR] [--output-every K] [--checkpoint-every K] \\
         [--resume CKPT] [--device cuda]
+    python -m navierstokes_project_nm4pde_tpu_torch.cli convergence \\
+        [--levels 2 4 8 16] [--dt 4e-4] [--n-steps N] [--output-dir DIR] \\
+        [--device cuda]
     python -m navierstokes_project_nm4pde_tpu_torch.cli ensemble --fast \\
-        [--onehot] [--n-members 64] [--re-min 20] [--re-max 300] \\
+        [--dim 3] [--onehot] [--n-members 64] [--re-min 20] [--re-max 300] \\
         [--lc 0.08] [--nz 4] [--dt 0.01] [--n-steps N] [--output-dir DIR] \\
         [--device cuda]
 
 The same flags and configuration as the reference's `cli.py` (the port
 keeps its own copies of `_common_flags` and `_build_config`).
-`cylinder3d` with no flags runs the reference's defaults: the monolithic
-saddle-point stepper with the Yosida block preconditioner on the
-142,692-DoF duct, writing the reference's CSV files (gmres.csv,
-coeff_2.csv, forces_results_3D_<case>case.csv), VTU snapshots every
+`cylinder2d` and `cylinder3d` with no flags run the reference's defaults:
+the monolithic saddle-point stepper (asimple on the 2D channel, yosida on
+the 142,692-DoF duct), writing the reference's CSV files (gmres.csv,
+coeff_2.csv, forces_results_<dim>D_<case>case.csv), VTU snapshots every
 `--output-every` steps with a .pvd index, `checkpoint.npz` every
 `--checkpoint-every` steps and `final.npz`, which either package can
-`--resume` from.  `ensemble` runs the port's `run_ensemble` and writes
+`--resume` from.  `convergence` runs the Ethier-Steinman problem on the
+cube ladder `--levels` (one step of dt = 4e-4 a level by default) and
+writes convergence.csv and the table of L2 and H1 errors with their
+rates.  `ensemble` runs the port's `run_ensemble` and writes
 `ensemble.csv` with the reference's header; `--onehot` selects only the
 reference's TPU reduction layout (the port's ensemble reductions are
-always kernel C).  `cylinder2d`, `convergence`, `--dim 2`,
-`--shard-batch`, `--shard-cells N > 0` and `--debug-nans` are not ported
-and fail with a message.
+always kernel C).  `--shard-batch`, `--shard-cells N > 0` and
+`--debug-nans` are not ported and fail with a message.
 """
 
 from __future__ import annotations
@@ -43,8 +51,6 @@ from navierstokes_project_nm4pde_tpu_torch.config import (
     TimeConfig,
 )
 from navierstokes_project_nm4pde_tpu_torch.device import pick_device
-
-_NOT_PORTED = ("cylinder2d", "convergence")
 
 
 def _build_config(args, defaults):
@@ -171,6 +177,16 @@ def _parser() -> argparse.ArgumentParser:
         description="Navier-Stokes benchmarks on the PyTorch port",
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
+    p2 = sub.add_parser("cylinder2d", help="DFG 2D flow past a cylinder")
+    _common_flags(p2, dt=0.01, t_end=8.0, precond="asimple")
+    p2.add_argument("--lc", type=float, default=0.05)
+    p2.add_argument("--test-case", type=int, default=2,
+                    help="1-3: reference cases; 4: steady inlet with correct "
+                         "constant mean (DFG 2D-2 validation)")
+    p2.add_argument("--u-m", type=float, default=None,
+                    help="peak inlet velocity (Re = (2/3) u_m D / nu); default "
+                         "1.5 (Re=100); 3.0 gives Re=200")
+    _device_flag(p2)
     p3 = sub.add_parser("cylinder3d", help="DFG 3D flow past a cylinder")
     p3.add_argument("--u-m", type=float, default=None,
                     help="peak inlet velocity; default 9.0 (Re=400); 0.45 "
@@ -195,22 +211,31 @@ def _parser() -> argparse.ArgumentParser:
                     help="the reference's one-hot reduction layout (the same "
                          "exact kernel C here)")
     _device_flag(pe)
-    for name in _NOT_PORTED:
-        sub.add_parser(name, help="not ported to PyTorch yet")
+    pc = sub.add_parser("convergence", help="Ethier-Steinman convergence study")
+    _common_flags(pc, dt=4e-4, t_end=4e-4, precond="asimple")
+    pc.add_argument("--levels", type=int, nargs="+", default=[2, 4, 8, 16],
+                    help="cube subdivisions (h = 2/n)")
+    pc.set_defaults(test_case=2, dtype="float32")
+    _device_flag(pc)
     return parser
 
 
-def _run_cylinder3d(args, device) -> None:
-    """The reference's `_run_cylinder(args, dim=3)`: set up, run in chunks
-    with the per-chunk callback (the four CSV logs, the force extrema
-    gated at t > 0.1, VTU and checkpoint cadences), then `final.npz` and
-    the summary lines."""
+def _run_cylinder(args, device, dim: int) -> None:
+    """The reference's `_run_cylinder(args, dim)`: set up, run in chunks
+    with the per-chunk callback (the CSV logs, the force extrema, gated at
+    t > 0.1 in 3D, VTU and checkpoint cadences), then `final.npz` and the
+    summary lines."""
     from navierstokes_project_nm4pde_tpu_torch.device import torch_dtype
     from navierstokes_project_nm4pde_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
     from navierstokes_project_nm4pde_tpu_torch.io.csvlog import CSVLogger
     from navierstokes_project_nm4pde_tpu_torch.io.vtu import write_pvd, write_vtu
-    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d, read_msh
+    from navierstokes_project_nm4pde_tpu_torch.mesh import (
+        cylinder_channel_2d,
+        cylinder_duct_3d,
+        read_msh,
+    )
     from navierstokes_project_nm4pde_tpu_torch.models import (
+        Cylinder2DProblem,
         Cylinder3DProblem,
         NavierStokesSolver,
     )
@@ -218,18 +243,23 @@ def _run_cylinder3d(args, device) -> None:
     from navierstokes_project_nm4pde_tpu_torch.utils.timers import Timer
 
     t_total = Timer(sync=False).start()
-    mesh = read_msh(args.mesh) if args.mesh else cylinder_duct_3d(lc=args.lc, nz=args.nz)
+    if args.mesh:
+        mesh = read_msh(args.mesh)
+    elif dim == 2:
+        mesh = cylinder_channel_2d(lc=args.lc)
+    else:
+        mesh = cylinder_duct_3d(lc=args.lc, nz=args.nz)
     print(f"Mesh: {mesh.n_cells} cells, {mesh.n_vertices} vertices")
     nu_kw = {} if args.nu is None else {"nu": args.nu}
     if args.u_m is not None:
         nu_kw["u_m"] = args.u_m
-    problem = Cylinder3DProblem(test_case=args.test_case, **nu_kw)
+    problem = (Cylinder2DProblem if dim == 2 else Cylinder3DProblem)(test_case=args.test_case, **nu_kw)
     cfg = _build_config(args, None)
     solver = NavierStokesSolver(mesh, problem, cfg, device=device)
     sp = solver.space
     print(f"DoFs: velocity={sp.n_udofs} pressure={sp.n_pnodes} total={sp.n_dofs} (on {device})")
 
-    out_dir = args.output_dir or "output3D"
+    out_dir = args.output_dir or f"output{dim}D"
     log = CSVLogger(out_dir)
     vtu_entries = []
     state = (
@@ -242,10 +272,12 @@ def _run_cylinder3d(args, device) -> None:
     done = {"n": int(state.step)}
 
     # The run's true mean inlet velocity U(t) in numpy (the gmres.csv Re
-    # column and the Strouhal velocity), as the reference's CLI computes it.
-    u_m = args.u_m if args.u_m is not None else 9.0
-    base_mean = 4.0 * u_m / 9.0
-    ramped = args.test_case == 3
+    # column and the Strouhal velocity), as the reference's CLI computes it:
+    # 2D mean 2 u_m / 3 (ramped in case 2), 3D mean 4 u_m / 9 (ramped in
+    # case 3).
+    u_m = args.u_m if args.u_m is not None else (1.5 if dim == 2 else 9.0)
+    base_mean = 2.0 * u_m / 3.0 if dim == 2 else 4.0 * u_m / 9.0
+    ramped = args.test_case == (2 if dim == 2 else 3)
 
     def inlet_mean_np(t):
         t = np.asarray(t, dtype=float)
@@ -273,12 +305,12 @@ def _run_cylinder3d(args, device) -> None:
         if clock["setup"] is not None:
             t_prec[0], clock["setup"] = clock["setup"], None
         log.log_forces(
-            f"forces_results_3D_{args.test_case}case.csv",
+            f"forces_results_{dim}D_{args.test_case}case.csv",
             times, diags.drag, diags.lift, diags.c_d, diags.c_l,
             t_prec=t_prec, t_solve=np.full(k, chunk_wall / k),
         )
-        # force extrema from t > 0.1 on (the reference's 3D gate)
-        sel = times > 0.1
+        # force extrema: 3D from t > 0.1 on (the reference's gate), 2D all
+        sel = times > 0.1 if dim == 3 else np.ones(k, dtype=bool)
         if np.any(sel):
             cd_max = max(cd_max, np.max(diags.c_d[sel]))
             cl_min = min(cl_min, np.min(diags.c_l[sel]))
@@ -311,18 +343,81 @@ def _run_cylinder3d(args, device) -> None:
     print(f"Total wall time: {t_total.stop():.2f} s")
 
 
-def _run_ensemble(args, device) -> None:
-    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d, read_msh
+def _run_convergence(args, device) -> dict:
+    """The reference's `_run_convergence`: the Ethier-Steinman problem on
+    each cube of the ladder, its L2 and H1 velocity errors at the end time,
+    convergence.csv and the table with its rates.  Returns the rates."""
+    from navierstokes_project_nm4pde_tpu_torch.device import torch_dtype
     from navierstokes_project_nm4pde_tpu_torch.io.csvlog import CSVLogger
+    from navierstokes_project_nm4pde_tpu_torch.mesh import cube_mesh
     from navierstokes_project_nm4pde_tpu_torch.models import (
+        EthierSteinmanProblem,
+        NavierStokesSolver,
+    )
+    from navierstokes_project_nm4pde_tpu_torch.models.ethier_steinman import (
+        exact_velocity,
+        exact_velocity_gradient,
+    )
+    from navierstokes_project_nm4pde_tpu_torch.ops.functionals import (
+        build_error_tables,
+        velocity_error_norms,
+    )
+    from navierstokes_project_nm4pde_tpu_torch.utils.tables import ConvergenceTable
+    from navierstokes_project_nm4pde_tpu_torch.utils.timers import Timer
+
+    timer = Timer(sync=False).start()
+    table = ConvergenceTable()
+    out_dir = args.output_dir or "outputConvergence"
+    log = CSVLogger(out_dir)
+    hs, l2s, h1s = [], [], []
+    # the mesh ladder: n subdivisions of [-1, 1]^3, h = 2/n
+    for n in args.levels:
+        mesh = cube_mesh(n)
+        solver = NavierStokesSolver(mesh, EthierSteinmanProblem(), _build_config(args, None), device=device)
+        n_steps = args.n_steps or max(1, solver.config.time.n_steps)
+        state, diags = solver.run(n_steps)
+        et = build_error_tables(solver.space, solver.geom, degree=5,
+                                dtype=torch_dtype(args.dtype), device=device)
+        l2, h1 = velocity_error_norms(
+            et, state.u, exact_velocity, exact_velocity_gradient, float(state.t)
+        )
+        h = 2.0 / n
+        print(
+            f"h={h:.3f}: cells={mesh.n_cells} dofs={solver.space.n_dofs} "
+            f"L2={float(l2):.6e} H1={float(h1):.6e} iters={list(diags.iters)}"
+        )
+        hs.append(h)
+        l2s.append(float(l2))
+        h1s.append(float(h1))
+        table.add_row(h, L2=float(l2), H1=float(h1))
+    log.log_convergence(hs, l2s, h1s)
+    print(table.format())
+    print(f"Time taken to solve ENTIRE Navier Stokes problem: {timer.stop():.2f} s")
+    return table.rates()
+
+
+def _run_ensemble(args, device) -> None:
+    from navierstokes_project_nm4pde_tpu_torch.io.csvlog import CSVLogger
+    from navierstokes_project_nm4pde_tpu_torch.mesh import (
+        cylinder_channel_2d,
+        cylinder_duct_3d,
+        read_msh,
+    )
+    from navierstokes_project_nm4pde_tpu_torch.models import (
+        Cylinder2DProblem,
         Cylinder3DProblem,
         NavierStokesSolver,
     )
     from navierstokes_project_nm4pde_tpu_torch.parallel import run_ensemble
 
     t0 = time.perf_counter()
-    mesh = read_msh(args.mesh) if args.mesh else cylinder_duct_3d(lc=args.lc, nz=args.nz)
-    problem = Cylinder3DProblem(test_case=args.test_case)
+    if args.mesh:
+        mesh = read_msh(args.mesh)
+    elif args.dim == 2:
+        mesh = cylinder_channel_2d(lc=args.lc)
+    else:
+        mesh = cylinder_duct_3d(lc=args.lc, nz=args.nz)
+    problem = (Cylinder2DProblem if args.dim == 2 else Cylinder3DProblem)(test_case=args.test_case)
     cfg = _build_config(args, None)
     solver = NavierStokesSolver(mesh, problem, cfg, device=device)
 
@@ -349,25 +444,23 @@ def _run_ensemble(args, device) -> None:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    if args.cmd in _NOT_PORTED:
-        raise SystemExit(
-            f"the PyTorch port runs the 'cylinder3d' and 'ensemble' subcommands; "
-            f"use the reference package's cli for '{args.cmd}'"
-        )
     if args.debug_nans:
         raise SystemExit("--debug-nans is not ported (it is a JAX debugging mode)")
     if args.shard_cells:
         raise SystemExit("--shard-cells is not ported: the port runs on one device")
     if args.cmd == "ensemble":
-        if args.dim != 3:
-            raise SystemExit("the PyTorch port's ensemble runs the 3D duct only (--dim 3)")
         if args.shard_batch:
             raise SystemExit("--shard-batch is not ported: the port's ensemble runs on one device")
     try:
         device = pick_device(args.device)
     except RuntimeError as e:  # a CUDA device asked for on a machine without one
         raise SystemExit(f"navierstokes-torch: {e} (--device cpu runs on the CPU)") from None
-    run = _run_cylinder3d if args.cmd == "cylinder3d" else _run_ensemble
+    run = {
+        "cylinder2d": lambda a, d: _run_cylinder(a, d, dim=2),
+        "cylinder3d": lambda a, d: _run_cylinder(a, d, dim=3),
+        "convergence": _run_convergence,
+        "ensemble": _run_ensemble,
+    }[args.cmd]
     try:
         run(args, device)
     except ValueError as e:  # a configuration outside the port's slice

@@ -25,12 +25,13 @@
 //   0.5642; H100 80GB HBM3, 700 W).  Thread u reads column u of a staged
 //   row, so a warp reads 128 contiguous bytes (no bank conflict).  The
 //   block's output is staged in shared memory and stored coalesced.  All C
-//   channels ride
-//   one pass over the values, for any C up to kMaxC = 24: the widest
-//   payloads are the recycled-block GCR's wide round, 3 (k + 1) channels
-//   at f_recycle = k <= 7, and the warm-start rhs pass, 3 + 3k channels at
-//   f_warmstart = k <= 4.  A wider payload split into launches would read
-//   the values once per launch.  macro_matvec_v1 is the earlier design
+//   channels ride one pass over the values, for any C up to kMaxC = 24:
+//   the recycled-block GCR's wide round takes 3 (k + 1) channels at
+//   f_recycle = k, the warm-start rhs pass 3 + 3k at f_warmstart = k.  A
+//   launch reads and writes a channel slice of wider rows (row strides
+//   ldx, ldy), so the wrapper splits a payload past 24 channels into
+//   launches of at most 24 that write their slices of one output; each
+//   launch reads the values once more.  macro_matvec_v1 is the earlier design
 //   (FtT read straight from global memory, output stored at a stride of
 //   C, up to 8 channels), kept to time the two in turns.
 //
@@ -303,7 +304,7 @@ size_t matvec_smem_bytes(int C, int U) {
 template <int C, bool VEC>
 __global__ void __launch_bounds__(kMatvecMaxU)
 macro_matvec_kernel(const float* __restrict__ FtT, const float* __restrict__ xb,
-                    float* __restrict__ yb, int U) {
+                    float* __restrict__ yb, int U, int ldx, int ldy) {
   constexpr int C4 = (C + 3) / 4;
   constexpr int CS = C | 1;  // odd row stride of the staged output: no bank conflicts
   extern __shared__ float4 mv_smem[];
@@ -334,10 +335,10 @@ macro_matvec_kernel(const float* __restrict__ FtT, const float* __restrict__ xb,
   for (int t = 0; t < kMatvecStages - 1; ++t) load_chunk(t);
 
   float* pf = reinterpret_cast<float*>(panel);
-  const float* xblk = xb + static_cast<size_t>(b) * U * C;
+  const float* xblk = xb + static_cast<size_t>(b) * U * ldx;
   for (int i = tid; i < U * 4 * C4; i += nthr) {
     const int v = i / (4 * C4), c = i - v * (4 * C4);
-    pf[i] = c < C ? xblk[v * C + c] : 0.f;
+    pf[i] = c < C ? xblk[v * ldx + c] : 0.f;
   }
 
   const int u = tid;
@@ -366,26 +367,26 @@ macro_matvec_kernel(const float* __restrict__ FtT, const float* __restrict__ xb,
       }
     }
   }
-  // The block's [U, C] output is contiguous: staged in the ring, it goes
-  // out in coalesced stores (each thread's own row, C floats at a stride
-  // of C, touched a sector a store per thread: at C = 24 the stores, not
-  // the bytes, bounded the kernel).
+  // The block's [U, C] output (rows at a stride of ldy): staged in the
+  // ring, it goes out in coalesced stores (each thread's own row, C floats
+  // at a stride of C, touched a sector a store per thread: at C = 24 the
+  // stores, not the bytes, bounded the kernel).
   __syncthreads();  // the ring's last stage is consumed
   if (u < U) {
 #pragma unroll
     for (int c = 0; c < C; ++c) ring[u * CS + c] = acc[c];
   }
   __syncthreads();
-  float* yblk = yb + static_cast<size_t>(b) * U * C;
+  float* yblk = yb + static_cast<size_t>(b) * U * ldy;
   for (int i = tid; i < U * C; i += nthr) {
-    const int r = i / C;
-    yblk[i] = ring[r * CS + (i - r * C)];
+    const int r = i / C, c = i - r * C;
+    yblk[r * ldy + c] = ring[r * CS + c];
   }
 }
 
 template <int C>
-int launch_matvec(const float* FtT, const float* xb, float* yb, int B, int U,
-                  cudaStream_t s) {
+int launch_matvec(const float* FtT, const float* xb, float* yb, int B, int U, int ldx,
+                  int ldy, cudaStream_t s) {
   const size_t smem = matvec_smem_bytes(C, U);
   const int threads = (U + 31) / 32 * 32;
   const bool vec = U % 4 == 0 && reinterpret_cast<uintptr_t>(FtT) % 16 == 0;
@@ -395,7 +396,7 @@ int launch_matvec(const float* FtT, const float* xb, float* yb, int B, int U,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<B, threads, smem, s>>>(FtT, xb, yb, U);
+  kernel<<<B, threads, smem, s>>>(FtT, xb, yb, U, ldx, ldy);
   return 0;
 }
 
@@ -438,17 +439,20 @@ void launch_matvec_v1(const float* FtT, const float* xb, float* yb, int B, int U
 
 }  // namespace
 
+// y[b, u, c] (row stride ldy) = sum_v FtT[b, v, u] x[b, v, c] (row stride
+// ldx) for c < C: xb and yb point at the first channel of the slice.
 extern "C" int ns_macro_matvec_f32(const float* FtT, const float* xb, float* yb,
-                                   int B, int U, int C, void* stream) {
+                                   int B, int U, int C, int ldx, int ldy, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0) return 0;
-  if (U < 1 || U > kMatvecMaxU) return static_cast<int>(cudaErrorInvalidValue);
+  if (U < 1 || U > kMatvecMaxU || ldx < C || ldy < C)
+    return static_cast<int>(cudaErrorInvalidValue);
   static_assert(kMaxC == 24, "the cases below take C = 1 .. kMaxC");
   int rc = 0;
   switch (C) {
 #define NS_MATVEC_CASE(c) \
   case c:                 \
-    rc = launch_matvec<c>(FtT, xb, yb, B, U, s); \
+    rc = launch_matvec<c>(FtT, xb, yb, B, U, ldx, ldy, s); \
     break;
     NS_MATVEC_CASE(1) NS_MATVEC_CASE(2) NS_MATVEC_CASE(3) NS_MATVEC_CASE(4)
     NS_MATVEC_CASE(5) NS_MATVEC_CASE(6) NS_MATVEC_CASE(7) NS_MATVEC_CASE(8)

@@ -2,10 +2,10 @@
 
 The counterpart of the reference's `io/checkpoint.py` `save_checkpoint` /
 `load_checkpoint`, with the same keys: u, p, t (in the state's dtype),
-step (int32), and each of u_prev, p_prev, u_prev2, spool, fpool, fwpool
-that the state carries.  A checkpoint written by either package loads into
-the other.  The reference's keys for states the port does not step
-(p_prev2, conv_prev: BDF2 with explicit convection) are read past.
+step (int32), and each of u_prev, p_prev, u_prev2, conv_prev, spool,
+fpool, fwpool that the state carries.  A checkpoint written by either
+package loads into the other.  The reference's reserved p_prev2 (which
+neither package steps) is read past.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 from navierstokes_project_nm4pde_tpu_torch.device import pick_device
 from navierstokes_project_nm4pde_tpu_torch.models.base import State, state_from_numpy
 
-_OPTIONAL = ("u_prev", "p_prev", "u_prev2", "spool", "fpool", "fwpool")
+_OPTIONAL = ("u_prev", "p_prev", "u_prev2", "conv_prev", "spool", "fpool", "fwpool")
 
 
 def save_checkpoint(path: str, state: State, meta: dict | None = None) -> None:

@@ -1,6 +1,9 @@
 """Mesh generators of the port (host side, numpy): its copy of the JAX
-package's `mesh/generators.py`, cut to the DFG geometries the port runs.
+package's `mesh/generators.py`.
 
+  * ``rectangle_mesh``      -- structured crossed-diagonal rectangle (2D)
+  * ``cube_mesh``           -- [-1,1]^3 Kuhn-triangulated cube, 6 tagged faces
+                               (ref: mesh/mesh-cube.geo:1-28)
   * ``cylinder_channel_2d`` -- DFG 2D benchmark channel 2.2 x 0.41 with a
                                r=0.05 cylinder at (0.2, 0.2), graded sizing
                                (ref: mesh/Cylinder2D.geo:1-44)
@@ -9,9 +12,9 @@ package's `mesh/generators.py`, cut to the DFG geometries the port runs.
                                2D mesh into conforming tets
                                (ref: mesh/Cylinder3D.geo:8-131)
 
-Both give the JAX package's meshes exactly (the same numpy code on the
+Each gives the JAX package's mesh exactly (the same numpy code on the
 same inputs).  Boundary tags follow the reference convention: 0=inlet,
-1=outlet, 2=walls, 3=obstacle/Neumann face.
+1=outlet, 2=walls, 3=obstacle/Neumann face (the cube: one tag a face).
 """
 
 from __future__ import annotations
@@ -19,6 +22,36 @@ from __future__ import annotations
 import numpy as np
 
 from navierstokes_project_nm4pde_tpu_torch.mesh.core import Mesh
+
+
+# ----------------------------------------------------------------------
+# Structured rectangle (2D) -- mostly for tests.
+# ----------------------------------------------------------------------
+def rectangle_mesh(nx: int, ny: int, lx=1.0, ly=1.0, x0=0.0, y0=0.0) -> Mesh:
+    """Structured crossed-diagonal triangulation of a rectangle.
+
+    Tags: 0: x=x0 (inlet), 1: x=x0+lx (outlet), 2: y=y0 and y=y0+ly (walls).
+    """
+    xs = np.linspace(x0, x0 + lx, nx + 1)
+    ys = np.linspace(y0, y0 + ly, ny + 1)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel()], axis=1)
+
+    def vid(i, j):
+        return i * (ny + 1) + j
+
+    cells = []
+    for i in range(nx):
+        for j in range(ny):
+            a, b = vid(i, j), vid(i + 1, j)
+            c, d = vid(i + 1, j + 1), vid(i, j + 1)
+            if (i + j) % 2 == 0:
+                cells += [[a, b, c], [a, c, d]]
+            else:
+                cells += [[a, b, d], [b, c, d]]
+    cells = np.array(cells, dtype=np.int32)
+    bf, bt = _tag_rect_boundary(coords, cells, x0, x0 + lx, y0, y0 + ly)
+    return Mesh(coords, cells, bf, bt)
 
 
 def _boundary_edges(cells: np.ndarray) -> np.ndarray:
@@ -44,6 +77,74 @@ def _tag_rect_boundary(coords, cells, xmin, xmax, ymin, ymax, obstacle=None):
     if np.any(tag < 0):
         raise ValueError("untagged boundary edges")
     return edges.astype(np.int32), tag
+
+
+# ----------------------------------------------------------------------
+# Cube (3D): Kuhn triangulation, conforming across hexahedra.
+# ----------------------------------------------------------------------
+_KUHN_PERMS = (
+    (0, 1, 2),
+    (0, 2, 1),
+    (1, 0, 2),
+    (1, 2, 0),
+    (2, 0, 1),
+    (2, 1, 0),
+)
+
+
+def cube_mesh(n: int, lo=-1.0, hi=1.0) -> Mesh:
+    """n x n x n hexes, 6 tets each (all sharing the main diagonal).
+
+    Tags (matching the convergence solver's usage: Dirichlet on {0,1,2,4,5},
+    Neumann on 3; ref: src/Convergence3D.cpp:303-380).  The reference's
+    comment places the Neumann face at y=-1, but its hand-written h equals
+    nu*du/dy - p*e_y, i.e. outward normal (0,+1,0); we therefore tag y=hi
+    as 3 (see models/ethier_steinman.py docstring):
+      0: x=lo   1: x=hi   2: y=lo   3: y=hi   4: z=lo   5: z=hi
+    """
+    xs = np.linspace(lo, hi, n + 1)
+    m = n + 1
+    X, Y, Z = np.meshgrid(xs, xs, xs, indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
+
+    def vid(i, j, k):
+        return (i * m + j) * m + k
+
+    I, J, K = np.meshgrid(np.arange(n), np.arange(n), np.arange(n), indexing="ij")
+    base = np.stack([I.ravel(), J.ravel(), K.ravel()], axis=1)  # [n^3, 3]
+    cells = []
+    for perm in _KUHN_PERMS:
+        # path 0 -> +e_{perm0} -> +e_{perm1} -> +e_{perm2}
+        p0 = base
+        p1 = p0 + np.eye(3, dtype=int)[perm[0]]
+        p2 = p1 + np.eye(3, dtype=int)[perm[1]]
+        p3 = p2 + np.eye(3, dtype=int)[perm[2]]
+        cells.append(
+            np.stack(
+                [
+                    vid(p0[:, 0], p0[:, 1], p0[:, 2]),
+                    vid(p1[:, 0], p1[:, 1], p1[:, 2]),
+                    vid(p2[:, 0], p2[:, 1], p2[:, 2]),
+                    vid(p3[:, 0], p3[:, 1], p3[:, 2]),
+                ],
+                axis=1,
+            )
+        )
+    cells = np.concatenate(cells, axis=0).astype(np.int32)
+
+    bf = _boundary_tris(cells)
+    mid = coords[bf].mean(axis=1)
+    eps = 1e-9 * (hi - lo)
+    tag = np.full(bf.shape[0], -1, dtype=np.int32)
+    tag[np.abs(mid[:, 0] - lo) < eps] = 0
+    tag[np.abs(mid[:, 0] - hi) < eps] = 1
+    tag[np.abs(mid[:, 1] - lo) < eps] = 2
+    tag[np.abs(mid[:, 1] - hi) < eps] = 3
+    tag[np.abs(mid[:, 2] - lo) < eps] = 4
+    tag[np.abs(mid[:, 2] - hi) < eps] = 5
+    if np.any(tag < 0):
+        raise ValueError("untagged cube boundary faces")
+    return Mesh(coords, cells, bf, tag)
 
 
 def _boundary_tris(cells: np.ndarray) -> np.ndarray:

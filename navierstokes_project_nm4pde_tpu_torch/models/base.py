@@ -1,8 +1,12 @@
 """Time-stepping Navier-Stokes solver (PyTorch): setup, the two steppers,
 and the chunked run.
 
-The counterpart of the reference's `models/base.py` with BDF1 for its two
-steppers.  The monolithic saddle-point stepper (`_step_monolithic`, the
+The counterpart of the reference's `models/base.py`: its two steppers
+under BDF1 or BDF2 (BDF1 on the first step, then the three-level history
+with extrapolated convection; explicit convection then takes the
+Adams-Bashforth-2 rhs through `State.conv_prev`), in 2D and 3D, with the
+problems' Neumann face, forcing, initial state and backflow term.  The
+monolithic saddle-point stepper (`_step_monolithic`, the
 reference's `_step_dispatch`, the default of its CLI) solves the packed
 [3 n_u + n_p] system by flexible GMRES in increment form, preconditioned
 by a block preconditioner of `precond/blocks.py` (all seven kinds).  The
@@ -90,8 +94,11 @@ from navierstokes_project_nm4pde_tpu_torch.ops.coarse import (
 )
 from navierstokes_project_nm4pde_tpu_torch.ops.pmg import build_velocity_pmg
 from navierstokes_project_nm4pde_tpu_torch.ops.scatter import (
+    SegmentPlan,
     apply_inverse_map,
+    apply_segment_plan,
     build_inverse_map,
+    build_segment_plan,
 )
 from navierstokes_project_nm4pde_tpu_torch.ops.schur_ell import (
     schur_ell_matvec,
@@ -132,6 +139,15 @@ class ProblemSpec:
     rho: float = 1.0
     # Dirichlet: tag -> g(x[n, dim], t) -> [n, dim]
     dirichlet: dict = dataclasses.field(default_factory=dict)
+    # Neumann: tag -> h(x[..., dim], t) -> [..., dim]; None = no Neumann face
+    neumann_tag: Optional[int] = None
+    neumann_value: Optional[Callable] = None
+    forcing: Optional[Callable] = None  # f(x[..., dim], t) -> [..., dim]
+    u0: Optional[Callable] = None  # u0(x[n, dim]) -> [n, dim]
+    p0: Optional[Callable] = None  # p0(x[n, dim]) -> [n]
+    # backflow stabilisation on this open boundary (the reference's dormant
+    # term, src/NavierStokes2D.cpp:456-483, live)
+    backflow_tag: Optional[int] = None
     obstacle_tag: Optional[int] = None
     probe_points: Optional[tuple] = None
     mean_velocity: Optional[Callable] = None  # U_ref(t) -> float
@@ -150,9 +166,13 @@ class State:
     p: torch.Tensor  # [n_pnodes]
     t: float
     step: int
-    u_prev: torch.Tensor | None = None  # u^{n-1} (warm-start extrapolation)
+    u_prev: torch.Tensor | None = None  # u^{n-1} (BDF2 / warm-start extrapolation)
     p_prev: torch.Tensor | None = None  # p^{n-1}
     u_prev2: torch.Tensor | None = None  # u^{n-2} (guess_order=2)
+    # N(u^{n-1}) = C(u^{n-1}) u^{n-1}: explicit convection under BDF2 takes
+    # the Adams-Bashforth-2 rhs 2 N(u^n) - N(u^{n-1}) (N is quadratic, so
+    # C(w)w at the extrapolated w is not second order)
+    conv_prev: torch.Tensor | None = None
     # [2, k, n_p]: recycled pressure directions and their exact S1 images
     # (precond.s_recycle = k >= 1; None with plain CG)
     spool: torch.Tensor | None = None
@@ -165,7 +185,7 @@ class State:
     fwpool: torch.Tensor | None = None
 
 
-_STATE_ARRAYS = ("u", "p", "u_prev", "p_prev", "u_prev2", "spool", "fpool", "fwpool")
+_STATE_ARRAYS = ("u", "p", "u_prev", "p_prev", "u_prev2", "conv_prev", "spool", "fpool", "fwpool")
 
 
 def state_to_numpy(state: State) -> dict:
@@ -215,6 +235,16 @@ class StepDiagnostics:
 
 
 @dataclasses.dataclass
+class NeumannTables:
+    """The Neumann face's facet quadrature (from `boundary_tables`)."""
+
+    phi_u: torch.Tensor  # [f, q, n_loc_u]
+    jxw: torch.Tensor  # [f, q]
+    points: torch.Tensor  # [f, q, dim] physical quadrature points
+    plan: SegmentPlan  # [f * n_loc_u] facet slots -> [n_unodes]
+
+
+@dataclasses.dataclass
 class FrozenSchur:
     """Setup-time data of the pressure Poisson S1 phi = rhs / dt."""
 
@@ -261,6 +291,7 @@ _VARIANTS = {
     "numerics.div_apply": ("auto", "bsr", "element"),
 }
 _ENSEMBLE_BASE = {
+    "time.scheme": ("bdf1",),
     "time.stepper": ("projection",),
     "time.convection": ("implicit",),
     "precond.mg2_form": ("additive",),
@@ -288,13 +319,13 @@ def check_config(cfg: RunConfig, problem: ProblemSpec) -> None:
     """Raise ValueError, naming the field, for a configuration this port
     does not run (yet), or that the reference refuses."""
     req = [
-        ("time.scheme", cfg.time.scheme, ("bdf1",)),
+        ("time.scheme", cfg.time.scheme, ("bdf1", "bdf2")),
         ("numerics.dtype", cfg.numerics.dtype, ("float32", "float64")),
         ("numerics.fold_elem", cfg.numerics.fold_elem, (True,)),
         ("numerics.spatial_reorder", cfg.numerics.spatial_reorder, (True,)),
         ("solver.tol_mode", cfg.solver.tol_mode, ("r0", "b", "abs")),
         ("solver.guess_order", cfg.solver.guess_order, (1, 2)),
-        ("problem.dim", problem.dim, (3,)),
+        ("problem.dim", problem.dim, (2, 3)),
     ]
     req += [(name, _field(cfg, name), ok) for name, ok in _VARIANTS.items()]
     req += [
@@ -320,15 +351,31 @@ def check_config(cfg: RunConfig, problem: ProblemSpec) -> None:
             "convection='imex' requires TimeConfig.imex_umax (the CFL "
             "velocity scale of the per-cell explicit/implicit partition)"
         )
-    if cfg.numerics.vel_apply == "bsr" and (monolithic or cfg.time.convection == "implicit"):
+    if cfg.numerics.vel_apply == "bsr" and not _constant_k(cfg):
         raise ValueError(
             "vel_apply='bsr' requires the projection stepper with convection "
-            "'explicit' or 'imex' (the velocity block must be constant)"
+            "'explicit' or 'imex' and scheme 'bdf1' (the velocity block must "
+            "be constant)"
         )
-    if cfg.numerics.f_apply == "macro" and (monolithic or cfg.time.convection != "implicit"):
+    if cfg.numerics.f_apply == "macro" and (
+        monolithic or cfg.time.convection != "implicit" or problem.backflow_tag is not None
+    ):
         raise ValueError(
-            "f_apply='macro' requires the projection stepper with implicit convection"
+            "f_apply='macro' requires the projection stepper with implicit "
+            "convection and no backflow term (the block values hold the "
+            "volume terms of F only)"
         )
+
+
+def _constant_k(cfg: RunConfig) -> bool:
+    """The velocity block is constant across steps (K = M/dt + nu A, the
+    assembled operator's case): projection, explicit or IMEX convection,
+    BDF1."""
+    return (
+        cfg.time.stepper == "projection"
+        and cfg.time.convection in ("explicit", "imex")
+        and cfg.time.scheme == "bdf1"
+    )
 
 
 class NavierStokesSolver:
@@ -348,6 +395,8 @@ class NavierStokesSolver:
 
     def __init__(self, mesh, problem: ProblemSpec, config: RunConfig, device=None):
         check_config(config, problem)
+        if problem.dim != mesh.dim:
+            raise ValueError(f"problem.dim={problem.dim} on a {mesh.dim}D mesh")
         self.problem = problem
         self.config = config
         self.device = pick_device(device)
@@ -405,16 +454,19 @@ class NavierStokesSolver:
         # velocity block is constant (explicit or IMEX convection, BDF1).
         va = nc.vel_apply
         if va == "auto":
-            va = "bsr" if conv_mode in ("explicit", "imex") else "element"
+            va = "bsr" if _constant_k(cfg) else "element"
         self.kcsr: CSRMatrix | None = None
         if va == "bsr":
             self.kcsr = build_velocity_kcsr(
                 space, self.geom, build_ref_tables(space.dim), self.problem.nu,
                 cfg.time.dt, dt_, dev,
             )
+        # the macro blocks hold the volume terms of F: a backflow facet term
+        # keeps the element path
         fa = nc.f_apply
         if fa == "auto":
-            fa = "macro" if conv_mode == "implicit" and not monolithic else "element"
+            macro_ok = conv_mode == "implicit" and not monolithic and self.problem.backflow_tag is None
+            fa = "macro" if macro_ok else "element"
         self.f_apply = fa
         self.macro_rhs = fa == "macro" and nc.macro_rhs != "off"
         self.macro_wfuse = self.macro_rhs and nc.macro_wfuse != "off"
@@ -451,6 +503,26 @@ class NavierStokesSolver:
         self._bc_inverse = build_inverse_map(node_groups, space.n_unodes, device=dev)
 
         bt = boundary_tables(space, self.geom, degree=4)
+        pb = self.problem
+        # the Neumann face's tables: int_Gamma h . v ds, reduced into the
+        # velocity rows by a segment plan of its facet slots
+        self.neumann = None
+        if pb.neumann_tag is not None:
+            sel = np.where(bt.tag == pb.neumann_tag)[0]
+            cells = np.asarray(space.cells_u[bt.cell[sel]], np.int64)
+            self.neumann = NeumannTables(
+                phi_u=torch.as_tensor(bt.phi_u[sel], dtype=dt_, device=dev),
+                jxw=torch.as_tensor(bt.jxw[sel], dtype=dt_, device=dev),
+                points=torch.as_tensor(bt.points[sel], dtype=dt_, device=dev),
+                plan=build_segment_plan(cells, space.n_unodes, device=dev),
+            )
+        self.backflow = None
+        if pb.backflow_tag is not None:
+            self.backflow = ops.build_backflow_tables(space, bt, pb.backflow_tag, dt_, dev)
+        # the forcing's cell quadrature (degree 4)
+        self.ftab = None
+        if pb.forcing is not None:
+            self.ftab = fn.build_error_tables(space, self.geom, degree=4, dtype=dt_, device=dev)
         self.forces = None
         if self.problem.obstacle_tag is not None:
             self.forces = fn.build_force_tables(
@@ -464,9 +536,13 @@ class NavierStokesSolver:
 
         # A set-up bound on lam_max(diag(F)^-1 F) of the convection-free F,
         # for the damped smoothers: 8 power iterations.
+        # BDF2's warm steps solve with dt_eff = dt / 1.5 (more mass-dominated:
+        # a larger Jacobi-scaled lam_max), so the bound is taken there.
         self._f_lam0 = None
         if pc.f_solver in ("richardson", "chebyshev", "pmg") and inner_f:
             nu, dt = self.problem.nu, cfg.time.dt
+            if cfg.time.scheme == "bdf2":
+                dt = dt / 1.5
             self._f_lam0 = f_lam_power(self.op, nu, dt, None, inv_diag_Fhat(self.op, nu, dt, None), iters=8)
 
         # Frozen Schur S1 = D diag(M)^-1 D^T, its coarse factor and banded
@@ -528,19 +604,35 @@ class NavierStokesSolver:
 
     # ------------------------------------------------------------------
     def initial_state(self, members: int | None = None) -> State:
-        """The state at rest; with `members`, an ensemble state of that
-        many members (trailing member axis, no recycle pools)."""
+        """The problem's initial state (u0, p0 at the reordered mesh's
+        nodes; at rest where it gives none); with `members`, an ensemble
+        state of that many members (trailing member axis, no recycle
+        pools)."""
         n, d = self.space.n_unodes, self.space.dim
-        tail = () if members is None else (members,)
-        u = torch.zeros((n, d, *tail), dtype=self.dtype, device=self.device)
-        p = torch.zeros((self.space.n_pnodes, *tail), dtype=self.dtype, device=self.device)
-        ext = self.config.solver.extrapolate_guess
-        quad = ext and self.config.solver.guess_order >= 2
+        pb, cfg = self.problem, self.config
+        T = lambda a: torch.as_tensor(a, dtype=self.dtype, device=self.device)  # noqa: E731
+        if pb.u0 is not None:
+            u = pb.u0(T(self.space.unode_coords)).to(self.dtype)
+        else:
+            u = torch.zeros((n, d), dtype=self.dtype, device=self.device)
+        if pb.p0 is not None:
+            p = pb.p0(T(self.mesh.coords)).to(self.dtype)
+        else:
+            p = torch.zeros(self.space.n_pnodes, dtype=self.dtype, device=self.device)
+        if members is not None:
+            u = u[..., None].repeat(1, 1, members)
+            p = p[..., None].repeat(1, members)
+        ext = cfg.solver.extrapolate_guess
+        keep_hist = cfg.time.scheme == "bdf2" or ext
+        quad = ext and cfg.solver.guess_order >= 2
+        explicit_bdf2 = cfg.time.convection == "explicit" and cfg.time.scheme == "bdf2"
         return State(
             u=u, p=p, t=0.0, step=0,
-            u_prev=u if ext else None,
+            u_prev=u if keep_hist else None,
             p_prev=p if ext else None,
             u_prev2=u if quad else None,
+            # a placeholder: step 0 takes AB1 and overwrites it
+            conv_prev=torch.zeros_like(u) if explicit_bdf2 else None,
             **{k: None if members else self._zero_pool(k) for k in self._pool_shapes()},
         )
 
@@ -579,8 +671,41 @@ class NavierStokesSolver:
         return apply_inverse_map(self._bc_inverse, torch.cat(vals, dim=0))
 
     def _bdf_terms(self, state: State, dt: float):
-        """(w, hist, dt_eff) of BDF1."""
+        """(w, hist, dt_eff): the convection velocity, the mass-history
+        combination and the velocity block's effective dt.  BDF2 falls back
+        to BDF1 on the first step (no history yet)."""
+        if self.config.time.scheme == "bdf2" and state.step > 0:
+            w = 2.0 * state.u - state.u_prev
+            hist = (4.0 * state.u - state.u_prev) / (2.0 * dt)
+            return w, hist, dt / 1.5
         return state.u, state.u / dt, dt
+
+    def _next_history(self, state: State) -> dict:
+        """The new state's history fields (u_prev, p_prev, u_prev2)."""
+        cfg = self.config
+        ext = cfg.solver.extrapolate_guess
+        return dict(
+            u_prev=state.u if cfg.time.scheme == "bdf2" or ext else None,
+            p_prev=state.p if ext else None,
+            u_prev2=state.u_prev if state.u_prev2 is not None else None,
+        )
+
+    def _external_rhs(self, t: float):
+        """The Neumann face's and the forcing's momentum rhs at time t, or
+        None when the problem has neither."""
+        pb, rhs = self.problem, None
+        if self.neumann is not None:
+            nt = self.neumann
+            h = pb.neumann_value(nt.points, t).to(self.dtype)  # [f, q, dim]
+            y = torch.einsum("fq,fqc,fqi->fic", nt.jxw, h, nt.phi_u)
+            rhs = apply_segment_plan(nt.plan, y.reshape(-1, self.space.dim))
+        if self.ftab is not None:
+            ft = self.ftab
+            f = pb.forcing(ft.qpoints, t).to(self.dtype)  # [E, q, dim]
+            y = torch.einsum("eq,eqc,qi->eic", ft.jxw, f, ft.phi_u)
+            f = ops.scatter_u(self.op, y)
+            rhs = f if rhs is None else rhs + f
+        return rhs
 
     def _warm_guess(self, state: State):
         """Linear (and with guess_order 2, quadratic for u) extrapolation."""
@@ -656,13 +781,17 @@ class NavierStokesSolver:
         t_new = (state.step + 1.0) * dt
         w, hist, dt_eff = self._bdf_terms(state, dt)
         mask = op.dirichlet_mask[:, None]
-        conv = ops.convection_setup(op, w, fold=(nu, dt_eff))
+        conv = ops.convection_setup(op, w, fold=(nu, dt_eff), backflow=self.backflow)
         pst = build_precond_state(
             op, nu, dt_eff, conv, pc.kind, s_solver=pc.s_solver, f_solver=pc.f_solver,
             f_lam=self._f_lam0,
         )
         g = self._dirichlet_values(t_new)
-        rhs_u = torch.where(mask, g, ops.apply_mass(op, hist))
+        rhs_u = ops.apply_mass(op, hist)
+        ext = self._external_rhs(t_new)
+        if ext is not None:
+            rhs_u = rhs_u + ext
+        rhs_u = torch.where(mask, g, rhs_u)
         rhs_p = torch.zeros(self.space.n_pnodes, dtype=self.dtype, device=self.device)
 
         def A(x):
@@ -680,13 +809,7 @@ class NavierStokesSolver:
             precise=cfg.numerics.precise_dots, **self._tol_kwargs(b),
         )
         u_new, p_new = self._unpack(x0 + dx)
-        ext = cfg.solver.extrapolate_guess
-        new_state = State(
-            u=u_new, p=p_new, t=t_new, step=state.step + 1,
-            u_prev=state.u if ext else None,
-            p_prev=state.p if ext else None,
-            u_prev2=state.u_prev if state.u_prev2 is not None else None,
-        )
+        new_state = State(u=u_new, p=p_new, t=t_new, step=state.step + 1, **self._next_history(state))
         diag = self._diagnostics(u_new, p_new, t_new)
         diag.update(iters=info.iters, residual=info.residual, iters_f=info.iters, iters_s=0)
         return new_state, diag
@@ -710,7 +833,8 @@ class NavierStokesSolver:
 
         # One gather of the step's node fields.  Macro path: a slot gather
         # of [hist | u0 | pool | w] feeds the rhs pass, and w's element view
-        # comes from its slots.  Element path: one element gather.
+        # comes from its slots.  Element path: one element gather (explicit
+        # convection gathers u^n, whose N(u^n) its rhs takes).
         warm_f = self.macro_rhs and pc.f_warmstart > 0 and state.fwpool is not None
         D_ch = None
         if warm_f:
@@ -724,18 +848,23 @@ class NavierStokesSolver:
         elif self.macro_rhs:
             w_e = ops.gather_u(op, w)
         else:
-            st_e = ops.gather_u(op, torch.cat([hist, u0, w], dim=1))
+            wg = state.u if explicit else w
+            st_e = ops.gather_u(op, torch.cat([hist, u0, wg], dim=1))
             h_e, u0_e, w_e = st_e[..., :d], st_e[..., d:2 * d], st_e[..., 2 * d:]
 
-        conv = conv_rhs = FtT = None
+        conv = conv_rhs = FtT = n_cur = None
         if explicit:
-            # N(u) = C(u)u on the rhs; the velocity block is K
-            conv_rhs = ops.apply_convection_self(op, w, w_e=w_e)
+            # N(u^n) = C(u^n)u^n on the rhs (Adams-Bashforth 2 under BDF2
+            # after the first step); the velocity block is K
+            n_cur = ops.apply_convection_self(op, state.u, w_e=w_e, backflow=self.backflow)
+            conv_rhs = n_cur
+            if state.conv_prev is not None and cfg.time.scheme == "bdf2" and state.step > 0:
+                conv_rhs = 2.0 * n_cur - state.conv_prev
         else:
             conv = ops.convection_setup(
                 op, w, fold=(nu, dt_eff), w_e=w_e,
                 with_diag=not pc.freeze_conv_diag,
-                conv_only=self.macro_split,
+                conv_only=self.macro_split, backflow=self.backflow,
             )
             if self.f_apply == "macro":
                 FtT = mb.build_macro_values(self.macro, conv.F_e)
@@ -762,6 +891,10 @@ class NavierStokesSolver:
         if explicit:
             b_u = b_u - conv_rhs
             r0_u = r0_u - conv_rhs
+        ext = self._external_rhs(t_new)
+        if ext is not None:
+            b_u = b_u + ext
+            r0_u = r0_u + ext
         rhs_u = torch.where(mask, g, b_u)
         r0_u = torch.where(mask, torch.zeros_like(r0_u), r0_u)
 
@@ -913,12 +1046,9 @@ class NavierStokesSolver:
         p_new = state.p + phi
         u_new = u_star - upd_inv[:, None] * ops.apply_gradient(op, phi)
 
-        ext = cfg.solver.extrapolate_guess
         new_state = State(
-            u=u_new, p=p_new, t=t_new, step=state.step + 1,
-            u_prev=state.u if ext else None,
-            p_prev=state.p if ext else None,
-            u_prev2=state.u_prev if state.u_prev2 is not None else None,
+            u=u_new, p=p_new, t=t_new, step=state.step + 1, **self._next_history(state),
+            conv_prev=n_cur if explicit and state.conv_prev is not None else None,
             spool=spool_new, fpool=fpool_new, fwpool=fwpool_new,
         )
         diag = self._diagnostics(u_new, p_new, t_new)
@@ -948,6 +1078,10 @@ class NavierStokesSolver:
                 "the PyTorch port's ensemble solves the pressure with plain "
                 "CG: it needs precond.s_recycle=0"
             )
+        pb = self.problem
+        for name in ("neumann_tag", "forcing", "backflow_tag"):
+            if getattr(pb, name) is not None:
+                raise ValueError(f"the PyTorch port's ensemble step does not run a problem with {name}")
         op, fz = self.op, self.proj_schur
         if fz.band is None:
             raise ValueError(
@@ -1015,13 +1149,7 @@ class NavierStokesSolver:
         p_new = state.p + phi
         u_new = u_star - (dt_eff * fz.inv1)[:, None, None] * ops.apply_gradient_e(op, phi)
 
-        ext = cfg.solver.extrapolate_guess
-        new_state = State(
-            u=u_new, p=p_new, t=t_new, step=state.step + 1,
-            u_prev=state.u if ext else None,
-            p_prev=state.p if ext else None,
-            u_prev2=state.u_prev if state.u_prev2 is not None else None,
-        )
+        new_state = State(u=u_new, p=p_new, t=t_new, step=state.step + 1, **self._next_history(state))
         diag = self._diagnostics(u_new, p_new, t_new, nu)
         diag.update(
             iters=info_f.iters + info_s.iters,
@@ -1038,7 +1166,10 @@ class NavierStokesSolver:
         pb = self.problem
         nu = pb.nu if nu is None else nu
         if self.forces is not None:
-            drag, lift = fn.forces_3d(self.forces, u, p, nu, pb.rho)
+            if self.space.dim == 2:
+                drag, lift = fn.forces_2d(self.forces, u, p, nu)
+            else:
+                drag, lift = fn.forces_3d(self.forces, u, p, nu, pb.rho)
             if pb.mean_velocity is not None:
                 c_d, c_l = fn.drag_lift_coefficients(
                     drag, lift, pb.mean_velocity(t), pb.diameter, pb.span, pb.rho

@@ -32,7 +32,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # or for ns_macro_max_channels, ns_macro_max_slots and
 # ns_macro_build_smem_bytes a size)
 _SIGNATURES = {
-    "ns_macro_matvec_f32": [_P, _P, _P, _I, _I, _I, _P],
+    "ns_macro_matvec_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ns_macro_matvec_v1_f32": [_P, _P, _P, _I, _I, _I, _P],
     "ns_macro_build_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ns_macro_build_v1_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],

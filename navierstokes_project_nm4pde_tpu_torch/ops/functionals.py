@@ -1,8 +1,11 @@
-"""Benchmark functionals: drag/lift on the obstacle and pressure probes.
+"""Benchmark functionals: drag/lift on the obstacle, pressure probes and
+the error norms of a manufactured solution.
 
 The counterpart of the reference's `ops/functionals.py` (`build_force_tables`,
-`forces_3d`, `drag_lift_coefficients`, `build_point_probe`): batched
-reductions over boundary tables precomputed on the host.
+`forces_2d`, `forces_3d`, `drag_lift_coefficients`, `build_point_probe`,
+`ErrorTables`, `build_error_tables`, `velocity_error_norms`,
+`divergence_l2`, `kinetic_energy`): batched reductions over boundary and
+cell tables precomputed on the host.
 """
 
 from __future__ import annotations
@@ -11,6 +14,10 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from navierstokes_project_nm4pde_tpu_torch.device import pick_device
+from navierstokes_project_nm4pde_tpu_torch.fem import quadrature as quad
+from navierstokes_project_nm4pde_tpu_torch.fem import reference as ref
 
 
 @dataclasses.dataclass
@@ -39,6 +46,26 @@ def build_force_tables(space, bt, tag: int, dtype, device) -> ForceTables:
         jxw=dev(bt.jxw),
         normal=dev(bt.normal),
     )
+
+
+def forces_2d(ft: ForceTables, u: torch.Tensor, p: torch.Tensor, nu):
+    """(drag, lift) from the full stress integral over the obstacle:
+    sigma = nu grad(u) - p I against the body-outward normal, with the
+    reference's non-symmetric gradient (ref: src/NavierStokes2D.cpp:818-837).
+
+    An ensemble passes u [n, 2, B], p [n_p, B] and nu a [B] tensor and gets
+    [B] drag and lift."""
+    u_e = u[ft.cells_u]  # [f, n, dim, *B]
+    p_e = p[ft.cells_p]
+    gu = torch.einsum("fqid,fic...->fqcd...", ft.grad_u, u_e)  # grad u [c, d]
+    p_q = torch.einsum("fqi,fi...->fq...", ft.phi_p, p_e)
+    n = -ft.normal  # body-outward normal
+    ex = (None,) * (p.dim() - 1)
+    trac = nu * torch.einsum("fqcd...,fd->fqc...", gu, n) - (
+        p_q[:, :, None] * n[(slice(None), None, slice(None)) + ex]
+    )
+    force = torch.einsum("fqc...,fq->c...", trac, ft.jxw)
+    return force[0], force[1]
 
 
 def forces_3d(ft: ForceTables, u: torch.Tensor, p: torch.Tensor, nu, rho=1.0):
@@ -110,3 +137,74 @@ def build_point_probe(space, geom, points, dtype, device) -> PointProbe:
         cells_p=torch.as_tensor(np.array(cells, np.int64), device=device),
         bary=torch.as_tensor(np.array(bary), dtype=dtype, device=device),
     )
+
+
+# ----------------------------------------------------------------------
+# Error norms (manufactured solutions)
+# ----------------------------------------------------------------------
+@dataclasses.dataclass
+class ErrorTables:
+    """Cell quadrature tables at an elevated degree (the reference uses
+    degree + 2; src/Convergence3D.cpp:772)."""
+
+    cells_u: torch.Tensor  # [E, n_loc_u] int64
+    phi_u: torch.Tensor  # [q2, n_loc_u]
+    grad_u: torch.Tensor  # [q2, n_loc_u, dim] (reference gradients)
+    Jinv: torch.Tensor  # [E, dim, dim]
+    jxw: torch.Tensor  # [E, q2]
+    qpoints: torch.Tensor  # [E, q2, dim] physical quadrature points
+
+
+def build_error_tables(space, geom, degree: int = 5, dtype=torch.float32, device=None) -> ErrorTables:
+    """The tables of `space`'s cells at a `degree` rule, on `device` (None:
+    the card)."""
+    device = pick_device(device)
+    dim = space.dim
+    pts, w = quad.cell_rule(dim, degree)
+    mesh = space.mesh
+    v0 = mesh.coords[mesh.cells[:, 0]]
+    J = np.transpose(
+        mesh.coords[mesh.cells][:, 1:, :] - mesh.coords[mesh.cells][:, :1, :],
+        (0, 2, 1),
+    )
+    qp = v0[:, None, :] + np.einsum("eij,qj->eqi", J, pts)
+    jxw = geom.detJ[:, None] * w[None, :]
+    dev = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)  # noqa: E731
+    return ErrorTables(
+        cells_u=torch.as_tensor(np.asarray(space.cells_u, np.int64), device=device),
+        phi_u=dev(ref.p2_shape(pts, dim)),
+        grad_u=dev(ref.p2_grad(pts, dim)),
+        Jinv=dev(geom.Jinv),
+        jxw=dev(jxw),
+        qpoints=dev(qp),
+    )
+
+
+def velocity_error_norms(et: ErrorTables, u: torch.Tensor, exact_u, exact_grad_u, t):
+    """(L2, H1) velocity error norms at time t against callables
+    `exact_u(x, t) -> [..., dim]` and `exact_grad_u(x, t) -> [..., dim, dim]`.
+    H1 is the full norm sqrt(L2^2 + |.|_H1^2), deal.II's `H1_norm` as the
+    reference uses it (src/main_convergence3D.cpp:53-54)."""
+    u_e = u[et.cells_u]  # [E, n, dim]
+    u_q = torch.einsum("qi,eic->eqc", et.phi_u, u_e)
+    gu_q = torch.einsum("qik,ekd,eic->eqcd", et.grad_u, et.Jinv, u_e)
+    du = u_q - exact_u(et.qpoints, t)
+    dg = gu_q - exact_grad_u(et.qpoints, t)
+    l2sq = torch.sum(et.jxw * torch.sum(du * du, dim=-1))
+    h1semisq = torch.sum(et.jxw * torch.sum(dg * dg, dim=(-1, -2)))
+    return torch.sqrt(l2sq), torch.sqrt(l2sq + h1semisq)
+
+
+def divergence_l2(et: ErrorTables, u: torch.Tensor):
+    """||div u_h||_L2 (solution-quality telemetry)."""
+    u_e = u[et.cells_u]
+    gu_q = torch.einsum("qik,ekd,eic->eqcd", et.grad_u, et.Jinv, u_e)
+    div = torch.diagonal(gu_q, dim1=-2, dim2=-1).sum(-1)
+    return torch.sqrt(torch.sum(et.jxw * div * div))
+
+
+def kinetic_energy(et: ErrorTables, u: torch.Tensor):
+    """0.5 int |u_h|^2."""
+    u_e = u[et.cells_u]
+    u_q = torch.einsum("qi,eic->eqc", et.phi_u, u_e)
+    return 0.5 * torch.sum(et.jxw * torch.sum(u_q * u_q, dim=-1))

@@ -226,11 +226,20 @@ def macro_matvec_plain(FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bvu,bvc->buc", FtT, x_b)
 
 
+def matvec_splits(C: int, max_c: int) -> list:
+    """Kernel A's channel slices of a C-channel payload: ceil(C / max_c)
+    launches of near-equal width (each reads FtT once)."""
+    n = -(-C // max_c)
+    edges = [C * k // n for k in range(n + 1)]
+    return [(lo, hi) for lo, hi in zip(edges, edges[1:])]
+
+
 def macro_matvec(FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
-    """Batched block matvec [B, U, U] x [B, U, C] -> [B, U, C] (kernel A):
-    one launch, one pass over FtT, for every C the kernel takes (up to
-    `ns_macro_max_channels()`, 24); a wider payload raises rather than
-    being split into launches that would each read FtT again."""
+    """Batched block matvec [B, U, U] x [B, U, C] -> [B, U, C] (kernel A).
+    Up to `ns_macro_max_channels()` (24) channels ride one launch and one
+    pass over FtT; a wider payload is split into launches of at most 24
+    near-equal channel slices (`matvec_splits`), each writing its slice of
+    one output and reading FtT once more."""
     if FtT.device.type == "cpu":
         return macro_matvec_plain(FtT, x_b)
     if FtT.device.type != "cuda":
@@ -248,30 +257,24 @@ def macro_matvec(FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
     C = x_b.shape[-1] if x_b.dim() == 3 else -1
     if (
         x_b.dtype != torch.float32 or not x_b.is_contiguous()
-        or x_b.device != FtT.device or tuple(x_b.shape[:2]) != (B, U)
-        or not 1 <= C <= lib.ns_macro_max_channels()
+        or x_b.device != FtT.device or tuple(x_b.shape[:2]) != (B, U) or C < 1
     ):
         raise ValueError(
             "macro_matvec: x_b must be a contiguous float32 [B, U, C] tensor "
-            f"on FtT's device with 1 <= C <= {lib.ns_macro_max_channels()}, "
-            f"got {x_b.dtype} {tuple(x_b.shape)}"
+            f"on FtT's device with C >= 1, got {x_b.dtype} {tuple(x_b.shape)}"
         )
-    y = _launch_matvec("ns_macro_matvec_f32", FtT, x_b)
-    launch_counts["macro_matvec"] += 1
-    matvec_channels[C] = matvec_channels.get(C, 0) + 1
-    return y
-
-
-def _launch_matvec(entry: str, FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
-    B, U, C = x_b.shape
     y = torch.empty((B, U, C), dtype=torch.float32, device=FtT.device)
     stream = torch.cuda.current_stream(FtT.device).cuda_stream
-    cuda_lib.check(
-        getattr(cuda_lib.load(), entry)(
-            FtT.data_ptr(), x_b.data_ptr(), y.data_ptr(), B, U, C, stream
-        ),
-        entry,
-    )
+    for lo, hi in matvec_splits(C, lib.ns_macro_max_channels()):
+        cuda_lib.check(
+            lib.ns_macro_matvec_f32(
+                FtT.data_ptr(), x_b.data_ptr() + 4 * lo, y.data_ptr() + 4 * lo,
+                B, U, hi - lo, C, C, stream,
+            ),
+            "ns_macro_matvec_f32",
+        )
+        launch_counts["macro_matvec"] += 1
+        matvec_channels[hi - lo] = matvec_channels.get(hi - lo, 0) + 1
     return y
 
 
@@ -294,7 +297,16 @@ def macro_matvec_v1(FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
             "macro_matvec_v1: FtT [B, U, U] and x_b [B, U, C <= "
             f"{MATVEC_V1_MAX_C}] must be contiguous float32 CUDA tensors"
         )
-    return _launch_matvec("ns_macro_matvec_v1_f32", FtT, x_b)
+    B, U, C = x_b.shape
+    y = torch.empty((B, U, C), dtype=torch.float32, device=FtT.device)
+    stream = torch.cuda.current_stream(FtT.device).cuda_stream
+    cuda_lib.check(
+        cuda_lib.load().ns_macro_matvec_v1_f32(
+            FtT.data_ptr(), x_b.data_ptr(), y.data_ptr(), B, U, C, stream
+        ),
+        "ns_macro_matvec_v1_f32",
+    )
+    return y
 
 
 # ----------------------------------------------------------------------

@@ -16,7 +16,10 @@ reduction, the divergence rows from the same gather, Dirichlet rows
 masked) and the IMEX fine subset (`ImexTables`, `convection_fine_fold`,
 `apply_convection_fine`).  D and G are the assembled forms of
 `ops/bsr.py` unless the configuration asks for the element passes
-(`div` / `grad` None).
+(`div` / `grad` None).  With `BackflowTables` (an open boundary's
+backflow stabilisation), `convection_setup` adds the facet term's
+diagonal and its coefficients, which `apply_F`, `apply_system`,
+`apply_rhs_and_r0` and `apply_convection_self` apply on the facets.
 
 Layout: velocity `u[n_unodes, dim]`, pressure `p[n_pnodes]`; every array
 lives on the device passed to `build_operator`.  An ensemble carries its
@@ -311,6 +314,46 @@ def apply_gradient_e(op: NSOperator, p: torch.Tensor) -> torch.Tensor:
 
 
 @dataclasses.dataclass
+class BackflowTables:
+    """Facet tables of the backflow stabilisation -rho/2 min(w.n, 0)(u, v)
+    on an open boundary (the reference's dormant term,
+    src/NavierStokes2D.cpp:456-483, live as in the reference package)."""
+
+    cells_u: torch.Tensor  # [f, n_loc_u] int64
+    phi_u: torch.Tensor  # [f, q, n_loc_u]
+    jxw: torch.Tensor  # [f, q]
+    normal: torch.Tensor  # [f, dim]
+    plan: SegmentPlan  # [f * n_loc_u] facet slots -> [n_unodes]
+
+
+def build_backflow_tables(space, bt, tag: int, dtype, device) -> BackflowTables:
+    """Tables of the boundary facets tagged `tag` (`bt` from
+    `fem.geometry.boundary_tables`)."""
+    sel = np.where(bt.tag == tag)[0]
+    cells = np.asarray(space.cells_u[bt.cell[sel]], np.int64)
+    dev = lambda x: torch.as_tensor(np.asarray(x[sel]), dtype=dtype, device=device)  # noqa: E731
+    return BackflowTables(
+        cells_u=torch.as_tensor(cells, device=device),
+        phi_u=dev(bt.phi_u), jxw=dev(bt.jxw), normal=dev(bt.normal),
+        plan=build_segment_plan(cells, space.n_unodes, device=device),
+    )
+
+
+def _backflow_coef(bf: BackflowTables, w: torch.Tensor) -> torch.Tensor:
+    """[f, q] facet coefficients -1/2 min(w.n, 0) JxW (>= 0)."""
+    w_qf = torch.einsum("fqi,fic->fqc", bf.phi_u, w[bf.cells_u])
+    un = torch.einsum("fqc,fc->fq", w_qf, bf.normal)
+    return -0.5 * torch.clamp(un, max=0.0) * bf.jxw
+
+
+def _backflow_apply(bf: BackflowTables, coef: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The facet term's action on u [n, dim] -> [n, dim]."""
+    u_qf = torch.einsum("fqi,fic->fqc", bf.phi_u, u[bf.cells_u])
+    y_f = torch.einsum("fq,fqi,fqc->fic", coef, bf.phi_u, u_qf)
+    return apply_segment_plan(bf.plan, y_f.reshape(-1, y_f.shape[-1]))
+
+
+@dataclasses.dataclass
 class ConvectionData:
     WG: torch.Tensor  # [E, q, nloc, *rest] (w . grad phi_i)(x_q)
     divw: torch.Tensor  # [E, q, *rest] div w (x_q)
@@ -323,6 +366,9 @@ class ConvectionData:
     F_e: torch.Tensor | None = None
     fold: tuple | None = None
     conv_only: bool = False
+    # the backflow facet term's tables and [f, q] coefficients (None: none)
+    bf: BackflowTables | None = None
+    bf_coef: torch.Tensor | None = None
 
 
 def _conv_quad(op: NSOperator, Jinv: torch.Tensor, w_e: torch.Tensor):
@@ -348,6 +394,7 @@ def convection_setup(
     w_e: torch.Tensor | None = None,
     with_diag: bool = True,
     conv_only: bool = False,
+    backflow: BackflowTables | None = None,
 ) -> ConvectionData:
     """Tabulate the linearised convection + Temam term of C(w) at the
     quadrature points and, with `fold=(nu, dt)`, fold the per-element F_e
@@ -356,18 +403,25 @@ def convection_setup(
 
     `w` may carry trailing member axes ([n, dim, B]); nu in `fold` is then
     a [B] tensor.  `w_e` is a pre-gathered element view of w;
-    `with_diag=False` skips diag(C) (the stepper's freeze_conv_diag mode)."""
+    `with_diag=False` skips diag(C) (the stepper's freeze_conv_diag mode).
+    With `backflow` (a single run's), the facet term's coefficients are
+    kept for the applies and its diagonal joins diag(C), which is then
+    always built."""
     if w_e is None:
         w_e = gather_u(op, w)
     tail = w_e.dim() - 3
     _, WG, divw = _conv_quad(op, op.Jinv, w_e)
     R = WG + 0.5 * divw[:, :, None] * _tail(op.PHI_U[None], tail)
     cdet = op.detJ if op.imex_scale is None else op.detJ * op.imex_scale
-    diagC = None
-    if with_diag:
+    diagC = bf_coef = None
+    if with_diag or backflow is not None:
         # sum_q jxw (WG_i phi_i + 0.5 divw phi_i^2)
         d_e = torch.einsum("q,eqi...,qi->ei...", op.W, R, op.PHI_U)
         diagC = scatter_u(op, d_e * _tail(cdet[:, None], tail))
+    if backflow is not None:
+        bf_coef = _backflow_coef(backflow, w)
+        d_f = torch.einsum("fq,fqi,fqi->fi", bf_coef, backflow.phi_u, backflow.phi_u)
+        diagC = diagC + apply_segment_plan(backflow.plan, d_f.reshape(-1))
     F_e = None
     if fold is not None:
         nu, dt = fold
@@ -389,6 +443,7 @@ def convection_setup(
     return ConvectionData(
         WG=WG, divw=divw, diagC=diagC, F_e=F_e, fold=fold,
         conv_only=conv_only and fold is not None,
+        bf=backflow, bf_coef=bf_coef,
     )
 
 
@@ -471,8 +526,12 @@ def apply_F(
         _check_fold(conv, nu, dt)
         y_e = element_apply(conv.F_e, u_e)
     if lowp:
-        return scatter_u(op, y_e.to(torch.bfloat16).to(y_e.dtype)).to(torch.bfloat16)
-    return scatter_u(op, y_e)
+        y = scatter_u(op, y_e.to(torch.bfloat16).to(y_e.dtype)).to(torch.bfloat16)
+    else:
+        y = scatter_u(op, y_e)
+    if conv is not None and conv.bf_coef is not None:
+        y = y + _backflow_apply(conv.bf, conv.bf_coef, u).to(y.dtype)
+    return y
 
 
 def apply_mass(op: NSOperator, u: torch.Tensor) -> torch.Tensor:
@@ -507,6 +566,8 @@ def apply_system(op: NSOperator, nu, dt, conv: ConvectionData, u, p, mask_rows: 
     det = op.detJ[:, None, None]
     y_e = y_e - torch.einsum("ekc,kij,ei->ejc", op.Jinv, op.BHAT, p_e) * det
     y_u = scatter_u(op, y_e)
+    if conv is not None and conv.bf_coef is not None:
+        y_u = y_u + _backflow_apply(conv.bf, conv.bf_coef, u)
     y_pe = torch.einsum("ekc,kij,ejc->ei", op.Jinv, op.BHAT, u_e) * op.detJ[:, None]
     y_p = scatter_p(op, y_pe)
     if mask_rows:
@@ -543,21 +604,29 @@ def apply_rhs_and_r0(
         b_e = b_e - torch.einsum("q,qi,eqc->eic", op.W, op.PHI_U, nw) * det
     y = scatter_u(op, torch.cat([b_e, b_e - f_e], dim=2))
     d = h.shape[1]
-    return y[:, :d], y[:, d:]
+    b, r0 = y[:, :d], y[:, d:]
+    if conv is not None and conv.bf_coef is not None:
+        r0 = r0 - _backflow_apply(conv.bf, conv.bf_coef, u0)
+    return b, r0
 
 
 def apply_convection_self(
-    op: NSOperator, w: torch.Tensor, w_e: torch.Tensor | None = None
+    op: NSOperator, w: torch.Tensor, w_e: torch.Tensor | None = None,
+    backflow: BackflowTables | None = None,
 ) -> torch.Tensor:
     """N(w) = C(w) w in one element pass: ((w.grad)w, v) + 0.5((div w) w, v)
     at the quadrature points (the explicit-convection rhs; no fold, no
-    diagonal).  `w_e` is a pre-gathered element view of w."""
+    diagonal).  `w_e` is a pre-gathered element view of w.  With
+    `backflow`, the facet term -rho/2 min(w.n, 0)(w, v) is added."""
     if w_e is None:
         w_e = gather_u(op, w)
     w_q, WG, divw = _conv_quad(op, op.Jinv, w_e)
     r = torch.einsum("eqi,eic->eqc", WG, w_e) + 0.5 * divw[:, :, None] * w_q
     y_e = torch.einsum("q,qi,eqc->eic", op.W, op.PHI_U, r) * op.detJ[:, None, None]
-    return scatter_u(op, y_e)
+    y = scatter_u(op, y_e)
+    if backflow is not None:
+        y = y + _backflow_apply(backflow, _backflow_coef(backflow, w), w)
+    return y
 
 
 @dataclasses.dataclass

@@ -1,1 +1,7 @@
-"""Host utilities of the PyTorch port: the Strouhal number and timers."""
+"""Host utilities of the PyTorch port: the Strouhal number, timers, the
+convergence table and profiling helpers."""
+
+from navierstokes_project_nm4pde_tpu_torch.utils.profiling import annotate, trace  # noqa: F401
+from navierstokes_project_nm4pde_tpu_torch.utils.signal import strouhal_number  # noqa: F401
+from navierstokes_project_nm4pde_tpu_torch.utils.tables import ConvergenceTable  # noqa: F401
+from navierstokes_project_nm4pde_tpu_torch.utils.timers import Timer  # noqa: F401

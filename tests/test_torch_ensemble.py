@@ -220,12 +220,20 @@ def test_ensemble_cli_runs_without_jax(tmp_path):
 
 
 def test_ensemble_cli_refuses_what_is_not_ported(tmp_path):
+    """cylinder2d, convergence and `ensemble --dim 2` run; what is still
+    refused: the ensemble's bdf2, --shard-cells N > 0 and --debug-nans."""
     from navierstokes_project_nm4pde_tpu_torch.cli import main
 
-    for argv in (["cylinder2d"], ["convergence"], ["ensemble", "--fast", "--dim", "2"]):
+    small = ["--n-members", "2", "--lc", "0.25", "--nz", "3", "--n-steps", "1", "--device", "cpu"]
+    for argv, text in (
+        (["ensemble", "--fast", "--scheme", "bdf2", *small], "time.scheme='bdf2'"),
+        (["cylinder2d", "--shard-cells", "2"], "--shard-cells is not ported"),
+        (["convergence", "--debug-nans"], "--debug-nans is not ported"),
+    ):
         with pytest.raises(SystemExit) as exc:
-            main(argv + ["--output-dir", str(tmp_path)] if argv[0] == "ensemble" else argv)
-        assert "PyTorch port" in str(exc.value)
+            main(argv + ["--output-dir", str(tmp_path)])
+        assert text in str(exc.value)
+    assert not (tmp_path / "ensemble.csv").exists()
 
 
 def test_ensemble_cli_needs_a_card_unless_told_cpu(tmp_path):

@@ -52,7 +52,7 @@ def _lidx(B, c_blk, nloc, U, seed):
 @pytest.mark.parametrize("C", range(1, 25))
 def test_macro_matvec_takes_every_width_in_one_launch(cuda, C):
     """Every channel count up to 24 (the f_recycle = 7 wide round; 3 + 3k
-    for f_warmstart = k) in one launch; 25 is refused, not split."""
+    for f_warmstart = k) in one launch; 25 takes two."""
     B, U = 37, 128
     g = torch.Generator(device=cuda).manual_seed(C)
     FtT = torch.randn((B, U, U), generator=g, device=cuda)
@@ -63,9 +63,28 @@ def test_macro_matvec_takes_every_width_in_one_launch(cuda, C):
     assert mb.launch_counts["macro_matvec"] == before + 1
     _close(y, mb.macro_matvec_plain(FtT, x_b))
     if C == 24:
-        with pytest.raises(ValueError, match="C <= 24"):
-            mb.macro_matvec(FtT, torch.randn((B, U, 25), generator=g, device=cuda))
-        assert mb.launch_counts["macro_matvec"] == before + 1
+        mb.macro_matvec(FtT, torch.randn((B, U, 25), generator=g, device=cuda))
+        assert mb.launch_counts["macro_matvec"] == before + 3
+
+
+@pytest.mark.parametrize("C", [25, 31, 48, 49])
+def test_macro_matvec_splits_wide_payloads(cuda, C):
+    """Past 24 channels (f_recycle > 7, f_warmstart > 4) the wrapper splits
+    the payload into ceil(C / 24) launches of near-equal channel slices,
+    each writing its slice of one output (FtT is read once a launch)."""
+    B, U = 23, 128
+    g = torch.Generator(device=cuda).manual_seed(C)
+    FtT = torch.randn((B, U, U), generator=g, device=cuda)
+    x_b = torch.randn((B, U, C), generator=g, device=cuda)
+    before = mb.launch_counts["macro_matvec"]
+    widths = dict(mb.matvec_channels)
+    y = mb.macro_matvec(FtT, x_b)
+    torch.cuda.synchronize()
+    n = -(-C // 24)
+    assert mb.launch_counts["macro_matvec"] == before + n
+    assert all(hi - lo <= 24 for lo, hi in mb.matvec_splits(C, 24))
+    assert sum(mb.matvec_channels.values()) - sum(widths.values()) == n
+    _close(y, mb.macro_matvec_plain(FtT, x_b))
 
 
 # U not a multiple of 4 (4-byte copies of FtT); U = 250 and 256 (more than
@@ -129,6 +148,21 @@ def test_macro_build_matches_plain(cuda, B, c_blk, U, E_short):
     out = mb.macro_build(F_e, lidx, B, U)
     torch.cuda.synchronize()
     assert mb.launch_counts["macro_build"] == before + 1
+    _close(out, mb.macro_build_plain(F_e, lidx, B, U))
+
+
+@pytest.mark.parametrize("B,c_blk,U,E_short", [(1295, 20, 128, 2), (40, 7, 64, 3), (33, 9, 128, 0)])
+def test_macro_build_on_triangles(cuda, B, c_blk, U, E_short):
+    """Kernel B on 2D cells (nloc 6): the 118,071-DoF channel's plan shape
+    (c_blk 20: bulk-copy staging) and odd c_blk, whose c_blk * nloc is not
+    a multiple of 4 (the global-memory reads)."""
+    nloc = 6
+    E = B * c_blk - E_short
+    lidx = _lidx(B, c_blk, nloc, U, seed=B + c_blk).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(E)
+    F_e = torch.randn((E, nloc, nloc), generator=g, device=cuda)
+    out = mb.macro_build(F_e, lidx, B, U)
+    torch.cuda.synchronize()
     _close(out, mb.macro_build_plain(F_e, lidx, B, U))
 
 

@@ -3,7 +3,9 @@ package: `config.py`, `mesh/` (generators, reordering, the Gmsh reader),
 `fem/` (reference elements, quadrature, the Taylor-Hood space, cell and
 boundary geometry), the CLI's `_common_flags` / `_build_config`, and the
 output modules `io/csvlog.py` (all its logs), `io/vtu.py` (VTU, PVTU and
-PVD files, byte for byte) and `utils/signal.py` (`strouhal_number`).
+PVD files, byte for byte), `utils/signal.py` (`strouhal_number`) and
+`utils/tables.py` (`ConvergenceTable`), and the generators `cube_mesh` and
+`rectangle_mesh`.
 
 Both sides run the same numpy code on the same inputs, so every array is
 held equal exactly.  The mesh is the small DFG duct
@@ -29,10 +31,13 @@ from navierstokes_project_nm4pde_tpu.fem import reference as jref
 from navierstokes_project_nm4pde_tpu.fem import space as jspace
 from navierstokes_project_nm4pde_tpu.io import csvlog as jcsvlog
 from navierstokes_project_nm4pde_tpu.io import vtu as jvtu
+from navierstokes_project_nm4pde_tpu.mesh import cube_mesh as jax_cube
 from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d as jax_duct
+from navierstokes_project_nm4pde_tpu.mesh import rectangle_mesh as jax_rectangle
 from navierstokes_project_nm4pde_tpu.mesh import read_msh as jax_read_msh
 from navierstokes_project_nm4pde_tpu.mesh.msh_io import write_msh, write_msh_v41
 from navierstokes_project_nm4pde_tpu.utils import signal as jsignal
+from navierstokes_project_nm4pde_tpu.utils import tables as jtables
 from navierstokes_project_nm4pde_tpu_torch import cli as tcli
 from navierstokes_project_nm4pde_tpu_torch import config as tconfig
 from navierstokes_project_nm4pde_tpu_torch.fem import geometry as tgeometry
@@ -41,10 +46,11 @@ from navierstokes_project_nm4pde_tpu_torch.fem import reference as tref
 from navierstokes_project_nm4pde_tpu_torch.fem import space as tspace
 from navierstokes_project_nm4pde_tpu_torch.io import csvlog as tcsvlog
 from navierstokes_project_nm4pde_tpu_torch.io import vtu as tvtu
-from navierstokes_project_nm4pde_tpu_torch.mesh import Mesh
+from navierstokes_project_nm4pde_tpu_torch.mesh import Mesh, cube_mesh, rectangle_mesh
 from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d as port_duct
 from navierstokes_project_nm4pde_tpu_torch.mesh import read_msh as port_read_msh
 from navierstokes_project_nm4pde_tpu_torch.utils import signal as tsignal
+from navierstokes_project_nm4pde_tpu_torch.utils import tables as ttables
 
 MESH_FIELDS = ("coords", "cells", "bface_verts", "bface_tag")
 SPACE_FIELDS = (
@@ -234,3 +240,36 @@ def test_strouhal_copy_matches_reference(n):
     ref = jsignal.strouhal_number(lift, 1e-3, diameter=0.1, velocity=2.0)
     out = tsignal.strouhal_number(lift, 1e-3, diameter=0.1, velocity=2.0)
     assert (np.isnan(out) and np.isnan(ref)) or out == ref
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 16])
+def test_cube_mesh_copy_matches_reference(n):
+    """The convergence ladder's cubes (Kuhn tets, one tag a face)."""
+    jm, tm = jax_cube(n), cube_mesh(n)
+    assert isinstance(tm, Mesh)
+    for field in MESH_FIELDS:
+        np.testing.assert_array_equal(getattr(tm, field), getattr(jm, field))
+
+
+@pytest.mark.parametrize("args", [(8, 4, 2.0, 1.0), (3, 5, 1.0, 0.41)])
+def test_rectangle_mesh_copy_matches_reference(args):
+    nx, ny, lx, ly = args
+    jm, tm = jax_rectangle(nx, ny, lx=lx, ly=ly, x0=0.5), rectangle_mesh(nx, ny, lx=lx, ly=ly, x0=0.5)
+    for field in MESH_FIELDS:
+        np.testing.assert_array_equal(getattr(tm, field), getattr(jm, field))
+
+
+@pytest.mark.parametrize("errors", [
+    {"L2": [0.2419, 0.0309, 0.0039, 4.9e-4], "H1": [2.106, 0.5253, 0.1314, 0.0329]},
+    {"L2": [1.0, 0.5]},
+])
+def test_convergence_table_copy_matches_reference(errors):
+    """Rows, rates and the printed table of the same errors."""
+    tables = [jtables.ConvergenceTable(), ttables.ConvergenceTable()]
+    for i in range(len(next(iter(errors.values())))):
+        for t in tables:
+            t.add_row(2.0 / 2 ** (i + 1), **{k: v[i] for k, v in errors.items()})
+    ref, out = tables
+    assert out.rows == ref.rows
+    assert out.rates() == ref.rates()
+    assert out.format() == ref.format()
