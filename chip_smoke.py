@@ -26,6 +26,16 @@ Drives the port's paths once each:
     2 channels and B at 6 local nodes); the `convergence` entry point at
     its defaults (the Ethier-Steinman ladder 2 4 8 16, up to 112,724 DoF;
     the last pair's rates and the errors against the CPU float64 run);
+  * the `ensemble` entry point at its defaults through the CLI (the
+    monolithic stepper, asimple, 64 members of 32,536 DoF; kernels C and D
+    at 192 and 64 channels), and the ensemble's variants (both steppers,
+    BDF2, explicit and IMEX convection, the recycle pools, the Schur
+    variants) on a small duct against the CPU;
+  * multi-device runs as two local ranks on the card (torch.distributed,
+    gloo): `cylinder3d --shard-cells 2` at its defaults against the
+    unsharded run, the owned+halo projection step at 142,692 DoF against
+    the single-device step, and `ensemble --shard-batch`; each rank's
+    imports and kernel launches are checked;
 and runs the two TPU-era measurement probes (kernels E and F).  It builds
 the hand-written CUDA kernels from `navierstokes_project_nm4pde_tpu_torch/csrc`,
 holds each against its plain PyTorch version at the shapes its paths give
@@ -42,12 +52,15 @@ stepper's kinds and inner solvers, and the 2D channel, BDF2 and
 Ethier-Steinman cases, to tolerances measured from the JAX package's own
 float32 spread, and one preconditioner application of each to 100
 float32 epsilons).  It imports nothing
-of jax or of the JAX package, and fails if either was imported.  On an
+of jax or of the JAX package, and fails if either was imported, in its
+own process or in any rank it launched.  On an
 H100 80GB HBM3 at 700 W the whole script, the kernels' build included,
-took 184-243.5 s, and 222.0-361.3 s with the 2D, BDF2 and convergence
+took 184-243.5 s, 222.0-361.3 s with the 2D, BDF2 and convergence
+phases, and 225.6 s with the ensemble entry point and multi-device
 phases.
 
     python3 chip_smoke.py [--profile DIR]   # DIR: torch.profiler tables and traces
+    python3 chip_smoke.py --only ensemble-variants ensemble-cli multi-device
 
 Every phase that fails makes the exit code non-zero; without a CUDA device
 the script exits 1 before printing any result.  The last three lines of
@@ -118,6 +131,15 @@ SLOT_SHAPES = {
     # channels, diag C(w) at 1; the convergence CLI's top level (cube_mesh(16))
     "cylinder2d defaults": {"slot_reduce": (1, 2), "slot_gather": (2,)},
     "convergence n=16": {"slot_reduce": (1, 3), "slot_gather": (3,)},
+    # the ensemble CLI's defaults (monolithic, 64 members): every element
+    # pass at 3 B = 192 channels, diag C(w) at B = 64
+    "ensemble CLI defaults": {"slot_reduce": (192, 64), "slot_gather": (192,)},
+    # a cell-sharded rank's block of the 142,692-DoF duct (the monolithic
+    # passes, before the all-reduce), and the halo step's rank-0 plan of its
+    # extended-local cells (the Krylov applies at 3, the rhs reduce at 6,
+    # the stacked gather at 9)
+    "sharded rank 0": {"slot_reduce": (1, 3), "slot_gather": (3,)},
+    "halo rank 0": {"slot_reduce": (3, 6), "slot_gather": (3, 9)},
 }
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): device-memory
 # bytes a second, and float32 operations a second outside the tensor cores.
@@ -140,6 +162,33 @@ ENSEMBLE_MEMBERS = 64
 ENSEMBLE_WARMUP = 16
 ENSEMBLE_TIMED = 40
 ENSEMBLE_AGREE_MEMBERS = 4
+# The `ensemble` entry point at its defaults (the JAX CLI's: the monolithic
+# stepper, asimple, 64 members of 32,536 DoF on this mesh), driven for
+# ENSEMBLE_CLI_STEPS steps in chunks of ENSEMBLE_CLI_CHUNK.
+ENSEMBLE_CLI_MESH = dict(lc=0.08, nz=4)
+ENSEMBLE_CLI_STEPS = 6
+ENSEMBLE_CLI_CHUNK = 2
+# Multi-device runs on the one card (local ranks under torch.distributed,
+# both on the card, gloo: its halo slabs staged through host memory):
+# `cylinder3d --shard-cells 2` at the CLI's defaults (SHARD_WARMUP +
+# SHARD_TIMED steps in chunks of CLI_CHUNK) against the unsharded run on the
+# card; the owned+halo projection step on 2 ranks at the same 142,692 DoF
+# under __graft_entry__.py:149-159's halo configuration (HALO_STEPS steps)
+# against the single-device step; `ensemble --shard-batch` at
+# SHARD_BATCH_MEMBERS members.  The sharded and halo runs sum in another
+# order than one device (partial reduces and an all-reduce, halo slabs): F
+# counts may differ by SHARD_ITERS_SLACK a step; u and p of the sharded run
+# are held to twice the monolithic float32 tolerance (MONO_CHECKS: each of
+# the two float32 runs lies within it of the float64 solution), and the
+# halo step's to HALO_RTOL: its solves stop at rtol 1e-5, so two converged
+# runs differ by up to a few times that.
+SHARD_RANKS = 2
+SHARD_WARMUP = 2
+SHARD_TIMED = 4
+SHARD_ITERS_SLACK = 2
+HALO_STEPS = 3
+HALO_RTOL = 1e-3
+SHARD_BATCH_MEMBERS = 4
 # The explicit-convection run: the 46,928-DoF duct, where dt = 2e-4 is the
 # explicit mode's measured-stable point (config.py TimeConfig); it
 # diverges at 965k.
@@ -225,6 +274,28 @@ SCHUR_CHECKS = {
     "proj_schur=step": {"numerics": dict(proj_schur="step", schur_spmv="ell", grad_apply="ell")},
     "f_iters=4": {"precond": dict(f_iters=4)},
     "frozen ELL fallback": {},
+}
+# The ensemble's variants on the small duct, B = ENSEMBLE_AGREE_MEMBERS, card
+# f32 against CPU f64: name -> (configuration, changes, tolerance relative to
+# max |ref| as AGREE_RTOL is).  "ensemble" is ensemble_config: the projection
+# variants, each member running what the single run of its nu runs (on the
+# element fold), held to AGREE_RTOL as their single-run checks in
+# VARIANT_CHECKS and SCHUR_CHECKS are; ("cylinder3d", precond) the
+# cylinder3d CLI's configuration with those precond fields: the monolithic
+# stepper, held to its MONO_CHECKS tolerance (the JAX package's own float32
+# spread, measured by tests/test_torch_monolithic_f32.py).
+ENSEMBLE_VARIANT_CHECKS = {
+    "bdf2": ("ensemble", {"time": dict(scheme="bdf2")}, AGREE_RTOL),
+    "explicit": ("ensemble", VARIANT_CHECKS["explicit"][0], AGREE_RTOL),
+    "imex mixed": ("ensemble", VARIANT_CHECKS["imex mixed"][0], AGREE_RTOL),
+    "f_recycle=3": ("ensemble", VARIANT_CHECKS["f_recycle=3"][0], AGREE_RTOL),
+    "f_warmstart=2": ("ensemble", VARIANT_CHECKS["f_warmstart=2"][0], AGREE_RTOL),
+    "s_recycle=2": ("ensemble", {"precond": dict(s_recycle=2)}, AGREE_RTOL),
+    "coarse_solve=inv": ("ensemble", VARIANT_CHECKS["coarse_solve=inv"][0], AGREE_RTOL),
+    "mg2_form=v11": ("ensemble", VARIANT_CHECKS["mg2_form=v11"][0], AGREE_RTOL),
+    "proj_schur=step": ("ensemble", {"numerics": dict(proj_schur="step")}, AGREE_RTOL),
+    "monolithic, asimple": (("cylinder3d", {"kind": "asimple"}), {}, MONO_CHECKS["asimple"][1]),
+    "monolithic, yosida": (("cylinder3d", {}), {}, MONO_CHECKS["cylinder3d defaults (yosida)"][1]),
 }
 # The cylinder3d entry point at its defaults (142,692 DoF, float32) through
 # the CLI: warm-up and timed steps, in chunks of CLI_CHUNK; its mesh.
@@ -934,10 +1005,12 @@ def check_small_precond(device) -> None:
         f"of max |ref|; one inner iteration fewer in brackets): " + "; ".join(rows))
 
 
-def check_small_ensemble(device) -> None:
+def check_small_ensemble(device, name: str = "bench", config=ensemble_config, changes=None,
+                         rtol: float = AGREE_RTOL) -> None:
     """The port's ensemble on the card (f32, kernels C and D) against the
-    same ensemble on the CPU (f64, plain versions) on a small duct, each
-    member held to AGREE_RTOL of its own max |ref|."""
+    same ensemble on the CPU (f64, plain versions) on a small duct under
+    `config(dtype)` with `changes`, each member held to `rtol` of its own
+    max |ref|."""
     import numpy as np
 
     from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
@@ -952,12 +1025,12 @@ def check_small_ensemble(device) -> None:
     nus = sweep_nus(problem, ENSEMBLE_AGREE_MEMBERS)
     (sg, dg), (sc, dc) = (
         run_ensemble(
-            NavierStokesSolver(mesh, problem, ensemble_config(dtype), device=dev),
+            NavierStokesSolver(mesh, problem, with_changes(config(dtype), changes or {}), device=dev),
             nus, AGREE_STEPS,
         )
         for dev, dtype in ((device, "float32"), ("cpu", "float64"))
     )
-    log(f"small-duct ensemble (B={len(nus)}, {sc.u.shape[0]} velocity nodes), {AGREE_STEPS} steps: "
+    log(f"small-duct ensemble, {name} (B={len(nus)}, {sc.u.shape[0]} velocity nodes), {AGREE_STEPS} steps: "
         f"F iters card {dg.iters_f.tolist()} cpu {dc.iters_f.tolist()}, "
         f"S iters card {dg.iters_s.tolist()} cpu {dc.iters_s.tolist()}")
     worst = {}
@@ -972,8 +1045,8 @@ def check_small_ensemble(device) -> None:
     log("  max err vs cpu f64 over the members, relative to max |ref|: "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     for k, v in worst.items():
-        if not v <= AGREE_RTOL:
-            fail(f"small-duct ensemble: {k} err {v:.3e} > {AGREE_RTOL:g} of max |ref|")
+        if not v <= rtol:
+            fail(f"small-duct ensemble, {name}: {k} err {v:.3e} > {rtol:g} of max |ref|")
 
 
 def timed_steps(advance, state, n: int):
@@ -1489,10 +1562,301 @@ def monolithic_operator_times(solver, rec: dict, reps: int) -> None:
         + f" = {sum(m * t for m, t in part_ms.values()):.4f} ms")
 
 
+def drive_ensemble_cli(device, rec: dict) -> dict:
+    """The ensemble entry point at its defaults through the CLI's `main`
+    (the monolithic stepper, asimple, 64 members of 32,536 DoF, float32):
+    ENSEMBLE_CLI_STEPS steps in chunks of ENSEMBLE_CLI_CHUNK into a temporary
+    directory, kernel C's and D's counts set to 0 just before and read just
+    after.  `run_ensemble` is wrapped to keep its solver and diagnostics
+    (outer iterations per member and step), and its member-steps/s after
+    the first chunk are read from its stderr line.  Then C and D on that
+    plan.  Fails unless ensemble.csv holds every member's finite row, or if
+    every step of a member reached maxiter, or C or D never launched."""
+    import csv
+    import io
+    import os
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch import cli
+    from navierstokes_project_nm4pde_tpu_torch import parallel as par
+    from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
+
+    seen, orig = {}, par.run_ensemble
+
+    def recording(solver, nus, n_steps, state=None):
+        out = orig(solver, nus, n_steps, state)
+        seen.update(solver=solver, state=out[0], diags=out[1])
+        return out
+
+    err = io.StringIO()
+    with tempfile.TemporaryDirectory() as out:
+        torch.cuda.reset_peak_memory_stats(device)
+        oh.reset_launch_counts()
+        par.run_ensemble = recording
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(["ensemble", "--n-steps", str(ENSEMBLE_CLI_STEPS), "--steps-per-chunk",
+                               str(ENSEMBLE_CLI_CHUNK), "--output-dir", out])
+        finally:
+            par.run_ensemble = orig
+        wall = time.perf_counter() - t0
+        launches = dict(oh.launch_counts)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        with open(os.path.join(out, "ensemble.csv")) as f:
+            rows = np.array([[float(v) for v in r] for r in list(csv.reader(f))[1:]])
+    solver, d = seen["solver"], seen["diags"]
+    B = d.iters_f.shape[0]
+    m = re.search(r"sustained ([0-9.]+) member-steps/s", err.getvalue())
+    rate = float(m.group(1)) if m else float("nan")
+    log(f"ensemble CLI (its defaults: {solver.config.time.stepper}, {solver.config.precond.kind}, "
+        f"float32): {B} members x {solver.space.n_dofs} DoF, {ENSEMBLE_CLI_STEPS} steps in chunks of "
+        f"{ENSEMBLE_CLI_CHUNK}, exit {rc}, {wall:.2f} s in main; {rate} member-steps/s after the first "
+        f"chunk (run_ensemble's reading); peak device memory {peak:.3f} GiB")
+    log(f"  outer FGMRES iterations per member and step: max {d.iters_f.max()}, mean "
+        f"{d.iters_f.mean():.3f}; per step mean {np.round(d.iters_f.mean(axis=0), 2).tolist()}, "
+        f"max {d.iters_f.max(axis=0).tolist()}; Re 20 member {d.iters_f[0].tolist()}, Re 300 member "
+        f"{d.iters_f[-1].tolist()}")
+    log(f"  kernel launches over the {ENSEMBLE_CLI_STEPS} steps and the set-up: {launches}")
+    if rc != 0 or rows.shape != (B, 5) or not np.all(np.isfinite(rows)) or rows[0, 0] != 20.0 \
+            or rows[-1, 0] != 300.0:
+        fail(f"ensemble CLI: exit {rc}, ensemble.csv rows {rows.shape}, finite {np.all(np.isfinite(rows))}")
+    check_run("ensemble CLI", solver, seen["state"], d, launches, any_maxiter=False)
+    if np.any(np.all(d.iters_f >= solver.config.solver.maxiter, axis=1)):
+        fail("ensemble CLI: every step of a member reached maxiter")
+    add_slot_shapes(rec, "ensemble CLI defaults", solver.op.onehot, KERNEL_REPS)
+    return launches
+
+
+def check_small_ensembles(device) -> None:
+    """ENSEMBLE_VARIANT_CHECKS: each variant's ensemble, card against CPU."""
+    for name, (conf, changes, rtol) in ENSEMBLE_VARIANT_CHECKS.items():
+        config = ensemble_config if conf == "ensemble" else functools.partial(cylinder3d_config, **conf[1])
+        check_small_ensemble(device, name, config, changes, rtol)
+
+
+def halo_config(dtype: str = "float32"):
+    """__graft_entry__.py:149-159's owned+halo configuration (the projection
+    stack, guess_order 2, s_recycle 4), at `dtype`."""
+    from navierstokes_project_nm4pde_tpu_torch.config import (
+        NumericsConfig,
+        PrecondConfig,
+        RunConfig,
+        SolverConfig,
+        TimeConfig,
+    )
+
+    return RunConfig(
+        time=TimeConfig(dt=2e-4, t_end=4.0, stepper="projection"),
+        solver=SolverConfig(rtol=1e-5, restart=8, maxiter=40, tol_mode="b", guess_order=2),
+        precond=PrecondConfig(kind="yosida", f_iters=0, s_iters=3, mg2_form="additive", s_recycle=4),
+        numerics=NumericsConfig(dtype=dtype, precise_dots=False, steps_per_chunk=1, reduce_plan="columns",
+                                proj_schur="frozen", schur_spmv="auto"),
+    )
+
+
+def _halo_rank(rank, world, device, steps: int, mesh_kw: dict) -> dict:
+    """Every rank of the halo phase: the owned+halo projection step on
+    cylinder_duct_3d(**mesh_kw), `steps` steps from rest, each timed to a device
+    synchronise; returns the counts, ms, bytes sent, its kernel launches,
+    and on rank 0 the natural-order u and p."""
+    import torch
+    import torch.distributed as dist
+
+    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
+    from navierstokes_project_nm4pde_tpu_torch.models import Cylinder3DProblem, NavierStokesSolver
+    from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
+    from navierstokes_project_nm4pde_tpu_torch.parallel import make_device_mesh
+    from navierstokes_project_nm4pde_tpu_torch.parallel.halo import collective_bytes_per_apply
+    from navierstokes_project_nm4pde_tpu_torch.parallel.halo_step import HaloProjectionStep
+
+    t0 = time.perf_counter()
+    solver = NavierStokesSolver(cylinder_duct_3d(**mesh_kw), Cylinder3DProblem(test_case=2), halo_config(),
+                                device=device)
+    group = make_device_mesh()
+    hs = HaloProjectionStep(solver, group)
+    st = hs.init_state()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    oh.reset_launch_counts()
+    iters, ms, sent = [], [], []
+    for _ in range(steps):
+        b0, t0 = hs.ex_u.bytes_sent, time.perf_counter()
+        st, it = hs(st)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        iters.append(it)
+        sent.append(hs.ex_u.bytes_sent - b0)
+    launches = dict(oh.launch_counts)
+    u = hs.unshard(st.u)
+    return dict(
+        iters=iters, ms=ms, bytes=sent, launches=launches, setup_s=setup_s, backend=dist.get_backend(group),
+        n_loc=hs.plan.u.n_loc, n_ext=hs.plan.u.n_ext, halo_sizes=hs.plan.u.halo_sizes,
+        per_apply=collective_bytes_per_apply(hs.plan, solver.space.dim, itemsize=4),
+        u=u.cpu().numpy() if rank == 0 else None, p=st.p.cpu().numpy() if rank == 0 else None,
+    )
+
+
+def check_ranks(path: str, kernels=("slot_reduce", "slot_gather")) -> list:
+    """The last launch's ranks: fail if one imported jax or the JAX package,
+    or launched one of `kernels` no time.  Returns the ranks' results."""
+    from navierstokes_project_nm4pde_tpu_torch.parallel.launch import last_launch
+
+    for r, mods in enumerate(last_launch["modules"]):
+        bad = sorted(set(mods) & set(FORBIDDEN_MODULES))
+        if bad:
+            fail(f"{path}: rank {r} imported {bad}")
+    for r, res in enumerate(last_launch["results"]):
+        counts = res.get("kernel_launches", res.get("launches", {}))
+        for k in kernels:
+            if counts.get(k, 0) <= 0:
+                fail(f"{path}: rank {r} never launched kernel {k} ({counts})")
+    return last_launch["results"]
+
+
+def drive_multi_device(device, rec: dict) -> dict:
+    """Multi-device runs on the one card, local ranks under torch.distributed
+    (gloo: both ranks share the card): `cylinder3d --shard-cells 2` at the
+    CLI's defaults against the unsharded run on the card (F counts within
+    SHARD_ITERS_SLACK a step, u and p within twice the monolithic float32
+    tolerance); the owned+halo projection step on 2 ranks (counts, ms a step,
+    the backend and the bytes exchanged a step against
+    `collective_bytes_per_apply`) against the single-device step; and
+    `ensemble --shard-batch`.  Each rank's kernel counts are its own, from 0
+    in its fresh interpreter.  Returns the launches by path (rank 0's)."""
+    import csv
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch import cli
+    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
+    from navierstokes_project_nm4pde_tpu_torch.models import Cylinder3DProblem, NavierStokesSolver
+    from navierstokes_project_nm4pde_tpu_torch.ops.onehot import build_onehot_plans
+    from navierstokes_project_nm4pde_tpu_torch.parallel import launch
+    from navierstokes_project_nm4pde_tpu_torch.parallel.halo import build_halo_plan
+    from navierstokes_project_nm4pde_tpu_torch.parallel.launch import backend_for
+    from navierstokes_project_nm4pde_tpu_torch.parallel.sharding import _pad_cells
+
+    out_paths = {}
+    mesh = cylinder_duct_3d(**CLI_MESH)
+    n = SHARD_WARMUP + SHARD_TIMED
+    # ---- cylinder3d --shard-cells 2 at its defaults
+    log(f"multi-device: {SHARD_RANKS} local ranks on {torch.cuda.device_count()} card(s), backend "
+        f"{backend_for('cuda', SHARD_RANKS)}")
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        rc = cli.main(["cylinder3d", "--shard-cells", str(SHARD_RANKS), "--n-steps", str(n),
+                       "--steps-per-chunk", str(CLI_CHUNK), "--output-dir", out])
+        wall = time.perf_counter() - t0
+        res = check_ranks("cylinder3d --shard-cells")
+        with open(os.path.join(out, "gmres.csv")) as f:
+            iters = np.array([int(r[2]) for r in csv.reader(f)])
+        with open(os.path.join(out, "forces_results_3D_2case.csv")) as f:
+            forces = np.array([[float(v) for v in r] for r in list(csv.reader(f))[1:]])
+        with np.load(os.path.join(out, "final.npz")) as z:
+            u_sh, p_sh = z["u"], z["p"]
+    ref_solver = NavierStokesSolver(mesh, Cylinder3DProblem(test_case=2), cylinder3d_config("float32"), device=device)
+    t0 = time.perf_counter()
+    st, d = ref_solver.run(n)
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    step_ms = 1e3 * forces[SHARD_WARMUP:, 6]
+    errs = small_errors({"u": u_sh, "p": p_sh}, {"u": st.u.double().cpu().numpy(), "p": st.p.double().cpu().numpy()})
+    log(f"cylinder3d --shard-cells {SHARD_RANKS} (its defaults, float32, {ref_solver.space.n_dofs} DoF): exit "
+        f"{rc}, {wall:.2f} s in main (the ranks' spawn and set-up included); set-up {forces[0, 5]:.2f} s; "
+        f"timed {SHARD_TIMED} steps: {1e3 * SHARD_TIMED / step_ms.sum():.4f} steps/s (a chunk's wall "
+        f"time over its steps); outer iterations {iters.tolist()}, unsharded on the card "
+        f"{d.iters.tolist()} ({ref_wall:.2f} s for {n} steps); u err {errs['u']:.3e}, p err {errs['p']:.3e} "
+        f"of max |ref|; rank kernel launches {[r['kernel_launches'] for r in res]}")
+    tol = 2 * MONO_CHECKS["cylinder3d defaults (yosida)"][1]
+    if rc != 0 or len(iters) != n or np.any(np.abs(iters - d.iters) > SHARD_ITERS_SLACK):
+        fail(f"cylinder3d --shard-cells: exit {rc}, iterations {iters.tolist()} against {d.iters.tolist()}")
+    if not (errs["u"] <= tol and errs["p"] <= tol):
+        fail(f"cylinder3d --shard-cells: u err {errs['u']:.3e}, p err {errs['p']:.3e} > {tol:g} of max |ref|")
+    out_paths["cylinder3d --shard-cells (rank 0)"] = res[0]["kernel_launches"]
+    pad = _pad_cells(ref_solver.op, SHARD_RANKS)
+    blk = pad.cells_u.shape[0] // SHARD_RANKS
+    add_slot_shapes(rec, "sharded rank 0", build_onehot_plans(pad.cells_u[:blk].cpu().numpy(),
+                                                              ref_solver.space.n_unodes, device=device),
+                    KERNEL_REPS)
+    plan = build_halo_plan(pad, SHARD_RANKS, n_vertices=ref_solver.mesh.n_vertices)
+    add_slot_shapes(rec, "halo rank 0", build_onehot_plans(plan.u.cells_loc[0], plan.u.n_ext, device=device),
+                    KERNEL_REPS)
+    del ref_solver, st, pad, plan
+    free_card()
+
+    # ---- the owned+halo projection step on 2 ranks
+    t0 = time.perf_counter()
+    res = launch(_halo_rank, SHARD_RANKS, HALO_STEPS, CLI_MESH, device="cuda", timeout=600)
+    wall = time.perf_counter() - t0
+    check_ranks("halo step")
+    solver = NavierStokesSolver(mesh, Cylinder3DProblem(test_case=2), halo_config(), device=device)
+    st, d = solver.run(HALO_STEPS)
+    r0 = res[0]
+    errs = small_errors({"u": r0["u"], "p": r0["p"]},
+                        {"u": st.u.double().cpu().numpy(), "p": st.p.double().cpu().numpy()})
+    pa = r0["per_apply"]
+    log(f"halo step, {SHARD_RANKS} ranks at {solver.space.n_dofs} DoF (__graft_entry__.py's halo configuration, "
+        f"float32; backend {r0['backend']}, slabs staged through host memory): {wall:.2f} s launch, rank set-up "
+        f"{[round(r['setup_s'], 2) for r in res]} s; F/S per step {r0['iters']}, single device "
+        f"{list(zip(d.iters_f.tolist(), d.iters_s.tolist()))}; ms per step {[round(t, 3) for t in r0['ms']]} "
+        f"(rank 1 {[round(t, 3) for t in res[1]['ms']]}); u err {errs['u']:.3e}, p err {errs['p']:.3e} of "
+        f"max |ref|")
+    log(f"  halo: n_loc {r0['n_loc']}, n_ext {r0['n_ext']}, slabs {r0['halo_sizes']}; bytes sent a step by rank "
+        f"{[r['bytes'] for r in res]}; collective_bytes_per_apply (f32): halo {pa['halo_bytes_per_device']} "
+        f"B/device/apply against the replicated all-reduce {pa['replicated_allreduce_bytes_total'] // SHARD_RANKS} "
+        f"B/device/apply (ratio {pa['ratio']:.4f}); rank kernel launches {[r['launches'] for r in res]}")
+    for (ff, fs), f1, s1 in zip(r0["iters"], d.iters_f, d.iters_s):
+        if abs(ff - f1) > SHARD_ITERS_SLACK or abs(fs - s1) > SHARD_ITERS_SLACK:
+            fail(f"halo step: counts {r0['iters']} against the single device's "
+                 f"{list(zip(d.iters_f.tolist(), d.iters_s.tolist()))}")
+    if not all(e <= HALO_RTOL for e in errs.values()):
+        fail(f"halo step: errors {errs} > {HALO_RTOL:g} of max |ref|")
+    out_paths["halo step (rank 0)"] = r0["launches"]
+    del solver, st
+    free_card()
+
+    # ---- ensemble --shard-batch
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        rc = cli.main(["ensemble", "--shard-batch", "--n-members", str(SHARD_BATCH_MEMBERS), "--n-steps", "2",
+                       "--steps-per-chunk", "1", "--output-dir", out])
+        wall = time.perf_counter() - t0
+        res = check_ranks("ensemble --shard-batch")
+        with open(os.path.join(out, "ensemble.csv")) as f:
+            rows = np.array([[float(v) for v in r] for r in list(csv.reader(f))[1:]])
+    log(f"ensemble --shard-batch ({SHARD_BATCH_MEMBERS} members, its defaults, 2 steps): exit {rc}, "
+        f"{len(res)} rank(s) (one per card, the reference's rule), {wall:.2f} s; ensemble.csv {rows.tolist()}")
+    if rc != 0 or rows.shape != (SHARD_BATCH_MEMBERS, 5) or not np.all(np.isfinite(rows)):
+        fail(f"ensemble --shard-batch: exit {rc}, rows {rows.shape}")
+    out_paths["ensemble --shard-batch (rank 0)"] = res[0]["kernel_launches"]
+    return out_paths
+
+
+# Phases `--only` can run alone: name -> phase(device, kernel records).
+ONLY_PHASES = {
+    "ensemble-cli": drive_ensemble_cli,
+    "ensemble-variants": lambda device, rec: (check_small_ensemble(device), check_small_ensembles(device)),
+    "multi-device": drive_multi_device,
+}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="also trace 3 single-run, 3 IMEX and 2 ensemble steps into DIR")
+    ap.add_argument("--only", nargs="+", choices=sorted(ONLY_PHASES), metavar="PHASE",
+                    help=f"build the kernels and run only these phases ({', '.join(sorted(ONLY_PHASES))}); "
+                         "prints no kernels record")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1530,6 +1894,17 @@ def main(argv=None) -> int:
     log(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     if cuda_lib.build_log.strip():
         log(cuda_lib.build_log.strip())
+    if args.only:
+        rec = {k: dict(err=0.0) for k in KERNELS}
+        for phase in args.only:
+            t0 = time.perf_counter()
+            ONLY_PHASES[phase](device, rec)
+            log(f"{phase}: {time.perf_counter() - t0:.1f} s")
+        imported = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN_MODULES)
+        if imported:
+            fail(f"imported modules of jax or of the JAX package: {imported[:10]}")
+        log(f"chip_smoke: phases {args.only} only, in {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     # ---- 2. the bench configuration's setup -------------------------------
     t0 = time.perf_counter()
@@ -1576,6 +1951,7 @@ def main(argv=None) -> int:
 
     # ---- 6. short runs against the CPU on a small duct: both paths, variants
     check_small_ensemble(device)
+    check_small_ensembles(device)
     check_small_duct(device)
     for name, (changes, mesh_kw) in VARIANT_CHECKS.items():
         mb.reset_launch_counts()
@@ -1748,7 +2124,17 @@ def main(argv=None) -> int:
     add_slot_shapes(rec, "convergence n=16", nsolver.op.onehot, KERNEL_REPS)
     del nsolver
     free_card()
-    log(f"this slice's entry points: cylinder2d {t_2d:.1f} s, convergence {time.perf_counter() - t0:.1f} s")
+    log(f"the cylinder2d and convergence entry points: cylinder2d {t_2d:.1f} s, convergence "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- 14. the ensemble entry point at its defaults, multi-device runs ----
+    t0 = time.perf_counter()
+    paths["ensemble CLI"] = drive_ensemble_cli(device, rec)
+    free_card()
+    t_ens = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths.update(drive_multi_device(device, rec))
+    log(f"the ensemble entry point {t_ens:.1f} s, the multi-device runs {time.perf_counter() - t0:.1f} s")
     paths.update({"monolithic 965k": mono_launches, "cylinder3d CLI": cli_launches})
     for name in ("slot_reduce", "slot_gather", "macro_build", "macro_matvec"):
         rec[name]["launches_by_path"] = {k: v[name] for k, v in paths.items() if v.get(name)}

@@ -11,10 +11,10 @@
     python -m navierstokes_project_nm4pde_tpu_torch.cli convergence \\
         [--levels 2 4 8 16] [--dt 4e-4] [--n-steps N] [--output-dir DIR] \\
         [--device cuda]
-    python -m navierstokes_project_nm4pde_tpu_torch.cli ensemble --fast \\
+    python -m navierstokes_project_nm4pde_tpu_torch.cli ensemble [--fast] \\
         [--dim 3] [--onehot] [--n-members 64] [--re-min 20] [--re-max 300] \\
-        [--lc 0.08] [--nz 4] [--dt 0.01] [--n-steps N] [--output-dir DIR] \\
-        [--device cuda]
+        [--lc 0.08] [--nz 4] [--dt 0.01] [--n-steps N] [--shard-batch] \\
+        [--output-dir DIR] [--device cuda]
 
 The same flags and configuration as the reference's `cli.py` (the port
 keeps its own copies of `_common_flags` and `_build_config`).
@@ -28,10 +28,21 @@ coeff_2.csv, forces_results_<dim>D_<case>case.csv), VTU snapshots every
 cube ladder `--levels` (one step of dt = 4e-4 a level by default) and
 writes convergence.csv and the table of L2 and H1 errors with their
 rates.  `ensemble` runs the port's `run_ensemble` and writes
-`ensemble.csv` with the reference's header; `--onehot` selects only the
-reference's TPU reduction layout (the port's ensemble reductions are
-always kernel C).  `--shard-batch`, `--shard-cells N > 0` and
-`--debug-nans` are not ported and fail with a message.
+`ensemble.csv` with the reference's header, at the reference's defaults
+the monolithic stepper (asimple) and with every flag; `--onehot` selects
+only the reference's TPU reduction layout (the port's ensemble reductions
+are always kernel C).
+
+Multi-device runs are local ranks under torch.distributed
+(`parallel/launch.py`): `cylinder2d` and `cylinder3d` with `--shard-cells
+N` launch N ranks that each hold a block of the cells
+(`parallel/sharding.py`); rank 0 prints and writes the files, its VTU
+snapshots as a .pvtu record with the reference's `partitioning` field.
+`ensemble --shard-batch` splits the members over one rank per visible
+card when the member count divides evenly (else one rank, the reference's
+rule); rank 0 gathers the diagnostics and writes `ensemble.csv`.  Rank r
+computes on cuda:(r % device_count).  `--debug-nans` (a JAX debugging
+mode) fails with a message.
 """
 
 from __future__ import annotations
@@ -116,8 +127,8 @@ def _build_config(args, defaults):
 
 def _common_flags(p, dt, t_end, precond):
     """The flags every subcommand takes: the JAX package's `cli.py
-    _common_flags`, copied.  --debug-nans and --shard-cells N > 0 parse as
-    there, and the port refuses them."""
+    _common_flags`, copied.  --debug-nans parses as there, and the port
+    refuses it."""
     p.add_argument("--mesh", type=str, default=None, help=".msh file (else built-in generator)")
     p.add_argument("--dt", type=float, default=dt)
     p.add_argument("--t-end", type=float, default=t_end)
@@ -206,7 +217,7 @@ def _parser() -> argparse.ArgumentParser:
     pe.add_argument("--re-min", type=float, default=20.0)
     pe.add_argument("--re-max", type=float, default=300.0)
     pe.add_argument("--shard-batch", action="store_true",
-                    help="not ported: the port runs an ensemble on one device")
+                    help="split the members over one rank per visible card")
     pe.add_argument("--onehot", action="store_true",
                     help="the reference's one-hot reduction layout (the same "
                          "exact kernel C here)")
@@ -220,15 +231,20 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _run_cylinder(args, device, dim: int) -> None:
+def _run_cylinder(args, device, dim: int, group=None) -> None:
     """The reference's `_run_cylinder(args, dim)`: set up, run in chunks
     with the per-chunk callback (the CSV logs, the force extrema, gated at
     t > 0.1 in 3D, VTU and checkpoint cadences), then `final.npz` and the
-    summary lines."""
+    summary lines.  With a process `group` (`--shard-cells`), this rank's
+    block of the cells; rank 0 prints and writes."""
     from navierstokes_project_nm4pde_tpu_torch.device import torch_dtype
     from navierstokes_project_nm4pde_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
     from navierstokes_project_nm4pde_tpu_torch.io.csvlog import CSVLogger
-    from navierstokes_project_nm4pde_tpu_torch.io.vtu import write_pvd, write_vtu
+    from navierstokes_project_nm4pde_tpu_torch.io.vtu import (
+        write_pvd,
+        write_vtu,
+        write_vtu_with_pvtu_record,
+    )
     from navierstokes_project_nm4pde_tpu_torch.mesh import (
         cylinder_channel_2d,
         cylinder_duct_3d,
@@ -239,17 +255,19 @@ def _run_cylinder(args, device, dim: int) -> None:
         Cylinder3DProblem,
         NavierStokesSolver,
     )
+    from navierstokes_project_nm4pde_tpu_torch.utils.logging import is_main_process, pcout
     from navierstokes_project_nm4pde_tpu_torch.utils.signal import strouhal_number
     from navierstokes_project_nm4pde_tpu_torch.utils.timers import Timer
 
     t_total = Timer(sync=False).start()
+    main = is_main_process()
     if args.mesh:
         mesh = read_msh(args.mesh)
     elif dim == 2:
         mesh = cylinder_channel_2d(lc=args.lc)
     else:
         mesh = cylinder_duct_3d(lc=args.lc, nz=args.nz)
-    print(f"Mesh: {mesh.n_cells} cells, {mesh.n_vertices} vertices")
+    pcout(f"Mesh: {mesh.n_cells} cells, {mesh.n_vertices} vertices")
     nu_kw = {} if args.nu is None else {"nu": args.nu}
     if args.u_m is not None:
         nu_kw["u_m"] = args.u_m
@@ -257,10 +275,21 @@ def _run_cylinder(args, device, dim: int) -> None:
     cfg = _build_config(args, None)
     solver = NavierStokesSolver(mesh, problem, cfg, device=device)
     sp = solver.space
-    print(f"DoFs: velocity={sp.n_udofs} pressure={sp.n_pnodes} total={sp.n_dofs} (on {device})")
+    pcout(f"DoFs: velocity={sp.n_udofs} pressure={sp.n_pnodes} total={sp.n_dofs} (on {device})")
+
+    cell_part = None
+    if group is not None:
+        import torch.distributed as dist
+
+        from navierstokes_project_nm4pde_tpu_torch.parallel import cell_partitioning, shard_solver
+
+        shard_solver(solver, group)
+        cell_part = cell_partitioning(solver, group)
+        pcout(f"Sharded cells over {dist.get_world_size(group)} ranks "
+              f"(torch.distributed, {dist.get_backend(group)})")
 
     out_dir = args.output_dir or f"output{dim}D"
-    log = CSVLogger(out_dir)
+    log = CSVLogger(out_dir) if main else None
     vtu_entries = []
     state = (
         load_checkpoint(args.resume, dtype=torch_dtype(args.dtype), device=device)
@@ -298,6 +327,8 @@ def _run_cylinder(args, device, dim: int) -> None:
         steps = np.arange(done["n"] + 1, done["n"] + k + 1)
         times = steps * cfg.time.dt
         done["n"] += k
+        if not main:  # rank 0 logs and writes
+            return
         re = (problem.diameter * inlet_mean_np(times) / problem.nu).astype(int)
         log.log_gmres(times, re, diags.iters)
         log.log_coefficients(steps, diags.c_d, diags.c_l)
@@ -315,13 +346,18 @@ def _run_cylinder(args, device, dim: int) -> None:
             cd_max = max(cd_max, np.max(diags.c_d[sel]))
             cl_min = min(cl_min, np.min(diags.c_l[sel]))
         it, res = diags.iters[-1], diags.residual[-1]
-        print(
+        pcout(
             f"n = {done['n']:4d}, t = {times[-1]:.4f}: {it} GMRES iters, "
             f"residual {res:.3e}, c_d {diags.c_d[-1]:.4f}, c_l {diags.c_l[-1]:.4f}"
         )
         if out_every and (done["n"] % out_every == 0 or done["n"] >= n_steps):
-            path = os.path.join(out_dir, f"solution_{done['n']:06d}.vtu")
-            write_vtu(path, solver.space, state.u.cpu().numpy(), state.p.cpu().numpy())
+            u, p = state.u.cpu().numpy(), state.p.cpu().numpy()
+            if cell_part is not None:  # the reference's piece files and .pvtu record
+                path = write_vtu_with_pvtu_record(out_dir, f"solution_{done['n']:06d}", solver.space,
+                                                  u, p, partitioning=cell_part)
+            else:
+                path = os.path.join(out_dir, f"solution_{done['n']:06d}.vtu")
+                write_vtu(path, solver.space, u, p)
             vtu_entries.append((float(state.t), path))
         if args.checkpoint_every and done["n"] % args.checkpoint_every == 0:
             save_checkpoint(os.path.join(out_dir, "checkpoint.npz"), state)
@@ -330,17 +366,18 @@ def _run_cylinder(args, device, dim: int) -> None:
 
     if vtu_entries:
         write_pvd(os.path.join(out_dir, "solution.pvd"), vtu_entries)
-    save_checkpoint(os.path.join(out_dir, "final.npz"), state)
+    if main:
+        save_checkpoint(os.path.join(out_dir, "final.npz"), state)
 
-    print("=" * 47)
-    print(f"Drag Coefficient Max ----->   {cd_max}")
-    print(f"Lift Coefficient Min ----->   {cl_min}")
-    print(f"Pressure difference (P(A) - P(B)) = {diags.delta_p[-1] if len(diags.delta_p) else float('nan')}")
+    pcout("=" * 47)
+    pcout(f"Drag Coefficient Max ----->   {cd_max}")
+    pcout(f"Lift Coefficient Min ----->   {cl_min}")
+    pcout(f"Pressure difference (P(A) - P(B)) = {diags.delta_p[-1] if len(diags.delta_p) else float('nan')}")
     t_grid = np.arange(1, n_steps + 1) * cfg.time.dt
     U_char = float(np.max(np.abs(inlet_mean_np(t_grid)))) if n_steps > 0 else 0.0
     st = strouhal_number(diags.c_l, cfg.time.dt, diameter=problem.diameter, velocity=U_char or 1.0)
-    print(f"Strouhal number (from c_l) = {st:.4f}")
-    print(f"Total wall time: {t_total.stop():.2f} s")
+    pcout(f"Strouhal number (from c_l) = {st:.4f}")
+    pcout(f"Total wall time: {t_total.stop():.2f} s")
 
 
 def _run_convergence(args, device) -> dict:
@@ -396,8 +433,13 @@ def _run_convergence(args, device) -> dict:
     return table.rates()
 
 
-def _run_ensemble(args, device) -> None:
+def _run_ensemble(args, device, group=None) -> None:
+    """The reference's `_run_ensemble`: the Reynolds sweep through
+    `run_ensemble`, and `ensemble.csv`.  With a process `group`
+    (`--shard-batch`), this rank runs its contiguous share of the members,
+    and rank 0 gathers every member's diagnostics and writes the file."""
     from navierstokes_project_nm4pde_tpu_torch.io.csvlog import CSVLogger
+    from navierstokes_project_nm4pde_tpu_torch.utils.logging import pcout
     from navierstokes_project_nm4pde_tpu_torch.mesh import (
         cylinder_channel_2d,
         cylinder_duct_3d,
@@ -427,40 +469,94 @@ def _run_ensemble(args, device) -> None:
     U = float(np.max(np.abs([problem.mean_velocity(t) for t in t_grid]))) or 1.0
     re = np.linspace(args.re_min, args.re_max, args.n_members)
     nus = U * problem.diameter / re
-    print(f"Ensemble: {args.n_members} members, Re in [{re[0]:.0f}, {re[-1]:.0f}], "
+    pcout(f"Ensemble: {args.n_members} members, Re in [{re[0]:.0f}, {re[-1]:.0f}], "
           f"{mesh.n_cells} cells, {solver.space.n_dofs} DoFs each, on {device}")
 
     n_steps = args.n_steps or cfg.time.n_steps
-    _, bdiags = run_ensemble(solver, nus, n_steps)
+    mine = slice(None)
+    if group is not None:
+        import torch.distributed as dist
+
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        share = args.n_members // n
+        mine = slice(r * share, (r + 1) * share)
+        pcout(f"Sharded members over {n} ranks, {share} each (torch.distributed, "
+              f"{dist.get_backend(group)})")
+    _, bdiags = run_ensemble(solver, nus[mine], n_steps)
+    cols = [np.max(bdiags.c_d, axis=1), np.min(bdiags.c_l, axis=1), bdiags.delta_p[:, -1]]
+    if group is not None:
+        parts = [None] * dist.get_world_size(group) if dist.get_rank(group) == 0 else None
+        dist.gather_object(cols, parts, dst=0, group=group)
+        if dist.get_rank(group) != 0:
+            return
+        cols = [np.concatenate([part[i] for part in parts]) for i in range(3)]
     out_dir = args.output_dir or "outputEnsemble"
     rows = [
-        (re[m], nus[m], float(np.max(bdiags.c_d[m])), float(np.min(bdiags.c_l[m])),
-         float(bdiags.delta_p[m][-1]))
+        (re[m], nus[m], float(cols[0][m]), float(cols[1][m]), float(cols[2][m]))
         for m in range(args.n_members)
     ]
     CSVLogger(out_dir).log_table("ensemble.csv", "Re,nu,cd_max,cl_min,delta_p_final", rows)
-    print(f"Wrote {out_dir}/ensemble.csv; wall time {time.perf_counter() - t0:.1f}s")
+    pcout(f"Wrote {out_dir}/ensemble.csv; wall time {time.perf_counter() - t0:.1f}s")
+
+
+def _cylinder_rank(rank, world_size, device, args, dim) -> dict:
+    """One rank of `cylinder<dim>d --shard-cells`; returns the rank's kernel
+    launches."""
+    from navierstokes_project_nm4pde_tpu_torch.parallel import make_device_mesh
+
+    _run_cylinder(args, device, dim, group=make_device_mesh())
+    return _rank_launches()
+
+
+def _ensemble_rank(rank, world_size, device, args) -> dict:
+    """One rank of `ensemble --shard-batch`; returns the rank's kernel
+    launches."""
+    from navierstokes_project_nm4pde_tpu_torch.parallel import make_device_mesh
+
+    _run_ensemble(args, device, group=make_device_mesh())
+    return _rank_launches()
+
+
+def _rank_launches() -> dict:
+    """This process's kernel launch counts (a rank's report to `launch`)."""
+    from navierstokes_project_nm4pde_tpu_torch.ops import macroblock, onehot
+
+    return {"kernel_launches": {**macroblock.launch_counts, **onehot.launch_counts}}
+
+
+def _batch_ranks(n_members: int, device) -> int:
+    """The reference's --shard-batch rule: one rank per visible card when
+    the members divide evenly over them, else one."""
+    import torch
+
+    n = max(1, torch.cuda.device_count()) if device.type == "cuda" else 1
+    return n if n_members % n == 0 else 1
 
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     if args.debug_nans:
         raise SystemExit("--debug-nans is not ported (it is a JAX debugging mode)")
-    if args.shard_cells:
-        raise SystemExit("--shard-cells is not ported: the port runs on one device")
-    if args.cmd == "ensemble":
-        if args.shard_batch:
-            raise SystemExit("--shard-batch is not ported: the port's ensemble runs on one device")
+    if args.shard_cells and args.cmd not in ("cylinder2d", "cylinder3d"):
+        raise SystemExit("--shard-cells shards cylinder2d and cylinder3d runs")
     try:
         device = pick_device(args.device)
     except RuntimeError as e:  # a CUDA device asked for on a machine without one
         raise SystemExit(f"navierstokes-torch: {e} (--device cpu runs on the CPU)") from None
+    from navierstokes_project_nm4pde_tpu_torch.parallel.launch import launch
+
     run = {
         "cylinder2d": lambda a, d: _run_cylinder(a, d, dim=2),
         "cylinder3d": lambda a, d: _run_cylinder(a, d, dim=3),
         "convergence": _run_convergence,
         "ensemble": _run_ensemble,
     }[args.cmd]
+    if args.shard_cells:
+        run = lambda a, d: launch(_cylinder_rank, a.shard_cells, a, int(a.cmd[-2]),  # noqa: E731
+                                  device=d.type)
+    elif args.cmd == "ensemble" and args.shard_batch:
+        run = lambda a, d: launch(_ensemble_rank, _batch_ranks(a.n_members, d), a,  # noqa: E731
+                                  device=d.type)
     try:
         run(args, device)
     except ValueError as e:  # a configuration outside the port's slice

@@ -1,5 +1,5 @@
-"""gmsh `.msh` reader (ASCII and binary, v2.2 and v4.1): the port's copy
-of the reader side of the JAX package's `mesh/msh_io.py`.
+"""gmsh `.msh` file I/O (ASCII and binary, v2.2 and v4.1): the port's copy
+of the JAX package's `mesh/msh_io.py`, its reader and its writers.
 
 Replaces deal.II's `GridIn::read_msh` (ref: src/NavierStokes2D.cpp:10-14),
 which accepts both ASCII and binary gmsh files.  Reads linear simplices
@@ -317,3 +317,186 @@ def _read_elements_v4(lines, i, elements, ent_phys):
     assert lines[i].strip() == "$EndElements"
     return i + 1
 
+
+def write_msh_v41(mesh: Mesh, path: str, binary: bool = False) -> None:
+    """Write a v4.1 `.msh` with proper $Entities physical groups.
+
+    Each boundary tag t becomes its own facet entity with *geometric* tag
+    t + 1 and *physical* tag t, so a reader that wrongly uses entity tags
+    produces visibly wrong boundary ids (the round-trip test relies on
+    this to pin the entity -> physical mapping)."""
+    if binary:
+        return _write_msh_v41_binary(mesh, path)
+    dim = mesh.dim
+    fdim = dim - 1
+    tags = sorted(set(int(t) for t in mesh.bface_tag))
+    lo = mesh.coords.min(axis=0)
+    hi = mesh.coords.max(axis=0)
+    lo3 = list(lo) + [0.0] * (3 - dim)
+    hi3 = list(hi) + [0.0] * (3 - dim)
+    bbox = " ".join(f"{v:.16g}" for v in lo3 + hi3)
+    with open(path, "w") as f:
+        f.write("$MeshFormat\n4.1 0 8\n$EndMeshFormat\n")
+        # --- entities: one facet entity per boundary tag + one cell entity
+        counts = [0, 0, 0, 0]
+        counts[fdim] = len(tags)
+        counts[dim] = 1
+        f.write("$Entities\n" + " ".join(str(c) for c in counts) + "\n")
+        for t in tags:
+            nb = "0"  # no bounding sub-entities recorded
+            f.write(f"{t + 1} {bbox} 1 {t} {nb}\n")
+        f.write(f"1 {bbox} 0 0\n")
+        f.write("$EndEntities\n")
+        # --- nodes: two blocks on the cell entity (exercises block iteration)
+        n = mesh.n_vertices
+        half = n // 2
+        blocks = [(1, half), (half + 1, n)] if half else [(1, n)]
+        f.write(f"$Nodes\n{len(blocks)} {n} 1 {n}\n")
+        for a, b in blocks:
+            f.write(f"{dim} 1 0 {b - a + 1}\n")
+            for k in range(a, b + 1):
+                f.write(f"{k}\n")
+            for k in range(a, b + 1):
+                p = mesh.coords[k - 1]
+                z = p[2] if dim == 3 else 0.0
+                f.write(f"{p[0]:.16g} {p[1]:.16g} {z:.16g}\n")
+        f.write("$EndNodes\n")
+        # --- elements: one block per boundary tag + the cell block
+        n_elem = mesh.n_cells + mesh.n_bfaces
+        nb = len(tags) + 1
+        f.write(f"$Elements\n{nb} {n_elem} 1 {n_elem}\n")
+        eid = 1
+        ftype = _LINE if dim == 2 else _TRI
+        for t in tags:
+            sel = np.where(mesh.bface_tag == t)[0]
+            f.write(f"{fdim} {t + 1} {ftype} {len(sel)}\n")
+            for fi in sel:
+                ns = " ".join(str(v + 1) for v in mesh.bface_verts[fi])
+                f.write(f"{eid} {ns}\n")
+                eid += 1
+        ctype = _TRI if dim == 2 else _TET
+        f.write(f"{dim} 1 {ctype} {mesh.n_cells}\n")
+        for cv in mesh.cells:
+            ns = " ".join(str(v + 1) for v in cv)
+            f.write(f"{eid} {ns}\n")
+            eid += 1
+        f.write("$EndElements\n")
+
+
+def _write_msh_v2_binary(mesh: Mesh, path: str) -> None:
+    dim = mesh.dim
+    n = mesh.n_vertices
+    with open(path, "wb") as f:
+        f.write(b"$MeshFormat\n2.2 1 8\n")
+        f.write(np.array([1], "<i4").tobytes())
+        f.write(b"\n$EndMeshFormat\n")
+        f.write(f"$Nodes\n{n}\n".encode())
+        blob = np.zeros(n, dtype=[("id", "<i4"), ("xyz", "<f8", (3,))])
+        blob["id"] = np.arange(1, n + 1)
+        blob["xyz"][:, :dim] = mesh.coords
+        f.write(blob.tobytes())
+        f.write(b"\n$EndNodes\n")
+        nf, nc = mesh.n_bfaces, mesh.n_cells
+        f.write(f"$Elements\n{nf + nc}\n".encode())
+        ftype = _LINE if dim == 2 else _TRI
+        f.write(np.array([ftype, nf, 2], "<i4").tobytes())
+        fr = np.empty((nf, 3 + dim), "<i4")
+        fr[:, 0] = np.arange(1, nf + 1)
+        fr[:, 1] = mesh.bface_tag
+        fr[:, 2] = mesh.bface_tag
+        fr[:, 3:] = mesh.bface_verts + 1
+        f.write(fr.tobytes())
+        ctype = _TRI if dim == 2 else _TET
+        f.write(np.array([ctype, nc, 2], "<i4").tobytes())
+        cr = np.empty((nc, 4 + dim), "<i4")
+        cr[:, 0] = np.arange(nf + 1, nf + nc + 1)
+        cr[:, 1] = 0
+        cr[:, 2] = 0
+        cr[:, 3:] = mesh.cells + 1
+        f.write(cr.tobytes())
+        f.write(b"\n$EndElements\n")
+
+
+def _write_msh_v41_binary(mesh: Mesh, path: str) -> None:
+    dim = mesh.dim
+    fdim = dim - 1
+    tags = sorted(set(int(t) for t in mesh.bface_tag))
+    lo = mesh.coords.min(axis=0)
+    hi = mesh.coords.max(axis=0)
+    bbox = np.zeros(6)
+    bbox[:dim] = lo
+    bbox[3:3 + dim] = hi
+    i4 = lambda *v: np.array(v, "<i4").tobytes()  # noqa: E731
+    i8 = lambda *v: np.array(v, "<i8").tobytes()  # noqa: E731
+    f8 = lambda a: np.asarray(a, "<f8").tobytes()  # noqa: E731
+    n = mesh.n_vertices
+    with open(path, "wb") as f:
+        f.write(b"$MeshFormat\n4.1 1 8\n")
+        f.write(i4(1))
+        f.write(b"\n$EndMeshFormat\n")
+        counts = [0, 0, 0, 0]
+        counts[fdim] = len(tags)
+        counts[dim] = 1
+        f.write(b"$Entities\n")
+        f.write(i8(*counts))
+        for t in tags:  # facet entities: geometric tag t+1, physical tag t
+            f.write(i4(t + 1) + f8(bbox) + i8(1) + i4(t) + i8(0))
+        f.write(i4(1) + f8(bbox) + i8(0) + i8(0))  # cell entity, no phys
+        f.write(b"\n$EndEntities\n")
+        f.write(b"$Nodes\n")
+        f.write(i8(1, n, 1, n))
+        f.write(i4(dim, 1, 0) + i8(n))
+        f.write(np.arange(1, n + 1, dtype="<i8").tobytes())
+        xyz = np.zeros((n, 3))
+        xyz[:, :dim] = mesh.coords
+        f.write(f8(xyz))
+        f.write(b"\n$EndNodes\n")
+        nf, nc = mesh.n_bfaces, mesh.n_cells
+        f.write(b"$Elements\n")
+        f.write(i8(len(tags) + 1, nf + nc, 1, nf + nc))
+        eid = 1
+        ftype = _LINE if dim == 2 else _TRI
+        for t in tags:
+            sel = np.where(mesh.bface_tag == t)[0]
+            f.write(i4(fdim, t + 1, ftype) + i8(len(sel)))
+            rec = np.empty((len(sel), 1 + dim), "<i8")
+            rec[:, 0] = eid + np.arange(len(sel))
+            rec[:, 1:] = mesh.bface_verts[sel] + 1
+            f.write(rec.tobytes())
+            eid += len(sel)
+        ctype = _TRI if dim == 2 else _TET
+        f.write(i4(dim, 1, ctype) + i8(nc))
+        rec = np.empty((nc, 2 + dim), "<i8")
+        rec[:, 0] = eid + np.arange(nc)
+        rec[:, 1:] = mesh.cells + 1
+        f.write(rec.tobytes())
+        f.write(b"\n$EndElements\n")
+
+
+def write_msh(mesh: Mesh, path: str, binary: bool = False) -> None:
+    """Write a v2.2 `.msh` (round-trip capable with `read_msh`)."""
+    if binary:
+        return _write_msh_v2_binary(mesh, path)
+    dim = mesh.dim
+    with open(path, "w") as f:
+        f.write("$MeshFormat\n2.2 0 8\n$EndMeshFormat\n")
+        f.write(f"$Nodes\n{mesh.n_vertices}\n")
+        for i, p in enumerate(mesh.coords):
+            x, y = p[0], p[1]
+            z = p[2] if dim == 3 else 0.0
+            f.write(f"{i + 1} {x:.16g} {y:.16g} {z:.16g}\n")
+        f.write("$EndNodes\n")
+        n_elem = mesh.n_cells + mesh.n_bfaces
+        f.write(f"$Elements\n{n_elem}\n")
+        eid = 1
+        ftype = _LINE if dim == 2 else _TRI
+        for fv, tag in zip(mesh.bface_verts, mesh.bface_tag):
+            ns = " ".join(str(v + 1) for v in fv)
+            f.write(f"{eid} {ftype} 2 {tag} {tag} {ns}\n")
+            eid += 1
+        ctype = _TRI if dim == 2 else _TET
+        for cv in mesh.cells:
+            ns = " ".join(str(v + 1) for v in cv)
+            f.write(f"{eid} {ctype} 2 0 0 {ns}\n")
+            eid += 1
+        f.write("$EndElements\n")

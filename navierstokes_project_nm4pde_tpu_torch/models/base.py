@@ -45,13 +45,18 @@ One single-run step (`step`, the reference's `_step_projection`):
      u = u* - dt diag(M)^-1 G phi on free nodes;
   6. drag, lift and the pressure difference.
 
-One ensemble step (`step_ensemble`, the element branch that the
-reference's vmapped `run_ensemble` takes) does the same for B members at
-once, each with its own nu, carried on a trailing member axis: the
-element passes move all members as packed channels through the slot
-gather and reduce (kernels D and C), and the Krylov solves are batched
-(`fgmres`, `cg` on [n, B] columns) with per-member tolerances and
-counts.  It runs the base configuration only (`_ENSEMBLE_BASE`).
+One ensemble step (`step(state, nu)` with nu a [B] tensor: the same two
+steppers, as the reference's vmapped `run_ensemble` runs them) advances B
+members at once, each with its own nu, carried on a trailing member axis
+of every state array and pool.  It takes every configuration a single run
+takes, on the paths the reference keeps under vmap: the element fold for
+every velocity apply (no macro blocks, no assembled K or IMEX fine subset,
+element D and G, no aux divergence), the F bound of the smoothers by a
+per-member power iteration, and the velocity warm-start pool carried
+unused (the reference projects it only on the macro path).  The element
+passes move all members as packed channels through the slot gather and
+reduce (kernels D and C), and the Krylov solves are batched on [n, B]
+columns with per-member tolerances and counts.
 """
 
 from __future__ import annotations
@@ -267,9 +272,7 @@ _LAYOUT_ONLY = {
     "ensemble_onehot": (False, True),
 }
 
-# The single run's variants, and the values the ensemble step runs (its
-# element branch with the additive Cholesky two-level Schur CG; ensemble
-# variants need one K per member, and are not ported).
+# The variants both steps run (the single run and the ensemble).
 _VARIANTS = {
     "time.stepper": ("projection", "monolithic"),
     "time.convection": ("implicit", "explicit", "imex"),
@@ -289,24 +292,6 @@ _VARIANTS = {
     # operator as "bsr" here (ops/bsr.py)
     "numerics.grad_apply": ("auto", "bsr", "ell", "element"),
     "numerics.div_apply": ("auto", "bsr", "element"),
-}
-_ENSEMBLE_BASE = {
-    "time.scheme": ("bdf1",),
-    "time.stepper": ("projection",),
-    "time.convection": ("implicit",),
-    "precond.mg2_form": ("additive",),
-    "precond.f_iters": (0,),
-    "numerics.proj_schur": ("frozen",),
-    "numerics.schur_spmv": ("auto", "banded"),
-    "numerics.coarse_solve": ("chol",),
-    "numerics.f_apply": ("auto", "macro"),
-    "numerics.macro_rhs": ("auto", "on"),
-    "numerics.macro_wfuse": ("auto", "on"),
-    "numerics.macro_split": ("auto", "off"),
-    "numerics.grad_apply": ("auto", "bsr"),
-    "numerics.div_apply": ("auto", "bsr"),
-    "precond.f_recycle": (0,),
-    "precond.f_warmstart": (0,),
 }
 
 
@@ -606,8 +591,8 @@ class NavierStokesSolver:
     def initial_state(self, members: int | None = None) -> State:
         """The problem's initial state (u0, p0 at the reordered mesh's
         nodes; at rest where it gives none); with `members`, an ensemble
-        state of that many members (trailing member axis, no recycle
-        pools)."""
+        state of that many members (trailing member axis on every array,
+        the recycle pools' too)."""
         n, d = self.space.n_unodes, self.space.dim
         pb, cfg = self.problem, self.config
         T = lambda a: torch.as_tensor(a, dtype=self.dtype, device=self.device)  # noqa: E731
@@ -633,7 +618,7 @@ class NavierStokesSolver:
             u_prev2=u if quad else None,
             # a placeholder: step 0 takes AB1 and overwrites it
             conv_prev=torch.zeros_like(u) if explicit_bdf2 else None,
-            **{k: None if members else self._zero_pool(k) for k in self._pool_shapes()},
+            **{k: self._zero_pool(k, members) for k in self._pool_shapes()},
         )
 
     def _pool_shapes(self) -> dict:
@@ -645,18 +630,20 @@ class NavierStokesSolver:
             "fwpool": (pc.f_warmstart, nd),
         }
 
-    def _zero_pool(self, name: str) -> torch.Tensor | None:
+    def _zero_pool(self, name: str, members: int | None = None) -> torch.Tensor | None:
         shape = self._pool_shapes()[name]
         if 0 in shape or self.config.time.stepper != "projection":
             return None
-        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+        return torch.zeros(shape + ((members,) if members else ()), dtype=self.dtype, device=self.device)
 
     def _ensure_pools(self, state: State) -> State:
-        """Give an externally supplied state the recycle pools it lacks
-        (a zero pool is always valid)."""
+        """Give an externally supplied state (a single run's, or an
+        ensemble's) the recycle pools it lacks (a zero pool is always
+        valid)."""
+        members = state.p.shape[1] if state.p.dim() > 1 else None
         upd = {
             k: pool for k in self._pool_shapes()
-            if getattr(state, k) is None and (pool := self._zero_pool(k)) is not None
+            if getattr(state, k) is None and (pool := self._zero_pool(k, members)) is not None
         }
         return dataclasses.replace(state, **upd) if upd else state
 
@@ -754,21 +741,35 @@ class NavierStokesSolver:
         return cfg.solver.rtol, np.minimum(cfg.solver.atol * a_scale, cap)
 
     # ------------------------------------------------------------------
-    def step(self, state: State):
+    def step(self, state: State, nu: torch.Tensor | None = None):
         """One step of the configured stepper; returns (new_state, per-step
-        diagnostics dict of Python numbers and 0-d tensors)."""
+        diagnostics dict of Python numbers and 0-d tensors).  With `nu`, a
+        [B] tensor, one step of B members at once, member m with viscosity
+        nu[m] (the reference's vmapped step in `run_ensemble`): `state`
+        carries the members on a trailing axis, and the diagnostics are [B]
+        numpy arrays and [B] tensors."""
         if self.config.time.stepper == "monolithic":
-            return self._step_monolithic(state)
-        return self._step_projection(state)
+            return self._step_monolithic(state, nu)
+        return self._step_projection(state, nu)
 
     def _pack(self, u: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-        return torch.cat([u.reshape(-1), p])
+        return torch.cat([u.reshape(u.shape[0] * u.shape[1], *u.shape[2:]), p])
 
     def _unpack(self, x: torch.Tensor):
         n, d = self.space.n_unodes, self.space.dim
-        return x[: n * d].view(n, d), x[n * d:]
+        return x[: n * d].view(n, d, *x.shape[1:]), x[n * d:]
 
-    def _step_monolithic(self, state: State):
+    def _members(self, nu):
+        """(nu, tail, f_lam0) of a step: the problem's nu, no member axes and
+        the set-up F bound for a single run; for an ensemble's [B] nu, the
+        trailing member axis and no set-up bound (the reference's
+        `run_ensemble` drops it: the smoothers then bound F per member by
+        power iteration)."""
+        if nu is None:
+            return self.problem.nu, (), self._f_lam0
+        return nu, (nu.shape[0],), None
+
+    def _step_monolithic(self, state: State, nu=None):
         """One step of the monolithic saddle-point stepper (the reference's
         `_step_dispatch`): the folded F_e and diag C of the step
         (`convection_setup`), the block preconditioner's state, b = (M hist
@@ -776,23 +777,23 @@ class NavierStokesSolver:
         the extrapolated guess, A = `apply_system`, M = `apply_precond`."""
         cfg = self.config
         op, pc = self.op, cfg.precond
-        nu = self.problem.nu
+        nu, tail, f_lam0 = self._members(nu)
         dt = cfg.time.dt
         t_new = (state.step + 1.0) * dt
         w, hist, dt_eff = self._bdf_terms(state, dt)
-        mask = op.dirichlet_mask[:, None]
+        mask = op.dirichlet_mask.view(-1, 1, *(1,) * len(tail))
         conv = ops.convection_setup(op, w, fold=(nu, dt_eff), backflow=self.backflow)
         pst = build_precond_state(
             op, nu, dt_eff, conv, pc.kind, s_solver=pc.s_solver, f_solver=pc.f_solver,
-            f_lam=self._f_lam0,
+            f_lam=f_lam0,
         )
-        g = self._dirichlet_values(t_new)
+        g = self._dirichlet_values(t_new).view(mask.shape[0], -1, *(1,) * len(tail))
         rhs_u = ops.apply_mass(op, hist)
         ext = self._external_rhs(t_new)
         if ext is not None:
-            rhs_u = rhs_u + ext
+            rhs_u = rhs_u + ext.view(g.shape)
         rhs_u = torch.where(mask, g, rhs_u)
-        rhs_p = torch.zeros(self.space.n_pnodes, dtype=self.dtype, device=self.device)
+        rhs_p = torch.zeros((self.space.n_pnodes, *tail), dtype=self.dtype, device=self.device)
 
         def A(x):
             return self._pack(*ops.apply_system(op, nu, dt_eff, conv, *self._unpack(x)))
@@ -810,24 +811,34 @@ class NavierStokesSolver:
         )
         u_new, p_new = self._unpack(x0 + dx)
         new_state = State(u=u_new, p=p_new, t=t_new, step=state.step + 1, **self._next_history(state))
-        diag = self._diagnostics(u_new, p_new, t_new)
-        diag.update(iters=info.iters, residual=info.residual, iters_f=info.iters, iters_s=0)
+        diag = self._diagnostics(u_new, p_new, t_new, nu if tail else None)
+        diag.update(iters=info.iters, residual=info.residual, iters_f=info.iters,
+                    iters_s=np.zeros_like(info.iters) if tail else 0)
         return new_state, diag
 
-    def _step_projection(self, state: State):
-        """One projection step (the reference's `_step_projection`)."""
+    def _step_projection(self, state: State, nu=None):
+        """One projection step (the reference's `_step_projection`); with a
+        [B] nu, B members at once on the element branch that the
+        reference's vmapped `run_ensemble` keeps (no macro blocks, no
+        assembled K, IMEX fine subset, D or G, no aux divergence, no
+        set-up F bound)."""
         cfg = self.config
         op, fz, pc = self.op, self.proj_schur, cfg.precond
-        nu = self.problem.nu
+        nu, tail, f_lam0 = self._members(nu)
+        single = not tail
         precise = cfg.numerics.precise_dots
         dt = cfg.time.dt
         t_new = (state.step + 1.0) * dt
         w, hist, dt_eff = self._bdf_terms(state, dt)
-        mask = op.dirichlet_mask[:, None]
+        mask = op.dirichlet_mask.view(-1, 1, *(1,) * len(tail))
         n, d = self.space.n_unodes, self.space.dim
         explicit = cfg.time.convection == "explicit"
+        macro_rhs = self.macro_rhs and single
+        f_apply = self.f_apply if single else "element"
+        kcsr = self.kcsr if single else None
+        imex = self.imex if single else None
 
-        g = self._dirichlet_values(t_new)
+        g = self._dirichlet_values(t_new).view(n, d, *(1,) * len(tail))
         u_guess, p_guess = self._warm_guess(state)
         u0 = torch.where(mask, g, u_guess)
 
@@ -835,22 +846,22 @@ class NavierStokesSolver:
         # of [hist | u0 | pool | w] feeds the rhs pass, and w's element view
         # comes from its slots.  Element path: one element gather (explicit
         # convection gathers u^n, whose N(u^n) its rhs takes).
-        warm_f = self.macro_rhs and pc.f_warmstart > 0 and state.fwpool is not None
+        warm_f = macro_rhs and pc.f_warmstart > 0 and state.fwpool is not None
         D_ch = None
         if warm_f:
             D_ch = state.fwpool.reshape(pc.f_warmstart, n, d).permute(1, 0, 2).reshape(n, -1)
         x_b = h_e = u0_e = w_e = None
-        if self.macro_wfuse:
+        if self.macro_wfuse and single:
             xs = [hist, u0] + ([D_ch] if warm_f else []) + [w]
             x_b = mb.slot_gather(self.macro, torch.cat(xs, dim=1))
             w_e = mb.slot_expand_elem(self.macro, x_b[..., -d:])
             x_b = x_b[..., :-d]
-        elif self.macro_rhs:
+        elif macro_rhs:
             w_e = ops.gather_u(op, w)
         else:
             wg = state.u if explicit else w
             st_e = ops.gather_u(op, torch.cat([hist, u0, wg], dim=1))
-            h_e, u0_e, w_e = st_e[..., :d], st_e[..., d:2 * d], st_e[..., 2 * d:]
+            h_e, u0_e, w_e = st_e[:, :, :d], st_e[:, :, d:2 * d], st_e[:, :, 2 * d:]
 
         conv = conv_rhs = FtT = n_cur = None
         if explicit:
@@ -864,9 +875,9 @@ class NavierStokesSolver:
             conv = ops.convection_setup(
                 op, w, fold=(nu, dt_eff), w_e=w_e,
                 with_diag=not pc.freeze_conv_diag,
-                conv_only=self.macro_split, backflow=self.backflow,
+                conv_only=self.macro_split and single, backflow=self.backflow,
             )
-            if self.f_apply == "macro":
+            if f_apply == "macro":
                 FtT = mb.build_macro_values(self.macro, conv.F_e)
                 if conv.conv_only:  # K/C split: C's blocks + the setup-time M, A,
                     # added in place (no [B, U, U] temporaries)
@@ -874,7 +885,7 @@ class NavierStokesSolver:
 
         # ---- 1. tentative velocity -----------------------------------
         Yw = None
-        if self.macro_rhs:
+        if macro_rhs:
             out = mb.apply_rhs_and_r0_macro(
                 self.macro, self.macro_mass, FtT, hist, u0, extra=D_ch, x_b=x_b
             )
@@ -893,22 +904,22 @@ class NavierStokesSolver:
             r0_u = r0_u - conv_rhs
         ext = self._external_rhs(t_new)
         if ext is not None:
-            b_u = b_u + ext
-            r0_u = r0_u + ext
+            b_u = b_u + ext.view(g.shape)
+            r0_u = r0_u + ext.view(g.shape)
         rhs_u = torch.where(mask, g, b_u)
         r0_u = torch.where(mask, torch.zeros_like(r0_u), r0_u)
 
-        # Fcore: the unmasked operator on [n, C] for any channel count (the
-        # recycled GCR's wide round runs it unless the IMEX fine subset's
-        # pass rides every apply).
-        fine = self.kcsr is not None and self.imex is not None and not explicit
-        if self.kcsr is not None:
-            C_ef = ops.convection_fine_fold(op, self.imex, w_e[self.imex.f_idx]) if fine else None
+        # Fcore: the unmasked operator on [n, C, *tail] for any channel count
+        # (the recycled GCR's wide round runs it unless the IMEX fine
+        # subset's pass rides every apply).
+        fine = kcsr is not None and imex is not None and not explicit
+        if kcsr is not None:
+            C_ef = ops.convection_fine_fold(op, imex, w_e[imex.f_idx]) if fine else None
 
             def Fcore(u2):
-                y = apply_csr_scalar(self.kcsr, u2)
+                y = apply_csr_scalar(kcsr, u2)
                 if C_ef is not None:
-                    y = y + ops.apply_convection_fine(self.imex, C_ef, u2)
+                    y = y + ops.apply_convection_fine(imex, C_ef, u2)
                 return y
         elif FtT is not None:
             def Fcore(u2):
@@ -917,9 +928,10 @@ class NavierStokesSolver:
             def Fcore(u2):
                 return ops.apply_F(op, nu, dt_eff, conv, u2)
 
+        # the flat vectors the Krylov solves see: [n * d] or [n * d, B]
         def Fop(v):
-            u = v.reshape(n, d)
-            return torch.where(mask, u, Fcore(u)).reshape(-1)
+            u = v.reshape(n, d, *tail)
+            return torch.where(mask, u, Fcore(u)).reshape(v.shape)
 
         # the F preconditioner: plain Jacobi, or with f_iters > 0 the block
         # preconditioners' fixed inner solve; without the frozen S1, the
@@ -929,27 +941,27 @@ class NavierStokesSolver:
         if pc.f_iters > 0 or fz is None:
             pst = build_precond_state(
                 op, nu, dt_eff, conv, "yosida", s_solver="mg2", f_solver=pc.f_solver,
-                f_lam=self._f_lam0, skip_schur=fz is not None,
+                f_lam=f_lam0, skip_schur=fz is not None,
             )
             inv_F = pst.inv_diag_Fhat
         else:
             inv_F = inv_diag_Fhat(op, nu, dt_eff, conv)
-        minv = inv_F[:, None].expand(n, d).reshape(-1)
+        minv = inv_F.unsqueeze(1).expand(n, d, *tail).reshape(n * d, *tail)
         if pc.f_iters > 0:
             def Mf(v):
-                return _solve_F(op, pst, nu, dt_eff, v.reshape(n, d), pc).reshape(-1)
+                return _solve_F(op, pst, nu, dt_eff, v.reshape(n, d, *tail), pc).reshape(v.shape)
         else:
             def Mf(v):
                 return minv * v
-        tol_kw = self._tol_kwargs(rhs_u.reshape(-1))
-        r0 = r0_u.reshape(-1)
+        tol_kw = self._tol_kwargs(rhs_u.reshape(n * d, *tail))
+        r0 = r0_u.reshape(n * d, *tail)
         du_e = None
         fpool_new, fwpool_new = state.fpool, state.fwpool
         if pc.f_recycle > 0 and not explicit and not fine and state.fpool is not None:
-            def Fop_block(Vc):
-                u3 = Vc.reshape(n, d, -1)
-                y = Fcore(u3.reshape(n, -1)).reshape(u3.shape)
-                return torch.where(mask[..., None], u3, y).reshape(Vc.shape)
+            def Fop_block(Vc):  # [N, K, *tail] columns
+                u3 = Vc.reshape(n, d, -1, *tail)
+                y = Fcore(u3.reshape(n, -1, *tail)).reshape(u3.shape)
+                return torch.where(mask[:, :, None], u3, y).reshape(Vc.shape)
 
             du, info_f, Dused = gcr_recycled(
                 Fop_block, r0, lambda Vc: minv[:, None] * Vc, state.fpool,
@@ -962,16 +974,20 @@ class NavierStokesSolver:
         elif explicit:
             # K is SPD on the free subspace: CG
             if tol_kw["tol_mode"] == "abs":
-                cg_rtol, cg_atol = 0.0, max(float(tol_kw["rtol"]), float(tol_kw["atol"]))
+                cg_rtol, cg_atol = 0.0, np.maximum(tol_kw["rtol"], tol_kw["atol"])
             else:
                 cg_rtol, cg_atol = tol_kw["rtol"], tol_kw["atol"]
-            du, info = cg(
-                lambda V: Fop(V[:, 0])[:, None], r0[:, None],
-                M=lambda V: Mf(V[:, 0])[:, None], rtol=cg_rtol, atol=cg_atol,
-                maxiter=cfg.solver.maxiter, precise=precise,
-            )
-            du, info_f = du[:, 0], SolveInfo(iters=int(info.iters[0]), residual=float(info.residual[0]))
-        elif self.aux_div:
+            if single:
+                du, info = cg(
+                    lambda V: Fop(V[:, 0])[:, None], r0[:, None],
+                    M=lambda V: Mf(V[:, 0])[:, None], rtol=cg_rtol, atol=cg_atol,
+                    maxiter=cfg.solver.maxiter, precise=precise,
+                )
+                du, info_f = du[:, 0], SolveInfo(iters=int(info.iters[0]), residual=float(info.residual[0]))
+            else:
+                du, info_f = cg(Fop, r0, M=Mf, rtol=cg_rtol, atol=cg_atol,
+                                maxiter=cfg.solver.maxiter, precise=precise)
+        elif self.aux_div and single:
             def Fop_aux(v):
                 u = v.reshape(n, d)
                 u_e = ops.gather_u(op, u)
@@ -993,7 +1009,7 @@ class NavierStokesSolver:
             if warm_f:  # harvest the increment beyond the pool's span
                 fwpool_new = torch.cat([du[None], state.fwpool[:-1]])
                 du = du + du_ws
-        u_star = u0 + du.reshape(n, d)
+        u_star = u0 + du.reshape(n, d, *tail)
 
         # ---- 2. pressure Poisson: S~ phi = -D u* ---------------------
         rhs_p = -ops.apply_divergence(op, u_star) if du_e is None else (
@@ -1033,124 +1049,31 @@ class NavierStokesSolver:
                 rtol=s_rtol, atol=s_atol, maxiter=cfg.solver.maxiter,
                 precise=precise,
             )
-            spool_new = torch.cat([harvest[:, None, :], state.spool[:, :-1]], dim=1)
-        else:
+            spool_new = torch.cat([harvest[:, None], state.spool[:, :-1]], dim=1)
+        elif single:
             phi, info = cg(
                 S, rhs_p[:, None], M=M2, x0=phi0[:, None], rtol=s_rtol,
                 atol=s_atol, maxiter=cfg.solver.maxiter, precise=precise,
             )
             phi, spool_new = phi[:, 0], state.spool
             info_s = SolveInfo(iters=int(info.iters[0]), residual=float(info.residual[0]))
+        else:
+            phi, info_s = cg(
+                S, rhs_p, M=M2, x0=phi0, rtol=s_rtol, atol=s_atol,
+                maxiter=cfg.solver.maxiter, precise=precise,
+            )
+            spool_new = state.spool
 
         # ---- 3. update -------------------------------------------------
         p_new = state.p + phi
-        u_new = u_star - upd_inv[:, None] * ops.apply_gradient(op, phi)
+        u_new = u_star - upd_inv.view(n, 1, *(1,) * len(tail)) * ops.apply_gradient(op, phi)
 
         new_state = State(
             u=u_new, p=p_new, t=t_new, step=state.step + 1, **self._next_history(state),
             conv_prev=n_cur if explicit and state.conv_prev is not None else None,
             spool=spool_new, fpool=fpool_new, fwpool=fwpool_new,
         )
-        diag = self._diagnostics(u_new, p_new, t_new)
-        diag.update(
-            iters=info_f.iters + info_s.iters,
-            residual=max(info_f.residual, info_s.residual),
-            iters_f=info_f.iters, iters_s=info_s.iters,
-        )
-        return new_state, diag
-
-    # ------------------------------------------------------------------
-    def step_ensemble(self, state: State, nu: torch.Tensor):
-        """One projection step of B members at once (the element branch of
-        the reference's `_step_projection`, as its vmapped `run_ensemble`
-        runs it), member m with viscosity nu[m]; `state` carries the
-        members on a trailing axis.  Returns (new_state, per-step
-        diagnostics dict of [B] numpy arrays and [B] tensors)."""
-        cfg = self.config
-        for name, ok in _ENSEMBLE_BASE.items():
-            if _field(cfg, name) not in ok:
-                raise ValueError(
-                    f"the PyTorch port's ensemble step does not run "
-                    f"{name}={_field(cfg, name)!r} (supported: {ok})"
-                )
-        if cfg.precond.s_recycle != 0:
-            raise ValueError(
-                "the PyTorch port's ensemble solves the pressure with plain "
-                "CG: it needs precond.s_recycle=0"
-            )
-        pb = self.problem
-        for name in ("neumann_tag", "forcing", "backflow_tag"):
-            if getattr(pb, name) is not None:
-                raise ValueError(f"the PyTorch port's ensemble step does not run a problem with {name}")
-        op, fz = self.op, self.proj_schur
-        if fz.band is None:
-            raise ValueError(
-                "the PyTorch port's ensemble applies the banded S1 only: "
-                "numerics.schur_spmv='ell' or a band too wide for the dense form"
-            )
-        precise = cfg.numerics.precise_dots
-        dt = cfg.time.dt
-        t_new = (state.step + 1.0) * dt
-        w, hist, dt_eff = self._bdf_terms(state, dt)
-        n, d = self.space.n_unodes, self.space.dim
-        B = nu.shape[0]
-        mask = op.dirichlet_mask[:, None, None]
-
-        g = self._dirichlet_values(t_new)[:, :, None]
-        u_guess, p_guess = self._warm_guess(state)
-        u0 = torch.where(mask, g, u_guess)
-
-        # One element gather of [hist | u0 | w] (576 channels at B = 64).
-        st_e = ops.gather_u(op, torch.cat([hist, u0, w], dim=1))
-        h_e, u0_e, w_e = st_e[:, :, :d], st_e[:, :, d:2 * d], st_e[:, :, 2 * d:]
-        conv = ops.convection_setup(
-            op, w, fold=(nu, dt_eff), w_e=w_e,
-            with_diag=not cfg.precond.freeze_conv_diag,
-        )
-
-        # ---- 1. tentative velocity -----------------------------------
-        b_u, r0_u = ops.apply_rhs_and_r0(
-            op, hist, state.p, nu, dt_eff, conv, u0, h_e=h_e, u0_e=u0_e
-        )
-        rhs_u = torch.where(mask, g, b_u)
-        r0_u = torch.where(mask, torch.zeros_like(r0_u), r0_u)
-
-        def Fop(v):
-            u = v.reshape(n, d, B)
-            return torch.where(mask, u, ops.apply_F(op, nu, dt_eff, conv, u)).reshape(n * d, B)
-
-        minv = inv_diag_Fhat(op, nu, dt_eff, conv)[:, None, :].expand(n, d, B).reshape(n * d, B)
-        tol_kw = self._tol_kwargs(rhs_u.reshape(n * d, B))
-        du, info_f = fgmres(
-            Fop, r0_u.reshape(n * d, B), M=lambda v: minv * v,
-            restart=cfg.solver.restart, maxiter=cfg.solver.maxiter,
-            precise=precise, **tol_kw,
-        )
-        u_star = u0 + du.reshape(n, d, B)
-
-        # ---- 2. pressure Poisson with the frozen S1 (shared) ----------
-        rhs_p = -ops.apply_divergence_e(op, ops.gather_u(op, u_star)) / dt_eff
-        solve_c = cho_solve_c(fz.cho_L)
-        inv_d = 1.0 / fz.diag1
-
-        def S(pv):
-            return banded_matvec(fz.band, pv)
-
-        def M2(v):
-            return twolevel_apply_additive_g(op.coarse, solve_c, inv_d, v)
-
-        s_rtol, s_atol = self._poisson_tol(tol_kw, rhs_p, 1.0 / dt_eff)
-        phi, info_s = cg(
-            S, rhs_p, M=M2, x0=p_guess - state.p, rtol=s_rtol, atol=s_atol,
-            maxiter=cfg.solver.maxiter, precise=precise,
-        )
-
-        # ---- 3. update (element gradient) --------------------------------
-        p_new = state.p + phi
-        u_new = u_star - (dt_eff * fz.inv1)[:, None, None] * ops.apply_gradient_e(op, phi)
-
-        new_state = State(u=u_new, p=p_new, t=t_new, step=state.step + 1, **self._next_history(state))
-        diag = self._diagnostics(u_new, p_new, t_new, nu)
+        diag = self._diagnostics(u_new, p_new, t_new, None if single else nu)
         diag.update(
             iters=info_f.iters + info_s.iters,
             residual=np.maximum(info_f.residual, info_s.residual),

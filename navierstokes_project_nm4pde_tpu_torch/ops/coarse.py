@@ -55,7 +55,13 @@ def build_coarse_schur(n_p: int, agg: int = 24, host: dict | None = None, device
 
 def coarse_dense(cs: CoarseSchur, vals_flat: torch.Tensor) -> torch.Tensor:
     """Dense coarse matrix Sc = R S~ R^T from S~'s flat ELL values,
-    symmetrised and Tikhonov-shifted for the constant null space."""
+    symmetrised and Tikhonov-shifted for the constant null space: [nc, nc],
+    or [B, nc, nc] for one value set a member (vals_flat [n_slots, B])."""
+    if vals_flat.dim() == 2:
+        Sc = apply_segment_plan(cs.plan, vals_flat).T.reshape(-1, cs.nc, cs.nc)
+        Sc = 0.5 * (Sc + Sc.transpose(1, 2))
+        shift = 1e-6 * torch.diagonal(Sc, dim1=1, dim2=2).sum(-1) / cs.nc
+        return Sc + shift[:, None, None] * torch.eye(cs.nc, dtype=Sc.dtype, device=Sc.device)
     Sc = apply_segment_plan(cs.plan, vals_flat[:, None])[:, 0].view(cs.nc, cs.nc)
     Sc = 0.5 * (Sc + Sc.T)
     shift = 1e-6 * torch.trace(Sc) / cs.nc
@@ -63,7 +69,8 @@ def coarse_dense(cs: CoarseSchur, vals_flat: torch.Tensor) -> torch.Tensor:
 
 
 def coarse_factor(cs: CoarseSchur, vals_flat: torch.Tensor) -> torch.Tensor:
-    """The per-step lower Cholesky factor of the dense coarse matrix."""
+    """The per-step lower Cholesky factor of the dense coarse matrix (a
+    batched `cholesky_ex` over [B, nc, nc] for one matrix a member)."""
     return torch.linalg.cholesky_ex(coarse_dense(cs, vals_flat)).L
 
 
@@ -88,7 +95,7 @@ def host_coarse_dense(
 
 
 # Every function below takes r [n] or [n, B] (one column per ensemble
-# member; the coarse factor is shared).
+# member; the coarse factor and the diagonal shared, or one a member).
 def restrict(cs: CoarseSchur, r: torch.Tensor) -> torch.Tensor:
     pad = cs.n_pad - r.shape[0]
     rp = torch.nn.functional.pad(r, (0, 0) * (r.dim() - 1) + (0, pad)) if pad else r
@@ -100,9 +107,12 @@ def prolong(cs: CoarseSchur, rc: torch.Tensor, n_p: int) -> torch.Tensor:
 
 
 def cho_solve_c(cho_L: torch.Tensor):
-    """Coarse solve from a dense lower Cholesky factor."""
+    """Coarse solve from a dense lower Cholesky factor ([nc, nc] shared, or
+    [B, nc, nc] for the B columns of rc [nc, B])."""
 
     def solve(rc):
+        if cho_L.dim() == 3:
+            return torch.cholesky_solve(rc.T[:, :, None], cho_L, upper=False)[:, :, 0].T
         R = rc.reshape(rc.shape[0], -1)
         return torch.cholesky_solve(R, cho_L, upper=False).reshape(rc.shape)
 
@@ -126,7 +136,7 @@ def twolevel_apply_g(
     """Multiplicative two-level application z ~ S^-1 r: damped Jacobi,
     coarse correction of the residual and, with `post`, a second Jacobi
     sweep (the symmetric V(1,1), safe inside CG)."""
-    d = inv_diag.reshape((-1,) + (1,) * (r.dim() - 1))
+    d = _spread_diag(inv_diag, r)
     z = omega * d * r
     zc = solve_c(restrict(cs, r - S(z)))
     z = z + prolong(cs, zc, r.shape[0])
@@ -150,5 +160,12 @@ def twolevel_apply_additive_g(
     """z = omega D^-1 r + R^T Sc^-1 R r (symmetric: safe inside CG; no S
     applies)."""
     zc = solve_c(restrict(cs, r))
-    d = inv_diag.reshape((-1,) + (1,) * (r.dim() - 1))
+    d = _spread_diag(inv_diag, r)
     return omega * d * r + prolong(cs, zc, r.shape[0])
+
+
+def _spread_diag(inv_diag: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """A diagonal [n] (shared) or [n, B] (one a member) against r."""
+    if inv_diag.dim() == r.dim():
+        return inv_diag
+    return inv_diag.reshape((-1,) + (1,) * (r.dim() - 1))

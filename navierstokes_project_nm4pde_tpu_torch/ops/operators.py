@@ -28,7 +28,11 @@ nu a [B] tensor): the element passes take any trailing axes and move
 them as packed channels (C = dim * B, component-major) through the slot
 gather and reduce of `ops/onehot.py` (kernels D and C on the card).  The
 per-member element matrices are then held as F_e[j, e, i, b] = F_e^(b)[e, i, j]
-([nloc, E, nloc, B], see `element_apply`).
+([nloc, E, nloc, B], see `element_apply`), and D and G are element passes.
+
+A cell-sharded operator (`parallel/sharding.py`) holds one rank's block
+of the cells and its process group: every node reduce (`scatter_u`,
+`scatter_p`) then all-reduces the rank's partial vector over the group.
 """
 
 from __future__ import annotations
@@ -107,6 +111,11 @@ class NSOperator:
     # 1 keeps the cell's linearised C(w) inside F, 0 moves it to the
     # explicit rhs.  None: fully implicit.
     imex_scale: torch.Tensor | None = None
+    # the cell-sharded operator's process group (`parallel/sharding.py`):
+    # each rank holds a block of the cells, and every node reduce of an
+    # element pass all-reduces the rank's partial vector over the group
+    # (the reference's compress()); None on one device
+    group: object | None = None
 
     @functools.cached_property
     def onehot(self) -> OneHotPlans:
@@ -262,7 +271,7 @@ def scatter_u(op: NSOperator, y_e: torch.Tensor) -> torch.Tensor:
     """[E, n_loc_u, *rest] element contributions -> [n_unodes, *rest]
     (kernel C on the card)."""
     flat = y_e.reshape(op.onehot.n_slots, -1).contiguous()
-    return onehot_reduce(op.onehot, flat).view(op.onehot.n_rows, *y_e.shape[2:])
+    return _compress(op, onehot_reduce(op.onehot, flat)).view(op.onehot.n_rows, *y_e.shape[2:])
 
 
 def gather_p(op: NSOperator, p: torch.Tensor) -> torch.Tensor:
@@ -274,21 +283,33 @@ def gather_p(op: NSOperator, p: torch.Tensor) -> torch.Tensor:
 def scatter_p(op: NSOperator, y_e: torch.Tensor) -> torch.Tensor:
     """[E, dim + 1, *rest] -> [n_pnodes, *rest] (plain segmented sum)."""
     flat = y_e.reshape(op.plan_p.n_slots, -1)
-    return apply_segment_plan(op.plan_p, flat).view(op.plan_p.n_rows, *y_e.shape[2:])
+    return _compress(op, apply_segment_plan(op.plan_p, flat)).view(op.plan_p.n_rows, *y_e.shape[2:])
+
+
+def _compress(op: NSOperator, y: torch.Tensor) -> torch.Tensor:
+    """A rank's partial node vector summed over the operator's group (a
+    cell-sharded operator), else y as it is."""
+    if op.group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(y, group=op.group)
+    return y
 
 
 def apply_divergence(op: NSOperator, u: torch.Tensor) -> torch.Tensor:
-    """y = D u: [n_unodes, dim] -> [n_pnodes] (assembled, or the element
-    pass when `op.div` is None)."""
-    if op.div is None:
+    """y = D u: [n_unodes, dim, *rest] -> [n_pnodes, *rest] (assembled,
+    or the element pass when `op.div` is None or u carries members, as the
+    reference's vmapped step runs it)."""
+    if op.div is None or u.dim() > 2:
         return apply_divergence_e(op, gather_u(op, u))
     return apply_csr(op.div, u)[:, 0]
 
 
 def apply_gradient(op: NSOperator, p: torch.Tensor) -> torch.Tensor:
-    """y = G p = -D^T p: [n_pnodes] -> [n_unodes, dim] (assembled, or the
-    element pass when `op.grad` is None)."""
-    if op.grad is None:
+    """y = G p = -D^T p: [n_pnodes, *rest] -> [n_unodes, dim, *rest]
+    (assembled, or the element pass when `op.grad` is None or p carries
+    members)."""
+    if op.grad is None or p.dim() > 1:
         return apply_gradient_e(op, p)
     return apply_csr(op.grad, p[:, None])
 
@@ -340,17 +361,20 @@ def build_backflow_tables(space, bt, tag: int, dtype, device) -> BackflowTables:
 
 
 def _backflow_coef(bf: BackflowTables, w: torch.Tensor) -> torch.Tensor:
-    """[f, q] facet coefficients -1/2 min(w.n, 0) JxW (>= 0)."""
-    w_qf = torch.einsum("fqi,fic->fqc", bf.phi_u, w[bf.cells_u])
-    un = torch.einsum("fqc,fc->fq", w_qf, bf.normal)
-    return -0.5 * torch.clamp(un, max=0.0) * bf.jxw
+    """[f, q, *rest] facet coefficients -1/2 min(w.n, 0) JxW (>= 0) of
+    w [n, dim, *rest]."""
+    w_qf = torch.einsum("fqi,fic...->fqc...", bf.phi_u, w[bf.cells_u])
+    un = torch.einsum("fqc...,fc->fq...", w_qf, bf.normal)
+    return -0.5 * torch.clamp(un, max=0.0) * _tail(bf.jxw, un.dim() - 2)
 
 
 def _backflow_apply(bf: BackflowTables, coef: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """The facet term's action on u [n, dim] -> [n, dim]."""
-    u_qf = torch.einsum("fqi,fic->fqc", bf.phi_u, u[bf.cells_u])
-    y_f = torch.einsum("fq,fqi,fqc->fic", coef, bf.phi_u, u_qf)
-    return apply_segment_plan(bf.plan, y_f.reshape(-1, y_f.shape[-1]))
+    """The facet term's action on u [n, C, *rest] -> [n, C, *rest] (coef
+    [f, q, *rest])."""
+    u_qf = torch.einsum("fqi,fic...->fqc...", bf.phi_u, u[bf.cells_u])
+    y_f = torch.einsum("fq...,fqi,fqc...->fic...", coef, bf.phi_u, u_qf)
+    f, i = y_f.shape[:2]
+    return apply_segment_plan(bf.plan, y_f.reshape(f * i, -1)).view(bf.plan.n_rows, *y_f.shape[2:])
 
 
 @dataclasses.dataclass
@@ -420,8 +444,10 @@ def convection_setup(
         diagC = scatter_u(op, d_e * _tail(cdet[:, None], tail))
     if backflow is not None:
         bf_coef = _backflow_coef(backflow, w)
-        d_f = torch.einsum("fq,fqi,fqi->fi", bf_coef, backflow.phi_u, backflow.phi_u)
-        diagC = diagC + apply_segment_plan(backflow.plan, d_f.reshape(-1))
+        d_f = torch.einsum("fq...,fqi,fqi->fi...", bf_coef, backflow.phi_u, backflow.phi_u)
+        f, i = d_f.shape[:2]
+        diagC = diagC + apply_segment_plan(backflow.plan, d_f.reshape(f * i, -1)).view(
+            backflow.plan.n_rows, *d_f.shape[2:])
     F_e = None
     if fold is not None:
         nu, dt = fold
@@ -431,7 +457,7 @@ def convection_setup(
             F_e = (op.MHAT[None] * (op.detJ / dt)[:, None, None]).permute(2, 0, 1)[..., None]
             F_e = F_e + base.permute(2, 0, 1)[..., None] * nu
             WPHI = op.W[:, None] * op.PHI_U  # [q, i]
-            C_e = torch.einsum("qi,eqjb->jeib", WPHI, R) * op.detJ[None, :, None, None]
+            C_e = torch.einsum("qi,eqjb->jeib", WPHI, R) * cdet[None, :, None, None]
             F_e = (F_e + C_e).contiguous()
         else:
             C_e = _conv_elem(op, R) * cdet[:, None, None]
@@ -495,8 +521,10 @@ def element_apply(F_e: torch.Tensor, x_e: torch.Tensor) -> torch.Tensor:
 
 def _apply_K_e(op: NSOperator, nu, dt, u_e: torch.Tensor) -> torch.Tensor:
     """Element contributions of K = M/dt + nu A (no convection) on an
-    element view u_e [E, nloc, dim] (a single run's nu and dt)."""
-    y_e = torch.einsum("ij,ejc->eic", op.MHAT, u_e) * (op.detJ / dt)[:, None, None]
+    element view u_e [E, nloc, C, *rest] (nu a float, or [B] for members on
+    the last axis)."""
+    det = _tail((op.detJ / dt)[:, None, None], u_e.dim() - 3)
+    y_e = torch.einsum("ij,ejc...->eic...", op.MHAT, u_e) * det
     return y_e + nu * element_apply(op.stiff_e, u_e)
 
 
@@ -536,7 +564,8 @@ def apply_F(
 
 def apply_mass(op: NSOperator, u: torch.Tensor) -> torch.Tensor:
     """y = M u (velocity mass, unscaled): one element pass."""
-    y_e = torch.einsum("ij,ejc->eic", op.MHAT, gather_u(op, u)) * op.detJ[:, None, None]
+    u_e = gather_u(op, u)
+    y_e = torch.einsum("ij,ejc...->eic...", op.MHAT, u_e) * _tail(op.detJ[:, None, None], u_e.dim() - 3)
     return scatter_u(op, y_e)
 
 
@@ -546,8 +575,8 @@ def apply_stiffness(op: NSOperator, u: torch.Tensor) -> torch.Tensor:
 
 
 def apply_pressure_mass(op: NSOperator, p: torch.Tensor) -> torch.Tensor:
-    """y = Mp p (pressure mass, unscaled)."""
-    y_e = torch.einsum("ij,ej->ei", op.MPHAT, gather_p(op, p)) * op.detJ[:, None]
+    """y = Mp p (pressure mass, unscaled), p [n_pnodes, *rest]."""
+    y_e = torch.einsum("ij,ej...->ei...", op.MPHAT, gather_p(op, p)) * _tail(op.detJ[:, None], p.dim() - 1)
     return scatter_p(op, y_e)
 
 
@@ -558,20 +587,21 @@ def apply_system(op: NSOperator, nu, dt, conv: ConvectionData, u, p, mask_rows: 
     `mask_rows` (the reference's row elimination)."""
     u_e = gather_u(op, u)
     p_e = gather_p(op, p)
+    tail = u_e.dim() - 3  # members on trailing axes (u [n, dim, B], p [n_p, B])
     if conv is None:
         y_e = _apply_K_e(op, nu, dt, u_e)
     else:
         _check_fold(conv, nu, dt)
         y_e = element_apply(conv.F_e, u_e)
-    det = op.detJ[:, None, None]
-    y_e = y_e - torch.einsum("ekc,kij,ei->ejc", op.Jinv, op.BHAT, p_e) * det
+    det = _tail(op.detJ[:, None, None], tail)
+    y_e = y_e - torch.einsum("ekc,kij,ei...->ejc...", op.Jinv, op.BHAT, p_e) * det
     y_u = scatter_u(op, y_e)
     if conv is not None and conv.bf_coef is not None:
         y_u = y_u + _backflow_apply(conv.bf, conv.bf_coef, u)
-    y_pe = torch.einsum("ekc,kij,ejc->ei", op.Jinv, op.BHAT, u_e) * op.detJ[:, None]
+    y_pe = torch.einsum("ekc,kij,ejc...->ei...", op.Jinv, op.BHAT, u_e) * _tail(op.detJ[:, None], tail)
     y_p = scatter_p(op, y_pe)
     if mask_rows:
-        y_u = torch.where(op.dirichlet_mask[:, None], u, y_u)
+        y_u = torch.where(_tail(op.dirichlet_mask[:, None], tail), u, y_u)
     return y_u, y_p
 
 
@@ -598,10 +628,10 @@ def apply_rhs_and_r0(
         _check_fold(conv, nu, dt)
         f_e = element_apply(conv.F_e, u0_e)
     if conv is not None and op.imex_scale is not None and w_e is not None:
-        w_q = torch.einsum("qi,eic->eqc", op.PHI_U, w_e)
-        nw = torch.einsum("eqi,eic->eqc", conv.WG, w_e) + 0.5 * conv.divw[:, :, None] * w_q
-        nw = nw * (1.0 - op.imex_scale)[:, None, None]
-        b_e = b_e - torch.einsum("q,qi,eqc->eic", op.W, op.PHI_U, nw) * det
+        w_q = torch.einsum("qi,eic...->eqc...", op.PHI_U, w_e)
+        nw = torch.einsum("eqi...,eic...->eqc...", conv.WG, w_e) + 0.5 * conv.divw[:, :, None] * w_q
+        nw = nw * _tail((1.0 - op.imex_scale)[:, None, None], w_e.dim() - 3)
+        b_e = b_e - torch.einsum("q,qi,eqc...->eic...", op.W, op.PHI_U, nw) * det
     y = scatter_u(op, torch.cat([b_e, b_e - f_e], dim=2))
     d = h.shape[1]
     b, r0 = y[:, :d], y[:, d:]
@@ -621,8 +651,8 @@ def apply_convection_self(
     if w_e is None:
         w_e = gather_u(op, w)
     w_q, WG, divw = _conv_quad(op, op.Jinv, w_e)
-    r = torch.einsum("eqi,eic->eqc", WG, w_e) + 0.5 * divw[:, :, None] * w_q
-    y_e = torch.einsum("q,qi,eqc->eic", op.W, op.PHI_U, r) * op.detJ[:, None, None]
+    r = torch.einsum("eqi...,eic...->eqc...", WG, w_e) + 0.5 * divw[:, :, None] * w_q
+    y_e = torch.einsum("q,qi,eqc...->eic...", op.W, op.PHI_U, r) * _tail(op.detJ[:, None, None], w_e.dim() - 3)
     y = scatter_u(op, y_e)
     if backflow is not None:
         y = y + _backflow_apply(backflow, _backflow_coef(backflow, w), w)

@@ -119,7 +119,13 @@ def build_velocity_pmg(space, geom, dirichlet_mask, dtype, device) -> VelocityPM
 
 def pmg_vals(pmg: VelocityPMG, nu, dt):
     """Per-step coarse ELL values Fc = M1/dt + nu A1 (identity Dirichlet
-    rows) and the inverse diagonal."""
+    rows) and the inverse diagonal: [n_v, W] and [n_v], or one set a member
+    ([n_v, W, B], [n_v, B]) for a [B] tensor nu."""
+    if torch.is_tensor(nu) and nu.dim() == 1:
+        vals = pmg.m_vals[..., None] / dt + nu * pmg.a_vals[..., None]
+        onehot = pmg.diag_onehot[..., None]
+        vals = torch.where(pmg.dir_v[:, None, None], onehot, vals)
+        return vals, 1.0 / torch.sum(onehot * vals, dim=1)
     vals = pmg.m_vals / dt + nu * pmg.a_vals
     vals = torch.where(pmg.dir_v[:, None], pmg.diag_onehot, vals)
     diag = torch.sum(pmg.diag_onehot * vals, dim=1)
@@ -127,16 +133,21 @@ def pmg_vals(pmg: VelocityPMG, nu, dt):
 
 
 def pmg_matvec(pmg: VelocityPMG, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Coarse SpMV, payload [n_v, d]."""
+    """Coarse SpMV, payload [n_v, d] (or [n_v, d, B] with one value set a
+    member)."""
+    if vals.dim() == 3:
+        return torch.einsum("vwb,vwdb->vdb", vals, x[pmg.cols])
     return torch.einsum("vw,vwd->vd", vals, x[pmg.cols])
 
 
 def restrict_p(pmg: VelocityPMG, r: torch.Tensor) -> torch.Tensor:
-    """P^T r: [n_unodes, d] -> [n_v, d] (edge residuals split to endpoints)."""
+    """P^T r: [n_unodes, d, *rest] -> [n_v, d, *rest] (edge residuals
+    split to endpoints)."""
     n_v = pmg.n_v
     flat = torch.cat([r[:n_v], 0.5 * r[n_v:], 0.5 * r[n_v:]], dim=0)
-    rc = apply_segment_plan(pmg.plan_r, flat)
-    return torch.where(pmg.dir_v[:, None], torch.zeros_like(rc), rc)
+    rc = apply_segment_plan(pmg.plan_r, flat.reshape(flat.shape[0], -1)).view(n_v, *r.shape[1:])
+    dir_v = pmg.dir_v.view(-1, *(1,) * (r.dim() - 1))
+    return torch.where(dir_v, torch.zeros_like(rc), rc)
 
 
 def prolong_p(pmg: VelocityPMG, zc: torch.Tensor, n_unodes: int) -> torch.Tensor:
@@ -146,13 +157,15 @@ def prolong_p(pmg: VelocityPMG, zc: torch.Tensor, n_unodes: int) -> torch.Tensor
 
 
 def pmg_coarse_solve(pmg, vals, inv_diag, rc, iters: int, precise=False):
-    """Fixed-iteration Jacobi-CG on the coarse operator, payload [n_v, d]."""
-    n, d = rc.shape
+    """Fixed-iteration Jacobi-CG on the coarse operator, payload [n_v, d]
+    (or [n_v, d, B], one CG a member)."""
+    shape = rc.shape
+    flat = (shape[0] * shape[1], *shape[2:])
 
     def A(v):
-        return pmg_matvec(pmg, vals, v.reshape(n, d)).reshape(-1)
+        return pmg_matvec(pmg, vals, v.reshape(shape)).reshape(flat)
 
     def M(v):
-        return (inv_diag[:, None] * v.reshape(n, d)).reshape(-1)
+        return (inv_diag.unsqueeze(1) * v.reshape(shape)).reshape(flat)
 
-    return cg_fixed(A, rc.reshape(-1), M, iters=iters, precise=precise).reshape(n, d)
+    return cg_fixed(A, rc.reshape(flat), M, iters=iters, precise=precise).reshape(shape)

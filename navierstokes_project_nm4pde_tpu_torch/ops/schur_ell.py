@@ -248,37 +248,46 @@ def schur_from_host(host: dict, dtype, device, assembly: bool = False) -> SchurE
 
 
 def assemble_schur_values(s: SchurELL, inv_dF: torch.Tensor) -> torch.Tensor:
-    """Per-step flat values [n_slots]: the upper-triangle products weighted
+    """Per-step flat values [n_slots] (or [n_slots, B] for one weight
+    column a member, inv_dF [n_u, B]): the upper-triangle products weighted
     by inv_dF[k], summed per slot, then the lower triangle mirrored."""
-    w = s.prod_vals * inv_dF.index_select(0, s.prod_k)
-    vals = torch.segment_reduce(w, "sum", lengths=s.slot_lengths, unsafe=True)
+    prod = s.prod_vals if inv_dF.dim() == 1 else s.prod_vals[:, None]
+    w = prod * inv_dF.index_select(0, s.prod_k)
+    vals = torch.segment_reduce(w, "sum", lengths=s.slot_lengths, axis=0, unsafe=True)
     return vals.index_select(0, s.mirror)
 
 
 def _bucket_views(s: SchurELL, vals: torch.Tensor):
+    """Per bucket: (cols, masked values [rows_b, W, *members])."""
     for b, cols in enumerate(s.cols):
         rows_b, W = cols.shape
         off = s.slot_base[b]
-        yield cols, s.mask[b], vals[off:off + rows_b * W].view(rows_b, W)
+        vb = vals[off:off + rows_b * W].view(rows_b, W, *vals.shape[1:])
+        yield cols, vb * s.mask[b].view(rows_b, W, *(1,) * (vals.dim() - 1))
+
+
+def _spread(vb: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Shared values [rows, W] against members p [n_p, B]: [rows, W, 1]."""
+    return vb.view(*vb.shape, *(1,) * (p.dim() - 1)) if vb.dim() == 2 else vb
 
 
 def schur_ell_matvec(s: SchurELL, vals: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """S~ p for p [n_p] or [n_p, B]: a gather of p and a row sum over each
-    bucket's padded block."""
-    tail = (1,) * (p.dim() - 1)
-    outs = [((vb * mb).view(*vb.shape, *tail) * p[cb]).sum(1) for cb, mb, vb in _bucket_views(s, vals)]
+    """S~ p for p [n_p] or [n_p, B], with values [n_slots] shared by the
+    columns or [n_slots, B] one set a column: a gather of p and a row sum
+    over each bucket's padded block."""
+    outs = [(_spread(vb, p) * p[cb]).sum(1) for cb, vb in _bucket_views(s, vals)]
     return torch.cat(outs).index_select(0, s.row_unperm)
 
 
 def masked_bf16_vals(s: SchurELL, vals: torch.Tensor) -> tuple:
     """Per-bucket masked values in bfloat16 (the low-precision SpMV's)."""
-    return tuple((vb * mb).to(torch.bfloat16) for _, mb, vb in _bucket_views(s, vals))
+    return tuple(vb.to(torch.bfloat16) for _, vb in _bucket_views(s, vals))
 
 
 def schur_ell_matvec_bf16(s: SchurELL, vals16: tuple, p: torch.Tensor, out_dtype) -> torch.Tensor:
     """bfloat16-payload SpMV: bfloat16 products, summed in `out_dtype`."""
     p16 = p.to(torch.bfloat16)
-    outs = [(vals16[b] * p16[cols]).to(out_dtype).sum(1) for b, cols in enumerate(s.cols)]
+    outs = [(_spread(vals16[b], p) * p16[cols]).to(out_dtype).sum(1) for b, cols in enumerate(s.cols)]
     return torch.cat(outs).index_select(0, s.row_unperm)
 
 

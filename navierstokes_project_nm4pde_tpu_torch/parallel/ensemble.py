@@ -2,13 +2,14 @@
 advanced as one batch.
 
 The counterpart of the reference's `parallel/ensemble.py`.  The reference
-vmaps its whole step over the viscosities and, before it does, strips the
-single run's fast paths that do not survive a batch (the cached F bound,
-the windowed gather, the assembled and BSR D and G, the constant-K BSR and
-IMEX tables, the macro blocks, the fgmres-aux divergence), so its members
-run the element branch of `_step_projection` with einsum contractions.
-Here that branch is `NavierStokesSolver.step_ensemble`, which never takes
-those paths, and the vmap is a trailing member axis on every state array:
+vmaps its whole step (either stepper, every scheme and convection mode)
+over the viscosities and, before it does, strips the single run's fast
+paths that do not survive a batch (the cached F bound, the windowed
+gather, the assembled and BSR D and G, the constant-K BSR and IMEX
+tables, the macro blocks, the fgmres-aux divergence), so its members run
+the element branch of the step with einsum contractions.  Here that is
+`NavierStokesSolver.step` with nu a [B] tensor, which never takes those paths, and
+the vmap is a trailing member axis on every state array and recycle pool:
 the element passes move all members as packed channels through kernels D
 and C, and the Krylov solves run the members in one batch with their own
 tolerances and iteration counts.
@@ -30,7 +31,7 @@ from navierstokes_project_nm4pde_tpu_torch.models.base import (
     StepDiagnostics,
 )
 
-_ARRAYS = ("u", "p", "u_prev", "p_prev", "u_prev2")
+_ARRAYS = ("u", "p", "u_prev", "p_prev", "u_prev2", "conv_prev", "spool", "fpool", "fwpool")
 
 
 def run_ensemble(solver, nus, n_steps: int, state: State | None = None):
@@ -48,14 +49,14 @@ def run_ensemble(solver, nus, n_steps: int, state: State | None = None):
     if nus_t.dim() != 1 or nus_t.shape[0] < 1:
         raise ValueError(f"nus must be a non-empty 1-D array, got shape {tuple(nus_t.shape)}")
     B = nus_t.shape[0]
-    state = solver.initial_state(B) if state is None else state
+    state = solver.initial_state(B) if state is None else solver._ensure_pools(state)
     spc = max(1, int(solver.config.numerics.steps_per_chunk))
     rows, walls, done = [], [], 0
     while done < n_steps:
         length = min(spc, n_steps - done)
         t0 = time.perf_counter()
         for _ in range(length):
-            state, dg = solver.step_ensemble(state, nus_t)
+            state, dg = solver.step(state, nus_t)
             if not np.all(np.isfinite(dg["residual"])):
                 raise FloatingPointError(
                     f"ensemble diverged: non-finite residual at step {state.step}"
@@ -88,13 +89,12 @@ def run_ensemble(solver, nus, n_steps: int, state: State | None = None):
 
 def ensemble_state_from_numpy(arrays, device, dtype: torch.dtype | None = None) -> State:
     """An ensemble State from the reference's batched State (numpy arrays
-    with a leading member axis B, t and step [B]), given as a mapping or
-    as any object with those attribute names."""
+    with a leading member axis B, its recycle pools and conv_prev
+    included; t and step [B]), given as a mapping or as any object with
+    those attribute names."""
     get = arrays.get if isinstance(arrays, Mapping) else (
         lambda k: getattr(arrays, k, None)
     )
-    if get("spool") is not None:
-        raise ValueError("an ensemble state carries no recycle pool (s_recycle=0)")
     dev = torch.device(device)
 
     def conv(k):
@@ -110,9 +110,8 @@ def ensemble_state_from_numpy(arrays, device, dtype: torch.dtype | None = None) 
     if np.ptp(t) != 0 or np.ptp(step) != 0:
         raise ValueError("ensemble members must share t and step")
     return State(
-        u=conv("u"), p=conv("p"), t=float(t.reshape(-1)[0]),
-        step=int(step.reshape(-1)[0]), u_prev=conv("u_prev"),
-        p_prev=conv("p_prev"), u_prev2=conv("u_prev2"),
+        t=float(t.reshape(-1)[0]), step=int(step.reshape(-1)[0]),
+        **{k: conv(k) for k in _ARRAYS},
     )
 
 

@@ -22,6 +22,13 @@ Every inner solve runs a fixed number of iterations and reads nothing back
 to the host, so one application costs no synchronisation.  On the card
 each F apply is an element pass through kernels D and C.  `inv_diag_Fhat`
 is the projection stepper's Jacobi diagonal.
+
+An ensemble passes nu as a [B] tensor and its fields with the members on
+a trailing axis (v_u [n, dim, B], v_p [n_p, B]): the state then holds
+what the reference's vmapped step builds per member (the diagonals, the
+F bound by power iteration, S~'s values and coarse factor where S~'s
+weight depends on nu), and shares what does not (yosida's and ayosida's
+S~, the set-up SPAI values).
 """
 
 from __future__ import annotations
@@ -86,8 +93,18 @@ def inv_diag_Fhat(op: ops.NSOperator, nu, dt, conv: ops.ConvectionData | None) -
     """1 / diag(F) on free nodes, 1 on Dirichlet rows: [n_unodes], or
     [n_unodes, B] for a [B] tensor nu (an ensemble)."""
     dF = ops.diag_F(op, nu, dt, conv)
-    mask = op.dirichlet_mask.reshape((-1,) + (1,) * (dF.dim() - 1))
-    return 1.0 / torch.where(mask, torch.ones_like(dF), dF)
+    return 1.0 / torch.where(_like(op.dirichlet_mask, dF), torch.ones_like(dF), dF)
+
+
+def _like(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """x [n] (or [n, d]) with trailing singleton axes to broadcast against
+    v [n, *rest] (or [n, d, *rest])."""
+    return x.reshape(x.shape + (1,) * (v.dim() - x.dim()))
+
+
+def _flat(u: torch.Tensor) -> torch.Tensor:
+    """[n, d, *rest] -> [n * d, *rest]."""
+    return u.reshape(u.shape[0] * u.shape[1], *u.shape[2:])
 
 
 def build_precond_state(
@@ -99,17 +116,19 @@ def build_precond_state(
     assembly and coarse factorisation (the frozen projection Schur brings
     its own); only the velocity-block diagonals, `schur_inv` and the F
     bound are built."""
-    mask = op.dirichlet_mask
     dF = ops.diag_F(op, nu, dt, conv)
+    mask = _like(op.dirichlet_mask, dF)
     one = torch.ones_like(dF)
     diag_Fhat = torch.where(mask, one, dF)
     inv_Fhat = 1.0 / diag_Fhat
     inv_free = torch.where(mask, torch.zeros_like(dF), 1.0 / dF)
-    zero = torch.zeros_like(dF)
+    # yosida's and ayosida's S~ weights do not depend on nu: one S~ serves
+    # every member
+    zero = torch.zeros_like(op.diagM)
     if kind == "yosida":
-        schur_inv = torch.where(mask, zero, dt / op.diagM)
+        schur_inv = torch.where(op.dirichlet_mask, zero, dt / op.diagM)
     elif kind == "ayosida":
-        schur_inv = torch.where(mask, zero, dt / op.lumpM)
+        schur_inv = torch.where(op.dirichlet_mask, zero, dt / op.lumpM)
     else:
         schur_inv = inv_free
     scalar = lambda v: torch.full((), v, dtype=dF.dtype, device=dF.device)  # noqa: E731
@@ -128,6 +147,7 @@ def build_precond_state(
     if s_solver == "chebyshev":
         inv_d = 1.0 / schur_diag
         v0 = torch.sin(torch.arange(op.n_pnodes, dtype=schur_diag.dtype, device=schur_diag.device))
+        v0 = v0.reshape(-1, *(1,) * (schur_diag.dim() - 1)).expand(schur_diag.shape)
         lam_max = power_lambda_max(
             lambda p: schur_ell_matvec(op.schur, schur_vals, p), lambda p: inv_d * p, v0, iters=8,
         )
@@ -158,16 +178,19 @@ def _f_lam_bound(op, nu, dt, conv, f_solver, f_lam, inv_Fhat):
 def f_lam_power(op, nu, dt, conv, inv_Fhat: torch.Tensor, iters: int) -> torch.Tensor:
     """lam_max(diag(F)^-1 F) of F with Dirichlet identity rows (conv=None:
     the convection-free M/dt + nu A) by `iters` power iterations from
-    sin(0, 1, ...): a 0-d tensor, no host sync."""
+    sin(0, 1, ...): a 0-d tensor, or [B] for members (inv_Fhat [n, B]), no
+    host sync."""
     n, d = op.n_unodes, op.dim
-    mask = op.dirichlet_mask[:, None]
+    shape = (n, d, *inv_Fhat.shape[1:])
+    mask = op.dirichlet_mask.view(n, 1, *(1,) * (inv_Fhat.dim() - 1))
 
     def Fj(v):
-        u = v.reshape(n, d)
-        return torch.where(mask, u, ops.apply_F(op, nu, dt, conv, u)).reshape(-1)
+        u = v.reshape(shape)
+        return _flat(torch.where(mask, u, ops.apply_F(op, nu, dt, conv, u)))
 
-    minv = inv_Fhat[:, None].expand(n, d).reshape(-1)
+    minv = _flat(inv_Fhat.unsqueeze(1).expand(shape))
     v0 = torch.sin(torch.arange(n * d, dtype=inv_Fhat.dtype, device=inv_Fhat.device))
+    v0 = _like(v0, minv).expand(minv.shape)
     return power_lambda_max(Fj, lambda v: minv * v, v0, iters=iters)
 
 
@@ -175,22 +198,23 @@ def f_lam_power(op, nu, dt, conv, inv_Fhat: torch.Tensor, iters: int) -> torch.T
 # Inner solves
 # ----------------------------------------------------------------------
 def _solve_F(op, st: PrecondState, nu, dt, rhs_u, cfg: PrecondConfig, iters=None):
-    """Approximately solve F_hat z = rhs for rhs_u [n, dim] (f_solver:
-    fixed GMRES, Richardson, Chebyshev, or the additive P2 -> P1 two-level
-    correction); with cfg.low_precision the operator input is bfloat16."""
-    n, d = rhs_u.shape
-    mask = op.dirichlet_mask
+    """Approximately solve F_hat z = rhs for rhs_u [n, dim] or members
+    [n, dim, B] (f_solver: fixed GMRES, Richardson, Chebyshev, or the
+    additive P2 -> P1 two-level correction); with cfg.low_precision the
+    operator input is bfloat16."""
+    n = rhs_u.shape[0]
+    mask = _like(op.dirichlet_mask[:, None], rhs_u)
     dtype = rhs_u.dtype
 
     def Aflat(v):
-        u = v.reshape(n, d)
+        u = v.reshape(rhs_u.shape)
         x = u.to(torch.bfloat16) if cfg.low_precision else u
         y = ops.apply_F(op, nu, dt, st.conv, x).to(dtype)
-        return torch.where(mask[:, None], u, y).reshape(-1)
+        return _flat(torch.where(mask, u, y))
 
-    Minv = st.inv_diag_Fhat[:, None].expand(n, d).reshape(-1)
+    Minv = _flat(st.inv_diag_Fhat.unsqueeze(1).expand(rhs_u.shape))
     it = iters if iters is not None else cfg.f_iters
-    b = rhs_u.reshape(-1)
+    b = _flat(rhs_u)
     if cfg.f_solver == "richardson":
         omega = cfg.omega / (0.5 * (1.0 + st.f_lam_max))
         z = richardson_fixed(Aflat, b, lambda v: Minv * v, iters=it, omega=omega)
@@ -204,10 +228,10 @@ def _solve_F(op, st: PrecondState, nu, dt, rhs_u, cfg: PrecondConfig, iters=None
         cvals, inv_dc = pmg_vals(op.pmg, nu, dt)
         zc = pmg_coarse_solve(op.pmg, cvals, inv_dc, restrict_p(op.pmg, rhs_u), iters=it)
         dz = prolong_p(op.pmg, zc, n)
-        z = omega * Minv * b + torch.where(mask[:, None], torch.zeros_like(dz), dz).reshape(-1)
+        z = omega * Minv * b + _flat(torch.where(mask, torch.zeros_like(dz), dz))
     else:
         z = gmres_fixed(Aflat, b, lambda v: Minv * v, iters=it)
-    return z.reshape(n, d)
+    return z.reshape(rhs_u.shape)
 
 
 def _solve_S(op, st: PrecondState, rhs_p, cfg: PrecondConfig):
@@ -223,7 +247,7 @@ def _solve_S(op, st: PrecondState, rhs_p, cfg: PrecondConfig):
             return schur_ell_matvec(op.schur, st.schur_vals, p)
 
     if cfg.s_solver in ("mg2", "mg2_cg"):
-        inv_d = 1.0 / st.schur_diag
+        inv_d = 1.0 / st.schur_diag  # shared, or one a member: twolevel_apply spreads it
 
         def M2(v):
             return twolevel_apply(op.coarse, st.schur_cho_L, S, inv_d, v)
@@ -240,7 +264,7 @@ def _solve_S(op, st: PrecondState, rhs_p, cfg: PrecondConfig):
             return Mspai(rhs_p)
         return cg_fixed(S, rhs_p, Mspai, iters=cfg.s_iters)
 
-    Minv = 1.0 / st.schur_diag
+    Minv = _like(1.0 / st.schur_diag, rhs_p)
     if cfg.s_solver == "chebyshev":
         lam_max = 1.05 * st.schur_lam_max
         return chebyshev_fixed(
@@ -259,7 +283,8 @@ def _dt_apply(op, p):
 # Application
 # ----------------------------------------------------------------------
 def apply_precond(kind: str, cfg: PrecondConfig, op, st: PrecondState, nu, dt, v_u, v_p):
-    """z = P^-1 v for the preconditioner `kind`: (z_u [n, dim], z_p [n_p])."""
+    """z = P^-1 v for the preconditioner `kind`: (z_u [n, dim], z_p [n_p]),
+    or members on a trailing axis."""
     if kind in ("identity", "block_identity"):
         return v_u, v_p
 
@@ -267,7 +292,7 @@ def apply_precond(kind: str, cfg: PrecondConfig, op, st: PrecondState, nu, dt, v
         # the full F block, then the nu-scaled pressure mass on v_p - D z_u
         z_u = _solve_F(op, st, nu, dt, v_u, cfg)
         rhs_p = v_p - ops.apply_divergence(op, z_u)
-        MinvP = nu / op.diagMp
+        MinvP = nu / _like(op.diagMp, v_p)
         z_p = cg_fixed(
             lambda p: ops.apply_pressure_mass(op, p) / nu, rhs_p, lambda v: MinvP * v,
             iters=cfg.s_iters,
@@ -278,7 +303,7 @@ def apply_precond(kind: str, cfg: PrecondConfig, op, st: PrecondState, nu, dt, v
         y_u = _solve_F(op, st, nu, dt, v_u, cfg)
         y_p = _solve_S(op, st, v_p - ops.apply_divergence(op, y_u), cfg)
         z_p = y_p / cfg.alpha
-        return y_u + st.inv_diag_free[:, None] * _dt_apply(op, z_p), z_p
+        return y_u + st.inv_diag_free.unsqueeze(1) * _dt_apply(op, z_p), z_p
 
     if kind == "yosida":
         # L-solve with S~ from dt M^-1, then a second F solve for the
@@ -286,14 +311,14 @@ def apply_precond(kind: str, cfg: PrecondConfig, op, st: PrecondState, nu, dt, v
         y_u = _solve_F(op, st, nu, dt, v_u, cfg)
         z_p = _solve_S(op, st, v_p - ops.apply_divergence(op, y_u), cfg)
         rhs_corr = _dt_apply(op, z_p)
-        rhs_corr = torch.where(op.dirichlet_mask[:, None], torch.zeros_like(rhs_corr), rhs_corr)
+        rhs_corr = torch.where(_like(op.dirichlet_mask[:, None], rhs_corr), torch.zeros_like(rhs_corr), rhs_corr)
         corr = _solve_F(op, st, nu, dt, rhs_corr, cfg, iters=cfg.f_corr_iters or None)
         return y_u + corr, z_p
 
     if kind == "ayosida":
         # every F solve a diagonal scaling; one CG on the lumped-mass S~
-        y_u = st.inv_diag_Fhat[:, None] * v_u
+        y_u = st.inv_diag_Fhat.unsqueeze(1) * v_u
         z_p = _solve_S(op, st, v_p - ops.apply_divergence(op, y_u), cfg)
-        return y_u + st.inv_diag_free[:, None] * _dt_apply(op, z_p), z_p
+        return y_u + st.inv_diag_free.unsqueeze(1) * _dt_apply(op, z_p), z_p
 
     raise ValueError(f"unknown preconditioner kind: {kind}")

@@ -15,14 +15,21 @@ small Hessenberg/Givens algebra of FGMRES on the host in float64.
 Removing those synchronisations (checking every k iterations, or CUDA
 graphs) is later work.
 
-`fgmres` and `cg` also solve [n, B] batches, one column per ensemble
-member, with the semantics of `jax.vmap` over the reference's
-`lax.while_loop`: each member iterates exactly as its own solve would,
-with its own tolerance and iteration count, and a member that has
-stopped is frozen while the others run on.  In FGMRES the members still
-iterating share the inner index j, so their restart cycles run in
-lockstep.  One host sync per iteration reads all B residuals; a single
-system is the batch B = 1.
+Every solver also solves [n, B] batches, one column per ensemble member
+(`gcr_recycled` and `cg_recycled` with pools [k, n, B]), with the
+semantics of `jax.vmap` over the reference's loops: each member iterates
+exactly as its own solve would, with its own tolerance and iteration
+count, and a member that has stopped is frozen while the others run on.
+In FGMRES the members still iterating share the inner index j, so their
+restart cycles run in lockstep.  One host sync per iteration reads all B
+residuals; a single system is the batch B = 1.  A zero norm in one
+column is guarded in that column alone.
+
+`fgmres` takes a process `group` (the owned+halo step of
+`parallel/halo_step.py`): each rank then holds its block of every vector,
+and every dot product is all-reduced over the group (the reference's
+`axis_name` psum), so that every rank reads the same norms and takes the
+same branch.
 """
 
 from __future__ import annotations
@@ -61,24 +68,46 @@ def _dot2(x, y, precise: bool):
     return xs[0], xs[1]
 
 
+def _allsum(t: torch.Tensor, group) -> torch.Tensor:
+    """t summed over the ranks of `group` (None: t)."""
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(t, group=group)
+    return t
+
+
 # Column-wise forms for [n, B] batches (one column per member).
-def _cdot(x, y, precise: bool):
+def _cdot(x, y, precise: bool, group=None):
     """[B] column dot products."""
     if precise and x.dtype != torch.float64:
-        return (x.double() * y.double()).sum(0).to(x.dtype)
-    return (x * y).sum(0)
+        return _allsum((x.double() * y.double()).sum(0), group).to(x.dtype)
+    return _allsum((x * y).sum(0), group)
 
 
-def _cnorm(x, precise: bool):
-    return torch.sqrt(_cdot(x, x, precise))
+def _cnorm(x, precise: bool, group=None):
+    return torch.sqrt(_cdot(x, x, precise, group))
 
 
-def _bdots(V, w, precise: bool):
+def _bdots(V, w, precise: bool, group=None):
     """[B, k] dot products of each member's basis rows V [B, k, n] with its
     vector w [B, n] (one batched matmul)."""
     if precise and V.dtype != torch.float64:
-        return torch.bmm(V.double(), w.double()[:, :, None])[:, :, 0].to(w.dtype)
-    return torch.bmm(V, w[:, :, None])[:, :, 0]
+        return _allsum(torch.bmm(V.double(), w.double()[:, :, None])[:, :, 0], group).to(w.dtype)
+    return _allsum(torch.bmm(V, w[:, :, None])[:, :, 0], group)
+
+
+def _gram(S, precise: bool):
+    """[B, k, k] Gram matrices S S^T of member-major rows S [B, k, n]."""
+    if precise and S.dtype != torch.float64:
+        return torch.bmm(S.double(), S.double().transpose(1, 2)).to(S.dtype)
+    return torch.bmm(S, S.transpose(1, 2))
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """[n, B] columns (or pool rows [k, n, B]) -> member-major [B, n]
+    ([B, k, n])."""
+    return x.movedim(-1, 0).contiguous()
 
 
 def _bcomb(c, V):
@@ -107,6 +136,7 @@ def fgmres(
     precise: bool = True,
     tol_mode: str = "r0",
     aux: bool = False,
+    group=None,
 ):
     """Solve A x = b by right-preconditioned flexible GMRES (CGS2
     orthogonalisation, Givens rotations, restarts).  Returns (x, SolveInfo).
@@ -134,7 +164,7 @@ def fgmres(
             A1, b[:, None], lambda v: M(v[:, 0])[:, None],
             None if x0 is None else x0[:, None], rtol=rtol, atol=atol,
             restart=restart, maxiter=maxiter, precise=precise, tol_mode=tol_mode,
-            aux=aux,
+            aux=aux, group=group,
         )
         x, info = out[0][:, 0], SolveInfo(iters=int(out[1].iters[0]), residual=float(out[1].residual[0]))
         if aux:
@@ -149,11 +179,11 @@ def fgmres(
     else:
         w0, aux_x = A_full(x0)
         r = b - w0
-    res = _host(_cnorm(r, precise))
+    res = _host(_cnorm(r, precise, group))
     if tol_mode == "r0":
         ref = res
     elif tol_mode == "b":
-        ref = _host(_cnorm(b, precise))
+        ref = _host(_cnorm(b, precise, group))
     elif tol_mode == "abs":
         ref = np.ones(B)
     else:
@@ -168,7 +198,7 @@ def fgmres(
     iters = np.zeros(B, np.int64)
     active = (res > tol) & (iters < maxiter)
     while active.any():
-        beta_t = _cnorm(r.T, precise)
+        beta_t = _cnorm(r.T, precise, group)
         beta = _host(beta_t)
         V = r.new_zeros((B, m + 1, n))
         Z = r.new_zeros((B, m, n))
@@ -191,11 +221,11 @@ def fgmres(
             w = w.T.contiguous()
             Zaux.append(a)
             Vj = V[:, : j + 1]
-            h1 = _bdots(Vj, w, precise)
+            h1 = _bdots(Vj, w, precise, group)
             w = w - _bcomb(h1, Vj)
-            h2 = _bdots(Vj, w, precise)
+            h2 = _bdots(Vj, w, precise, group)
             w = w - _bcomb(h2, Vj)
-            hlast_t = _cnorm(w.T, precise)
+            hlast_t = _cnorm(w.T, precise, group)
             hcol = _host(torch.cat([h1 + h2, hlast_t[:, None]], dim=1)).T  # the sync, [j+2, B]
             V[:, j + 1] = torch.where(hlast_t[:, None] > 0, w / hlast_t[:, None], w)
             Z[:, j] = z.T
@@ -276,15 +306,20 @@ def cg(
     The residual norm rides the loop (fused with r.z), as in the
     reference.  Returns (x [n, B], SolveInfo with [B] numpy iters and
     residuals).  A single system is the case B = 1."""
+    if x0 is None:
+        x, r = torch.zeros_like(b), b
+    else:
+        x, r = x0, b - A(x0)
+    x, r, info = _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise)
+    return x, info
+
+
+def _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise):
+    """The CG loop on [n, B] columns from the iterate x and its residual r
+    (the tolerance against ||b||); returns (x, r, SolveInfo)."""
     if M is None:
         M = lambda v: v  # noqa: E731
     B = b.shape[1]
-    if x0 is None:
-        x = torch.zeros_like(b)
-        r = b
-    else:
-        x = x0
-        r = b - A(x0)
     z = M(r)
     p = z
     rz, rr = _cdot(z, r, precise), _cdot(r, r, precise)
@@ -307,7 +342,7 @@ def cg(
         res = np.where(active, _host(torch.sqrt(rr)), res)  # the sync
         k = k + active
         active = (res > tol) & (k < maxiter)
-    return x, SolveInfo(iters=k, residual=res)
+    return x, r, SolveInfo(iters=k, residual=res)
 
 
 # ----------------------------------------------------------------------
@@ -331,7 +366,11 @@ def cg_recycled(
     are carried along (valid only for an operator frozen across calls).
     Zero pool rows are ignored.  Returns (x, SolveInfo, harvest) with
     harvest = [x - x_proj, r_proj - r_final] ([2, n]): the next pool row
-    (direction, image) of this call's CG increment."""
+    (direction, image) of this call's CG increment.  For B columns b
+    [n, B] the pools are [k, n, B] and the harvest [2, n, B], each member
+    projected on its own pool."""
+    if b.dim() == 2:
+        return _cg_recycled_columns(A, b, M, x0, poolD, poolW, rtol, atol, maxiter, precise)
     if M is None:
         M = lambda v: v  # noqa: E731
     if x0 is None:
@@ -379,6 +418,33 @@ def cg_recycled(
         j += 1
     harvest = torch.stack([x - x_proj, r_proj - r])
     return x, SolveInfo(iters=j, residual=res), harvest
+
+
+def _cg_recycled_columns(A, b, M, x0, poolD, poolW, rtol, atol, maxiter, precise):
+    """`cg_recycled` for B members at once (b [n, B], pools [k, n, B]):
+    each member's projection on its own pool, then the batched CG."""
+    if x0 is None:
+        x0, r = torch.zeros_like(b), b
+    else:
+        r = b - A(x0)
+    k = poolD.shape[0]
+    Wm, Dm = _rows(poolW), _rows(poolD)  # [B, k, n]
+    G = _gram(torch.cat([Wm, _rows(r)[:, None]], dim=1), precise)  # [B, k+1, k+1]
+    wn = torch.sqrt(torch.clamp(torch.diagonal(G, dim1=1, dim2=2)[:, :k], min=0.0))
+    sc = torch.where(wn > 0, 1.0 / wn, torch.zeros_like(wn))
+    eye = torch.eye(k, dtype=b.dtype, device=b.device)
+    Gn = G[:, :k, :k] * sc[:, :, None] * sc[:, None, :] + 1e-5 * eye
+    Gn = torch.where((eye > 0) & (wn == 0)[:, :, None], torch.ones_like(Gn), Gn)
+    c = torch.linalg.solve_ex(Gn, G[:, :k, k] * sc).result
+    Dn, Wn = Dm * sc[:, :, None], Wm * sc[:, :, None]
+    x = x0 + _bcomb(c, Dn).T
+    r = r - _bcomb(c, Wn).T
+    c2 = torch.linalg.solve_ex(Gn, _bdots(Wn, _rows(r), precise)).result
+    x = x + _bcomb(c2, Dn).T
+    r = r - _bcomb(c2, Wn).T
+    x_proj, r_proj = x, r
+    x, r, info = _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise)
+    return x, info, torch.stack([x - x_proj, r_proj - r])
 
 
 # ----------------------------------------------------------------------
@@ -444,7 +510,11 @@ def gcr_recycled(
 
     Returns (x, SolveInfo, D) with D [1 + k + max_narrow, n] the normalised
     directions (row 0 = M b, rows 1..k = the pool, then the narrow
-    rounds'); SolveInfo.iters = 1 + the narrow rounds."""
+    rounds'); SolveInfo.iters = 1 + the narrow rounds.  For B columns b
+    [n, B] (pool [k, n, B], D [K, n, B]) `A_block` and `M` map [n, K, B]
+    -> [n, K, B], each member with its own operator."""
+    if b.dim() == 2:
+        return _gcr_recycled_columns(A_block, b, M, pool, rtol, atol, tol_mode, max_narrow, precise)
     n, dtype, dev = b.shape[0], b.dtype, b.device
     k = pool.shape[0]
     K = 1 + k + max_narrow
@@ -496,27 +566,113 @@ def gcr_recycled(
     return c @ D, SolveInfo(iters=1 + j, residual=res), D
 
 
+def _gcr_recycled_columns(A_block, b, M, pool, rtol, atol, tol_mode, max_narrow, precise):
+    """`gcr_recycled` for B members at once, member-major inside ([B, K, n]
+    bases); a member whose residual meets its tolerance is frozen while the
+    others take narrow rounds."""
+    n, B = b.shape
+    dtype, dev = b.dtype, b.device
+    k = pool.shape[0]
+    K = 1 + k + max_narrow
+    ref = np.ones(B) if tol_mode == "abs" else _host(_cnorm(b, precise))
+    tol = np.maximum(rtol * ref, np.broadcast_to(np.asarray(atol, np.float64), (B,)))
+    bm = _rows(b)  # [B, n]
+
+    D = b.new_zeros((B, K, n))
+    W = b.new_zeros((B, K, n))
+    D0 = torch.cat([M(b[:, None, :]), pool.movedim(0, 1)], dim=1)  # [n, 1 + k, B]
+    W0 = _rows(A_block(D0.contiguous())).transpose(1, 2)  # [B, 1 + k, n]
+    D0 = _rows(D0).transpose(1, 2)
+    G0 = _gram(torch.cat([W0, bm[:, None]], dim=1), precise)  # [B, k + 2, k + 2]
+    wnorm = torch.sqrt(torch.clamp(torch.diagonal(G0, dim1=1, dim2=2)[:, : 1 + k], min=0.0))
+    scale0 = torch.where(wnorm > 0, 1.0 / wnorm, torch.zeros_like(wnorm))
+    D[:, : 1 + k] = D0 * scale0[:, :, None]
+    W[:, : 1 + k] = W0 * scale0[:, :, None]
+    G = b.new_zeros((B, K, K))
+    G[:, : 1 + k, : 1 + k] = G0[:, : 1 + k, : 1 + k] * scale0[:, :, None] * scale0[:, None, :]
+    h0 = b.new_zeros((B, K))
+    h0[:, : 1 + k] = G0[:, : 1 + k, 1 + k] * scale0
+    act = torch.arange(K, device=dev) < 1 + k
+    c = _solve_small_rows(G, h0, act)
+    r = bm - _bcomb(c, W)
+    d1 = _solve_small_rows(G, _bdots(W, r, precise), act)
+    c = c + d1
+    r = r - _bcomb(d1, W)
+    res = _host(_cnorm(r.T, precise))  # the sync
+    j = np.zeros(B, np.int64)
+    active = (res > tol) & (j < max_narrow)
+    rnd = 0  # every member still iterating has taken `rnd` narrow rounds
+    while active.any():
+        on = torch.as_tensor(active, device=dev)
+        i = 1 + k + rnd
+        d = _rows(M(r.T[:, None, :].contiguous())[:, 0])  # [B, n]
+        w = _rows(A_block(d.T[:, None, :].contiguous())[:, 0])
+        lhs, rhs = torch.cat([W, w[:, None]], dim=1), torch.stack([w, r], dim=2)
+        if precise and dtype != torch.float64:
+            T = torch.bmm(lhs.double(), rhs.double()).to(dtype)
+        else:
+            T = torch.bmm(lhs, rhs)  # [B, K + 1, 2]
+        wn = torch.sqrt(torch.clamp(T[:, K, 0], min=0.0))
+        s = torch.where(wn > 0, 1.0 / wn, torch.zeros_like(wn))
+        Dn, Wn, Gn = D.clone(), W.clone(), G.clone()
+        Dn[:, i] = d * s[:, None]
+        Wn[:, i] = w * s[:, None]
+        gcol = T[:, :K, 0] * s[:, None]
+        gcol[:, i] = (wn > 0).to(dtype)
+        Gn[:, :, i] = gcol
+        Gn[:, i, :] = gcol
+        hr = T[:, :K, 1].clone()
+        hr[:, i] = T[:, K, 1] * s
+        delta = _solve_small_rows(Gn, hr, torch.arange(K, device=dev) <= i)
+        D = torch.where(on[:, None, None], Dn, D)
+        W = torch.where(on[:, None, None], Wn, W)
+        G = torch.where(on[:, None, None], Gn, G)
+        c = torch.where(on[:, None], c + delta, c)
+        r = torch.where(on[:, None], r - _bcomb(delta, Wn), r)
+        res = np.where(active, _host(_cnorm(r.T, precise)), res)  # the sync
+        j = j + active
+        rnd += 1
+        active = (res > tol) & (j < max_narrow)
+    return _bcomb(c, D).T.contiguous(), SolveInfo(iters=1 + j, residual=res), D.permute(1, 2, 0)
+
+
+def _solve_small_rows(G: torch.Tensor, h: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """`_solve_small` for B members at once: G [B, K, K], h [B, K], the
+    `active` rows [K] shared."""
+    K = G.shape[-1]
+    eye = torch.eye(K, dtype=torch.bool, device=G.device)
+    diag = torch.diagonal(G, dim1=1, dim2=2)
+    Gm = torch.where(
+        eye,
+        torch.where(active, diag + 1e-5, torch.ones_like(diag))[:, :, None],
+        torch.where(active[:, None] & active[None, :], G, torch.zeros_like(G)),
+    )
+    return torch.linalg.solve_ex(Gm, torch.where(active, h, torch.zeros_like(h))).result
+
+
 # ----------------------------------------------------------------------
 # Fixed-iteration inner solvers (for the block preconditioners)
 # ----------------------------------------------------------------------
 def cg_fixed(A: Callable, b: torch.Tensor, M: Callable, iters: int, precise: bool = False):
     """`iters` steps of preconditioned CG, no convergence checks (the
-    reference's `cg_fixed`).  The guards on p.Ap and r.z are device-side
+    reference's `cg_fixed`), on one vector b [n] or on B columns [n, B]
+    (dots per column).  The guards on p.Ap and r.z are device-side
     selects: no host sync."""
+    dot = _dot if b.dim() == 1 else _cdot
     x = torch.zeros_like(b)
     r = b
     z = M(r)
     p = z
-    rz = _dot(r, z, precise)
+    rz = dot(r, z, precise)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     for _ in range(iters):
         Ap = A(p)
-        pAp = _dot(p, Ap, precise)
+        pAp = dot(p, Ap, precise)
         alpha = torch.where(pAp > 0, rz / pAp, zero)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = _dot(r, z, precise)
+        rz_new = dot(r, z, precise)
         beta = torch.where(rz > 0, rz_new / rz, zero)
         p = z + beta * p
         rz = rz_new
@@ -528,7 +684,10 @@ def gmres_fixed(A: Callable, b: torch.Tensor, M: Callable, iters: int, precise: 
     reference's `gmres_fixed`): single-pass batched classical Gram-Schmidt,
     then the least squares on the Hessenberg by its normal equations (with
     the reference's 1e-30 ridge), solved on the device by `solve_ex`
-    (`torch.linalg.solve` would read its error flag back): no host sync."""
+    (`torch.linalg.solve` would read its error flag back): no host sync.
+    b is one vector [n] or B columns [n, B], each its own cycle."""
+    if b.dim() == 2:
+        return _gmres_fixed_columns(A, b, M, iters, precise)
     n = b.shape[0]
     m = iters
     beta = _norm(b, precise)
@@ -553,3 +712,31 @@ def gmres_fixed(A: Callable, b: torch.Tensor, M: Callable, iters: int, precise: 
     HtH = Hm.T @ Hm + 1e-30 * torch.eye(m, dtype=b.dtype, device=b.device)
     y = torch.linalg.solve_ex(HtH, Hm.T @ e1).result
     return Z.T @ y
+
+
+def _gmres_fixed_columns(A, b, M, m: int, precise: bool):
+    """`gmres_fixed` on B columns b [n, B]: A and M map [n, B] -> [n, B];
+    the bases are member-major ([B, m + 1, n]) for batched products."""
+    n, B = b.shape
+    beta = _cnorm(b, precise)  # [B]
+    V = b.new_zeros((B, m + 1, n))
+    Z = b.new_zeros((B, m, n))
+    H = b.new_zeros((B, m + 1, m + 1))
+    V[:, 0] = _rows(torch.where(beta > 0, b / beta, b))
+    for j in range(m):
+        z = M(V[:, j].T)
+        w = _rows(A(z))
+        hcol = _bdots(V, w, precise)  # [B, m + 1]
+        w = w - _bcomb(hcol, V)
+        hlast = _cnorm(w.T, precise)
+        V[:, j + 1] = torch.where(hlast[:, None] > 0, w / hlast[:, None], w)
+        Z[:, j] = z.T
+        hcol[:, j + 1] = hlast
+        H[:, :, j] = hcol
+    Hm = H[:, :, :m]
+    e1 = b.new_zeros((B, m + 1))
+    e1[:, 0] = beta
+    Ht = Hm.transpose(1, 2)
+    HtH = Ht @ Hm + 1e-30 * torch.eye(m, dtype=b.dtype, device=b.device)
+    y = torch.linalg.solve_ex(HtH, (Ht @ e1[:, :, None])[:, :, 0]).result
+    return _bcomb(y, Z).T.contiguous()

@@ -44,11 +44,16 @@ def chebyshev_fixed(A: Callable, b: torch.Tensor, Minv: Callable, iters: int, la
 
 def power_lambda_max(A: Callable, Minv: Callable, v0: torch.Tensor, iters: int = 8):
     """Estimate lam_max of Minv A by `iters` power iterations from v0; a 0-d
-    tensor (no host sync)."""
-    v = v0 / torch.sqrt(torch.sum(v0 * v0))
-    lam = torch.ones((), dtype=v0.dtype, device=v0.device)
+    tensor, or [B] for B columns v0 [n, B] (one estimate a column; no host
+    sync)."""
+    if v0.dim() == 2:
+        norm = lambda x: torch.sqrt(torch.sum(x * x, dim=0))  # noqa: E731
+    else:
+        norm = lambda x: torch.sqrt(torch.sum(x * x))  # noqa: E731
+    v = v0 / norm(v0)
+    lam = torch.ones(v0.shape[1:], dtype=v0.dtype, device=v0.device)
     for _ in range(iters):
         w = Minv(A(v))
-        lam = torch.sqrt(torch.sum(w * w))
+        lam = norm(w)
         v = w / torch.clamp(lam, min=1e-30)
     return lam

@@ -50,7 +50,7 @@ from navierstokes_project_nm4pde_tpu_torch.models import (
 )
 from navierstokes_project_nm4pde_tpu_torch.ops import onehot as toh
 from navierstokes_project_nm4pde_tpu_torch.parallel import run_ensemble
-from test_torch_port_copies import jax_config
+from test_torch_port_copies import jax_config, one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 STEPS = 3
@@ -71,6 +71,64 @@ def sweep_nus(problem, B=3):
 
 def _members_last(x):
     return np.moveaxis(np.asarray(x), 0, -1)
+
+
+def geometry(name):
+    """(JAX mesh, JAX problem, port mesh, port problem) of the ensemble
+    comparisons: "duct" the small DFG duct, "channel" the 2D channel of
+    tests/test_parallel.py:164, "backflow" the duct with the backflow term
+    on its outlet, "es" the Ethier-Steinman cube (Neumann face, initial
+    state) with a forcing."""
+    from navierstokes_project_nm4pde_tpu import mesh as jmesh
+    from navierstokes_project_nm4pde_tpu import models as jmodels
+    from navierstokes_project_nm4pde_tpu_torch import mesh as tmesh
+    from navierstokes_project_nm4pde_tpu_torch import models as tmodels
+
+    if name == "channel":
+        return (jmesh.cylinder_channel_2d(lc=0.1), jmodels.Cylinder2DProblem(test_case=2),
+                tmesh.cylinder_channel_2d(lc=0.1), tmodels.Cylinder2DProblem(test_case=2))
+    if name == "es":
+        def f_j(x, t):
+            return jnp.stack([jnp.sin(x[..., 0]) * t, x[..., 1] * x[..., 2], jnp.cos(x[..., 2])], -1)
+
+        def f_t(x, t):
+            return torch.stack([torch.sin(x[..., 0]) * t, x[..., 1] * x[..., 2], torch.cos(x[..., 2])], -1)
+
+        return (jmesh.cube_mesh(2), dataclasses.replace(jmodels.EthierSteinmanProblem(), forcing=f_j),
+                tmesh.cube_mesh(2), dataclasses.replace(tmodels.EthierSteinmanProblem(), forcing=f_t))
+    bf = {"backflow_tag": 1} if name == "backflow" else {}
+    return (jmesh.cylinder_duct_3d(lc=0.25, nz=3), dataclasses.replace(jmodels.Cylinder3DProblem(test_case=2), **bf),
+            tmesh.cylinder_duct_3d(lc=0.25, nz=3), dataclasses.replace(tmodels.Cylinder3DProblem(test_case=2), **bf))
+
+
+def cli_config(argv):
+    """The port's CLI configuration of `argv` at float64, one step a chunk."""
+    from navierstokes_project_nm4pde_tpu_torch import cli
+
+    return cli._build_config(cli._parser().parse_args(
+        [*argv, "--dtype", "float64", "--steps-per-chunk", "1"]), None)
+
+
+def ensemble_pair(cfg, name="duct", nus=(1e-3, 2e-3, 5e-3), steps=STEPS):
+    """The same ensemble through the JAX `run_ensemble` and the port's:
+    (JAX state, JAX diagnostics, port solver, port state, port
+    diagnostics)."""
+    jm, jp, tm, tp = geometry(name)
+    nus = np.asarray(nus) * (tp.nu / 1e-3 if name == "es" else 1.0)
+    jst, jd = jax_run_ensemble(JaxSolver(jm, jp, jax_config(cfg)), nus, steps)
+    ts = NavierStokesSolver(tm, tp, cfg, device="cpu")
+    tst, td = run_ensemble(ts, nus, steps)
+    return jst, jd, ts, tst, td
+
+
+def assert_same_ensemble(jst, jd, tst, td):
+    """Equal per-member F and S counts step for step; u and p to rtol 1e-8
+    / 1e-7 (the tolerances of tests/test_torch_slice.py)."""
+    np.testing.assert_array_equal(td.iters_f, np.asarray(jd.iters_f))
+    np.testing.assert_array_equal(td.iters_s, np.asarray(jd.iters_s))
+    ju, jp = _members_last(jst.u), _members_last(jst.p)
+    np.testing.assert_allclose(tst.u.numpy(), ju, rtol=1e-8, atol=1e-10 * np.abs(ju).max())
+    np.testing.assert_allclose(tst.p.numpy(), jp, rtol=1e-7, atol=1e-9 * np.abs(jp).max())
 
 
 # ----------------------------------------------------------------------
@@ -220,20 +278,21 @@ def test_ensemble_cli_runs_without_jax(tmp_path):
 
 
 def test_ensemble_cli_refuses_what_is_not_ported(tmp_path):
-    """cylinder2d, convergence and `ensemble --dim 2` run; what is still
-    refused: the ensemble's bdf2, --shard-cells N > 0 and --debug-nans."""
+    """What the port once refused runs: the ensemble's bdf2 (ensemble.csv
+    written) and cylinder2d --shard-cells 2 (two local ranks); what is still
+    refused is --debug-nans, a JAX debugging mode."""
     from navierstokes_project_nm4pde_tpu_torch.cli import main
 
-    small = ["--n-members", "2", "--lc", "0.25", "--nz", "3", "--n-steps", "1", "--device", "cpu"]
-    for argv, text in (
-        (["ensemble", "--fast", "--scheme", "bdf2", *small], "time.scheme='bdf2'"),
-        (["cylinder2d", "--shard-cells", "2"], "--shard-cells is not ported"),
-        (["convergence", "--debug-nans"], "--debug-nans is not ported"),
-    ):
-        with pytest.raises(SystemExit) as exc:
-            main(argv + ["--output-dir", str(tmp_path)])
-        assert text in str(exc.value)
-    assert not (tmp_path / "ensemble.csv").exists()
+    small = ["--lc", "0.25", "--n-steps", "1", "--device", "cpu"]
+    main(["ensemble", "--fast", "--scheme", "bdf2", "--n-members", "2", "--nz", "3", *small,
+          "--output-dir", str(tmp_path / "ens")])
+    lines = (tmp_path / "ens" / "ensemble.csv").read_text().splitlines()
+    assert lines[0] == "Re,nu,cd_max,cl_min,delta_p_final" and len(lines) == 3
+    main(["cylinder2d", "--shard-cells", "2", *small, "--output-dir", str(tmp_path / "c2d")])
+    assert (tmp_path / "c2d" / "final.npz").exists()
+    with pytest.raises(SystemExit) as exc:
+        main(["convergence", "--debug-nans", "--output-dir", str(tmp_path)])
+    assert "--debug-nans is not ported" in str(exc.value)
 
 
 def test_ensemble_cli_needs_a_card_unless_told_cpu(tmp_path):
@@ -268,8 +327,18 @@ def test_solver_builds_only_its_paths_structures(runs, path):
 
 
 def test_ensemble_rejects_recycled_pressure_pool(runs):
+    """The recycled pressure pool (s_recycle = 1), once refused, rides the
+    ensemble state with a trailing member axis: each member equals the
+    single run with its nu and the same pool (the batched `cg_recycled`
+    against the single one)."""
     cfg = ensemble_config()
     cfg = dataclasses.replace(cfg, precond=dataclasses.replace(cfg.precond, s_recycle=1))
     ts = NavierStokesSolver(runs["mesh"], Cylinder3DProblem(), cfg, device="cpu")
-    with pytest.raises(ValueError):
-        run_ensemble(ts, runs["nus"], 1)
+    st, d = run_ensemble(ts, runs["nus"], 2)
+    assert st.spool.shape == (2, 1, ts.space.n_pnodes, 3) and torch.count_nonzero(st.spool) > 0
+    m = 2
+    single = NavierStokesSolver(runs["mesh"], Cylinder3DProblem(nu=float(runs["nus"][m])), cfg, device="cpu")
+    s1, d1 = single.run(2)
+    np.testing.assert_array_equal(d1.iters_s, d.iters_s[m])
+    np.testing.assert_allclose(s1.spool.numpy(), st.spool[..., m].numpy(), rtol=1e-7,
+                               atol=1e-9 * np.abs(s1.spool.numpy()).max())

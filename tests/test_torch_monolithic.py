@@ -274,9 +274,14 @@ def test_cli_checkpoints_load_into_both_packages(cli_runs):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    for flags in (["--debug-nans"], ["--shard-cells", "2"]):
-        with pytest.raises(SystemExit, match=flags[0]):
-            tcli.main(["cylinder3d", *flags, "--device", "cpu", "--output-dir", str(tmp_path)])
+    """--debug-nans (a JAX debugging mode) and an unknown kind are refused;
+    --shard-cells 2, once refused, runs on two local ranks and writes the
+    CLI's files (its match with the JAX CLI is in tests/test_torch_sharding.py)."""
+    with pytest.raises(SystemExit, match="--debug-nans"):
+        tcli.main(["cylinder3d", "--debug-nans", "--device", "cpu", "--output-dir", str(tmp_path)])
+    tcli.main(["cylinder3d", "--shard-cells", "2", "--lc", "0.25", "--nz", "3", "--n-steps", "1",
+               "--device", "cpu", "--output-dir", str(tmp_path / "sharded")])
+    assert all((tmp_path / "sharded" / f).exists() for f in (*CSV_FILES, "final.npz"))
     with pytest.raises(SystemExit, match="precond.kind"):
         tcli.main(["cylinder3d", "--precond", "lsc", "--device", "cpu", "--n-steps", "1",
                    "--lc", "0.25", "--nz", "3", "--output-dir", str(tmp_path)])

@@ -1,5 +1,6 @@
 """The port's own copies of the JAX package's host modules, against the JAX
-package: `config.py`, `mesh/` (generators, reordering, the Gmsh reader),
+package: `config.py`, `mesh/` (generators, reordering, the Gmsh reader and
+writers), `utils/logging.py` (rank-0 printing),
 `fem/` (reference elements, quadrature, the Taylor-Hood space, cell and
 boundary geometry), the CLI's `_common_flags` / `_build_config`, and the
 output modules `io/csvlog.py` (all its logs), `io/vtu.py` (VTU, PVTU and
@@ -36,6 +37,7 @@ from navierstokes_project_nm4pde_tpu.mesh import cylinder_duct_3d as jax_duct
 from navierstokes_project_nm4pde_tpu.mesh import rectangle_mesh as jax_rectangle
 from navierstokes_project_nm4pde_tpu.mesh import read_msh as jax_read_msh
 from navierstokes_project_nm4pde_tpu.mesh.msh_io import write_msh, write_msh_v41
+from navierstokes_project_nm4pde_tpu.utils import logging as jlogging
 from navierstokes_project_nm4pde_tpu.utils import signal as jsignal
 from navierstokes_project_nm4pde_tpu.utils import tables as jtables
 from navierstokes_project_nm4pde_tpu_torch import cli as tcli
@@ -49,6 +51,8 @@ from navierstokes_project_nm4pde_tpu_torch.io import vtu as tvtu
 from navierstokes_project_nm4pde_tpu_torch.mesh import Mesh, cube_mesh, rectangle_mesh
 from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d as port_duct
 from navierstokes_project_nm4pde_tpu_torch.mesh import read_msh as port_read_msh
+from navierstokes_project_nm4pde_tpu_torch.mesh import msh_io as port_msh_io
+from navierstokes_project_nm4pde_tpu_torch.utils import logging as tlogging
 from navierstokes_project_nm4pde_tpu_torch.utils import signal as tsignal
 from navierstokes_project_nm4pde_tpu_torch.utils import tables as ttables
 
@@ -188,6 +192,40 @@ def test_read_msh_copy_matches_reference(tmp_path, fmt):
     assert isinstance(out, Mesh)
     for field in MESH_FIELDS:
         np.testing.assert_array_equal(getattr(out, field), getattr(ref, field))
+
+
+@pytest.mark.parametrize("fmt", ["v2-ascii", "v2-binary", "v41-ascii", "v41-binary"])
+def test_write_msh_copy_writes_the_reference_files(tmp_path, fmt):
+    """The port's copies of the writers (`write_msh`, `write_msh_v41` and the
+    binary forms behind them) write the JAX writers' files byte for byte,
+    from the port's mesh of the same duct, and read back into it."""
+    version, kind = fmt.split("-")
+    ref, out = tmp_path / "jax.msh", tmp_path / "port.msh"
+    (write_msh if version == "v2" else write_msh_v41)(jax_duct(lc=0.3, nz=2), str(ref), binary=kind == "binary")
+    writer = port_msh_io.write_msh if version == "v2" else port_msh_io.write_msh_v41
+    mesh = port_duct(lc=0.3, nz=2)
+    writer(mesh, str(out), binary=kind == "binary")
+    assert out.read_bytes() == ref.read_bytes()
+    back, ref_back = port_read_msh(str(out)), jax_read_msh(str(ref))
+    for field in MESH_FIELDS:
+        np.testing.assert_array_equal(getattr(back, field), getattr(ref_back, field))
+
+
+def test_logging_copy_prints_on_rank_zero_only(capsys, monkeypatch):
+    """Without a process group both packages' `pcout` print and
+    `is_main_process` is true; on a rank other than 0 the port's prints
+    nothing (the reference's on a process other than 0)."""
+    assert tlogging.is_main_process() and jlogging.is_main_process()
+    tlogging.pcout("port", 1)
+    jlogging.pcout("port", 1)
+    assert capsys.readouterr().out == "port 1\nport 1\n"
+    import torch.distributed as dist
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 1)
+    assert not tlogging.is_main_process()
+    tlogging.pcout("rank 1")
+    assert capsys.readouterr().out == ""
 
 
 def _tree(root):

@@ -34,7 +34,7 @@ from navierstokes_project_nm4pde_tpu_torch.models import (
 )
 from navierstokes_project_nm4pde_tpu_torch.ops import coarse as tcoarse
 from navierstokes_project_nm4pde_tpu_torch.solvers import krylov as tkrylov
-from test_torch_port_copies import jax_config
+from test_torch_port_copies import jax_config, one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 3
 # variant -> {config part: {field: value}}
@@ -152,19 +152,40 @@ ENSEMBLE_REFUSES = [
     ("numerics.grad_apply", {"numerics": dict(grad_apply="element")}),
     ("numerics.div_apply", {"numerics": dict(div_apply="element")}),
 ]
+ENSEMBLE_NUS = (1e-3, 2e-3)
 
 
 @pytest.mark.parametrize("name,changes", ENSEMBLE_REFUSES)
 def test_ensemble_step_refuses_each_variant(name, changes):
-    """The ensemble step runs the base configuration only: each variant
-    raises, naming its field, before any work."""
+    """Each variant the ensemble step once refused now runs: every member
+    equals the single run with its nu (the same F and S counts, u and p to
+    rtol 1e-8 / 1e-7), though the single run takes its macro, assembled-K
+    and aux paths where the ensemble keeps the reference's element branch.
+    The velocity warm-start pool is the exception, as in the reference's
+    vmapped step: the ensemble carries it unused (zero), so its members
+    equal the single run without it.  The JAX run_ensemble comparisons of
+    these variants are in tests/test_torch_ensemble_*.py."""
     cfg = chip_smoke.with_changes(chip_smoke.ensemble_config("float64"), changes)
-    solver = NavierStokesSolver(
-        cylinder_duct_3d(lc=0.25, nz=3), Cylinder3DProblem(test_case=2), cfg, device="cpu"
-    )
-    nu = torch.tensor([1e-3, 2e-3], dtype=torch.float64)
-    with pytest.raises(ValueError, match=name):
-        solver.step_ensemble(solver.initial_state(2), nu)
+    mesh = cylinder_duct_3d(lc=0.25, nz=3)
+    solver = NavierStokesSolver(mesh, Cylinder3DProblem(test_case=2), cfg, device="cpu")
+    state = solver.initial_state(len(ENSEMBLE_NUS))
+    nu = torch.tensor(ENSEMBLE_NUS, dtype=torch.float64)
+    rows = []
+    for _ in range(2):
+        state, dg = solver.step(state, nu)
+        rows.append(dg)
+    if name == "precond.f_warmstart":
+        assert torch.count_nonzero(state.fwpool) == 0
+        cfg = chip_smoke.with_changes(cfg, {"precond": dict(f_warmstart=0)})
+    for m, nu_m in enumerate(ENSEMBLE_NUS):
+        single = NavierStokesSolver(mesh, Cylinder3DProblem(test_case=2, nu=nu_m), cfg, device="cpu")
+        st, d = single.run(2)
+        for k in ("iters_f", "iters_s"):
+            np.testing.assert_array_equal(getattr(d, k), [r[k][m] for r in rows])
+        u = state.u[..., m].numpy()
+        np.testing.assert_allclose(st.u.numpy(), u, rtol=1e-8, atol=1e-10 * np.abs(u).max())
+        p = state.p[..., m].numpy()
+        np.testing.assert_allclose(st.p.numpy(), p, rtol=1e-7, atol=1e-9 * np.abs(p).max())
 
 
 def _t(a):
@@ -262,3 +283,52 @@ def test_twolevel_v11_and_inverse_coarse_solve_match_reference():
         tcoarse.inv_solve_c(_t(Sc_inv))(_t(rc)).numpy(),
         np.asarray(jcoarse.inv_solve_c(jnp.asarray(Sc_inv))(jnp.asarray(rc))), rtol=1e-13,
     )
+
+
+def test_batched_krylov_matches_the_reference_under_vmap():
+    """The batched solvers on [n, B] columns (B = 3, one column zero, one
+    pool zero) against `jax.vmap` of the reference's: `gcr_recycled` and
+    `cg_recycled` (per-member counts and solutions), `gmres_fixed` and
+    `cg_fixed`; the zero column stays finite and leaves the others as
+    their own solves."""
+    import jax
+
+    A, _ = _system()
+    rng = np.random.default_rng(6)
+    S = A @ A.T / 60.0 + np.eye(60)  # SPD for the CGs
+    b = rng.normal(size=(60, 3))
+    b[:, 1] = 0.0
+    pool = rng.normal(size=(3, 2, 60))
+    pool[2] = 0.0
+    minv = 1.0 / np.diag(A)
+    At, St, mt = _t(A), _t(S), _t(minv)
+    kw = dict(rtol=1e-9, atol=0.0, tol_mode="r0", max_narrow=40)
+    jx, jinfo, jD = jax.vmap(lambda bb, P: jkrylov.gcr_recycled(
+        lambda V: jnp.asarray(A) @ V, bb, lambda V: jnp.asarray(minv)[:, None] * V, P, **kw))(
+        jnp.asarray(b.T), jnp.asarray(pool))
+    tx, tinfo, tD = tkrylov.gcr_recycled(
+        lambda V: torch.einsum("ij,jkb->ikb", At, V), _t(b), lambda V: mt[:, None, None] * V,
+        _t(pool).permute(1, 2, 0), **kw)
+    np.testing.assert_array_equal(tinfo.iters, np.asarray(jinfo.iters))
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx).T, rtol=1e-9, atol=1e-11)
+    np.testing.assert_allclose(tD.numpy(), np.moveaxis(np.asarray(jD), 0, -1), rtol=1e-8, atol=1e-10)
+    assert np.all(np.isfinite(tx.numpy())) and np.all(tx[:, 1].numpy() == 0.0)
+
+    W = np.einsum("ij,bkj->bki", S, pool)  # exact images of the pools
+    jx, jinfo, jh = jax.vmap(lambda bb, P, Q: jkrylov.cg_recycled(
+        lambda v: jnp.asarray(S) @ v, bb, lambda v: v / jnp.asarray(np.diag(S)), None, P, Q,
+        rtol=1e-10, maxiter=200))(jnp.asarray(b.T), jnp.asarray(pool), jnp.asarray(W))
+    tx, tinfo, th = tkrylov.cg_recycled(
+        lambda v: St @ v, _t(b), lambda v: v / _t(np.diag(S))[:, None], None,
+        _t(pool).permute(1, 2, 0), _t(W).permute(1, 2, 0), rtol=1e-10, maxiter=200)
+    np.testing.assert_array_equal(tinfo.iters, np.asarray(jinfo.iters))
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx).T, rtol=1e-9, atol=1e-11)
+    np.testing.assert_allclose(th.numpy(), np.moveaxis(np.asarray(jh), 0, -1), rtol=1e-8, atol=1e-10)
+
+    for name, fixed in (("gmres_fixed", (A, At)), ("cg_fixed", (S, St))):
+        M, Mt = fixed
+        ref = jax.vmap(lambda bb: getattr(jkrylov, name)(
+            lambda v: jnp.asarray(M) @ v, bb, lambda v: jnp.asarray(minv) * v, iters=6))(jnp.asarray(b.T))
+        out = getattr(tkrylov, name)(lambda V: Mt @ V, _t(b), lambda V: mt[:, None] * V, iters=6)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref).T, rtol=1e-10, atol=1e-12)
+        assert np.all(out[:, 1].numpy() == 0.0)
