@@ -36,6 +36,17 @@ Drives the port's paths once each:
     unsharded run, the owned+halo projection step at 142,692 DoF against
     the single-device step, and `ensemble --shard-batch`; each rank's
     imports and kernel launches are checked;
+  * float64 on the card: the single run at 965,265 DoF under
+    bench_config("float64") (kernels A and B in float64), the
+    `cylinder3d` and `convergence` entry points at `--dtype float64`
+    (kernels C and D in float64; convergence's errors against the CPU
+    float64 run's to 1e-8), the small duct's bench, monolithic and B = 4
+    ensemble runs against the CPU float64 runs (the same counts, u and p
+    to 1e-9), and a CPU float64 state continued on the card through a
+    checkpoint;
+  * numerics.fold_elem=False and spatial_reorder=False on the small duct
+    against the CPU, and the 64-member ensemble with fold_elem=False
+    (member-steps/s, and a peak below the folded ensemble's);
 and runs the two TPU-era measurement probes (kernels E and F).  It builds
 the hand-written CUDA kernels from `navierstokes_project_nm4pde_tpu_torch/csrc`,
 holds each against its plain PyTorch version at the shapes its paths give
@@ -43,7 +54,8 @@ it, times it, its plain version and the one PyTorch call that computes
 the same function (call time with CUDA events from an idle queue, device
 time with CUDA events behind a queued spin kernel), gives each its bound
 (the least time the card could take for the same bytes and operations; a
-device time below the bound by more than 5% fails the run), times the
+device time below the bound by more than 5% fails the run), does the same
+for kernels A-D in float64 (each kernel's "f64" record), times the
 earlier and the committed designs of kernels A, B, C and D in turns, and
 the K/C split's block build against the full one, and holds short runs
 of each path and of each variant on the card against the same runs on
@@ -61,6 +73,7 @@ phases.
 
     python3 chip_smoke.py [--profile DIR]   # DIR: torch.profiler tables and traces
     python3 chip_smoke.py --only ensemble-variants ensemble-cli multi-device
+    python3 chip_smoke.py --only float64-small unfolded-small
 
 Every phase that fails makes the exit code non-zero; without a CUDA device
 the script exits 1 before printing any result.  The last three lines of
@@ -113,6 +126,9 @@ KERNEL_REPS = 10
 # launches of at most 24, each reading FtT once): f_recycle = 8 (27, here
 # 25) and f_recycle = 15 (48).
 MATVEC_WIDTHS = (3, 9, 15, 24, 25, 48)
+# Kernel A in float64: the float64 single run's 3 (its Krylov applies and
+# rhs pass), its widest payload a launch (12), and past it (two launches).
+F64_MATVEC_WIDTHS = (3, 12, 13)
 # Kernels C and D at the variant paths' shapes: name -> (kernel -> channel
 # counts).  IMEX at 965k runs the fine subset's plan at 3 channels every
 # Krylov apply, and the full plan once a step (the rhs reduce at 6, the
@@ -120,6 +136,9 @@ MATVEC_WIDTHS = (3, 9, 15, 24, 25, 48)
 # (N(u) and the rhs reduce at 3 and 6, the gather at 9).
 SLOT_NARROW_C = 16  # kernels C and D: the narrow kernels' widest payload
 SLOT_SHAPES = {
+    # the ensemble's 64 members: every element pass at 3 B = 192 channels,
+    # the rhs reduce at 6 B, the stacked gather at 9 B
+    "ensemble": {"slot_reduce": (192, 384), "slot_gather": (192, 576)},
     "imex fine": {"slot_reduce": (3,), "slot_gather": (3,)},
     "imex full": {"slot_reduce": (6,), "slot_gather": (9,)},
     "explicit full": {"slot_reduce": (3, 6), "slot_gather": (9,)},
@@ -134,6 +153,9 @@ SLOT_SHAPES = {
     # the ensemble CLI's defaults (monolithic, 64 members): every element
     # pass at 3 B = 192 channels, diag C(w) at B = 64
     "ensemble CLI defaults": {"slot_reduce": (192, 64), "slot_gather": (192,)},
+    # kernels C and D in float64 at the ensemble's 3 B = 192 channels, on its
+    # 64-member plan: the wide kernels' check; no float64 path runs this width
+    "ensemble plan, 192 (float64 off-path)": {"slot_reduce": (192,), "slot_gather": (192,)},
     # a cell-sharded rank's block of the 142,692-DoF duct (the monolithic
     # passes, before the all-reduce), and the halo step's rank-0 plan of its
     # extended-local cells (the Krylov applies at 3, the rhs reduce at 6,
@@ -148,7 +170,15 @@ SLOT_SHAPES = {
 # more than 5% under its bound is a fault of the measurement, and fails.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# float64: the kernels' _f64 entry points move 8 bytes an element; their
+# operations are bounded by the FP64 tensor-core peak, 67 TFLOP/s, the
+# card's highest float64 rate (its FP64 vector rate is 34 TFLOP/s).
+F64_OPS_PER_S = 67e12
 MAX_SHARE = 1.05
+# Kernels A-D in float64 against their plain versions, relative to max
+# |plain|: the same f64 terms summed in another order (a few f64 ulps), or
+# 0 for the copy.
+KERNEL_RTOL64 = {"macro_matvec": 1e-12, "macro_build": 1e-12, "slot_reduce": 1e-12, "slot_gather": 0.0}
 # torch.cuda._sleep counts clock cycles: at no more than 2 GHz, this many
 # cycles last at least a second.
 SPIN_CYCLES_PER_S = 2e9
@@ -322,6 +352,42 @@ FAST_2D_TIMED = 40
 CONV_MIN_RATES = {"L2": 2.4, "H1": 1.6}
 CONV_CPU_LEVELS = (2, 4, 8)
 CONV_RTOL = 5e-3
+# The convergence entry point at --dtype float64 (the README's command for
+# the reference's study): the same run as the CPU float64 one but for the
+# order of its sums, so its errors are held to CONV_RTOL64 of the CPU's.
+CONV_RTOL64 = 1e-8
+# The float64 runs on the card: the single run at 965,265 DoF under
+# bench_config("float64") (F64_WARMUP + F64_TIMED steps; kernels A and B in
+# float64), and the cylinder3d entry point at --dtype float64 (CLI_WARMUP +
+# CLI_TIMED steps).  Small-duct checks, card float64 against CPU float64
+# (F64_CHECKS: name -> (configuration, changes), B = ENSEMBLE_AGREE_MEMBERS
+# for "ensemble"): the same iteration counts, u and p within F64_RTOL of
+# max |ref|; the CPU float64 state after F64_CARRY_STEPS steps, through a
+# checkpoint, continues on the card.
+F64_WARMUP = 10
+F64_TIMED = 20
+F64_RTOL = 1e-9
+F64_CARRY_STEPS = 2
+F64_CHECKS = {
+    "bench (macro path: A and B)": ("bench", {}),
+    "monolithic, yosida": ("cylinder3d", {}),
+    "ensemble, B = 4": ("ensemble", {}),
+}
+# numerics.fold_elem=False and spatial_reorder=False on the small duct,
+# card float32 against CPU float64: name -> (configuration, changes,
+# tolerance relative to max |ref|: AGREE_RTOL for the projection stepper,
+# MONO_CHECKS' for the monolithic one).  The ensemble at
+# scripts/bench_ensemble.py's settings runs again with fold_elem=False
+# (ENSEMBLE_WARMUP + ENSEMBLE_TIMED steps): its peak device memory must lie
+# below the folded ensemble's (the option exists to drop the per-member F_e).
+UNFOLDED_CHECKS = {
+    "fold_elem=False, projection": ("bench", {"numerics": dict(fold_elem=False)}, AGREE_RTOL),
+    "fold_elem=False, monolithic asimple": (
+        "asimple", {"numerics": dict(fold_elem=False)}, MONO_CHECKS["asimple"][1]),
+    "spatial_reorder=False, projection": ("bench", {"numerics": dict(spatial_reorder=False)}, AGREE_RTOL),
+    "spatial_reorder=False, monolithic": (
+        "cylinder3d", {"numerics": dict(spatial_reorder=False)}, MONO_CHECKS["cylinder3d defaults (yosida)"][1]),
+}
 # The monolithic stepper at 965,265 DoF under bench.py's
 # NS_BENCH_STEPPER=monolithic settings (bench.py:56-99: yosida, f_iters 4,
 # s_iters 3, mg2_cg, restart 8, maxiter 60, tol_mode b).
@@ -546,10 +612,11 @@ def kernel_times(fn, plain, lib, reps: int) -> dict:
     )
 
 
-def bound(nbytes: float, ops: float) -> dict:
-    """The least ms the card could take to move `nbytes` and do `ops` f32
-    operations, and which of the two bounds it."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> dict:
+    """The least ms the card could take to move `nbytes` and do `ops`
+    operations at `ops_per_s` (f32's peak, or F64_OPS_PER_S), and which of
+    the two bounds it."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return dict(
         bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations",
         bytes=nbytes, ops=ops,
@@ -574,11 +641,16 @@ def fmt_times(t: dict, b: dict) -> str:
 
 def compare(name, out, ref) -> float:
     """Max abs error of a kernel's output against its plain version; fails
-    above the kernel's tolerance (relative to max |plain|)."""
+    above the kernel's tolerance (relative to max |plain|; KERNEL_RTOL64 in
+    float64) or if the two differ in type."""
+    import torch
+
+    if out.dtype != ref.dtype:
+        fail(f"{name}: the kernel returned {out.dtype}, its plain version {ref.dtype}")
     err = float((out - ref).abs().max())
     rel = err / max(float(ref.abs().max()), 1e-30)
-    tol = KERNELS[name][2]
-    log(f"  {name}: max abs err {err:.3e}, max rel err {rel:.3e} (tol {tol:g})")
+    tol = KERNEL_RTOL64[name] if ref.dtype == torch.float64 else KERNELS[name][2]
+    log(f"  {name} ({ref.dtype}): max abs err {err:.3e}, max rel err {rel:.3e} (tol {tol:g})")
     if not rel <= tol:
         fail(f"{name} disagrees with its plain version: rel err {rel:.3e} > {tol:g}")
     return err
@@ -586,19 +658,21 @@ def compare(name, out, ref) -> float:
 
 def check_kernels(solver, reps: int, widths=MATVEC_WIDTHS, main: bool = True) -> dict:
     """Kernels A (at `widths` channels) and B against their plain versions
-    on the solver's own plan, with seeded random inputs; returns per-kernel
-    records (launch counts filled in later).  With `main`, the earlier
-    designs are timed in turns beside them."""
+    on the solver's own plan, with seeded random inputs in the solver's
+    dtype; returns per-kernel records (launch counts filled in later).  With
+    `main` (float32), the earlier designs are timed in turns beside them."""
     import torch
 
     from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
 
-    mp, dev = solver.macro, solver.device
+    mp, dev, dtype = solver.macro, solver.device, solver.dtype
+    size = torch.finfo(dtype).bits // 8
+    peak = F64_OPS_PER_S if dtype == torch.float64 else F32_OPS_PER_S
     nloc = mp.lidx.shape[2]
     gen = torch.Generator(device=dev).manual_seed(0)
     rec = {}
 
-    F_e = torch.randn((mp.E, nloc, nloc), generator=gen, device=dev)
+    F_e = torch.randn((mp.E, nloc, nloc), generator=gen, device=dev, dtype=dtype)
     log(f"kernel B macro_build: F_e {tuple(F_e.shape)}, lidx {tuple(mp.lidx.shape)} -> [{mp.B}, {mp.U}, {mp.U}]")
     FtT = mb.macro_build(F_e, mp.lidx, mp.B, mp.U)
     ref = mb.macro_build_plain(F_e, mp.lidx, mp.B, mp.U)
@@ -614,15 +688,15 @@ def check_kernels(solver, reps: int, widths=MATVEC_WIDTHS, main: bool = True) ->
     li = mp.lidx.to(torch.int64)
     flat = (torch.arange(mp.B, device=dev).view(-1, 1, 1, 1) * UU
             + li[:, :, None, :] * mp.U + li[:, :, :, None]).reshape(-1)[: mp.E * nloc * nloc]
-    F_flat, lib_out = F_e.reshape(-1), torch.empty(mp.B * UU, device=dev)
+    F_flat, lib_out = F_e.reshape(-1), torch.empty(mp.B * UU, device=dev, dtype=dtype)
     t = kernel_times(
         lambda: mb.macro_build(F_e, mp.lidx, mp.B, mp.U),
         lambda: mb.macro_build_plain(F_e, mp.lidx, mp.B, mp.U),
         lambda: lib_out.zero_().index_add_(0, flat, F_flat), reps,
     )
-    b = bound((F_e.numel() + mp.lidx.numel() + FtT.numel()) * 4, F_e.numel())
-    t["share"] = share("macro_build", b, t["device_ms"])
-    log(f"  macro_build: {fmt_times(t, b)}")
+    b = bound((F_e.numel() + FtT.numel()) * size + mp.lidx.numel() * 4, F_e.numel(), peak)
+    t["share"] = share(f"macro_build {dtype}", b, t["device_ms"])
+    log(f"  macro_build ({dtype}): {fmt_times(t, b)}")
     rec["macro_build"] = dict(err=err_b, **t, **b)
     if not main:
         return _check_matvec(rec, FtT, mp, gen, widths, reps, main)
@@ -654,14 +728,19 @@ def _check_matvec(rec: dict, FtT, mp, gen, widths, reps: int, main: bool) -> dic
 
     from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
 
-    dev = FtT.device
+    dev, dtype = FtT.device, FtT.dtype
+    size = FtT.element_size()
+    peak = F64_OPS_PER_S if dtype == torch.float64 else F32_OPS_PER_S
     errs, times, bounds = [], {}, {}
     v1_ms = v1_device_ms = None
+    key = "macro_matvec" if dtype == torch.float32 else "macro_matvec_f64"  # its entry point's count
     for C in widths:
-        x_b = torch.randn((mp.B, mp.U, C), generator=gen, device=dev)
-        before = mb.launch_counts["macro_matvec"]
+        x_b = torch.randn((mp.B, mp.U, C), generator=gen, device=dev, dtype=dtype)
+        before = mb.launch_counts[key]
         y = mb.macro_matvec(FtT, x_b)
-        reads = mb.launch_counts["macro_matvec"] - before
+        reads = mb.launch_counts[key] - before
+        if reads != len(mb.matvec_splits(C, mb.max_channels(dtype))):
+            fail(f"macro_matvec {dtype} C={C}: {reads} launches counted under {key}")
         log(f"kernel A macro_matvec: FtT {tuple(FtT.shape)} x_b {tuple(x_b.shape)}: "
             f"{reads} launch(es), FtT read {reads} time(s)")
         errs.append(compare("macro_matvec", y, mb.macro_matvec_plain(FtT, x_b)))
@@ -671,10 +750,10 @@ def _check_matvec(rec: dict, FtT, mp, gen, widths, reps: int, main: bool) -> dic
             lambda: torch.bmm(FtT.transpose(1, 2), x_b), reps,
         )
         t["ftt_reads"] = reads
-        b = bounds[C] = bound((FtT.numel() + 2 * x_b.numel()) * 4, 2.0 * FtT.numel() * C)
-        t["share"] = share(f"macro_matvec C={C}", b, t["device_ms"])
-        gbs = FtT.numel() * 4 / t["device_ms"] / 1e6
-        log(f"  macro_matvec C={C}: {fmt_times(t, b)} ({gbs:.1f} GB/s of values on device)")
+        b = bounds[C] = bound((FtT.numel() + 2 * x_b.numel()) * size, 2.0 * FtT.numel() * C, peak)
+        t["share"] = share(f"macro_matvec {dtype} C={C}", b, t["device_ms"])
+        gbs = FtT.numel() * size / t["device_ms"] / 1e6
+        log(f"  macro_matvec ({dtype}) C={C}: {fmt_times(t, b)} ({gbs:.1f} GB/s of values on device)")
         if C == 3 and main:
             # the two designs in turns at the main path's width: v1, new, new, v1
             err_v1 = float((mb.macro_matvec_v1(FtT, x_b) - mb.macro_matvec_plain(FtT, x_b)).abs().max())
@@ -724,15 +803,18 @@ def add_macro_shapes(rec: dict, label: str, solver, widths, reps: int) -> None:
         rec["macro_matvec"].setdefault("shapes", {})[f"{label}, C={C}"] = t
 
 
-def check_slot_kernels(plans, widths: dict, reps: int) -> dict:
+def check_slot_kernels(plans, widths: dict, reps: int, dtype=None) -> dict:
     """Kernels C and D against their plain versions on element `plans`,
-    at `widths` ({kernel: channel counts}), with seeded random inputs,
-    then timed; returns {kernel: dict(err=, widths={C: times and bound})}."""
+    at `widths` ({kernel: channel counts}), with seeded random inputs in
+    `dtype` (None: float32), then timed; returns {kernel: dict(err=,
+    widths={C: times and bound})}."""
     import torch
 
     from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
 
-    dev = plans.gather.device
+    dev, dtype = plans.gather.device, dtype or torch.float32
+    size = torch.finfo(dtype).bits // 8
+    peak = F64_OPS_PER_S if dtype == torch.float64 else F32_OPS_PER_S
     gen = torch.Generator(device=dev).manual_seed(1)
     # index bytes each kernel reads: C the CSR order and row offsets, D the
     # flat slot index (all int64)
@@ -744,7 +826,7 @@ def check_slot_kernels(plans, widths: dict, reps: int) -> dict:
     # wide design, timed against the narrow kernel in turns at C <= 16)
     kernels = {
         "slot_reduce": (oh.onehot_reduce, oh.onehot_reduce_plain,
-                        lambda x: torch.zeros((plans.n_rows, x.shape[1]), device=dev).index_add_(
+                        lambda x: torch.zeros((plans.n_rows, x.shape[1]), device=dev, dtype=dtype).index_add_(
                             0, plans.gather, x),
                         plans.n_slots, oh.onehot_reduce_wide),
         "slot_gather": (oh.onehot_gather, oh.onehot_gather_plain,
@@ -756,18 +838,18 @@ def check_slot_kernels(plans, widths: dict, reps: int) -> dict:
         fn, plain, lib, rows, wide = kernels[name]
         errs, per_width = [], {}
         for C in Cs:
-            x = torch.randn((rows, C), generator=gen, device=dev)
-            log(f"kernel {name}: payload {tuple(x.shape)}, {plans.n_slots} slots -> {plans.n_rows} rows")
+            x = torch.randn((rows, C), generator=gen, device=dev, dtype=dtype)
+            log(f"kernel {name}: {dtype} payload {tuple(x.shape)}, {plans.n_slots} slots -> {plans.n_rows} rows")
             errs.append(compare(name, fn(plans, x), plain(plans, x)))
             t = kernel_times(lambda: fn(plans, x), lambda: plain(plans, x), lambda: lib(x), reps)
             # every slot row once, every node row once; C's sums are its operations
             b = bound(
-                (plans.n_slots + plans.n_rows) * C * 4 + idx_bytes[name],
-                plans.n_slots * C if name == "slot_reduce" else 0,
+                (plans.n_slots + plans.n_rows) * C * size + idx_bytes[name],
+                plans.n_slots * C if name == "slot_reduce" else 0, peak,
             )
-            t["share"] = share(f"{name} C={C}", b, t["device_ms"])
-            gbs = (plans.n_slots + plans.n_rows) * C * 4 / t["device_ms"] / 1e6
-            log(f"  {name} C={C}: {fmt_times(t, b)} ({gbs:.1f} GB/s on device)")
+            t["share"] = share(f"{name} {dtype} C={C}", b, t["device_ms"])
+            gbs = (plans.n_slots + plans.n_rows) * C * size / t["device_ms"] / 1e6
+            log(f"  {name} ({dtype}) C={C}: {fmt_times(t, b)} ({gbs:.1f} GB/s on device)")
             if C <= SLOT_NARROW_C:
                 # the narrow kernel sums in the wide one's order: equal bits
                 if not torch.equal(wide(plans, x), fn(plans, x)):
@@ -788,13 +870,18 @@ def check_slot_kernels(plans, widths: dict, reps: int) -> dict:
     return rec
 
 
-def add_slot_shapes(rec: dict, label: str, plans, reps: int) -> None:
-    """Kernels C and D checked and timed on a variant path's plan
-    (SLOT_SHAPES[label]), added to their records under "shapes"."""
-    for name, r in check_slot_kernels(plans, SLOT_SHAPES[label], reps).items():
-        rec[name]["err"] = max(rec[name]["err"], r["err"])
+def add_slot_shapes(rec: dict, label: str, plans, reps: int, dtype=None, base=None) -> None:
+    """Kernels C and D checked and timed on a path's plan
+    (SLOT_SHAPES[label]) in `dtype`, added to their records in `rec` under
+    "shapes"; with `base` (a channel count) the records are made here, their
+    own numbers those at `base` channels."""
+    for name, r in check_slot_kernels(plans, SLOT_SHAPES[label], reps, dtype).items():
+        if base is not None:
+            rec[name] = dict(err=0.0, **r["widths"][base])
+        kr = rec[name]
+        kr["err"] = max(kr["err"], r["err"])
         for C, t in r["widths"].items():
-            rec[name].setdefault("shapes", {})[f"{label}, {plans.n_slots} slots, C={C}"] = {
+            kr.setdefault("shapes", {})[f"{label}, {plans.n_slots} slots, C={C}"] = {
                 k: t[k] for k in ("device_ms", "bound_ms", "share", "plain_device_ms",
                                   "library_ms", "lib_device_ms", "wide_device_ms") if k in t
             }
@@ -862,14 +949,14 @@ def run_probes(reps: int) -> dict:
 
 
 def check_small_duct(device, name: str = "bench", changes=None, mesh_kw=SMALL_DUCT,
-                     config=bench_config, rtol: float = AGREE_RTOL) -> None:
+                     config=bench_config, rtol: float = AGREE_RTOL, card_dtype: str = "float32") -> None:
     """`check_small` on a small duct of the 3D problem under `config(dtype)`
     with `changes`."""
     from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
     from navierstokes_project_nm4pde_tpu_torch.models import Cylinder3DProblem
 
     check_small(device, f"small duct, {name}", cylinder_duct_3d(**mesh_kw), Cylinder3DProblem(test_case=2),
-                lambda dtype: with_changes(config(dtype), changes or {}), AGREE_STEPS, rtol)
+                lambda dtype: with_changes(config(dtype), changes or {}), AGREE_STEPS, rtol, card_dtype)
 
 
 def small_errors(out: dict, ref: dict) -> dict:
@@ -887,19 +974,25 @@ def small_errors(out: dict, ref: dict) -> dict:
     return errs
 
 
-def check_small(device, name: str, mesh, problem, config, steps: int, rtol: float) -> None:
-    """The port on the card (f32, kernels) against the port on the CPU (f64,
-    plain versions): `steps` steps under `config(dtype)`, every quantity of
-    `small_errors` within `rtol`."""
+def check_small(device, name: str, mesh, problem, config, steps: int, rtol: float,
+                card_dtype: str = "float32") -> None:
+    """The port on the card (`card_dtype`, kernels) against the port on the
+    CPU (f64, plain versions): `steps` steps under `config(dtype)`, every
+    quantity of `small_errors` within `rtol`; in float64 on both, also the
+    same F and S counts."""
     from navierstokes_project_nm4pde_tpu_torch.models import NavierStokesSolver
 
     (sg, dg), (sc, dc) = (
         NavierStokesSolver(mesh, problem, config(dtype), device=dev).run(steps)
-        for dev, dtype in ((device, "float32"), ("cpu", "float64"))
+        for dev, dtype in ((device, card_dtype), ("cpu", "float64"))
     )
-    log(f"{name} ({sc.u.shape[0]} velocity nodes), {steps} steps: "
+    log(f"{name} ({sc.u.shape[0]} velocity nodes, card {card_dtype}), {steps} steps: "
         f"F iters card {dg.iters_f.tolist()} cpu {dc.iters_f.tolist()}, "
         f"S iters card {dg.iters_s.tolist()} cpu {dc.iters_s.tolist()}")
+    if card_dtype == "float64" and not (
+        (dg.iters_f == dc.iters_f).all() and (dg.iters_s == dc.iters_s).all()
+    ):
+        fail(f"{name}: the float64 runs on the card and the CPU took different iteration counts")
     ref = {k: getattr(sc, k).numpy() for k in ("u", "p")}
     out = {k: getattr(sg, k).double().cpu().numpy() for k in ("u", "p")}
     for k in ("c_d", "c_l", "delta_p"):
@@ -1006,11 +1099,12 @@ def check_small_precond(device) -> None:
 
 
 def check_small_ensemble(device, name: str = "bench", config=ensemble_config, changes=None,
-                         rtol: float = AGREE_RTOL) -> None:
-    """The port's ensemble on the card (f32, kernels C and D) against the
-    same ensemble on the CPU (f64, plain versions) on a small duct under
-    `config(dtype)` with `changes`, each member held to `rtol` of its own
-    max |ref|."""
+                         rtol: float = AGREE_RTOL, card_dtype: str = "float32") -> None:
+    """The port's ensemble on the card (`card_dtype`, kernels C and D)
+    against the same ensemble on the CPU (f64, plain versions) on a small
+    duct under `config(dtype)` with `changes`, each member held to `rtol` of
+    its own max |ref|; in float64 on both, also the same per-member
+    counts."""
     import numpy as np
 
     from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
@@ -1028,11 +1122,15 @@ def check_small_ensemble(device, name: str = "bench", config=ensemble_config, ch
             NavierStokesSolver(mesh, problem, with_changes(config(dtype), changes or {}), device=dev),
             nus, AGREE_STEPS,
         )
-        for dev, dtype in ((device, "float32"), ("cpu", "float64"))
+        for dev, dtype in ((device, card_dtype), ("cpu", "float64"))
     )
-    log(f"small-duct ensemble, {name} (B={len(nus)}, {sc.u.shape[0]} velocity nodes), {AGREE_STEPS} steps: "
-        f"F iters card {dg.iters_f.tolist()} cpu {dc.iters_f.tolist()}, "
+    log(f"small-duct ensemble, {name} (B={len(nus)}, {sc.u.shape[0]} velocity nodes, card {card_dtype}), "
+        f"{AGREE_STEPS} steps: F iters card {dg.iters_f.tolist()} cpu {dc.iters_f.tolist()}, "
         f"S iters card {dg.iters_s.tolist()} cpu {dc.iters_s.tolist()}")
+    if card_dtype == "float64" and not (
+        (dg.iters_f == dc.iters_f).all() and (dg.iters_s == dc.iters_s).all()
+    ):
+        fail(f"small-duct ensemble, {name}: the float64 runs on the card and the CPU took different counts")
     worst = {}
     for m in range(len(nus)):
         ref = {k: getattr(sc, k)[..., m].numpy() for k in ("u", "p")}
@@ -1311,17 +1409,34 @@ def count_syncs(solver, state, steps: int):
     return state, sum("called a synchronizing" in str(w.message) for w in caught), iters
 
 
-def drive_cylinder_cli(device, dim: int = 3, warmup: int = CLI_WARMUP, timed: int = CLI_TIMED) -> dict:
-    """The cylinder<dim>d entry point at its defaults through the CLI's
-    `main`: warmup + timed steps in chunks of CLI_CHUNK into a temporary
-    directory, kernel C's and D's counts set to 0 just before and read just
-    after.  A step's time is its chunk's wall time over the chunk's steps
-    and the set-up time is the first row's `time prec`, as the CLI logs
-    them in forces_results_<dim>D_2case.csv; iterations come from
-    gmres.csv.  Fails unless the CLI's files exist and the timed steps are
-    finite and under maxiter, or if C or D never launched."""
+def launches_of(counts: dict, names, dtype: str, path: str) -> dict:
+    """The launches of kernels `names` through their `dtype` entry points
+    (counted under the kernel's name in float32, with `_f64` in float64),
+    keyed by kernel; in float64, fails if a float32 entry point launched
+    (a cast on the path)."""
+    if dtype == "float64" and any(counts[k] for k in names):
+        fail(f"{path}: a float64 run launched float32 entry points ({counts})")
+    return {k: counts[k if dtype == "float32" else f"{k}_f64"] for k in names}
+
+
+def drive_cylinder_cli(device, dim: int = 3, warmup: int = CLI_WARMUP, timed: int = CLI_TIMED,
+                       dtype: str = "float32"):
+    """The cylinder<dim>d entry point at its defaults (with `--dtype
+    float64` when asked) through the CLI's `main`: warmup + timed steps in
+    chunks of CLI_CHUNK into a temporary directory, kernel C's and D's
+    counts set to 0 just before and read just after (in float64, the
+    launches of their float64 entry points).  A step's time is its chunk's
+    wall time over the chunk's steps and the set-up time is the first row's
+    `time prec`, as the CLI logs them in forces_results_<dim>D_2case.csv;
+    iterations come from gmres.csv, the pressure difference from the line
+    the CLI prints.  Fails unless the CLI's files exist and the timed steps'
+    forces and the pressure difference are finite and under maxiter, or if
+    C or D never launched.  Returns (launches, each CSV file's header and
+    column counts)."""
     import csv
+    import io
     import os
+    import re
     import tempfile
 
     import numpy as np
@@ -1332,30 +1447,44 @@ def drive_cylinder_cli(device, dim: int = 3, warmup: int = CLI_WARMUP, timed: in
 
     n, name = warmup + timed, f"cylinder{dim}d"
     forces_csv = f"forces_results_{dim}D_2case.csv"
+    flags = [] if dtype == "float32" else ["--dtype", dtype]
+    printed = io.StringIO()
     with tempfile.TemporaryDirectory() as out:
         torch.cuda.reset_peak_memory_stats(device)
         oh.reset_launch_counts()
         t0 = time.perf_counter()
-        rc = cli.main([name, "--n-steps", str(n), "--steps-per-chunk", str(CLI_CHUNK),
-                       "--output-dir", out])
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main([name, "--n-steps", str(n), "--steps-per-chunk", str(CLI_CHUNK), *flags,
+                           "--output-dir", out])
         wall = time.perf_counter() - t0
-        launches = dict(oh.launch_counts)
+        launches = launches_of(oh.launch_counts, ("slot_reduce", "slot_gather"), dtype, f"{name} CLI")
         peak = torch.cuda.max_memory_allocated(device) / 2**30
         files = sorted(os.listdir(out))
         for f in ("gmres.csv", "coeff_2.csv", forces_csv, "final.npz"):
             if f not in files:
                 fail(f"{name} CLI: no {f} in its output ({files})")
+        heads = {}  # each CSV file's header (None: a file without one) and columns
+        for f in files:
+            if f.endswith(".csv"):
+                with open(os.path.join(out, f)) as fh:
+                    rows = list(csv.reader(fh))
+                named = rows and not rows[0][0].replace(".", "", 1).replace("-", "", 1).strip().isdigit()
+                heads[f] = (",".join(rows[0]) if named else None, sorted({len(r) for r in rows}))
         with open(os.path.join(out, "gmres.csv")) as f:
             iters = np.array([int(r[2]) for r in csv.reader(f)])
         with open(os.path.join(out, forces_csv)) as f:
             forces = np.array([[float(v) for v in r] for r in list(csv.reader(f))[1:]])
         with np.load(os.path.join(out, "final.npz")) as z:
             final_step, final_u = int(z["step"]), z["u"]
+    m = re.search(r"Pressure difference \(P\(A\) - P\(B\)\) = (\S+)", printed.getvalue())
+    delta_p = float(m.group(1)) if m else float("nan")
     if rc != 0 or len(iters) != n or forces.shape[0] != n or final_step != n:
         fail(f"{name} CLI: exit {rc}, {len(iters)} gmres rows, {forces.shape[0]} force rows, "
              f"final step {final_step}, for {n} steps")
-    if not (np.all(np.isfinite(forces[:, :5])) and np.all(np.isfinite(final_u))):
-        fail(f"{name} CLI: non-finite forces or final u")
+    if not (np.all(np.isfinite(forces[:, :5])) and np.all(np.isfinite(final_u)) and np.isfinite(delta_p)):
+        fail(f"{name} CLI: non-finite forces, pressure difference ({delta_p}) or final u")
+    if final_u.dtype != np.dtype(dtype):
+        fail(f"{name} CLI: final.npz holds {final_u.dtype}, not {dtype}")
     maxit = cylinder3d_config().solver.maxiter  # the CLI's default, both dims
     timed_it = iters[warmup:]
     if np.any(timed_it >= maxit):
@@ -1365,16 +1494,16 @@ def drive_cylinder_cli(device, dim: int = 3, warmup: int = CLI_WARMUP, timed: in
             fail(f"{name} CLI: the path never launched kernel {k}")
     step_ms = 1e3 * forces[warmup:, 6]
     q = np.percentile(step_ms, [25, 50, 75])
-    log(f"{name} CLI (its defaults, float32): {n} steps in chunks of {CLI_CHUNK}, "
+    log(f"{name} CLI (its defaults, {dtype}): {n} steps in chunks of {CLI_CHUNK}, "
         f"{wall:.2f} s in main; set-up {forces[0, 5]:.2f} s; timed {timed} steps: "
         f"{1e3 * timed / step_ms.sum():.4f} steps/s, per step median {q[1]:.4f} ms, "
         f"quartiles {q[0]:.4f} / {q[2]:.4f} ms (a chunk's wall time over its steps); "
         f"peak device memory {peak:.3f} GiB")
     log(f"  outer FGMRES iterations per step {iters.tolist()} (timed mean {timed_it.mean():.2f})")
-    log(f"  last step: c_d {forces[-1, 3]:.8g}, c_l {forces[-1, 4]:.8g}")
-    log(f"  kernel launches over the {n} steps and the set-up: {launches}; per step "
+    log(f"  last step: c_d {forces[-1, 3]:.8g}, c_l {forces[-1, 4]:.8g}, delta_p {delta_p:.8g}")
+    log(f"  kernel launches ({dtype}) over the {n} steps and the set-up: {launches}; per step "
         + ", ".join(f"{k} {v / n:.2f}" for k, v in launches.items()))
-    return launches
+    return launches, heads
 
 
 def read_convergence(out: str):
@@ -1390,13 +1519,15 @@ def read_convergence(out: str):
 
 
 def drive_convergence_cli(device) -> dict:
-    """The convergence entry point at its defaults (levels 2 4 8 16, float32)
-    through the CLI's `main` on the card, kernel C's and D's counts set to
-    0 just before and read just after; then the same CLI on the CPU at
-    float64 on CONV_CPU_LEVELS.  Fails unless the last pair's rates exceed
-    CONV_MIN_RATES and the card's errors at CONV_CPU_LEVELS are within
-    CONV_RTOL of the CPU's, or if C or D never launched.  Returns the
-    launches."""
+    """The convergence entry point at its defaults (levels 2 4 8 16) through
+    the CLI's `main` on the card, at float32 and at --dtype float64 (the
+    README's command), kernel C's and D's counts set to 0 just before each
+    and read just after (in float64, the launches of their float64 entry
+    points); then the same CLI on the CPU at float64 on CONV_CPU_LEVELS.
+    Fails unless each card run's last-pair rates exceed CONV_MIN_RATES and
+    its errors at CONV_CPU_LEVELS lie within CONV_RTOL (float32) or
+    CONV_RTOL64 (float64) of the CPU's, or if C or D never launched.
+    Returns the launches by dtype."""
     import tempfile
 
     import numpy as np
@@ -1405,41 +1536,50 @@ def drive_convergence_cli(device) -> dict:
     from navierstokes_project_nm4pde_tpu_torch import cli
     from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
 
-    with tempfile.TemporaryDirectory() as out, tempfile.TemporaryDirectory() as ref_out:
-        torch.cuda.reset_peak_memory_stats(device)
-        oh.reset_launch_counts()
-        t0 = time.perf_counter()
-        rc = cli.main(["convergence", "--output-dir", out])
-        wall = time.perf_counter() - t0
-        launches = dict(oh.launch_counts)
-        peak = torch.cuda.max_memory_allocated(device) / 2**30
-        h, l2, h1 = read_convergence(out)
+    runs = {}
+    for dtype in ("float32", "float64"):
+        with tempfile.TemporaryDirectory() as out:
+            torch.cuda.reset_peak_memory_stats(device)
+            oh.reset_launch_counts()
+            t0 = time.perf_counter()
+            flags = [] if dtype == "float32" else ["--dtype", dtype]
+            rc = cli.main(["convergence", *flags, "--output-dir", out])
+            wall = time.perf_counter() - t0
+            launches = launches_of(oh.launch_counts, ("slot_reduce", "slot_gather"), dtype, "convergence CLI")
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            runs[dtype] = (rc, wall, launches, peak, *read_convergence(out))
+    with tempfile.TemporaryDirectory() as ref_out:
         t0 = time.perf_counter()
         cli.main(["convergence", "--levels", *map(str, CONV_CPU_LEVELS), "--dtype", "float64",
                   "--device", "cpu", "--output-dir", ref_out])
         cpu_wall = time.perf_counter() - t0
         _, l2_ref, h1_ref = read_convergence(ref_out)
-    rates = {k: np.log(e[:-1] / e[1:]) / np.log(h[:-1] / h[1:]) for k, e in (("L2", l2), ("H1", h1))}
-    log(f"convergence CLI (its defaults, float32, levels {[round(2 / x) for x in h]}): exit {rc}, "
-        f"{wall:.2f} s in main, peak device memory {peak:.3f} GiB; L2 {l2.tolist()}, "
-        f"H1 {h1.tolist()}; rates L2 {np.round(rates['L2'], 4).tolist()}, "
-        f"H1 {np.round(rates['H1'], 4).tolist()}; kernel launches {launches}")
-    k = len(CONV_CPU_LEVELS)
-    errs = np.abs(np.concatenate([l2[:k] / l2_ref - 1, h1[:k] / h1_ref - 1]))
-    log(f"  against the CPU float64 run of levels {list(CONV_CPU_LEVELS)} ({cpu_wall:.2f} s): "
-        f"L2 {l2_ref.tolist()}, H1 {h1_ref.tolist()}; max relative difference {errs.max():.3e} "
-        f"(limit {CONV_RTOL:g})")
-    if rc != 0 or len(h) != 4 or not np.all(np.isfinite(np.concatenate([l2, h1]))):
-        fail(f"convergence CLI: exit {rc}, {len(h)} levels, L2 {l2}, H1 {h1}")
-    for name, lo in CONV_MIN_RATES.items():
-        if not rates[name][-1] > lo:
-            fail(f"convergence CLI: the last pair's {name} rate {rates[name][-1]:.4f} is not above {lo}")
-    if not errs.max() <= CONV_RTOL:
-        fail(f"convergence CLI: errors differ from the CPU float64 run by {errs.max():.3e} > {CONV_RTOL:g}")
-    for name, v in launches.items():
-        if v <= 0:
-            fail(f"convergence CLI: the path never launched kernel {name}")
-    return launches
+    log(f"  the CPU float64 run of levels {list(CONV_CPU_LEVELS)} ({cpu_wall:.2f} s): "
+        f"L2 {l2_ref.tolist()}, H1 {h1_ref.tolist()}")
+    out = {}
+    for dtype, tol in (("float32", CONV_RTOL), ("float64", CONV_RTOL64)):
+        rc, wall, launches, peak, h, l2, h1 = runs[dtype]
+        rates = {k: np.log(e[:-1] / e[1:]) / np.log(h[:-1] / h[1:]) for k, e in (("L2", l2), ("H1", h1))}
+        k = len(CONV_CPU_LEVELS)
+        errs = np.abs(np.concatenate([l2[:k] / l2_ref - 1, h1[:k] / h1_ref - 1]))
+        log(f"convergence CLI (its defaults, {dtype}, levels {[round(2 / x) for x in h]}): exit {rc}, "
+            f"{wall:.2f} s in main, peak device memory {peak:.3f} GiB; L2 {l2.tolist()}, "
+            f"H1 {h1.tolist()}; rates L2 {np.round(rates['L2'], 4).tolist()}, "
+            f"H1 {np.round(rates['H1'], 4).tolist()}; kernel launches ({dtype}) {launches}; max relative "
+            f"difference from the CPU float64 run {errs.max():.3e} (limit {tol:g})")
+        if rc != 0 or len(h) != 4 or not np.all(np.isfinite(np.concatenate([l2, h1]))):
+            fail(f"convergence CLI, {dtype}: exit {rc}, {len(h)} levels, L2 {l2}, H1 {h1}")
+        for name, lo in CONV_MIN_RATES.items():
+            if not rates[name][-1] > lo:
+                fail(f"convergence CLI, {dtype}: the last pair's {name} rate {rates[name][-1]:.4f} "
+                     f"is not above {lo}")
+        if not errs.max() <= tol:
+            fail(f"convergence CLI, {dtype}: errors differ from the CPU float64 run by {errs.max():.3e} > {tol:g}")
+        for name, v in launches.items():
+            if v <= 0:
+                fail(f"convergence CLI, {dtype}: the path never launched kernel {name}")
+        out[dtype] = launches
+    return out
 
 
 def drive_cylinder2d(device, rec: dict) -> dict:
@@ -1456,7 +1596,7 @@ def drive_cylinder2d(device, rec: dict) -> dict:
 
     out = {}
     t0 = time.perf_counter()
-    out["cylinder2d CLI"] = drive_cylinder_cli(device, 2, CLI_2D_WARMUP, CLI_2D_TIMED)
+    out["cylinder2d CLI"] = drive_cylinder_cli(device, 2, CLI_2D_WARMUP, CLI_2D_TIMED)[0]
     dsolver = NavierStokesSolver(
         cylinder_channel_2d(**CLI_2D_MESH), Cylinder2DProblem(test_case=2),
         cli._build_config(cli._parser().parse_args(["cylinder2d"]), None), device=device,
@@ -1605,7 +1745,7 @@ def drive_ensemble_cli(device, rec: dict) -> dict:
         finally:
             par.run_ensemble = orig
         wall = time.perf_counter() - t0
-        launches = dict(oh.launch_counts)
+        launches = launches_of(oh.launch_counts, ("slot_reduce", "slot_gather"), "float32", "ensemble CLI")
         peak = torch.cuda.max_memory_allocated(device) / 2**30
         with open(os.path.join(out, "ensemble.csv")) as f:
             rows = np.array([[float(v) for v in r] for r in list(csv.reader(f))[1:]])
@@ -1630,6 +1770,75 @@ def drive_ensemble_cli(device, rec: dict) -> dict:
         fail("ensemble CLI: every step of a member reached maxiter")
     add_slot_shapes(rec, "ensemble CLI defaults", solver.op.onehot, KERNEL_REPS)
     return launches
+
+
+def _small_config(conf: str):
+    """The small checks' configuration `conf` as a function of the dtype:
+    "bench", "ensemble", "cylinder3d" (the CLI's defaults), "asimple"."""
+    return {
+        "bench": bench_config, "ensemble": ensemble_config, "cylinder3d": cylinder3d_config,
+        "asimple": functools.partial(cylinder3d_config, kind="asimple"),
+    }[conf]
+
+
+def check_small_f64(device) -> None:
+    """F64_CHECKS, card float64 against CPU float64 on the small duct (the
+    same counts, u and p within F64_RTOL), each path's kernels launched in
+    float64 on the card; then the CPU float64 state after F64_CARRY_STEPS
+    steps, written to a checkpoint and loaded on the card at float64,
+    continues there as on the CPU."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
+    from navierstokes_project_nm4pde_tpu_torch.models import Cylinder3DProblem, NavierStokesSolver
+    from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
+    from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
+
+    for name, (conf, changes) in F64_CHECKS.items():
+        mb.reset_launch_counts()
+        oh.reset_launch_counts()
+        if conf == "ensemble":
+            check_small_ensemble(device, f"float64, {name}", ensemble_config, changes, F64_RTOL, "float64")
+        else:
+            check_small_duct(device, f"float64, {name}", changes, config=_small_config(conf), rtol=F64_RTOL,
+                             card_dtype="float64")
+        counts = launches_of({**mb.launch_counts, **oh.launch_counts}, ("macro_build", "macro_matvec")
+                             if conf == "bench" else ("slot_reduce", "slot_gather"), "float64", name)
+        log(f"  float64 kernel launches on the card: {counts}")
+        if not all(v > 0 for v in counts.values()):
+            fail(f"float64, {name}: a kernel of the path never launched in float64 ({counts})")
+
+    mesh, problem, cfg = cylinder_duct_3d(**SMALL_DUCT), Cylinder3DProblem(test_case=2), bench_config("float64")
+    cpu = NavierStokesSolver(mesh, problem, cfg, device="cpu")
+    st, _ = cpu.run(F64_CARRY_STEPS)
+    rest = AGREE_STEPS - F64_CARRY_STEPS
+    ref, dref = cpu.run(rest, state=st)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "carry.npz")
+        save_checkpoint(path, st)
+        carried = load_checkpoint(path, dtype=torch.float64, device=device)
+    out, dout = NavierStokesSolver(mesh, problem, cfg, device=device).run(rest, state=carried)
+    errs = small_errors({k: getattr(out, k).cpu().numpy() for k in ("u", "p")},
+                        {k: getattr(ref, k).numpy() for k in ("u", "p")})
+    log(f"float64 carry-over: the CPU state after {F64_CARRY_STEPS} steps, through a checkpoint, {rest} steps on "
+        f"the card ({carried.u.dtype} on {carried.u.device}): F iters {dout.iters_f.tolist()} (cpu "
+        f"{dref.iters_f.tolist()}), S {dout.iters_s.tolist()} (cpu {dref.iters_s.tolist()}); "
+        + ", ".join(f"{k} err {v:.3e}" for k, v in errs.items()))
+    if not (np.array_equal(dout.iters_f, dref.iters_f) and np.array_equal(dout.iters_s, dref.iters_s)
+            and all(v <= F64_RTOL for v in errs.values())):
+        fail(f"float64 carry-over: the card's continuation differs from the CPU's ({errs})")
+
+
+def check_small_unfolded(device) -> None:
+    """UNFOLDED_CHECKS: fold_elem=False and spatial_reorder=False on the
+    small duct, card float32 against CPU float64."""
+    for name, (conf, changes, rtol) in UNFOLDED_CHECKS.items():
+        check_small_duct(device, name, changes, config=_small_config(conf), rtol=rtol)
 
 
 def check_small_ensembles(device) -> None:
@@ -1842,11 +2051,28 @@ def drive_multi_device(device, rec: dict) -> dict:
     return out_paths
 
 
+def kernel_entry(name: str, r: dict, launches: int) -> dict:
+    """A kernel's numbers in the kernels' JSON line, from its record `r`
+    (float32's, or the float64 record of its "f64" entry), logged."""
+    log(f"{name}: device {r['device_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+        f"({r['bound_ms'] / r['device_ms']:.1%}), plain {r['plain_device_ms']:.4f} ms, library "
+        f"{r['lib_device_ms']:.4f} ms, launches {launches}, max abs err {r['err']:.3e}")
+    return dict(
+        launches=launches, max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+        device_ms=r["device_ms"], plain_device_ms=r["plain_device_ms"], lib_device_ms=r["lib_device_ms"],
+        share=share(name, r, r["device_ms"]),
+        **{k: r[k] for k in ("v1_ms", "v1_device_ms", "widths", "shapes", "launches_by_path") if k in r},
+    )
+
+
 # Phases `--only` can run alone: name -> phase(device, kernel records).
 ONLY_PHASES = {
     "ensemble-cli": drive_ensemble_cli,
     "ensemble-variants": lambda device, rec: (check_small_ensemble(device), check_small_ensembles(device)),
     "multi-device": drive_multi_device,
+    "float64-small": lambda device, rec: check_small_f64(device),
+    "unfolded-small": lambda device, rec: check_small_unfolded(device),
 }
 
 
@@ -1935,11 +2161,7 @@ def main(argv=None) -> int:
         f"({esolver.space.n_unodes} velocity / {esolver.space.n_pnodes} pressure nodes), "
         f"B={B}: {B * esolver.space.n_dofs} DoF in all; {plans.n_slots} element slots, "
         f"max valence {int(plans.reduce.lengths.max())}; host setup {e_setup:.2f} s")
-    ens = check_slot_kernels(
-        plans, {"slot_reduce": (3 * B, 6 * B), "slot_gather": (3 * B, 9 * B)}, KERNEL_REPS
-    )
-    for name, r in ens.items():
-        rec[name] = dict(err=r["err"], **r["widths"][3 * B])
+    add_slot_shapes(rec, "ensemble", plans, KERNEL_REPS, base=3 * B)
 
     # ---- 5. the probes --------------------------------------------------------
     prec = run_probes(KERNEL_REPS)
@@ -1959,6 +2181,10 @@ def main(argv=None) -> int:
         log(f"  kernel A launches by channel count on the card: {dict(sorted(mb.matvec_channels.items()))}")
     check_small_monolithic(device)
     check_small_precond(device)
+    t0 = time.perf_counter()
+    check_small_f64(device)
+    check_small_unfolded(device)
+    log(f"small float64, fold_elem=False and spatial_reorder=False checks: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for name, (geometry, spec, steps, rtol) in SMALL_CHECKS.items():
         check_small(device, name, *small_geometry(geometry), functools.partial(small_config, spec), steps, rtol)
@@ -2041,7 +2267,36 @@ def main(argv=None) -> int:
     log(f"  monolithic 965k: {syncs} host syncs in one step of {its} outer iterations")
     del msolver, mstate
     free_card()
+
+    # ---- 9c. the single run at float64 (kernels A and B in float64) -------
+    t0 = time.perf_counter()
+    fsolver = NavierStokesSolver(mesh, Cylinder3DProblem(test_case=2), bench_config("float64"), device=device)
+    fsolver.macro_mass  # built at first use (with the plan): this path's setup
+    fmp = fsolver.macro
+    torch.cuda.synchronize()
+    log(f"single run float64: host setup {time.perf_counter() - t0:.2f} s (mesh reused); macro B={fmp.B} "
+        f"U={fmp.U} c_blk={fmp.c_blk}")
+    rec64 = check_kernels(fsolver, KERNEL_REPS, F64_MATVEC_WIDTHS, main=False)
+    free_card()
+    _, _, _, f64_all = drive_single(
+        "single run float64", fsolver, F64_WARMUP, F64_TIMED, ("macro_build_f64", "macro_matvec_f64")
+    )
+    f64_single = launches_of(f64_all, ("macro_build", "macro_matvec"), "float64", "single run float64")
+    del fsolver
+    free_card()
     del mesh
+
+    # ---- 9d. the cylinder3d entry point at --dtype float64 (142,692 DoF) ----
+    # kernels C and D in float64 on its solver's plan: their float64 records,
+    # at the 3 channels of every element pass, and diag C(w)'s 1 beside them
+    cli_launches64, heads64 = drive_cylinder_cli(device, dtype="float64")
+    c64 = NavierStokesSolver(
+        cylinder_duct_3d(**CLI_MESH), Cylinder3DProblem(test_case=2), cylinder3d_config("float64"),
+        device=device,
+    )
+    add_slot_shapes(rec64, "monolithic 142k", c64.op.onehot, KERNEL_REPS, torch.float64, base=3)
+    del c64
+    free_card()
 
     # ---- 10. explicit convection on the 46,928-DoF duct ---------------------
     t0 = time.perf_counter()
@@ -2071,7 +2326,8 @@ def main(argv=None) -> int:
     estate, ed, e_ms = timed_steps(
         lambda st, k: run_ensemble(esolver, nus, k, state=st), estate, ENSEMBLE_TIMED
     )
-    launches.update(oh.launch_counts)
+    e_launches = launches_of(oh.launch_counts, ("slot_reduce", "slot_gather"), "float32", "ensemble")
+    launches.update(e_launches)
     launches.update(probe_launches)
     ne, q = ENSEMBLE_TIMED, np.percentile(e_ms, [25, 50, 75])
     log(f"ensemble timed: {ne} steps of {B} members in {sum(e_ms) / 1e3:.4f} s: "
@@ -2087,8 +2343,9 @@ def main(argv=None) -> int:
     log(f"  last step, Re 20 / 300: c_d {ed.c_d[0, -1]:.8g} / {ed.c_d[-1, -1]:.8g}, "
         f"c_l {ed.c_l[0, -1]:.8g} / {ed.c_l[-1, -1]:.8g}, "
         f"delta_p {ed.delta_p[0, -1]:.8g} / {ed.delta_p[-1, -1]:.8g}, t {estate.t:.6g}")
-    log(f"  kernel launches in the timed run: {dict(oh.launch_counts)}")
-    check_run("ensemble", esolver, estate, ed, dict(oh.launch_counts))
+    log(f"  kernel launches in the timed run: {e_launches}")
+    check_run("ensemble", esolver, estate, ed, e_launches)
+    e_peak = torch.cuda.max_memory_allocated(device)
 
     if args.profile:
         busy = profile_steps(
@@ -2097,10 +2354,40 @@ def main(argv=None) -> int:
         )
         log(f"ensemble device idle share, profiled device ms/step against the timed mean: "
             f"{1 - busy * ne / sum(e_ms):.4f}")
+    add_slot_shapes(rec64, "ensemble plan, 192 (float64 off-path)", esolver.op.onehot, KERNEL_REPS, torch.float64)
     del esolver, estate
+    free_card()
+
+    # ---- 11b. the same ensemble with fold_elem=False -----------------------
+    t0 = time.perf_counter()
+    usolver = NavierStokesSolver(emesh, eproblem, with_changes(ensemble_config("float32"), {
+        "numerics": dict(fold_elem=False)}), device=device)
+    usolver.op.onehot
+    torch.cuda.synchronize()
+    log(f"ensemble, fold_elem=False: host setup {time.perf_counter() - t0:.2f} s (mesh reused)")
+    ustate, _ = run_ensemble(usolver, nus, ENSEMBLE_WARMUP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    oh.reset_launch_counts()
+    ustate, ud, u_ms = timed_steps(lambda st, k: run_ensemble(usolver, nus, k, state=st), ustate, ENSEMBLE_TIMED)
+    u_peak = torch.cuda.max_memory_allocated(device)
+    u_launches = launches_of(oh.launch_counts, ("slot_reduce", "slot_gather"), "float32", "ensemble, fold_elem=False")
+    log(f"ensemble, fold_elem=False, timed: {ne} steps of {B} members in {sum(u_ms) / 1e3:.4f} s: "
+        f"{1e3 * B * ne / sum(u_ms):.4f} member-steps/s (folded {1e3 * B * ne / sum(e_ms):.4f}), "
+        f"{sum(u_ms) / ne:.4f} ms/step mean, median {np.median(u_ms):.4f} ms; peak device memory "
+        f"{u_peak / 2**30:.3f} GiB (folded {e_peak / 2**30:.3f} GiB); F / S a member a step, mean "
+        f"{ud.iters_f.mean():.3f} / {ud.iters_s.mean():.3f} (folded {ed.iters_f.mean():.3f} / "
+        f"{ed.iters_s.mean():.3f}); kernel launches {u_launches}")
+    check_run("ensemble, fold_elem=False", usolver, ustate, ud, u_launches)
+    if not u_peak < e_peak:
+        fail(f"ensemble, fold_elem=False: peak {u_peak / 2**30:.3f} GiB is not below the folded "
+             f"ensemble's {e_peak / 2**30:.3f} GiB")
+    del usolver, ustate
 
     # ---- 12. the cylinder3d entry point at its defaults (142,692 DoF) -------
-    cli_launches = drive_cylinder_cli(device)
+    cli_launches, heads = drive_cylinder_cli(device)
+    if heads64 != heads:
+        fail(f"cylinder3d CLI, float64: its CSV files or headers differ from float32's: {heads64} / {heads}")
     csolver = NavierStokesSolver(
         cylinder_duct_3d(**CLI_MESH), Cylinder3DProblem(test_case=2), cylinder3d_config("float32"),
         device=device,
@@ -2117,11 +2404,13 @@ def main(argv=None) -> int:
     paths = drive_cylinder2d(device, rec)
     t_2d = time.perf_counter() - t0
     t0 = time.perf_counter()
-    paths["convergence CLI"] = drive_convergence_cli(device)
+    conv_launches = drive_convergence_cli(device)
+    paths["convergence CLI"] = conv_launches["float32"]
     nsolver = NavierStokesSolver(
         cube_mesh(16), EthierSteinmanProblem(), small_config(("cli", ["convergence"])), device=device,
     )
     add_slot_shapes(rec, "convergence n=16", nsolver.op.onehot, KERNEL_REPS)
+    add_slot_shapes(rec64, "convergence n=16", nsolver.op.onehot, KERNEL_REPS, torch.float64)
     del nsolver
     free_card()
     log(f"the cylinder2d and convergence entry points: cylinder2d {t_2d:.1f} s, convergence "
@@ -2138,6 +2427,14 @@ def main(argv=None) -> int:
     paths.update({"monolithic 965k": mono_launches, "cylinder3d CLI": cli_launches})
     for name in ("slot_reduce", "slot_gather", "macro_build", "macro_matvec"):
         rec[name]["launches_by_path"] = {k: v[name] for k, v in paths.items() if v.get(name)}
+    # the float64 records' launches: A and B in the float64 single run's
+    # timed steps, C and D in the cylinder3d CLI's float64 run, whose plan
+    # their records measure; the convergence CLI's float64 launches beside
+    paths64 = {"single run float64": f64_single, "cylinder3d CLI float64": cli_launches64,
+               "convergence CLI float64": conv_launches["float64"]}
+    for name, r in rec64.items():
+        r["launches_by_path"] = {k: v[name] for k, v in paths64.items() if v.get(name)}
+        r["launches"] = (f64_single if name.startswith("macro") else cli_launches64)[name]
 
     imported = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN_MODULES)
     if imported:
@@ -2145,20 +2442,12 @@ def main(argv=None) -> int:
 
     kernels = []
     for name in KERNELS:
-        r = rec[name]
         kernels.append(dict(
             name=name, route="cuda", source=f"{PKG}/csrc/{KERNELS[name][0]}",
-            replaces=KERNELS[name][1],
-            launches=launches[name], max_abs_err=r["err"],
-            ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
-            device_ms=r["device_ms"], plain_device_ms=r["plain_device_ms"],
-            lib_device_ms=r["lib_device_ms"], share=share(name, r, r["device_ms"]),
-            **{k: r[k] for k in ("v1_ms", "v1_device_ms", "widths", "shapes", "launches_by_path")
-               if k in r},
+            replaces=KERNELS[name][1], **kernel_entry(name, rec[name], launches[name]),
+            **({"f64": kernel_entry(f"{name} float64", rec64[name], rec64[name]["launches"])}
+               if name in rec64 else {}),
         ))
-        log(f"{name}: device {r['device_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']} ({r['bound_ms'] / r['device_ms']:.1%}), library {r['lib_device_ms']:.4f} ms")
     log(f"chip_smoke: every phase, the kernels' build included, in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

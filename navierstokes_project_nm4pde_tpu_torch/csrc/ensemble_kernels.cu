@@ -43,8 +43,16 @@
 //   IMEX's fine subset: 0.0320 ms, 40% of bound, against index_select's
 //   0.0262; now 0.0193, 67%; H100 80GB HBM3, 700 W).
 //
-//   ns_slot_reduce_wide_f32 and ns_slot_gather_wide_f32 run the wide
-//   designs at any C, kept to time the two in turns at narrow C.
+//   ns_slot_reduce_wide_* and ns_slot_gather_wide_* run the wide designs
+//   at any C, kept to time the two in turns at narrow C.
+//
+// Both kernels are templates on the element type: the _f32 entry points
+// take float payloads, the _f64 ones double (the float64 runs).  In double
+// the wide designs' 16-byte vectors hold 2 channels (double2, where
+// C % 2 == 0 and the bases are aligned); the narrow kernels are the same
+// code.  C still sums each (row, channel) in the CSR order, so it stays
+// deterministic, and D stays an exact copy.  Both stay bound by bytes,
+// which double doubles.
 //
 // Every entry point launches on the caller's stream, allocate nothing, and
 // return cudaGetLastError() so the Python wrapper can raise.  Indices are
@@ -61,34 +69,44 @@ constexpr int kNarrowC = 16;  // widest payload of the narrow kernels
 constexpr int kNarrowThreads = 256;
 constexpr int kGatherPer = 4;  // elements a thread of the narrow gather
 
-template <int VEC>
+// VEC channels of element type T moved as one load: 1, or 16 bytes
+template <typename T, int VEC>
 struct Vec;
-template <>
-struct Vec<1> {
-  using T = float;
-  __device__ static void add(float* acc, T v) { acc[0] += v; }
-  __device__ static T pack(const float* acc) { return acc[0]; }
+template <typename T>
+struct Vec<T, 1> {
+  using V = T;
+  __device__ static void add(T* acc, V v) { acc[0] += v; }
+  __device__ static V pack(const T* acc) { return acc[0]; }
 };
 template <>
-struct Vec<4> {
-  using T = float4;
-  __device__ static void add(float* acc, T v) {
+struct Vec<float, 4> {
+  using V = float4;
+  __device__ static void add(float* acc, V v) {
     acc[0] += v.x;
     acc[1] += v.y;
     acc[2] += v.z;
     acc[3] += v.w;
   }
-  __device__ static T pack(const float* acc) {
+  __device__ static V pack(const float* acc) {
     return make_float4(acc[0], acc[1], acc[2], acc[3]);
   }
 };
+template <>
+struct Vec<double, 2> {
+  using V = double2;
+  __device__ static void add(double* acc, V v) {
+    acc[0] += v.x;
+    acc[1] += v.y;
+  }
+  __device__ static V pack(const double* acc) { return make_double2(acc[0], acc[1]); }
+};
 
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kReduceWarps * 32)
-slot_reduce_kernel(const float* __restrict__ y, const int64_t* __restrict__ perm,
-                   const int64_t* __restrict__ off, float* __restrict__ out,
+slot_reduce_kernel(const T* __restrict__ y, const int64_t* __restrict__ perm,
+                   const int64_t* __restrict__ off, T* __restrict__ out,
                    int n_rows, int C) {
-  using V = typename Vec<VEC>::T;
+  using V = typename Vec<T, VEC>::V;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kReduceWarps + (threadIdx.x >> 5);
   if (row >= n_rows) return;  // whole warps leave together
@@ -99,26 +117,26 @@ slot_reduce_kernel(const float* __restrict__ y, const int64_t* __restrict__ perm
   const long long k1 = off[row + 1];
   for (int v0 = 0; v0 < nv; v0 += 32) {
     const int v = v0 + lane;
-    float acc[VEC];
+    T acc[VEC];
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+    for (int i = 0; i < VEC; ++i) acc[i] = T(0);
     for (long long kb = k0; kb < k1; kb += 32) {
       const int cnt = static_cast<int>(min(32LL, k1 - kb));
       const long long mine = lane < cnt ? static_cast<long long>(perm[kb + lane]) : 0LL;
       for (int t = 0; t < cnt; ++t) {
         const long long s = __shfl_sync(0xffffffffu, mine, t);
-        if (v < nv) Vec<VEC>::add(acc, yv[s * nv + v]);
+        if (v < nv) Vec<T, VEC>::add(acc, yv[s * nv + v]);
       }
     }
-    if (v < nv) ov[static_cast<long long>(row) * nv + v] = Vec<VEC>::pack(acc);
+    if (v < nv) ov[static_cast<long long>(row) * nv + v] = Vec<T, VEC>::pack(acc);
   }
 }
 
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kGatherThreads)
-slot_gather_kernel(const float* __restrict__ x, const int64_t* __restrict__ idx,
-                   float* __restrict__ y, long long n_slots, int nv) {
-  using V = typename Vec<VEC>::T;
+slot_gather_kernel(const T* __restrict__ x, const int64_t* __restrict__ idx,
+                   T* __restrict__ y, long long n_slots, int nv) {
+  using V = typename Vec<T, VEC>::V;
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= n_slots * nv) return;
   const long long s = t / nv;
@@ -128,17 +146,17 @@ slot_gather_kernel(const float* __restrict__ x, const int64_t* __restrict__ idx,
 }
 
 // one thread a (row, channel): its row's slots in CSR order, as above
-template <int C>
+template <typename T, int C>
 __global__ void __launch_bounds__(kNarrowThreads)
-slot_reduce_narrow_kernel(const float* __restrict__ y, const int64_t* __restrict__ perm,
-                          const int64_t* __restrict__ off, float* __restrict__ out,
+slot_reduce_narrow_kernel(const T* __restrict__ y, const int64_t* __restrict__ perm,
+                          const int64_t* __restrict__ off, T* __restrict__ out,
                           int total) {
   const int t = blockIdx.x * kNarrowThreads + threadIdx.x;
   if (t >= total) return;
   const int row = t / C;
   const int c = t - row * C;
   const long long k1 = off[row + 1];
-  float acc = 0.f;
+  T acc = T(0);
 #pragma unroll 4
   for (long long k = off[row]; k < k1; ++k) acc += y[perm[k] * C + c];
   out[t] = acc;
@@ -147,12 +165,12 @@ slot_reduce_narrow_kernel(const float* __restrict__ y, const int64_t* __restrict
 // kGatherPer (slot, channel) elements a thread, kNarrowThreads apart so
 // that each store is coalesced; their loads are independent, so a thread
 // keeps kGatherPer index-then-row chains in flight
-template <int C>
+template <typename T, int C>
 __global__ void __launch_bounds__(kNarrowThreads)
-slot_gather_narrow_kernel(const float* __restrict__ x, const int64_t* __restrict__ idx,
-                          float* __restrict__ y, int total) {
+slot_gather_narrow_kernel(const T* __restrict__ x, const int64_t* __restrict__ idx,
+                          T* __restrict__ y, int total) {
   const int base = blockIdx.x * (kNarrowThreads * kGatherPer) + threadIdx.x;
-  float v[kGatherPer];
+  T v[kGatherPer];
 #pragma unroll
   for (int i = 0; i < kGatherPer; ++i) {
     const int t = base + i * kNarrowThreads;
@@ -170,34 +188,42 @@ slot_gather_narrow_kernel(const float* __restrict__ x, const int64_t* __restrict
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
-int reduce_wide(const float* y, const int64_t* perm, const int64_t* off, float* out,
+// channels of T in one 16-byte vector
+template <typename T>
+constexpr int kVec16 = 16 / static_cast<int>(sizeof(T));
+
+template <typename T>
+int reduce_wide(const T* y, const int64_t* perm, const int64_t* off, T* out,
                 int n_rows, int C, cudaStream_t s) {
+  constexpr int L = kVec16<T>;
   const int blocks = (n_rows + kReduceWarps - 1) / kReduceWarps;
-  if (C % 4 == 0 && aligned16(y) && aligned16(out)) {
-    slot_reduce_kernel<4><<<blocks, kReduceWarps * 32, 0, s>>>(y, perm, off, out, n_rows, C);
+  if (C % L == 0 && aligned16(y) && aligned16(out)) {
+    slot_reduce_kernel<T, L><<<blocks, kReduceWarps * 32, 0, s>>>(y, perm, off, out, n_rows, C);
   } else {
-    slot_reduce_kernel<1><<<blocks, kReduceWarps * 32, 0, s>>>(y, perm, off, out, n_rows, C);
+    slot_reduce_kernel<T, 1><<<blocks, kReduceWarps * 32, 0, s>>>(y, perm, off, out, n_rows, C);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int gather_wide(const float* x, const int64_t* idx, float* y, long long n_slots, int C,
+template <typename T>
+int gather_wide(const T* x, const int64_t* idx, T* y, long long n_slots, int C,
                 cudaStream_t s) {
-  const bool vec = C % 4 == 0 && aligned16(x) && aligned16(y);
-  const int nv = vec ? C / 4 : C;
+  constexpr int L = kVec16<T>;
+  const bool vec = C % L == 0 && aligned16(x) && aligned16(y);
+  const int nv = vec ? C / L : C;
   const long long total = n_slots * nv;
   const unsigned blocks = static_cast<unsigned>((total + kGatherThreads - 1) / kGatherThreads);
   if (vec) {
-    slot_gather_kernel<4><<<blocks, kGatherThreads, 0, s>>>(x, idx, y, n_slots, nv);
+    slot_gather_kernel<T, L><<<blocks, kGatherThreads, 0, s>>>(x, idx, y, n_slots, nv);
   } else {
-    slot_gather_kernel<1><<<blocks, kGatherThreads, 0, s>>>(x, idx, y, n_slots, nv);
+    slot_gather_kernel<T, 1><<<blocks, kGatherThreads, 0, s>>>(x, idx, y, n_slots, nv);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // the narrow kernel at C = 1 .. kNarrowC over `total` = rows (slots) x C
 // elements, `per` a thread; false if C is wider
-template <template <int> class Launch, typename... Args>
+template <typename T, template <typename, int> class Launch, typename... Args>
 bool launch_narrow(int C, long long total, int per, cudaStream_t s, Args... args) {
   if (C < 1 || C > kNarrowC || total >= (1LL << 31) - kNarrowThreads * per) return false;
   const long long chunk = static_cast<long long>(kNarrowThreads) * per;
@@ -205,7 +231,7 @@ bool launch_narrow(int C, long long total, int per, cudaStream_t s, Args... args
   switch (C) {
 #define NS_NARROW_CASE(c) \
   case c:                 \
-    Launch<c>::run(blocks, s, args..., static_cast<int>(total)); \
+    Launch<T, c>::run(blocks, s, args..., static_cast<int>(total)); \
     break;
     NS_NARROW_CASE(1) NS_NARROW_CASE(2) NS_NARROW_CASE(3) NS_NARROW_CASE(4)
     NS_NARROW_CASE(5) NS_NARROW_CASE(6) NS_NARROW_CASE(7) NS_NARROW_CASE(8)
@@ -216,51 +242,65 @@ bool launch_narrow(int C, long long total, int per, cudaStream_t s, Args... args
   return true;
 }
 
-template <int C>
+template <typename T, int C>
 struct ReduceNarrow {
-  static void run(unsigned blocks, cudaStream_t s, const float* y, const int64_t* perm,
-                  const int64_t* off, float* out, int total) {
-    slot_reduce_narrow_kernel<C><<<blocks, kNarrowThreads, 0, s>>>(y, perm, off, out, total);
+  static void run(unsigned blocks, cudaStream_t s, const T* y, const int64_t* perm,
+                  const int64_t* off, T* out, int total) {
+    slot_reduce_narrow_kernel<T, C><<<blocks, kNarrowThreads, 0, s>>>(y, perm, off, out, total);
   }
 };
 
-template <int C>
+template <typename T, int C>
 struct GatherNarrow {
-  static void run(unsigned blocks, cudaStream_t s, const float* x, const int64_t* idx, float* y,
+  static void run(unsigned blocks, cudaStream_t s, const T* x, const int64_t* idx, T* y,
                   int total) {
-    slot_gather_narrow_kernel<C><<<blocks, kNarrowThreads, 0, s>>>(x, idx, y, total);
+    slot_gather_narrow_kernel<T, C><<<blocks, kNarrowThreads, 0, s>>>(x, idx, y, total);
   }
 };
 
-}  // namespace
-
-extern "C" int ns_slot_reduce_f32(const float* y, const int64_t* perm, const int64_t* off,
-                                  float* out, int n_rows, int C, void* stream) {
+template <typename T>
+int slot_reduce(const T* y, const int64_t* perm, const int64_t* off, T* out, int n_rows, int C,
+                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_rows <= 0 || C <= 0) return 0;
   static_assert(kNarrowC == 16, "launch_narrow's cases take C = 1 .. kNarrowC");
-  if (launch_narrow<ReduceNarrow>(C, static_cast<long long>(n_rows) * C, 1, s, y, perm, off, out))
+  if (launch_narrow<T, ReduceNarrow>(C, static_cast<long long>(n_rows) * C, 1, s, y, perm, off,
+                                     out))
     return static_cast<int>(cudaGetLastError());
   return reduce_wide(y, perm, off, out, n_rows, C, s);
 }
 
-extern "C" int ns_slot_gather_f32(const float* x, const int64_t* idx, float* y,
-                                  long long n_slots, int C, void* stream) {
+template <typename T>
+int slot_gather(const T* x, const int64_t* idx, T* y, long long n_slots, int C, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_slots <= 0 || C <= 0) return 0;
-  if (launch_narrow<GatherNarrow>(C, n_slots * C, kGatherPer, s, x, idx, y))
+  if (launch_narrow<T, GatherNarrow>(C, n_slots * C, kGatherPer, s, x, idx, y))
     return static_cast<int>(cudaGetLastError());
   return gather_wide(x, idx, y, n_slots, C, s);
 }
 
-extern "C" int ns_slot_reduce_wide_f32(const float* y, const int64_t* perm, const int64_t* off,
-                                       float* out, int n_rows, int C, void* stream) {
-  if (n_rows <= 0 || C <= 0) return 0;
-  return reduce_wide(y, perm, off, out, n_rows, C, static_cast<cudaStream_t>(stream));
-}
+}  // namespace
 
-extern "C" int ns_slot_gather_wide_f32(const float* x, const int64_t* idx, float* y,
-                                       long long n_slots, int C, void* stream) {
-  if (n_slots <= 0 || C <= 0) return 0;
-  return gather_wide(x, idx, y, n_slots, C, static_cast<cudaStream_t>(stream));
-}
+#define NS_SLOT_ENTRIES(T, SUFFIX)                                                               \
+  extern "C" int ns_slot_reduce_##SUFFIX(const T* y, const int64_t* perm, const int64_t* off,   \
+                                         T* out, int n_rows, int C, void* stream) {             \
+    return slot_reduce<T>(y, perm, off, out, n_rows, C, stream);                                 \
+  }                                                                                              \
+  extern "C" int ns_slot_gather_##SUFFIX(const T* x, const int64_t* idx, T* y,                   \
+                                         long long n_slots, int C, void* stream) {               \
+    return slot_gather<T>(x, idx, y, n_slots, C, stream);                                        \
+  }                                                                                              \
+  extern "C" int ns_slot_reduce_wide_##SUFFIX(const T* y, const int64_t* perm,                   \
+                                              const int64_t* off, T* out, int n_rows, int C,     \
+                                              void* stream) {                                    \
+    if (n_rows <= 0 || C <= 0) return 0;                                                         \
+    return reduce_wide<T>(y, perm, off, out, n_rows, C, static_cast<cudaStream_t>(stream));      \
+  }                                                                                              \
+  extern "C" int ns_slot_gather_wide_##SUFFIX(const T* x, const int64_t* idx, T* y,              \
+                                              long long n_slots, int C, void* stream) {          \
+    if (n_slots <= 0 || C <= 0) return 0;                                                        \
+    return gather_wide<T>(x, idx, y, n_slots, C, static_cast<cudaStream_t>(stream));             \
+  }
+
+NS_SLOT_ENTRIES(float, f32)
+NS_SLOT_ENTRIES(double, f64)

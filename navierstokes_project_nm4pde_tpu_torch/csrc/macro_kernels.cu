@@ -65,7 +65,21 @@
 //   Where the inputs' sizes or bases are not 16-byte multiples (an odd
 //   c_blk), the sum reads F_e and lidx from global memory instead.
 //   macro_build_v1 is the earlier design (one CTA a block, zero / sum /
-//   copy out in sequence, one tile), kept to time the two in turns.
+//   copy out in sequence, one tile; its sum in the same row pairs), kept
+//   to time the two in turns, and in double kernel B's float64 form.
+//
+// Float64 (the _f64 entry points; the float64 runs): kernel A is the same
+// template in double, its panel in 16-byte double2 vectors of 2 channels,
+// its ring of FtT stages twice as wide in bytes (64 KB at U = 128), and up
+// to kMaxC64 channels a launch, since each thread holds C double
+// accumulators (twice the registers of float's).  Kernel B in double cannot
+// hold two [U, U] tiles (2 x 128 KB at U = 128, past the 227 KB a block may
+// have), so ns_macro_build_f64 runs macro_build_v1's design in double (one
+// template for both types): a CTA a block, zero, sum with shared-memory
+// atomicAdd on doubles (a native instruction on sm_90, not a
+// compare-and-swap loop), then copy out with 16-byte stores.  Both stay
+// bound by device-memory bytes, which double doubles (FtT 1.42 GB at the
+// 965k-DoF bench mesh).
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so the Python wrapper can raise.
@@ -77,7 +91,8 @@
 
 namespace {
 
-constexpr int kMaxC = 24;
+constexpr int kMaxC = 24;    // kernel A's widest float payload a launch
+constexpr int kMaxC64 = 12;  // and double's
 // Kernel A: U <= kMatvecMaxU slots a block, FtT streamed through a ring
 // of kMatvecStages shared-memory stages of kMatvecRows rows.
 constexpr int kMatvecMaxU = 256;
@@ -86,7 +101,6 @@ constexpr int kMatvecStages = 4;
 // Kernel A's earlier design: 128 threads a block, up to 8 channels.
 constexpr int kMatvecV1Threads = 128;
 constexpr int kMatvecV1MaxC = 8;
-constexpr int kBuildV1Threads = 256;
 // Kernel B: one CTA of 1024 threads an SM; each thread adds kBuildAdds
 // values of a (c, i) row.  Hopper has no shared-memory f32 add: atomicAdd
 // there is a compare-and-swap loop (ATOMS.CAST.SPIN), so what bounds the
@@ -96,35 +110,9 @@ constexpr int kBuildV1Threads = 256;
 // by prof/macro_build_parts.py on an H100 80GB HBM3 at 700 W).
 constexpr int kBuildThreads = 1024;
 constexpr int kBuildAdds = 2;
-
-__global__ void __launch_bounds__(kBuildV1Threads)
-macro_build_v1_kernel(const float* __restrict__ Fe, const int32_t* __restrict__ lidx,
-                      float* __restrict__ FtT, int E, int c_blk, int nloc, int U) {
-  extern __shared__ float tile[];  // tile[v * U + u] = Ft[b, u, v]
-  const int b = blockIdx.x;
-  const int UU = U * U;
-  for (int i = threadIdx.x; i < UU; i += blockDim.x) tile[i] = 0.f;
-  __syncthreads();
-
-  const int nn = nloc * nloc;
-  const int cell0 = b * c_blk;
-  const int ncell = min(c_blk, E - cell0);
-  const int32_t* lb = lidx + static_cast<size_t>(b) * c_blk * nloc;
-  const float* Fb = Fe + static_cast<size_t>(cell0) * nn;
-  for (int t = threadIdx.x; t < ncell * nn; t += blockDim.x) {
-    const int c = t / nn;
-    const int r = t - c * nn;
-    const int i = r / nloc;
-    const int j = r - i * nloc;
-    const int u = lb[c * nloc + i];
-    const int v = lb[c * nloc + j];
-    atomicAdd(&tile[v * U + u], Fb[t]);
-  }
-  __syncthreads();
-
-  float* out = FtT + static_cast<size_t>(b) * UU;
-  for (int i = threadIdx.x; i < UU; i += blockDim.x) out[i] = tile[i];
-}
+// Kernel B's one-tile design (its float64 build, and float's earlier
+// design): 1024 threads a block.
+constexpr int kBuildV1Threads = 1024;
 
 // ---- kernel B: PTX helpers for the bulk copies and mbarriers ----------
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -284,6 +272,11 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -293,25 +286,124 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Shared memory of kernel A: the [U, C4] panel of 16-byte vectors, then
-// the ring of FtT stages, which at the end holds the [U, C | 1] output.
-size_t matvec_smem_bytes(int C, int U) {
-  const size_t ring = std::max(kMatvecStages * kMatvecRows, C | 1) * static_cast<size_t>(U);
-  return static_cast<size_t>(U) * ((C + 3) / 4) * sizeof(float4) + ring * sizeof(float);
+// Kernel A's element types: a 16-byte vector of L channels, an FMA of a
+// value into its L accumulators, a one-element asynchronous copy.
+template <typename T>
+struct MvType;
+template <>
+struct MvType<float> {
+  using V = float4;
+  static constexpr int L = 4;
+  __device__ static void fma_vec(float f, float4 x, float* acc) {
+    acc[0] = fmaf(f, x.x, acc[0]);
+    acc[1] = fmaf(f, x.y, acc[1]);
+    acc[2] = fmaf(f, x.z, acc[2]);
+    acc[3] = fmaf(f, x.w, acc[3]);
+  }
+  __device__ static void copy1(void* dst, const void* src) { cp_async4(dst, src); }
+};
+template <>
+struct MvType<double> {
+  using V = double2;
+  static constexpr int L = 2;
+  __device__ static void fma_vec(double f, double2 x, double* acc) {
+    acc[0] = fma(f, x.x, acc[0]);
+    acc[1] = fma(f, x.y, acc[1]);
+  }
+  __device__ static void copy1(void* dst, const void* src) { cp_async8(dst, src); }
+};
+
+// ---- kernel B, one tile a CTA: float64's build, float32's earlier design
+// One CTA a block: zero the [U, U] tile, sum the block's cells into it two
+// adds of a (c, i) row a thread, as kernel B does (the lanes of a warp take
+// consecutive rows, so their u and banks differ; one add an item in (c, i,
+// j) order put a row's adds on one bank, and took 0.8788 ms in float64
+// against 0.6020 at the 965k-DoF shape, H100 80GB HBM3, 700 W), with
+// shared-memory atomicAdd (on doubles a native instruction on sm_90), then
+// copy it out.  Zero and copy go in 16-byte vectors where the tile is a
+// whole number of them and the output's base is aligned.
+template <typename T>
+__global__ void __launch_bounds__(kBuildV1Threads)
+macro_build_v1_kernel(const T* __restrict__ Fe, const int32_t* __restrict__ lidx,
+                      T* __restrict__ FtT, int E, int c_blk, int nloc, int U) {
+  using V = typename MvType<T>::V;
+  constexpr int L = MvType<T>::L;
+  extern __shared__ __align__(16) unsigned char v1_smem[];
+  T* tile = reinterpret_cast<T*>(v1_smem);  // tile[v * U + u] = Ft[b, u, v]
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int UU = U * U;
+  T* out = FtT + static_cast<size_t>(b) * UU;
+  const bool vec = UU % L == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec) {
+    V* t = reinterpret_cast<V*>(tile);
+    for (int i = tid; i < UU / L; i += kBuildV1Threads) t[i] = V{};
+  } else {
+    for (int i = tid; i < UU; i += kBuildV1Threads) tile[i] = T(0);
+  }
+  __syncthreads();
+
+  const int ncell = min(c_blk, E - b * c_blk);
+  const T* fb = Fe + static_cast<size_t>(b) * c_blk * nloc * nloc;
+  const int32_t* lb = lidx + static_cast<size_t>(b) * c_blk * nloc;
+  const int nrows = ncell * nloc;
+  const int pieces = (nloc + kBuildAdds - 1) / kBuildAdds;
+  for (int t = tid; t < nrows * pieces; t += kBuildV1Threads) {
+    const int p = t / nrows, r = t - p * nrows;
+    const int u = lb[r];
+    const int j0 = p * kBuildAdds, c0 = r / nloc * nloc;
+#pragma unroll
+    for (int k = 0; k < kBuildAdds; ++k) {
+      if (j0 + k < nloc) atomicAdd(&tile[lb[c0 + j0 + k] * U + u], fb[r * nloc + j0 + k]);
+    }
+  }
+  __syncthreads();
+
+  if (vec) {
+    const V* t = reinterpret_cast<const V*>(tile);
+    V* o = reinterpret_cast<V*>(out);
+    for (int i = tid; i < UU / L; i += kBuildV1Threads) o[i] = t[i];
+  } else {
+    for (int i = tid; i < UU; i += kBuildV1Threads) out[i] = tile[i];
+  }
 }
 
-// VEC: 16-byte copies of FtT (U % 4 == 0 and an aligned base), else 4-byte.
-template <int C, bool VEC>
+template <typename T>
+int launch_build_v1(const T* Fe, const int32_t* lidx, T* FtT, int E, int B, int c_blk,
+                    int nloc, int U, cudaStream_t s) {
+  if (B <= 0) return 0;
+  const size_t smem = static_cast<size_t>(U) * U * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(macro_build_v1_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  macro_build_v1_kernel<T><<<B, kBuildV1Threads, smem, s>>>(Fe, lidx, FtT, E, c_blk, nloc, U);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory of kernel A: the [U, CV] panel of 16-byte vectors, then
+// the ring of FtT stages, which at the end holds the [U, C | 1] output.
+template <typename T>
+size_t matvec_smem_bytes(int C, int U) {
+  constexpr int L = MvType<T>::L;
+  const size_t ring = std::max(kMatvecStages * kMatvecRows, C | 1) * static_cast<size_t>(U);
+  return static_cast<size_t>(U) * ((C + L - 1) / L) * 16 + ring * sizeof(T);
+}
+
+// VEC: 16-byte copies of FtT (U a multiple of 16 bytes and an aligned
+// base), else one element a copy.
+template <typename T, int C, bool VEC>
 __global__ void __launch_bounds__(kMatvecMaxU)
-macro_matvec_kernel(const float* __restrict__ FtT, const float* __restrict__ xb,
-                    float* __restrict__ yb, int U, int ldx, int ldy) {
-  constexpr int C4 = (C + 3) / 4;
+macro_matvec_kernel(const T* __restrict__ FtT, const T* __restrict__ xb,
+                    T* __restrict__ yb, int U, int ldx, int ldy) {
+  using V = typename MvType<T>::V;
+  constexpr int L = MvType<T>::L;
+  constexpr int CV = (C + L - 1) / L;  // vectors of a panel row
   constexpr int CS = C | 1;  // odd row stride of the staged output: no bank conflicts
-  extern __shared__ float4 mv_smem[];
-  float4* panel = mv_smem;  // [U, C4]: rows padded with zero channels
-  float* ring = reinterpret_cast<float*>(mv_smem + U * C4);
+  extern __shared__ __align__(16) unsigned char mv_smem[];
+  V* panel = reinterpret_cast<V*>(mv_smem);  // [U, CV]: rows padded with zero channels
+  T* ring = reinterpret_cast<T*>(panel + U * CV);
   const int tid = threadIdx.x, nthr = blockDim.x, b = blockIdx.x;
-  const float* F = FtT + static_cast<size_t>(b) * U * U;
+  const T* F = FtT + static_cast<size_t>(b) * U * U;
   const int stage = kMatvecRows * U;
   const int nchunk = (U + kMatvecRows - 1) / kMatvecRows;
 
@@ -321,12 +413,12 @@ macro_matvec_kernel(const float* __restrict__ FtT, const float* __restrict__ xb,
     if (t < nchunk) {
       const int v0 = t * kMatvecRows;
       const int n = min(kMatvecRows, U - v0) * U;
-      float* dst = ring + (t % kMatvecStages) * stage;
-      const float* src = F + static_cast<size_t>(v0) * U;
+      T* dst = ring + (t % kMatvecStages) * stage;
+      const T* src = F + static_cast<size_t>(v0) * U;
       if (VEC) {
-        for (int i = 4 * tid; i < n; i += 4 * nthr) cp_async16(dst + i, src + i);
+        for (int i = L * tid; i < n; i += L * nthr) cp_async16(dst + i, src + i);
       } else {
-        for (int i = tid; i < n; i += nthr) cp_async4(dst + i, src + i);
+        for (int i = tid; i < n; i += nthr) MvType<T>::copy1(dst + i, src + i);
       }
     }
     cp_async_commit();
@@ -334,41 +426,35 @@ macro_matvec_kernel(const float* __restrict__ FtT, const float* __restrict__ xb,
 #pragma unroll
   for (int t = 0; t < kMatvecStages - 1; ++t) load_chunk(t);
 
-  float* pf = reinterpret_cast<float*>(panel);
-  const float* xblk = xb + static_cast<size_t>(b) * U * ldx;
-  for (int i = tid; i < U * 4 * C4; i += nthr) {
-    const int v = i / (4 * C4), c = i - v * (4 * C4);
-    pf[i] = c < C ? xblk[v * ldx + c] : 0.f;
+  T* pf = reinterpret_cast<T*>(panel);
+  const T* xblk = xb + static_cast<size_t>(b) * U * ldx;
+  for (int i = tid; i < U * L * CV; i += nthr) {
+    const int v = i / (L * CV), c = i - v * (L * CV);
+    pf[i] = c < C ? xblk[v * ldx + c] : T(0);
   }
 
   const int u = tid;
-  float acc[4 * C4];
+  T acc[L * CV];
 #pragma unroll
-  for (int c = 0; c < 4 * C4; ++c) acc[c] = 0.f;
+  for (int c = 0; c < L * CV; ++c) acc[c] = T(0);
   for (int t = 0; t < nchunk; ++t) {
     cp_async_wait<kMatvecStages - 2>();  // this thread's copies of chunk t have landed
     __syncthreads();                     // everyone's, and chunk t - 1 is consumed
     load_chunk(t + kMatvecStages - 1);   // into chunk t - 1's stage
     if (u < U) {
-      const float* Fs = ring + (t % kMatvecStages) * stage;
+      const T* Fs = ring + (t % kMatvecStages) * stage;
       const int v0 = t * kMatvecRows, nv = min(kMatvecRows, U - v0);
 #pragma unroll 4
       for (int k = 0; k < nv; ++k) {
-        const float f = Fs[k * U + u];
-        const float4* xr = panel + (v0 + k) * C4;
+        const T f = Fs[k * U + u];
+        const V* xr = panel + (v0 + k) * CV;
 #pragma unroll
-        for (int q = 0; q < C4; ++q) {
-          const float4 x = xr[q];
-          acc[4 * q] = fmaf(f, x.x, acc[4 * q]);
-          acc[4 * q + 1] = fmaf(f, x.y, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(f, x.z, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(f, x.w, acc[4 * q + 3]);
-        }
+        for (int q = 0; q < CV; ++q) MvType<T>::fma_vec(f, xr[q], acc + L * q);
       }
     }
   }
   // The block's [U, C] output (rows at a stride of ldy): staged in the
-  // ring, it goes out in coalesced stores (each thread's own row, C floats
+  // ring, it goes out in coalesced stores (each thread's own row, C values
   // at a stride of C, touched a sector a store per thread: at C = 24 the
   // stores, not the bytes, bounded the kernel).
   __syncthreads();  // the ring's last stage is consumed
@@ -377,20 +463,20 @@ macro_matvec_kernel(const float* __restrict__ FtT, const float* __restrict__ xb,
     for (int c = 0; c < C; ++c) ring[u * CS + c] = acc[c];
   }
   __syncthreads();
-  float* yblk = yb + static_cast<size_t>(b) * U * ldy;
+  T* yblk = yb + static_cast<size_t>(b) * U * ldy;
   for (int i = tid; i < U * C; i += nthr) {
     const int r = i / C, c = i - r * C;
     yblk[r * ldy + c] = ring[r * CS + c];
   }
 }
 
-template <int C>
-int launch_matvec(const float* FtT, const float* xb, float* yb, int B, int U, int ldx,
-                  int ldy, cudaStream_t s) {
-  const size_t smem = matvec_smem_bytes(C, U);
+template <typename T, int C>
+int launch_matvec(const T* FtT, const T* xb, T* yb, int B, int U, int ldx, int ldy,
+                  cudaStream_t s) {
+  const size_t smem = matvec_smem_bytes<T>(C, U);
   const int threads = (U + 31) / 32 * 32;
-  const bool vec = U % 4 == 0 && reinterpret_cast<uintptr_t>(FtT) % 16 == 0;
-  auto kernel = vec ? macro_matvec_kernel<C, true> : macro_matvec_kernel<C, false>;
+  const bool vec = U % MvType<T>::L == 0 && reinterpret_cast<uintptr_t>(FtT) % 16 == 0;
+  auto kernel = vec ? macro_matvec_kernel<T, C, true> : macro_matvec_kernel<T, C, false>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -452,7 +538,7 @@ extern "C" int ns_macro_matvec_f32(const float* FtT, const float* xb, float* yb,
   switch (C) {
 #define NS_MATVEC_CASE(c) \
   case c:                 \
-    rc = launch_matvec<c>(FtT, xb, yb, B, U, ldx, ldy, s); \
+    rc = launch_matvec<float, c>(FtT, xb, yb, B, U, ldx, ldy, s); \
     break;
     NS_MATVEC_CASE(1) NS_MATVEC_CASE(2) NS_MATVEC_CASE(3) NS_MATVEC_CASE(4)
     NS_MATVEC_CASE(5) NS_MATVEC_CASE(6) NS_MATVEC_CASE(7) NS_MATVEC_CASE(8)
@@ -460,6 +546,29 @@ extern "C" int ns_macro_matvec_f32(const float* FtT, const float* xb, float* yb,
     NS_MATVEC_CASE(13) NS_MATVEC_CASE(14) NS_MATVEC_CASE(15) NS_MATVEC_CASE(16)
     NS_MATVEC_CASE(17) NS_MATVEC_CASE(18) NS_MATVEC_CASE(19) NS_MATVEC_CASE(20)
     NS_MATVEC_CASE(21) NS_MATVEC_CASE(22) NS_MATVEC_CASE(23) NS_MATVEC_CASE(24)
+#undef NS_MATVEC_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
+}
+
+// The same in double, up to kMaxC64 channels a launch.
+extern "C" int ns_macro_matvec_f64(const double* FtT, const double* xb, double* yb,
+                                   int B, int U, int C, int ldx, int ldy, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0) return 0;
+  if (U < 1 || U > kMatvecMaxU || ldx < C || ldy < C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static_assert(kMaxC64 == 12, "the cases below take C = 1 .. kMaxC64");
+  int rc = 0;
+  switch (C) {
+#define NS_MATVEC_CASE(c) \
+  case c:                 \
+    rc = launch_matvec<double, c>(FtT, xb, yb, B, U, ldx, ldy, s); \
+    break;
+    NS_MATVEC_CASE(1) NS_MATVEC_CASE(2) NS_MATVEC_CASE(3) NS_MATVEC_CASE(4)
+    NS_MATVEC_CASE(5) NS_MATVEC_CASE(6) NS_MATVEC_CASE(7) NS_MATVEC_CASE(8)
+    NS_MATVEC_CASE(9) NS_MATVEC_CASE(10) NS_MATVEC_CASE(11) NS_MATVEC_CASE(12)
 #undef NS_MATVEC_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -515,21 +624,28 @@ extern "C" int ns_macro_build_f32(const float* Fe, const int32_t* lidx, float* F
 extern "C" int ns_macro_build_v1_f32(const float* Fe, const int32_t* lidx, float* FtT,
                                      int E, int B, int c_blk, int nloc, int U,
                                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0) return 0;
-  const size_t smem = static_cast<size_t>(U) * U * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      macro_build_v1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  macro_build_v1_kernel<<<B, kBuildV1Threads, smem, s>>>(Fe, lidx, FtT, E, c_blk, nloc, U);
-  return static_cast<int>(cudaGetLastError());
+  return launch_build_v1<float>(Fe, lidx, FtT, E, B, c_blk, nloc, U,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// Kernel B in double: the one-tile design (two double tiles do not fit).
+extern "C" int ns_macro_build_f64(const double* Fe, const int32_t* lidx, double* FtT,
+                                  int E, int B, int c_blk, int nloc, int U,
+                                  void* stream) {
+  return launch_build_v1<double>(Fe, lidx, FtT, E, B, c_blk, nloc, U,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ns_macro_build_smem_bytes(int c_blk, int nloc, int U) {
   return static_cast<int>(build_smem_bytes(c_blk, nloc, U));
 }
 
+extern "C" int ns_macro_build_f64_smem_bytes(int U) {
+  return static_cast<int>(static_cast<size_t>(U) * U * sizeof(double));
+}
+
 extern "C" int ns_macro_max_channels() { return kMaxC; }
+
+extern "C" int ns_macro_max_channels_f64() { return kMaxC64; }
 
 extern "C" int ns_macro_max_slots() { return kMatvecMaxU; }

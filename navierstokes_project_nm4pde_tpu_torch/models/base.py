@@ -30,10 +30,11 @@ One single-run step (`step`, the reference's `_step_projection`):
      macro path (w's element view from its slots), else one element gather
      of [hist | u0 | w] (kernel D on the card);
   2. convection: implicit folds F_e = M/dt + nu A + C(w) per element
-     (`convection_setup`; C_e(w) alone under the macro K/C split) and the
-     macro path builds the block values FtT (kernel B); IMEX weights C(w)
-     per cell and folds the fine subset's C_e; explicit evaluates
-     N(u) = C(u)u for the rhs;
+     (`convection_setup`; C_e(w) alone under the macro K/C split; with
+     numerics.fold_elem=False only C(w)'s quadrature tables, which every
+     element apply then evaluates) and the macro path builds the block
+     values FtT (kernel B); IMEX weights C(w) per cell and folds the fine
+     subset's C_e; explicit evaluates N(u) = C(u)u for the rhs;
   3. b = M hist - G p_n and r0 = b - F u0: on the macro path from the slot
      view (kernel A; the warm-start pool's images F D ride the same
      launch), else in one element pass (IMEX fuses -(1 - s)N(w) into b);
@@ -306,8 +307,6 @@ def check_config(cfg: RunConfig, problem: ProblemSpec) -> None:
     req = [
         ("time.scheme", cfg.time.scheme, ("bdf1", "bdf2")),
         ("numerics.dtype", cfg.numerics.dtype, ("float32", "float64")),
-        ("numerics.fold_elem", cfg.numerics.fold_elem, (True,)),
-        ("numerics.spatial_reorder", cfg.numerics.spatial_reorder, (True,)),
         ("solver.tol_mode", cfg.solver.tol_mode, ("r0", "b", "abs")),
         ("solver.guess_order", cfg.solver.guess_order, (1, 2)),
         ("problem.dim", problem.dim, (2, 3)),
@@ -342,14 +341,25 @@ def check_config(cfg: RunConfig, problem: ProblemSpec) -> None:
             "'explicit' or 'imex' and scheme 'bdf1' (the velocity block must "
             "be constant)"
         )
-    if cfg.numerics.f_apply == "macro" and (
-        monolithic or cfg.time.convection != "implicit" or problem.backflow_tag is not None
-    ):
+    if cfg.numerics.f_apply == "macro" and not _macro_ok(cfg, problem):
         raise ValueError(
             "f_apply='macro' requires the projection stepper with implicit "
-            "convection and no backflow term (the block values hold the "
-            "volume terms of F only)"
+            "convection, fold_elem and spatial_reorder, and no backflow term "
+            "(the block values hold the volume terms of the folded F only, on "
+            "blocks of consecutive cells)"
         )
+
+
+def _macro_ok(cfg: RunConfig, problem: ProblemSpec) -> bool:
+    """The macro-block F can run: the projection stepper with implicit
+    convection, the fold (its blocks are built from F_e), the spatial
+    reorder (a block's consecutive cells share few nodes) and no backflow
+    facet term (the blocks hold the volume terms only)."""
+    return (
+        cfg.time.stepper == "projection" and cfg.time.convection == "implicit"
+        and cfg.numerics.fold_elem and cfg.numerics.spatial_reorder
+        and problem.backflow_tag is None
+    )
 
 
 def _constant_k(cfg: RunConfig) -> bool:
@@ -370,10 +380,11 @@ class NavierStokesSolver:
 
     Set-up resolves the configuration's paths (the reference's rules): the
     node order (RCM for the banded frozen Schur or the one-hot ensemble,
-    else Morton), `kcsr` the assembled constant K (vel_apply "bsr", the
-    default with explicit or IMEX convection), `imex` the IMEX fine
-    subset, `f_apply` "macro" (the projection stepper with implicit
-    convection and no K) or "element", the macro rhs pass, its fused
+    else Morton; the input mesh's own with spatial_reorder=False), `kcsr`
+    the assembled constant K (vel_apply "bsr", the default with explicit or
+    IMEX convection), `imex` the IMEX fine subset, `f_apply` "macro" (the
+    projection stepper with implicit convection, the fold, the reorder and
+    no K) or "element", the macro rhs pass, its fused
     gather and the K/C split (macro_rhs, macro_wfuse, macro_split), and
     only the Schur data the stepper reads: the frozen S1 (projection), or
     S~'s per-step assembly tables (monolithic, proj_schur "step")."""
@@ -396,9 +407,13 @@ class NavierStokesSolver:
         frozen = not monolithic and nc.proj_schur == "frozen"
         # The reference's rule: RCM where the banded frozen Schur (or the
         # ensemble's one-hot windows) wants bounded index windows, Morton
-        # otherwise.
+        # otherwise; spatial_reorder=False keeps the input mesh's order
+        # (the frozen Schur's band is then taken on it, or its ELL fallback
+        # where the band is too wide).
         wants_banded = frozen and nc.schur_spmv in ("auto", "banded")
-        self.mesh = mesh.reorder_spatial("rcm" if nc.ensemble_onehot or wants_banded else "morton")
+        self.mesh = mesh
+        if nc.spatial_reorder:
+            self.mesh = mesh.reorder_spatial("rcm" if nc.ensemble_onehot or wants_banded else "morton")
         self.space = build_taylor_hood(self.mesh)
         self.geom = cell_geometry(self.space)
         space = self.space
@@ -446,12 +461,9 @@ class NavierStokesSolver:
                 space, self.geom, build_ref_tables(space.dim), self.problem.nu,
                 cfg.time.dt, dt_, dev,
             )
-        # the macro blocks hold the volume terms of F: a backflow facet term
-        # keeps the element path
         fa = nc.f_apply
         if fa == "auto":
-            macro_ok = conv_mode == "implicit" and not monolithic and self.problem.backflow_tag is None
-            fa = "macro" if macro_ok else "element"
+            fa = "macro" if _macro_ok(cfg, self.problem) else "element"
         self.f_apply = fa
         self.macro_rhs = fa == "macro" and nc.macro_rhs != "off"
         self.macro_wfuse = self.macro_rhs and nc.macro_wfuse != "off"
@@ -759,6 +771,12 @@ class NavierStokesSolver:
         n, d = self.space.n_unodes, self.space.dim
         return x[: n * d].view(n, d, *x.shape[1:]), x[n * d:]
 
+    def _fold(self, nu, dt_eff):
+        """The step's `convection_setup` fold: (nu, dt_eff), or None with
+        numerics.fold_elem=False (no F_e: every element apply evaluates M, A
+        and C(w) from the tables)."""
+        return (nu, dt_eff) if self.config.numerics.fold_elem else None
+
     def _members(self, nu):
         """(nu, tail, f_lam0) of a step: the problem's nu, no member axes and
         the set-up F bound for a single run; for an ensemble's [B] nu, the
@@ -782,7 +800,7 @@ class NavierStokesSolver:
         t_new = (state.step + 1.0) * dt
         w, hist, dt_eff = self._bdf_terms(state, dt)
         mask = op.dirichlet_mask.view(-1, 1, *(1,) * len(tail))
-        conv = ops.convection_setup(op, w, fold=(nu, dt_eff), backflow=self.backflow)
+        conv = ops.convection_setup(op, w, fold=self._fold(nu, dt_eff), backflow=self.backflow)
         pst = build_precond_state(
             op, nu, dt_eff, conv, pc.kind, s_solver=pc.s_solver, f_solver=pc.f_solver,
             f_lam=f_lam0,
@@ -873,7 +891,7 @@ class NavierStokesSolver:
                 conv_rhs = 2.0 * n_cur - state.conv_prev
         else:
             conv = ops.convection_setup(
-                op, w, fold=(nu, dt_eff), w_e=w_e,
+                op, w, fold=self._fold(nu, dt_eff), w_e=w_e,
                 with_diag=not pc.freeze_conv_diag,
                 conv_only=self.macro_split and single, backflow=self.backflow,
             )

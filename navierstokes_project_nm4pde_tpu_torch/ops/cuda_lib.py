@@ -17,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(
     _PKG / "csrc" / name
@@ -29,23 +31,35 @@ NVCC_FLAGS = (
 )
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (each returns an int: a CUDA error code,
-# or for ns_macro_max_channels, ns_macro_max_slots and
-# ns_macro_build_smem_bytes a size)
+# or for ns_macro_max_channels*, ns_macro_max_slots and
+# ns_macro_build*_smem_bytes a size).  Kernels A-D have an entry point
+# for each element type, suffixed _f32 and _f64.
 _SIGNATURES = {
-    "ns_macro_matvec_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    **{f"ns_macro_matvec_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _P] for t in ("f32", "f64")},
     "ns_macro_matvec_v1_f32": [_P, _P, _P, _I, _I, _I, _P],
-    "ns_macro_build_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    **{f"ns_macro_build_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _P] for t in ("f32", "f64")},
     "ns_macro_build_v1_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ns_macro_build_smem_bytes": [_I, _I, _I],
+    "ns_macro_build_f64_smem_bytes": [_I],
     "ns_macro_max_channels": [],
+    "ns_macro_max_channels_f64": [],
     "ns_macro_max_slots": [],
-    "ns_slot_reduce_f32": [_P, _P, _P, _P, _I, _I, _P],
-    "ns_slot_gather_f32": [_P, _P, _P, ctypes.c_longlong, _I, _P],
-    "ns_slot_reduce_wide_f32": [_P, _P, _P, _P, _I, _I, _P],
-    "ns_slot_gather_wide_f32": [_P, _P, _P, ctypes.c_longlong, _I, _P],
+    **{
+        f"ns_slot_{k}{w}_{t}": [_P, _P, _P, _P, _I, _I, _P] if k == "reduce"
+        else [_P, _P, _P, ctypes.c_longlong, _I, _P]
+        for k in ("reduce", "gather") for w in ("", "_wide") for t in ("f32", "f64")
+    },
     "ns_sgemm_tn_f32": [_P, _P, _P, _I, _I, _I, _P],
     "ns_column_gather_f32": [_P, _P, _P, _I, _I, _P],
 }
+# element type -> the suffix of its kernels' entry points
+SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def count_key(name: str, dtype: torch.dtype) -> str:
+    """A kernel's key in its wrappers' launch counts: `name` for its
+    float32 entry point, `name`_f64 for its float64 one."""
+    return name if dtype == torch.float32 else f"{name}_{SUFFIX[dtype]}"
 
 _lib = None
 build_log = ""  # nvcc's output of this process's build (ptxas register use)

@@ -12,9 +12,12 @@ Block values are kept transposed, FtT[b, v, u] = Ft[b, u, v] (the
 reference's "vu" layout), which both kernels read and write coalesced.
 
 Each kernel wrapper runs the CUDA kernel for CUDA tensors (or raises) and
-its plain PyTorch version for CPU tensors; `launch_counts` counts the
-kernel launches only, and `matvec_channels` kernel A's launches by channel
-count.
+its plain PyTorch version for CPU tensors; on the card both kernels take
+float32 or float64, each in its own type (`max_channels`: kernel A's
+widest payload a launch in each).  `launch_counts` counts the kernel
+launches only, by entry point (float32's under the kernel's name,
+float64's under the name with `_f64`), and `matvec_channels` kernel A's
+launches by channel count.
 """
 
 from __future__ import annotations
@@ -33,10 +36,11 @@ from navierstokes_project_nm4pde_tpu_torch.ops.scatter import (
 )
 
 # Shared memory a Hopper CTA may use (bytes); kernel B holds two [U, U] f32
-# tiles and two stages of a block's inputs, its earlier design one tile.
+# tiles and two stages of a block's inputs, its float64 form and its
+# earlier design one tile.
 _MAX_SMEM = 232_448
 
-launch_counts = {"macro_build": 0, "macro_matvec": 0}
+launch_counts = {"macro_build": 0, "macro_matvec": 0, "macro_build_f64": 0, "macro_matvec_f64": 0}
 matvec_channels: dict[int, int] = {}  # C -> kernel A launches at C channels
 
 
@@ -137,10 +141,10 @@ def _check_build_args(name: str, F_e: torch.Tensor, lidx: torch.Tensor, B: int, 
     if F_e.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {F_e.device}")
     E, nloc, nloc2 = F_e.shape
-    if F_e.dtype != torch.float32 or not F_e.is_contiguous() or nloc2 != nloc:
+    if F_e.dtype not in cuda_lib.SUFFIX or not F_e.is_contiguous() or nloc2 != nloc:
         raise ValueError(
-            f"{name}: F_e must be a contiguous float32 [E, nloc, nloc] "
-            f"tensor, got {F_e.dtype} {tuple(F_e.shape)}"
+            f"{name}: F_e must be a contiguous float32 or float64 [E, nloc, "
+            f"nloc] tensor, got {F_e.dtype} {tuple(F_e.shape)}"
         )
     if (
         lidx.dtype != torch.int32 or not lidx.is_contiguous()
@@ -173,7 +177,7 @@ def _check_slots(name: str, lidx: torch.Tensor, U: int) -> None:
 
 
 def _launch_build(entry: str, F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: int) -> torch.Tensor:
-    out = torch.empty((B, U, U), dtype=torch.float32, device=F_e.device)
+    out = torch.empty((B, U, U), dtype=F_e.dtype, device=F_e.device)
     stream = torch.cuda.current_stream(F_e.device).cuda_stream
     E, nloc, _ = F_e.shape
     cuda_lib.check(
@@ -188,19 +192,24 @@ def _launch_build(entry: str, F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: 
 
 def macro_build(F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: int) -> torch.Tensor:
     """Block values FtT [B, U, U] from element matrices F_e [E, nloc, nloc]
-    and the local slot table lidx [B, c_blk, nloc] (kernel B: persistent
-    CTAs, two shared-memory tiles, bulk-copy staging and write-out)."""
+    and the local slot table lidx [B, c_blk, nloc] (kernel B: in float32
+    persistent CTAs, two shared-memory tiles, bulk-copy staging and
+    write-out; in float64 a CTA a block and one tile)."""
     if F_e.device.type == "cpu":
         return macro_build_plain(F_e, lidx, B, U)
     _check_build_args("macro_build", F_e, lidx, B, U)
-    smem = cuda_lib.load().ns_macro_build_smem_bytes(lidx.shape[1], F_e.shape[1], U)
+    lib = cuda_lib.load()
+    if F_e.dtype == torch.float64:
+        smem = lib.ns_macro_build_f64_smem_bytes(U)
+    else:
+        smem = lib.ns_macro_build_smem_bytes(lidx.shape[1], F_e.shape[1], U)
     if U % 2 or smem > _MAX_SMEM:
         raise ValueError(
             f"macro_build: U={U} must be even and its {smem} bytes of shared "
-            f"memory at most {_MAX_SMEM}"
+            f"memory ({F_e.dtype}) at most {_MAX_SMEM}"
         )
-    out = _launch_build("ns_macro_build_f32", F_e, lidx, B, U)
-    launch_counts["macro_build"] += 1
+    out = _launch_build(f"ns_macro_build_{cuda_lib.SUFFIX[F_e.dtype]}", F_e, lidx, B, U)
+    launch_counts[cuda_lib.count_key("macro_build", F_e.dtype)] += 1
     return out
 
 
@@ -208,6 +217,8 @@ def macro_build_v1(F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: int) -> tor
     """Kernel B's earlier design (one CTA a block, one tile), on CUDA
     tensors only.  Not on any path: kept to time the designs in turns."""
     _check_build_args("macro_build_v1", F_e, lidx, B, U)
+    if F_e.dtype != torch.float32:
+        raise ValueError(f"macro_build_v1: float32 only, got {F_e.dtype}")
     if U * U * 4 > _MAX_SMEM:
         raise ValueError(f"macro_build_v1: a [{U}, {U}] f32 tile exceeds shared memory")
     return _launch_build("ns_macro_build_v1_f32", F_e, lidx, B, U)
@@ -234,12 +245,19 @@ def matvec_splits(C: int, max_c: int) -> list:
     return [(lo, hi) for lo, hi in zip(edges, edges[1:])]
 
 
+def max_channels(dtype: torch.dtype) -> int:
+    """Kernel A's widest payload a launch in `dtype` (24 in float32, 12 in
+    float64, whose accumulators take twice the registers)."""
+    lib = cuda_lib.load()
+    return lib.ns_macro_max_channels_f64() if dtype == torch.float64 else lib.ns_macro_max_channels()
+
+
 def macro_matvec(FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
-    """Batched block matvec [B, U, U] x [B, U, C] -> [B, U, C] (kernel A).
-    Up to `ns_macro_max_channels()` (24) channels ride one launch and one
-    pass over FtT; a wider payload is split into launches of at most 24
-    near-equal channel slices (`matvec_splits`), each writing its slice of
-    one output and reading FtT once more."""
+    """Batched block matvec [B, U, U] x [B, U, C] -> [B, U, C] (kernel A),
+    float32 or float64.  Up to `max_channels(dtype)` (24; 12 in float64)
+    channels ride one launch and one pass over FtT; a wider payload is
+    split into launches of near-equal channel slices (`matvec_splits`),
+    each writing its slice of one output and reading FtT once more."""
     if FtT.device.type == "cpu":
         return macro_matvec_plain(FtT, x_b)
     if FtT.device.type != "cuda":
@@ -247,33 +265,35 @@ def macro_matvec(FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
     B, U, U2 = FtT.shape
     lib = cuda_lib.load()
     if (
-        FtT.dtype != torch.float32 or not FtT.is_contiguous() or U2 != U
+        FtT.dtype not in cuda_lib.SUFFIX or not FtT.is_contiguous() or U2 != U
         or U > lib.ns_macro_max_slots()
     ):
         raise ValueError(
-            "macro_matvec: FtT must be a contiguous float32 [B, U, U] tensor "
-            f"with U <= {lib.ns_macro_max_slots()}, got {FtT.dtype} {tuple(FtT.shape)}"
+            "macro_matvec: FtT must be a contiguous float32 or float64 [B, U, U] "
+            f"tensor with U <= {lib.ns_macro_max_slots()}, got {FtT.dtype} {tuple(FtT.shape)}"
         )
     C = x_b.shape[-1] if x_b.dim() == 3 else -1
     if (
-        x_b.dtype != torch.float32 or not x_b.is_contiguous()
+        x_b.dtype != FtT.dtype or not x_b.is_contiguous()
         or x_b.device != FtT.device or tuple(x_b.shape[:2]) != (B, U) or C < 1
     ):
         raise ValueError(
-            "macro_matvec: x_b must be a contiguous float32 [B, U, C] tensor "
+            f"macro_matvec: x_b must be a contiguous {FtT.dtype} [B, U, C] tensor "
             f"on FtT's device with C >= 1, got {x_b.dtype} {tuple(x_b.shape)}"
         )
-    y = torch.empty((B, U, C), dtype=torch.float32, device=FtT.device)
+    y = torch.empty((B, U, C), dtype=FtT.dtype, device=FtT.device)
     stream = torch.cuda.current_stream(FtT.device).cuda_stream
-    for lo, hi in matvec_splits(C, lib.ns_macro_max_channels()):
+    entry = f"ns_macro_matvec_{cuda_lib.SUFFIX[FtT.dtype]}"
+    size = FtT.element_size()
+    for lo, hi in matvec_splits(C, max_channels(FtT.dtype)):
         cuda_lib.check(
-            lib.ns_macro_matvec_f32(
-                FtT.data_ptr(), x_b.data_ptr() + 4 * lo, y.data_ptr() + 4 * lo,
+            getattr(lib, entry)(
+                FtT.data_ptr(), x_b.data_ptr() + size * lo, y.data_ptr() + size * lo,
                 B, U, hi - lo, C, C, stream,
             ),
-            "ns_macro_matvec_f32",
+            entry,
         )
-        launch_counts["macro_matvec"] += 1
+        launch_counts[cuda_lib.count_key("macro_matvec", FtT.dtype)] += 1
         matvec_channels[hi - lo] = matvec_channels.get(hi - lo, 0) + 1
     return y
 

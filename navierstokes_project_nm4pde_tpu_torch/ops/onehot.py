@@ -14,8 +14,10 @@ the plans are a flat index for the gather and a CSR order by target row
 (`ops/scatter.py build_segment_plan`) for the reduce, and each function is
 exact in its dtype: on a CUDA tensor the hand-written kernels of
 `csrc/ensemble_kernels.cu` (kernel D `slot_gather`, kernel C
-`slot_reduce`), on a CPU tensor their plain PyTorch versions.
-`launch_counts` counts the kernel launches only.
+`slot_reduce`; float32 or float64, each in its own type), on a CPU tensor
+their plain PyTorch versions.  `launch_counts` counts the kernel launches
+only, by entry point: float32's under the kernel's name, float64's under
+the name with `_f64`.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from navierstokes_project_nm4pde_tpu_torch.ops.scatter import (
     build_segment_plan,
 )
 
-launch_counts = {"slot_reduce": 0, "slot_gather": 0}
+launch_counts = {"slot_reduce": 0, "slot_gather": 0, "slot_reduce_f64": 0, "slot_gather_f64": 0}
 
 
 def reset_launch_counts() -> None:
@@ -66,16 +68,19 @@ def build_onehot_plans(cells, n_rows: int, device=None) -> OneHotPlans:
     )
 
 
-def _check_payload(name: str, t: torch.Tensor, rows: int, plans: OneHotPlans) -> None:
+def _check_payload(name: str, t: torch.Tensor, rows: int, plans: OneHotPlans) -> str:
+    """The payload's entry-point suffix; raises for what the kernels do not
+    take (any dtype but float32 and float64)."""
     if (
-        t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous()
+        t.dtype not in cuda_lib.SUFFIX or t.dim() != 2 or not t.is_contiguous()
         or t.shape[0] != rows or plans.gather.device != t.device
     ):
         raise ValueError(
-            f"{name}: expected a contiguous float32 [{rows}, C] tensor on the "
-            f"plans' device {plans.gather.device}, got {t.dtype} "
+            f"{name}: expected a contiguous float32 or float64 [{rows}, C] "
+            f"tensor on the plans' device {plans.gather.device}, got {t.dtype} "
             f"{tuple(t.shape)} on {t.device}"
         )
+    return cuda_lib.SUFFIX[t.dtype]
 
 
 # ----------------------------------------------------------------------
@@ -92,8 +97,8 @@ def onehot_gather(plans: OneHotPlans, x: torch.Tensor) -> torch.Tensor:
         return onehot_gather_plain(plans, x)
     if x.device.type != "cuda":
         raise ValueError(f"onehot_gather: unsupported device {x.device}")
-    y = _launch_gather("onehot_gather", "ns_slot_gather_f32", plans, x)
-    launch_counts["slot_gather"] += 1
+    y = _launch_gather("onehot_gather", "ns_slot_gather", plans, x)
+    launch_counts[cuda_lib.count_key("slot_gather", x.dtype)] += 1
     return y
 
 
@@ -102,19 +107,19 @@ def onehot_gather_wide(plans: OneHotPlans, x: torch.Tensor) -> torch.Tensor:
     path: kept to time it against the narrow kernel in turns."""
     if x.device.type != "cuda":
         raise ValueError("onehot_gather_wide: CUDA tensors only")
-    return _launch_gather("onehot_gather_wide", "ns_slot_gather_wide_f32", plans, x)
+    return _launch_gather("onehot_gather_wide", "ns_slot_gather_wide", plans, x)
 
 
 def _launch_gather(name: str, entry: str, plans: OneHotPlans, x: torch.Tensor) -> torch.Tensor:
-    _check_payload(name, x, plans.n_rows, plans)
+    entry = f"{entry}_{_check_payload(name, x, plans.n_rows, plans)}"
     C = x.shape[1]
-    y = torch.empty((plans.n_slots, C), dtype=torch.float32, device=x.device)
+    y = torch.empty((plans.n_slots, C), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     cuda_lib.check(
         getattr(cuda_lib.load(), entry)(
             x.data_ptr(), plans.gather.data_ptr(), y.data_ptr(), plans.n_slots, C, stream,
         ),
-        name,
+        entry,
     )
     return y
 
@@ -134,8 +139,8 @@ def onehot_reduce(plans: OneHotPlans, y: torch.Tensor) -> torch.Tensor:
         return onehot_reduce_plain(plans, y)
     if y.device.type != "cuda":
         raise ValueError(f"onehot_reduce: unsupported device {y.device}")
-    out = _launch_reduce("onehot_reduce", "ns_slot_reduce_f32", plans, y)
-    launch_counts["slot_reduce"] += 1
+    out = _launch_reduce("onehot_reduce", "ns_slot_reduce", plans, y)
+    launch_counts[cuda_lib.count_key("slot_reduce", y.dtype)] += 1
     return out
 
 
@@ -145,19 +150,19 @@ def onehot_reduce_wide(plans: OneHotPlans, y: torch.Tensor) -> torch.Tensor:
     turns."""
     if y.device.type != "cuda":
         raise ValueError("onehot_reduce_wide: CUDA tensors only")
-    return _launch_reduce("onehot_reduce_wide", "ns_slot_reduce_wide_f32", plans, y)
+    return _launch_reduce("onehot_reduce_wide", "ns_slot_reduce_wide", plans, y)
 
 
 def _launch_reduce(name: str, entry: str, plans: OneHotPlans, y: torch.Tensor) -> torch.Tensor:
-    _check_payload(name, y, plans.n_slots, plans)
+    entry = f"{entry}_{_check_payload(name, y, plans.n_slots, plans)}"
     C = y.shape[1]
-    out = torch.empty((plans.n_rows, C), dtype=torch.float32, device=y.device)
+    out = torch.empty((plans.n_rows, C), dtype=y.dtype, device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
     cuda_lib.check(
         getattr(cuda_lib.load(), entry)(
             y.data_ptr(), plans.reduce.perm.data_ptr(), plans.reduce.offsets.data_ptr(),
             out.data_ptr(), plans.n_rows, C, stream,
         ),
-        name,
+        entry,
     )
     return out

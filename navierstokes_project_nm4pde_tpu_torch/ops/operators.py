@@ -6,8 +6,10 @@ The counterpart of the reference's `ops/operators.py`: the host side of
 the divergence ELL, and the Schur host tables: the frozen S1's, or the
 per-step assembly's), the element gathers and reductions,
 `convection_setup` with the fold (full, or convection only for the macro
-K/C split, and weighted per cell under IMEX), the element passes
-(`apply_rhs_and_r0`, `apply_F` with or without convection,
+K/C split, and weighted per cell under IMEX) or without it
+(numerics.fold_elem=False: every apply evaluates K = M/dt + nu A and C(w)
+from the quadrature tables, with no per-step F_e), the element
+passes (`apply_rhs_and_r0`, `apply_F` with or without convection,
 `apply_divergence_e`, `apply_gradient_e`, the explicit rhs
 `apply_convection_self`), the constant blocks (`apply_mass`,
 `apply_stiffness`, `apply_pressure_mass`), the monolithic stepper's
@@ -435,9 +437,13 @@ def convection_setup(
         w_e = gather_u(op, w)
     tail = w_e.dim() - 3
     _, WG, divw = _conv_quad(op, op.Jinv, w_e)
+    diagC = bf_coef = None
+    if not (with_diag or backflow is not None or fold is not None):
+        # the unfolded step without diag(C): the tables alone (R, the size
+        # of WG, is not built)
+        return ConvectionData(WG=WG, divw=divw, diagC=None)
     R = WG + 0.5 * divw[:, :, None] * _tail(op.PHI_U[None], tail)
     cdet = op.detJ if op.imex_scale is None else op.detJ * op.imex_scale
-    diagC = bf_coef = None
     if with_diag or backflow is not None:
         # sum_q jxw (WG_i phi_i + 0.5 divw phi_i^2)
         d_e = torch.einsum("q,eqi...,qi->ei...", op.W, R, op.PHI_U)
@@ -474,14 +480,12 @@ def convection_setup(
 
 
 def _check_fold(conv: ConvectionData, nu, dt) -> None:
-    """Raise unless `conv` was folded (in full) for this (nu, dt)."""
+    """Raise unless the folded `conv` holds the full F_e of this (nu, dt)."""
     if conv.conv_only:
         raise ValueError(
             "ConvectionData was folded conv_only (macro K/C split): its F_e "
             "is not the full velocity operator"
         )
-    if conv.F_e is None or conv.fold is None:
-        raise ValueError("the element apply needs a folded ConvectionData")
     fnu, fdt = conv.fold
     if torch.is_tensor(nu) or torch.is_tensor(fnu):
         same_nu = nu is fnu or (
@@ -528,15 +532,44 @@ def _apply_K_e(op: NSOperator, nu, dt, u_e: torch.Tensor) -> torch.Tensor:
     return y_e + nu * element_apply(op.stiff_e, u_e)
 
 
+def _apply_C_e(op: NSOperator, conv: ConvectionData, u_e: torch.Tensor) -> torch.Tensor:
+    """Element contributions of C(w) on u_e [E, nloc, C, *rest], evaluated
+    from the quadrature tables conv.WG and conv.divw (the unfolded path;
+    weighted per cell under IMEX)."""
+    tail = u_e.dim() - 3
+    # r = (w.grad) u + 0.5 (div w) u at the quadrature points, summed over
+    # the local nodes one node at a time in place (with members on trailing
+    # axes an einsum would copy WG [E, q, nloc, *rest], the step's largest
+    # table, into a batched layout every apply)
+    r = torch.einsum("qi,eic...->eqc...", op.PHI_U, u_e).mul_(0.5 * conv.divw[:, :, None])
+    for i in range(u_e.shape[1]):
+        r.addcmul_(conv.WG[:, :, i, None], u_e[:, None, i])
+    if op.imex_scale is not None:
+        r.mul_(_tail(op.imex_scale[:, None, None], tail))
+    return torch.einsum("q,qi,eqc...->eic...", op.W, op.PHI_U, r) * _tail(op.detJ[:, None, None], tail)
+
+
+def _apply_F_e(op: NSOperator, nu, dt, conv: ConvectionData | None, u_e: torch.Tensor) -> torch.Tensor:
+    """Element contributions of F on u_e: the folded F_e where `conv` holds
+    one (checked against this (nu, dt)), else K plus C(w) from the tables
+    (conv=None: K alone)."""
+    if conv is not None and conv.F_e is not None:
+        _check_fold(conv, nu, dt)
+        return element_apply(conv.F_e, u_e)
+    y_e = _apply_K_e(op, nu, dt, u_e)
+    return y_e if conv is None else y_e + _apply_C_e(op, conv, u_e)
+
+
 def apply_F(
     op: NSOperator, nu, dt, conv: ConvectionData | None, u: torch.Tensor,
     u_e: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """F u through the folded element matrices, [n, dim, *rest] (the
-    ensemble's velocity operator, a single run's element fallback, the
-    block preconditioners' inner solves and the element reference the
-    macro path is tested against); with conv=None the convection-free
-    K = M/dt + nu A.  `u_e` is a pre-gathered element view of u.
+    """F u through the folded element matrices, or unfolded when `conv`
+    holds none (fold_elem=False), [n, dim, *rest] (the ensemble's velocity
+    operator, a single run's element fallback, the block preconditioners'
+    inner solves and the element reference the macro path is tested
+    against); with conv=None the convection-free K = M/dt + nu A.  `u_e` is
+    a pre-gathered element view of u.
 
     A bfloat16 `u` (the preconditioners' low_precision mode) moves
     bfloat16 values: its gather payload and the element contributions the
@@ -548,11 +581,7 @@ def apply_F(
         u = u.to(op.MHAT.dtype)  # exact: a bfloat16 value is representable
     if u_e is None:
         u_e = gather_u(op, u)
-    if conv is None:
-        y_e = _apply_K_e(op, nu, dt, u_e)
-    else:
-        _check_fold(conv, nu, dt)
-        y_e = element_apply(conv.F_e, u_e)
+    y_e = _apply_F_e(op, nu, dt, conv, u_e)
     if lowp:
         y = scatter_u(op, y_e.to(torch.bfloat16).to(y_e.dtype)).to(torch.bfloat16)
     else:
@@ -588,11 +617,7 @@ def apply_system(op: NSOperator, nu, dt, conv: ConvectionData, u, p, mask_rows: 
     u_e = gather_u(op, u)
     p_e = gather_p(op, p)
     tail = u_e.dim() - 3  # members on trailing axes (u [n, dim, B], p [n_p, B])
-    if conv is None:
-        y_e = _apply_K_e(op, nu, dt, u_e)
-    else:
-        _check_fold(conv, nu, dt)
-        y_e = element_apply(conv.F_e, u_e)
+    y_e = _apply_F_e(op, nu, dt, conv, u_e)
     det = _tail(op.detJ[:, None, None], tail)
     y_e = y_e - torch.einsum("ekc,kij,ei...->ejc...", op.Jinv, op.BHAT, p_e) * det
     y_u = scatter_u(op, y_e)
@@ -612,9 +637,9 @@ def apply_rhs_and_r0(
     w_e: torch.Tensor | None = None,
 ):
     """(b, r0) = (M h - G p,  b - F u0) in one element pass and one
-    dual-channel reduction (the reference's einsum branch; F folded, or K
-    alone with conv=None).  `h_e`/`u0_e` are pre-gathered element views of
-    h/u0.  Under IMEX, `w_e` (the element view of w) fuses the explicit
+    dual-channel reduction (the reference's einsum branch; F folded or
+    unfolded, or K alone with conv=None).  `h_e`/`u0_e` are pre-gathered
+    element views of h/u0.  Under IMEX, `w_e` (the element view of w) fuses the explicit
     cells' rhs term -(1 - imex_scale) N(w) into b."""
     h_e = gather_u(op, h) if h_e is None else h_e
     u0_e = gather_u(op, u0) if u0_e is None else u0_e
@@ -622,11 +647,7 @@ def apply_rhs_and_r0(
     det = _tail(op.detJ[:, None, None], h_e.dim() - 3)
     b_e = torch.einsum("ij,ejc...->eic...", op.MHAT, h_e) * det
     b_e = b_e + torch.einsum("ekc,kij,ei...->ejc...", op.Jinv, op.BHAT, p_e) * det
-    if conv is None:
-        f_e = _apply_K_e(op, nu, dt, u0_e)
-    else:
-        _check_fold(conv, nu, dt)
-        f_e = element_apply(conv.F_e, u0_e)
+    f_e = _apply_F_e(op, nu, dt, conv, u0_e)
     if conv is not None and op.imex_scale is not None and w_e is not None:
         w_q = torch.einsum("qi,eic...->eqc...", op.PHI_U, w_e)
         nw = torch.einsum("eqi...,eic...->eqc...", conv.WG, w_e) + 0.5 * conv.divw[:, :, None] * w_q

@@ -9,7 +9,8 @@ repository's JAX test configuration:
 Tolerances: kernel and plain version sum the same f32 terms in another
 order (kernel B with shared-memory atomics, the slot reduce and the GEMM
 probe in their own fixed orders), so results agree to a few f32 ulps of
-the largest entry; 1e-5 relative to max |plain| is stated.  The slot
+the largest entry; 1e-5 relative to max |plain| is stated.  In float64
+(kernels A-D) the same holds in f64 ulps: 1e-12 is stated.  The slot
 gather and the column gather copy values: equality is exact.
 """
 
@@ -24,6 +25,7 @@ from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
 from navierstokes_project_nm4pde_tpu_torch.ops import probes
 
 RTOL = 1e-5
+RTOL64 = 1e-12
 
 
 @pytest.fixture
@@ -35,8 +37,10 @@ def cuda():
 
 
 def _close(out, ref):
+    assert out.dtype == ref.dtype, (out.dtype, ref.dtype)
     err = float((out - ref).abs().max())
-    assert err <= RTOL * float(ref.abs().max()), err
+    tol = RTOL64 if ref.dtype == torch.float64 else RTOL
+    assert err <= tol * float(ref.abs().max()), err
 
 
 def _lidx(B, c_blk, nloc, U, seed):
@@ -205,16 +209,22 @@ def test_macro_build_then_matvec_is_the_element_apply(cuda):
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     FtT = torch.randn((2, 32, 32), device=cuda)
     x_b = torch.randn((2, 32, 3), device=cuda)
+    for half in (torch.bfloat16, torch.float16):
+        with pytest.raises(ValueError):
+            mb.macro_matvec(FtT.to(half), x_b.to(half))
     with pytest.raises(ValueError):
-        mb.macro_matvec(FtT.double(), x_b.double())
+        mb.macro_matvec(FtT.double(), x_b)  # the types differ
     with pytest.raises(ValueError):
         mb.macro_matvec(FtT.transpose(1, 2), x_b)
     with pytest.raises(ValueError):
         mb.macro_matvec(FtT, x_b[:, :16])
     lidx = _lidx(2, 3, 10, 32, seed=0).to(cuda)
     F_e = torch.randn((6, 10, 10), device=cuda)
+    for half in (torch.bfloat16, torch.float16):
+        with pytest.raises(ValueError):
+            mb.macro_build(F_e.to(half), lidx, 2, 32)
     with pytest.raises(ValueError):
-        mb.macro_build(F_e.double(), lidx, 2, 32)
+        mb.macro_build_v1(F_e.double(), lidx, 2, 32)  # float32 only
     with pytest.raises(ValueError):
         mb.macro_build(F_e, lidx.long(), 2, 32)
     with pytest.raises(ValueError):
@@ -308,8 +318,11 @@ def test_slot_kernels_on_a_fine_subset_plan(cuda, C):
 
 def test_slot_kernels_reject_what_they_do_not_take(cuda):
     plans = oh.build_onehot_plans(_cells(20, 10, 60, seed=1), 60, device=cuda)
-    with pytest.raises(ValueError):
-        oh.onehot_reduce(plans, torch.randn((plans.n_slots, 4), device=cuda).double())
+    for half in (torch.bfloat16, torch.float16):
+        with pytest.raises(ValueError):
+            oh.onehot_reduce(plans, torch.randn((plans.n_slots, 4), device=cuda).to(half))
+        with pytest.raises(ValueError):
+            oh.onehot_gather(plans, torch.randn((60, 4), device=cuda).to(half))
     with pytest.raises(ValueError):
         oh.onehot_reduce(plans, torch.randn((plans.n_slots - 1, 4), device=cuda))
     with pytest.raises(ValueError):
@@ -426,3 +439,92 @@ def test_slot_kernels_on_the_monolithic_paths_plan(cuda, C):
     assert oh.launch_counts["slot_gather"] == before["slot_gather"] + 1
     _close(out, oh.onehot_reduce_plain(plans, y))
     assert torch.equal(ye, oh.onehot_gather_plain(plans, x))
+
+
+# ---- float64 (the float64 runs): each kernel's _f64 entry point ----------
+@pytest.mark.parametrize("B,U,C", [
+    (37, 128, 1), (37, 128, 3), (11, 128, 12), (5, 30, 5), (3, 250, 12), (2, 256, 7), (4, 12, 2),
+    (3, 31, 5), (6, 127, 12),
+])
+def test_macro_matvec_float64_matches_plain(cuda, B, U, C):
+    """Kernel A in float64 up to its widest payload a launch (12), on the
+    16-byte copies (U even) and one element a copy (odd U), counted under
+    its float64 entry point."""
+    assert mb.max_channels(torch.float64) == 12
+    g = torch.Generator(device=cuda).manual_seed(B * 100 + C)
+    FtT = torch.randn((B, U, U), generator=g, device=cuda, dtype=torch.float64)
+    x_b = torch.randn((B, U, C), generator=g, device=cuda, dtype=torch.float64)
+    before = dict(mb.launch_counts)
+    y = mb.macro_matvec(FtT, x_b)
+    torch.cuda.synchronize()
+    assert mb.launch_counts == {**before, "macro_matvec_f64": before["macro_matvec_f64"] + 1}
+    _close(y, mb.macro_matvec_plain(FtT, x_b))
+
+
+@pytest.mark.parametrize("C", [13, 24, 25])
+def test_macro_matvec_float64_splits_past_its_widest_payload(cuda, C):
+    """Past 12 channels a float64 payload splits as a float32 one does past
+    24: ceil(C / 12) launches, each writing its slice of one output."""
+    B, U = 23, 128
+    g = torch.Generator(device=cuda).manual_seed(C)
+    FtT = torch.randn((B, U, U), generator=g, device=cuda, dtype=torch.float64)
+    x_b = torch.randn((B, U, C), generator=g, device=cuda, dtype=torch.float64)
+    before = mb.launch_counts["macro_matvec_f64"]
+    y = mb.macro_matvec(FtT, x_b)
+    torch.cuda.synchronize()
+    assert mb.launch_counts["macro_matvec_f64"] == before + -(-C // 12)
+    _close(y, mb.macro_matvec_plain(FtT, x_b))
+
+
+@pytest.mark.parametrize("B,c_blk,U,E_short,nloc", [
+    (11, 20, 128, 7, 10), (9, 5, 64, 4, 10), (1500, 20, 128, 7, 10), (33, 9, 128, 0, 10),
+    (1295, 20, 128, 2, 6), (40, 7, 64, 3, 6), (6, 4, 168, 1, 10),
+])
+def test_macro_build_float64_matches_plain(cuda, B, c_blk, U, E_short, nloc):
+    """Kernel B in float64 (one tile a CTA) on tetrahedra and triangles, a
+    last block partly filled, and U = 168, the widest tile shared memory
+    holds (225,792 bytes); counted under its float64 entry point."""
+    E = B * c_blk - E_short
+    lidx = _lidx(B, c_blk, nloc, U, seed=B + c_blk).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(E)
+    F_e = torch.randn((E, nloc, nloc), generator=g, device=cuda, dtype=torch.float64)
+    before = dict(mb.launch_counts)
+    out = mb.macro_build(F_e, lidx, B, U)
+    torch.cuda.synchronize()
+    assert mb.launch_counts == {**before, "macro_build_f64": before["macro_build_f64"] + 1}
+    _close(out, mb.macro_build_plain(F_e, lidx, B, U))
+
+
+def test_macro_build_float64_refuses_a_tile_past_shared_memory(cuda):
+    """U = 170 needs 231,200 bytes, U = 172 236,672: the second is refused
+    by the wrapper, before any launch."""
+    lidx = _lidx(2, 3, 10, 170, seed=0).to(cuda)
+    F_e = torch.randn((6, 10, 10), device=cuda, dtype=torch.float64)
+    _close(mb.macro_build(F_e, lidx, 2, 170), mb.macro_build_plain(F_e, lidx, 2, 170))
+    with pytest.raises(ValueError, match="shared"):
+        mb.macro_build(F_e, lidx, 2, 172)
+
+
+@pytest.mark.parametrize("E,n_rows,C", [
+    (40, 97, 1), (300, 500, 3), (60, 140, 9), (64, 150, 64), (64, 150, 192), (45, 110, 17),
+    (33, 90, 20),
+])
+def test_slot_kernels_float64_match_plain(cuda, E, n_rows, C):
+    """Kernels C and D in float64: narrow (C <= 16), wide on double2 vectors
+    (C even) and scalar (C odd); C deterministic, D exact."""
+    plans = oh.build_onehot_plans(_cells(E, 10, n_rows, seed=E), n_rows, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(C)
+    y = torch.randn((plans.n_slots, C), generator=g, device=cuda, dtype=torch.float64)
+    x = torch.randn((n_rows, C), generator=g, device=cuda, dtype=torch.float64)
+    before = dict(oh.launch_counts)
+    out = oh.onehot_reduce(plans, y)
+    ye = oh.onehot_gather(plans, x)
+    torch.cuda.synchronize()
+    assert oh.launch_counts == {**before, "slot_reduce_f64": before["slot_reduce_f64"] + 1,
+                                "slot_gather_f64": before["slot_gather_f64"] + 1}
+    _close(out, oh.onehot_reduce_plain(plans, y))
+    assert torch.equal(ye, oh.onehot_gather_plain(plans, x))
+    assert torch.equal(oh.onehot_reduce(plans, y), out)
+    if C <= 16:
+        assert torch.equal(oh.onehot_reduce_wide(plans, y), out)
+        assert torch.equal(oh.onehot_gather_wide(plans, x), ye)

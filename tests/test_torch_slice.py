@@ -132,8 +132,6 @@ def test_solver_rejects_configs_outside_the_slice():
         # bdf2 runs; the constant-K operator stays BDF1's
         (dataclasses.replace(bdf2_explicit, numerics=dataclasses.replace(
             bdf2_explicit.numerics, vel_apply="bsr")), "scheme 'bdf1'"),
-        (rep("numerics", fold_elem=False), "numerics.fold_elem"),
-        (rep("numerics", spatial_reorder=False), "numerics.spatial_reorder"),
         (rep("time", convection="imex", imex_umax=None), "imex_umax"),
         (rep("numerics", vel_apply="bsr"), "vel_apply"),
         (dataclasses.replace(mono, time=dataclasses.replace(mono.time, convection="explicit")),
