@@ -47,6 +47,13 @@ Drives the port's paths once each:
   * numerics.fold_elem=False and spatial_reorder=False on the small duct
     against the CPU, and the 64-member ensemble with fold_elem=False
     (member-steps/s, and a peak below the folded ensemble's);
+  * wide macro blocks (numerics.macro_u = 192 at c_blk 34 and 256 at c_blk
+    48, the widths the JAX package's profile measured): the single run at
+    965,265 DoF at both in float32 and float64 (kernel B in bands of rows,
+    its F and S counts beside the U = 128 run's), kernels A and B on the
+    965k plan at U = 384 as well (kernel A in bands of columns), the small
+    duct against the CPU (with the macro options forced on and
+    f_warmstart=5) and cylinder2d --fast at U = 256;
 and runs the two TPU-era measurement probes (kernels E and F).  It builds
 the hand-written CUDA kernels from `navierstokes_project_nm4pde_tpu_torch/csrc`,
 holds each against its plain PyTorch version at the shapes its paths give
@@ -74,6 +81,7 @@ phases.
     python3 chip_smoke.py [--profile DIR]   # DIR: torch.profiler tables and traces
     python3 chip_smoke.py --only ensemble-variants ensemble-cli multi-device
     python3 chip_smoke.py --only float64-small unfolded-small
+    python3 chip_smoke.py --only wide-macro
 
 Every phase that fails makes the exit code non-zero; without a CUDA device
 the script exits 1 before printing any result.  The last three lines of
@@ -223,6 +231,30 @@ SHARD_BATCH_MEMBERS = 4
 # explicit mode's measured-stable point (config.py TimeConfig); it
 # diverges at 965k.
 EXPLICIT_MESH = dict(lc=0.08, nz=6)
+# Wide macro blocks: numerics.macro_u past 128, which the JAX package runs
+# at any lane multiple of 128 (its profile, PERFORMANCE.md:120-132, measured
+# U = 192 at c_blk 34 and U = 256 at c_blk 48 at 965k): name -> numerics
+# changes.  Kernel B builds such a block's tile in bands of rows, kernel A
+# past 256 slots in bands of columns.  Both widths run on the small duct
+# (VARIANT_CHECKS, F64_CHECKS; with the macro options forced on and the
+# warm-start pool's channels, WIDE_ON), on the 2D channel (SMALL_CHECKS),
+# the 118,071-DoF channel at U = 256, and the single run at 965k (float32
+# WARMUP_STEPS + TIMED_STEPS, float64 F64_WARMUP + F64_TIMED: the U = 128
+# runs' counts, beside which each step's F and S are printed).
+WIDE_MACRO = {"U=192": dict(macro_u=192, macro_cblk=34), "U=256": dict(macro_u=256, macro_cblk=48)}
+# and a width past kernel A's 256 columns a CTA, whose kernels are checked
+# and timed on the 965k plan (no run): (U, c_blk)
+WIDE_PLAN_ONLY = (384, 48)
+WIDE_ON = {"numerics": dict(macro_rhs="on", macro_wfuse="on", macro_split="on"), "precond": dict(f_warmstart=5)}
+
+
+def wide_changes(name: str, on: bool = False) -> dict:
+    """Config changes of WIDE_MACRO[name], with WIDE_ON's if `on`."""
+    if not on:
+        return {"numerics": WIDE_MACRO[name]}
+    return {**WIDE_ON, "numerics": {**WIDE_MACRO[name], **WIDE_ON["numerics"]}}
+
+
 # Small-duct variants, card f32 against CPU f64: name -> (config changes,
 # mesh).  The IMEX one is a mixed partition (the reference's
 # tests/test_imex.py:117-140 setting).
@@ -243,6 +275,9 @@ VARIANT_CHECKS = {
         div_apply="element")}, SMALL_DUCT),
     "coarse_solve=inv": ({"numerics": dict(coarse_solve="inv")}, SMALL_DUCT),
     "mg2_form=v11": ({"precond": dict(mg2_form="v11")}, SMALL_DUCT),
+    **{f"macro {w}": (wide_changes(w), SMALL_DUCT) for w in WIDE_MACRO},
+    **{f"macro {w}, macro options on, f_warmstart=5": (wide_changes(w, on=True), SMALL_DUCT)
+       for w in WIDE_MACRO},
 }
 # Small-duct checks of the monolithic stepper, card f32 against CPU f64,
 # 5 steps on SMALL_DUCT: name -> (precond changes to the cylinder3d CLI's
@@ -288,6 +323,8 @@ SMALL_CHECKS = {
     "explicit bdf2 (AB2), small duct": (
         "duct", ("bench", {"time": dict(convection="explicit", scheme="bdf2")}), AGREE_STEPS, 1e-2),
     "Ethier-Steinman n=4, one step (convergence CLI)": ("cube", ("cli", ["convergence"]), 1, 1e-4),
+    "cylinder2d --fast, macro U=256": (
+        "channel", ("cli", ["cylinder2d", "--fast"], wide_changes("U=256")), AGREE_STEPS, 1e-4),
 }
 # One `apply_precond` of each of the seven kinds and of each inner-solver
 # case of MONO_CHECKS, card f32 against CPU f64 on the same seeded
@@ -372,6 +409,9 @@ F64_CHECKS = {
     "bench (macro path: A and B)": ("bench", {}),
     "monolithic, yosida": ("cylinder3d", {}),
     "ensemble, B = 4": ("ensemble", {}),
+    **{f"bench, macro {w}": ("bench", wide_changes(w)) for w in WIDE_MACRO},
+    **{f"bench, macro {w}, macro options on, f_warmstart=5": ("bench", wide_changes(w, on=True))
+       for w in WIDE_MACRO},
 }
 # numerics.fold_elem=False and spatial_reorder=False on the small duct,
 # card float32 against CPU float64: name -> (configuration, changes,
@@ -463,12 +503,14 @@ def cylinder3d_config(dtype: str = "float32", **precond):
 
 
 def small_config(spec, dtype: str = "float32"):
-    """The RunConfig of a SMALL_CHECKS configuration at `dtype`."""
-    kind, arg = spec
+    """The RunConfig of a SMALL_CHECKS configuration at `dtype`: ("cli",
+    argv[, changes]) or ("bench", changes)."""
+    kind, arg, *changes = spec
     if kind == "cli":
         from navierstokes_project_nm4pde_tpu_torch import cli
 
-        return cli._build_config(cli._parser().parse_args([*arg, "--dtype", dtype]), None)
+        cfg = cli._build_config(cli._parser().parse_args([*arg, "--dtype", dtype]), None)
+        return with_changes(cfg, changes[0]) if changes else cfg
     return with_changes(bench_config(dtype), arg)
 
 
@@ -1605,24 +1647,26 @@ def drive_cylinder2d(device, rec: dict) -> dict:
     del dsolver
     log(f"cylinder2d defaults: {time.perf_counter() - t0:.1f} s")
     mesh = cylinder_channel_2d(**FAST_2D_MESH)
-    for scheme in ("bdf1", "bdf2"):
+    for scheme, wide in (("bdf1", None), ("bdf2", None), ("bdf1", "U=256")):
         t0 = time.perf_counter()
         cfg = cli._build_config(cli._parser().parse_args(["cylinder2d", "--fast", "--scheme", scheme]), None)
+        path = f"cylinder2d --fast {scheme}" + (f", macro {wide}" if wide else "")
+        if wide:
+            cfg = with_changes(cfg, wide_changes(wide))
         fsolver = NavierStokesSolver(mesh, Cylinder2DProblem(test_case=2), cfg, device=device)
         mp = fsolver.macro
         torch.cuda.synchronize()
-        log(f"cylinder2d --fast {scheme}: {mesh.n_cells} cells, {fsolver.space.n_dofs} DoF; macro "
+        log(f"{path}: {mesh.n_cells} cells, {fsolver.space.n_dofs} DoF; macro "
             f"B={mp.B} U={mp.U} c_blk={mp.c_blk}; host setup {time.perf_counter() - t0:.2f} s")
         if scheme == "bdf1":
-            add_macro_shapes(rec, "cylinder2d --fast", fsolver, (2,), KERNEL_REPS)
+            add_macro_shapes(rec, path.replace(" bdf1", ""), fsolver, (2,), KERNEL_REPS)
         _, _, _, launches = drive_single(
-            f"cylinder2d --fast {scheme}", fsolver, FAST_2D_WARMUP, FAST_2D_TIMED,
-            ("macro_build", "macro_matvec"),
+            path, fsolver, FAST_2D_WARMUP, FAST_2D_TIMED, ("macro_build", "macro_matvec"),
         )
-        out[f"cylinder2d --fast {scheme}"] = launches
+        out[path] = launches
         del fsolver
         free_card()
-        log(f"cylinder2d --fast {scheme}: {time.perf_counter() - t0:.1f} s")
+        log(f"{path}: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2051,6 +2095,114 @@ def drive_multi_device(device, rec: dict) -> dict:
     return out_paths
 
 
+def wide_macro_launched(path: str, changes: dict) -> None:
+    """After a float32 run under `changes`: if they set numerics.macro_u,
+    fail unless kernels A and B launched since the counts were last reset."""
+    from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
+
+    if "macro_u" not in changes.get("numerics", {}):
+        return
+    counts = launches_of(mb.launch_counts, ("macro_build", "macro_matvec"), "float32", path)
+    log(f"  {path}: macro kernel launches on the card: {counts}")
+    if not all(v > 0 for v in counts.values()):
+        fail(f"{path}: a macro kernel never launched at the wide U ({counts})")
+
+
+def macro_parts_ms(mp, reps: int) -> dict:
+    """Device ms of the macro path's per-step block build (kernel B) and of
+    one F apply at 3 channels by part: slot gather, kernel A, node reduce,
+    and whole (float32, seeded inputs) on plan `mp`."""
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
+
+    dev = mp.lidx.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    F_e = torch.randn((mp.E, mp.lidx.shape[2], mp.lidx.shape[2]), generator=gen, device=dev)
+    u = torch.randn((mp.n, 3), generator=gen, device=dev)
+    FtT = mb.macro_build(F_e, mp.lidx, mp.B, mp.U)
+    x_b = mb.slot_gather(mp, u)
+    y_b = mb.macro_matvec(FtT, x_b)
+    return dict(
+        build=device_ms(lambda: mb.macro_build(F_e, mp.lidx, mp.B, mp.U), reps),
+        gather=device_ms(lambda: mb.slot_gather(mp, u), reps),
+        matvec=device_ms(lambda: mb.macro_matvec(FtT, x_b), reps),
+        reduce=device_ms(lambda: mb.node_reduce(mp, y_b), reps),
+        apply=device_ms(lambda: mb.apply_macro(mp, FtT, u), reps),
+    )
+
+
+def drive_wide_macro(device, rec: dict, rec64: dict, mesh=None, base=None) -> dict:
+    """The single run at 965,265 DoF at each WIDE_MACRO width: its kernels
+    A (3 channels) and B checked and timed on its plan (added to `rec` /
+    `rec64` under "shapes", beside the bands they run in), then
+    WARMUP_STEPS + TIMED_STEPS in float32 and F64_WARMUP + F64_TIMED in
+    float64 through `drive_single` (a non-finite value, a timed step at
+    maxiter or a macro kernel never launched fails it), each step's F and S
+    beside the U = 128 run's (`base`: dtype -> its timed diagnostics).
+    Then kernels A and B on the 965k plan at WIDE_PLAN_ONLY, in both dtypes,
+    and `macro_parts_ms` on the plans at U = 128, each width and
+    WIDE_PLAN_ONLY.  Returns each run's launches, keyed by path."""
+    import types
+
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
+    from navierstokes_project_nm4pde_tpu_torch.models import Cylinder3DProblem, NavierStokesSolver
+    from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
+
+    mesh = mesh if mesh is not None else cylinder_duct_3d(lc=0.024, nz=14)
+    out, parts = {}, {}
+    for name in WIDE_MACRO:
+        for dtype, warmup, timed in (("float32", WARMUP_STEPS, TIMED_STEPS), ("float64", F64_WARMUP, F64_TIMED)):
+            path = f"single run, macro {name}, {dtype}"
+            t0 = time.perf_counter()
+            solver = NavierStokesSolver(mesh, Cylinder3DProblem(test_case=2),
+                                        with_changes(bench_config(dtype), wide_changes(name)), device=device)
+            solver.macro_mass  # built at first use (with the plan): this path's setup
+            mp = solver.macro
+            torch.cuda.synchronize()
+            nloc = mp.lidx.shape[2]
+            log(f"{path}: host setup {time.perf_counter() - t0:.2f} s (mesh reused); macro B={mp.B} "
+                f"U={mp.U} c_blk={mp.c_blk}; kernel B in bands of {mb.band_rows(solver.dtype, mp.c_blk, nloc, mp.U)} "
+                f"rows, kernel A in bands of {mb.band_cols(solver.dtype, 3, mp.U)} columns at C=3")
+            add_macro_shapes(rec if dtype == "float32" else rec64, f"single run, macro {name}", solver, (3,),
+                             KERNEL_REPS)
+            if dtype == "float32":
+                parts[mp.U] = macro_parts_ms(mp, KERNEL_REPS)
+            free_card()
+            keys = ("macro_build", "macro_matvec") if dtype == "float32" else ("macro_build_f64", "macro_matvec_f64")
+            _, d, _, counts = drive_single(path, solver, warmup, timed, keys)
+            out[path] = launches_of(counts, ("macro_build", "macro_matvec"), dtype, path)
+            if base is not None and dtype in base:
+                b = base[dtype]
+                log(f"  {path}: F a step {d.iters_f.tolist()} (mean {d.iters_f.mean():.2f}), U=128 "
+                    f"{b.iters_f.tolist()} (mean {b.iters_f.mean():.2f}); S a step {d.iters_s.tolist()} "
+                    f"(mean {d.iters_s.mean():.2f}), U=128 {b.iters_s.tolist()} (mean {b.iters_s.mean():.2f})")
+            cells, n_unodes = solver.space.cells_u, solver.space.n_unodes
+            del solver
+            free_card()
+            log(f"{path}: {time.perf_counter() - t0:.1f} s")
+    U, c_blk = WIDE_PLAN_ONLY
+    mp = mb.build_macro_plan(cells, n_unodes, U=U, c_blk=c_blk, device=device)
+    for dtype, r in ((torch.float32, rec), (torch.float64, rec64)):
+        log(f"the 965k plan at U={U} ({dtype}): B={mp.B} c_blk={mp.c_blk}; kernel B in bands of "
+            f"{mb.band_rows(dtype, mp.c_blk, mp.lidx.shape[2], U)} rows, kernel A in bands of "
+            f"{mb.band_cols(dtype, 3, U)} columns at C=3")
+        add_macro_shapes(r, f"965k plan at U={U} (no run)", types.SimpleNamespace(macro=mp, device=device, dtype=dtype),
+                         (3,), KERNEL_REPS)
+        free_card()
+    parts[U] = macro_parts_ms(mp, KERNEL_REPS)
+    del mp
+    parts[128] = macro_parts_ms(mb.build_macro_plan(cells, n_unodes, device=device), KERNEL_REPS)
+    free_card()
+    log("the 965k macro path by part, float32 device ms (build; an F apply at C=3: slot gather, kernel A, "
+        "node reduce, whole): " + "; ".join(
+            f"U={U}: build {t['build']:.4f}, gather {t['gather']:.4f}, A {t['matvec']:.4f}, "
+            f"reduce {t['reduce']:.4f}, apply {t['apply']:.4f}" for U, t in sorted(parts.items())))
+    return out
+
+
 def kernel_entry(name: str, r: dict, launches: int) -> dict:
     """A kernel's numbers in the kernels' JSON line, from its record `r`
     (float32's, or the float64 record of its "f64" entry), logged."""
@@ -2073,6 +2225,7 @@ ONLY_PHASES = {
     "multi-device": drive_multi_device,
     "float64-small": lambda device, rec: check_small_f64(device),
     "unfolded-small": lambda device, rec: check_small_unfolded(device),
+    "wide-macro": lambda device, rec: drive_wide_macro(device, rec, {k: dict(err=0.0) for k in rec}),
 }
 
 
@@ -2179,6 +2332,7 @@ def main(argv=None) -> int:
         mb.reset_launch_counts()
         check_small_duct(device, name, changes, mesh_kw)
         log(f"  kernel A launches by channel count on the card: {dict(sorted(mb.matvec_channels.items()))}")
+        wide_macro_launched(name, changes)
     check_small_monolithic(device)
     check_small_precond(device)
     t0 = time.perf_counter()
@@ -2187,7 +2341,10 @@ def main(argv=None) -> int:
     log(f"small float64, fold_elem=False and spatial_reorder=False checks: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for name, (geometry, spec, steps, rtol) in SMALL_CHECKS.items():
+        mb.reset_launch_counts()
         check_small(device, name, *small_geometry(geometry), functools.partial(small_config, spec), steps, rtol)
+        if spec[2:]:
+            wide_macro_launched(name, spec[2])
     log(f"small 2D, BDF2 and Ethier-Steinman checks: {time.perf_counter() - t0:.1f} s")
 
     # ---- 7. the main path -------------------------------------------------
@@ -2278,12 +2435,17 @@ def main(argv=None) -> int:
         f"U={fmp.U} c_blk={fmp.c_blk}")
     rec64 = check_kernels(fsolver, KERNEL_REPS, F64_MATVEC_WIDTHS, main=False)
     free_card()
-    _, _, _, f64_all = drive_single(
+    _, d64, _, f64_all = drive_single(
         "single run float64", fsolver, F64_WARMUP, F64_TIMED, ("macro_build_f64", "macro_matvec_f64")
     )
     f64_single = launches_of(f64_all, ("macro_build", "macro_matvec"), "float64", "single run float64")
     del fsolver
     free_card()
+
+    # ---- 9d'. the single run at wide macro blocks (U = 192, 256), both dtypes
+    t0 = time.perf_counter()
+    wide_paths = drive_wide_macro(device, rec, rec64, mesh, base={"float32": d, "float64": d64})
+    log(f"the single run at wide macro blocks: {time.perf_counter() - t0:.1f} s")
     del mesh
 
     # ---- 9d. the cylinder3d entry point at --dtype float64 (142,692 DoF) ----
@@ -2425,13 +2587,15 @@ def main(argv=None) -> int:
     paths.update(drive_multi_device(device, rec))
     log(f"the ensemble entry point {t_ens:.1f} s, the multi-device runs {time.perf_counter() - t0:.1f} s")
     paths.update({"monolithic 965k": mono_launches, "cylinder3d CLI": cli_launches})
+    paths.update({k: v for k, v in wide_paths.items() if k.endswith("float32")})
     for name in ("slot_reduce", "slot_gather", "macro_build", "macro_matvec"):
         rec[name]["launches_by_path"] = {k: v[name] for k, v in paths.items() if v.get(name)}
     # the float64 records' launches: A and B in the float64 single run's
     # timed steps, C and D in the cylinder3d CLI's float64 run, whose plan
     # their records measure; the convergence CLI's float64 launches beside
     paths64 = {"single run float64": f64_single, "cylinder3d CLI float64": cli_launches64,
-               "convergence CLI float64": conv_launches["float64"]}
+               "convergence CLI float64": conv_launches["float64"],
+               **{k: v for k, v in wide_paths.items() if k.endswith("float64")}}
     for name, r in rec64.items():
         r["launches_by_path"] = {k: v[name] for k, v in paths64.items() if v.get(name)}
         r["launches"] = (f64_single if name.startswith("macro") else cli_launches64)[name]

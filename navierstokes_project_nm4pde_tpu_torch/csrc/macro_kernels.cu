@@ -31,7 +31,14 @@
 //   launch reads and writes a channel slice of wider rows (row strides
 //   ldx, ldy), so the wrapper splits a payload past 24 channels into
 //   launches of at most 24 that write their slices of one output; each
-//   launch reads the values once more.  macro_matvec_v1 is the earlier design
+//   launch reads the values once more.  Past U = 256 output columns (one
+//   thread each) the block's columns u are split into bands of at most 256
+//   (a multiple of 32, balanced: 192 at U = 384, 256 at U = 512), a CTA a
+//   (block, band), the band's CTAs neighbours: each stages the whole [U, C]
+//   panel and reads its band's column segment of every FtT row (row
+//   stride U), so FtT is still read once (U = 384 on the 965k-DoF mesh:
+//   0.8772 ms, 92.3% of its bound; H100 80GB HBM3, 700 W).
+//   macro_matvec_v1 is the earlier design
 //   (FtT read straight from global memory, output stored at a stride of
 //   C, up to 8 channels), kept to time the two in turns.
 //
@@ -68,6 +75,25 @@
 //   copy out in sequence, one tile; its sum in the same row pairs), kept
 //   to time the two in turns, and in double kernel B's float64 form.
 //
+//   Wide blocks (the JAX package's numerics.macro_u runs any lane multiple
+//   of 128; its profile measured U = 192 and 256): two [U, U] f32 tiles
+//   and the stages fit one CTA's shared memory up to U = 162 at c_blk 20,
+//   so past that each block's tile is split into bands of R rows v (the
+//   most that fit, balanced over ceil(U / R) bands; 96 at U = 192, c_blk
+//   34; 86 at U = 256, c_blk 48).  A work item is a (block, band): its CTA
+//   zeroes an [R, U] tile, adds the block's F_e entries whose row v falls
+//   in the band, and writes the band out with one bulk store (the band's
+//   rows are contiguous in FtT).  Each band stages the block's F_e and
+//   lidx again (19 KB at c_blk 48, against a 256 KB output block); items
+//   are numbered band-fastest, so a block's bands run on neighbouring
+//   CTAs at the same time and the re-reads come from L2.  The one-tile
+//   design (float64, v1) bands the same way with a CTA an item.  A block
+//   whose tiles fit keeps the unbanded kernel (a template instance).  On
+//   the 965k-DoF mesh the bands hold the unbanded share of the bound: U =
+//   192 0.3880 ms, 256 0.4885 ms, 384 1.0188 ms (78-81%; U = 128 0.2959,
+//   81.5%), in float64 0.8103 / 0.9408 / 1.9244 ms (76-86%; H100 80GB
+//   HBM3, 700 W).
+//
 // Float64 (the _f64 entry points; the float64 runs): kernel A is the same
 // template in double, its panel in 16-byte double2 vectors of 2 channels,
 // its ring of FtT stages twice as wide in bytes (64 KB at U = 128), and up
@@ -93,9 +119,12 @@ namespace {
 
 constexpr int kMaxC = 24;    // kernel A's widest float payload a launch
 constexpr int kMaxC64 = 12;  // and double's
-// Kernel A: U <= kMatvecMaxU slots a block, FtT streamed through a ring
-// of kMatvecStages shared-memory stages of kMatvecRows rows.
-constexpr int kMatvecMaxU = 256;
+// Shared memory a block may use on Hopper (227 KB, opt-in past 48 KB).
+constexpr size_t kMaxSmem = 232448;
+// Kernel A: up to kMatvecMaxW output columns a CTA (a thread each; a wider
+// block's columns in bands), FtT streamed through a ring of kMatvecStages
+// shared-memory stages of kMatvecRows rows.
+constexpr int kMatvecMaxW = 256;
 constexpr int kMatvecRows = 16;
 constexpr int kMatvecStages = 4;
 // Kernel A's earlier design: 128 threads a block, up to 8 channels.
@@ -169,29 +198,49 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t 
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
-// Shared memory of kernel B: two [U, U] tiles, then two F_e stages and two
+// Shared memory of kernel B besides its two tiles: two F_e stages and two
 // lidx stages (each rounded to 16 bytes), then two mbarriers.
-size_t build_smem_bytes(int c_blk, int nloc, int U) {
-  return sizeof(float) * (2 * static_cast<size_t>(U) * U + 2 * round4(c_blk * nloc * nloc) +
-                          2 * round4(c_blk * nloc)) +
+size_t build_stage_bytes(int c_blk, int nloc) {
+  return sizeof(float) * (2 * round4(c_blk * nloc * nloc) + 2 * round4(c_blk * nloc)) +
          2 * sizeof(uint64_t);
 }
 
+// The rows R of a band of a block's [U, U] tile (kernel B, both designs):
+// U where `fixed` bytes and U rows of `row_bytes` fit one CTA's shared
+// memory; else the most rows that fit, balanced over ceil(U / R) bands and
+// even where U is not a multiple of 4 (so every band is a whole number of
+// 16-byte vectors at a 16-byte aligned row); 0 if not even that fits.
+int band_rows(int U, size_t row_bytes, size_t fixed) {
+  if (fixed + U * row_bytes <= kMaxSmem) return U;
+  const int g = U % 4 == 0 ? 1 : 2;
+  const int rmax = fixed >= kMaxSmem ? 0 : static_cast<int>((kMaxSmem - fixed) / row_bytes) / g * g;
+  if (rmax <= 0) return 0;
+  const int nb = (U + rmax - 1) / rmax;
+  return ((U + nb - 1) / nb + g - 1) / g * g;
+}
+
+// BANDED: a work item is a band of R rows v of a block's tile (R < U);
+// else a whole block (R = U), the design as it was before bands.
+template <bool BANDED>
 __global__ void __launch_bounds__(kBuildThreads)
 macro_build_kernel(const float* __restrict__ Fe, const int32_t* __restrict__ lidx,
                    float* __restrict__ FtT, int E, int B, int c_blk, int nloc, int U,
-                   int bulk_in) {
+                   int R, int bulk_in) {
   extern __shared__ __align__(128) float smem[];
   const int UU = U * U, nn = nloc * nloc;
+  const int RU = BANDED ? R * U : UU;             // a tile
+  const int nb = BANDED ? (U + R - 1) / R : 1;    // bands a block
+  const int items = B * nb;                       // item w: block w / nb, band w % nb
   const int fe_stage = round4(c_blk * nn), li_stage = round4(c_blk * nloc);
-  float* tiles = smem;                 // tiles[s * UU + v * U + u] = Ft[b, u, v]
-  float* fe = tiles + 2 * UU;          // F_e of a block, stage s at s * fe_stage
+  float* tiles = smem;                 // tiles[s * RU + (v - v0) * U + u] = Ft[b, u, v]
+  float* fe = tiles + 2 * RU;          // F_e of a block, stage s at s * fe_stage
   int32_t* li = reinterpret_cast<int32_t*>(fe + 2 * fe_stage);
   uint64_t* bar = reinterpret_cast<uint64_t*>(li + 2 * li_stage);
   const int tid = threadIdx.x;
 
-  // one thread: stage block b's F_e and lidx into buffer s
-  auto stage_in = [&](int b, int s) {
+  // one thread: stage item w's block's F_e and lidx into buffer s
+  auto stage_in = [&](int w, int s) {
+    const int b = BANDED ? w / nb : w;
     const int ncell = min(c_blk, E - b * c_blk);
     const uint32_t fe_bytes = ncell * nn * sizeof(float);
     const uint32_t li_bytes = c_blk * nloc * sizeof(int32_t);
@@ -207,21 +256,24 @@ macro_build_kernel(const float* __restrict__ Fe, const int32_t* __restrict__ lid
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (bulk_in && tid == 0 && blockIdx.x < B) stage_in(blockIdx.x, 0);
+  if (bulk_in && tid == 0 && blockIdx.x < items) stage_in(blockIdx.x, 0);
 
   int it = 0;
-  for (int b = blockIdx.x; b < B; b += gridDim.x, ++it) {
+  for (int w = blockIdx.x; w < items; w += gridDim.x, ++it) {
+    const int b = BANDED ? w / nb : w;
+    const int v0 = BANDED ? (w - b * nb) * R : 0;       // the band's first row
+    const int rows = BANDED ? min(R, U - v0) : U;
     const int s = it & 1;
-    float* tile = tiles + s * UU;
+    float* tile = tiles + s * RU;
     if (tid == 0) {
-      if (bulk_in && b + static_cast<int>(gridDim.x) < B) stage_in(b + gridDim.x, s ^ 1);
-      // tile s was last written out two blocks ago: wait until that store
-      // has read it (the previous block's store may still be in flight)
+      if (bulk_in && w + static_cast<int>(gridDim.x) < items) stage_in(w + gridDim.x, s ^ 1);
+      // tile s was last written out two items ago: wait until that store
+      // has read it (the previous item's store may still be in flight)
       asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
     }
     __syncthreads();
     float4* t4 = reinterpret_cast<float4*>(tile);
-    for (int i = tid; i < UU / 4; i += kBuildThreads) t4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = tid; i < rows * U / 4; i += kBuildThreads) t4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 
     const int ncell = min(c_blk, E - b * c_blk);
     const float* fb = Fe + static_cast<size_t>(b) * c_blk * nn;
@@ -234,7 +286,8 @@ macro_build_kernel(const float* __restrict__ Fe, const int32_t* __restrict__ lid
     __syncthreads();  // the tile is zero before any thread adds to it
 
     // item t: adds j in [j0, j0 + kBuildAdds) of row r = (c, i); the lanes
-    // of a warp take consecutive rows, so their u (and banks) differ
+    // of a warp take consecutive rows, so their u (and banks) differ; a
+    // band keeps the adds of its rows v only
     const int nrows = ncell * nloc;
     const int pieces = (nloc + kBuildAdds - 1) / kBuildAdds;
     for (int t = tid; t < nrows * pieces; t += kBuildThreads) {
@@ -246,17 +299,20 @@ macro_build_kernel(const float* __restrict__ Fe, const int32_t* __restrict__ lid
 #pragma unroll
       for (int k = 0; k < kBuildAdds; ++k) {
         const bool in = j0 + k < nloc;
-        v[k] = in ? lb[c0 + j0 + k] : -1;
+        v[k] = in ? lb[c0 + j0 + k] - v0 : -1;
         x[k] = in ? fb[r * nloc + j0 + k] : 0.f;
       }
 #pragma unroll
       for (int k = 0; k < kBuildAdds; ++k)
-        if (v[k] >= 0) atomicAdd(&tile[v[k] * U + u], x[k]);
+        if (BANDED ? static_cast<unsigned>(v[k]) < static_cast<unsigned>(rows) : v[k] >= 0)
+          atomicAdd(&tile[v[k] * U + u], x[k]);
     }
     // make the generic-proxy adds visible to the bulk store, then issue it
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-    if (tid == 0) bulk_store(FtT + static_cast<size_t>(b) * UU, tile, UU * sizeof(float));
+    if (tid == 0)
+      bulk_store(FtT + static_cast<size_t>(b) * UU + static_cast<size_t>(v0) * U, tile,
+                 rows * U * sizeof(float));
   }
   if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
@@ -321,24 +377,30 @@ struct MvType<double> {
 // against 0.6020 at the 965k-DoF shape, H100 80GB HBM3, 700 W), with
 // shared-memory atomicAdd (on doubles a native instruction on sm_90), then
 // copy it out.  Zero and copy go in 16-byte vectors where the tile is a
-// whole number of them and the output's base is aligned.
-template <typename T>
+// whole number of them and the output's base is aligned.  BANDED: a CTA
+// a band of R rows v of a block's tile (the bands of a block on
+// neighbouring CTAs), its sum keeping the adds of its rows only.
+template <typename T, bool BANDED>
 __global__ void __launch_bounds__(kBuildV1Threads)
 macro_build_v1_kernel(const T* __restrict__ Fe, const int32_t* __restrict__ lidx,
-                      T* __restrict__ FtT, int E, int c_blk, int nloc, int U) {
+                      T* __restrict__ FtT, int E, int c_blk, int nloc, int U, int R) {
   using V = typename MvType<T>::V;
   constexpr int L = MvType<T>::L;
   extern __shared__ __align__(16) unsigned char v1_smem[];
-  T* tile = reinterpret_cast<T*>(v1_smem);  // tile[v * U + u] = Ft[b, u, v]
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int UU = U * U;
-  T* out = FtT + static_cast<size_t>(b) * UU;
-  const bool vec = UU % L == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  T* tile = reinterpret_cast<T*>(v1_smem);  // tile[(v - v0) * U + u] = Ft[b, u, v]
+  const int tid = threadIdx.x;
+  const int nb = BANDED ? (U + R - 1) / R : 1;
+  const int b = BANDED ? blockIdx.x / nb : blockIdx.x;
+  const int v0 = BANDED ? (blockIdx.x - b * nb) * R : 0;
+  const int rows = BANDED ? min(R, U - v0) : U;
+  const int n = rows * U;  // the values of the band (or block)
+  T* out = FtT + static_cast<size_t>(b) * U * U + static_cast<size_t>(v0) * U;
+  const bool vec = n % L == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (vec) {
     V* t = reinterpret_cast<V*>(tile);
-    for (int i = tid; i < UU / L; i += kBuildV1Threads) t[i] = V{};
+    for (int i = tid; i < n / L; i += kBuildV1Threads) t[i] = V{};
   } else {
-    for (int i = tid; i < UU; i += kBuildV1Threads) tile[i] = T(0);
+    for (int i = tid; i < n; i += kBuildV1Threads) tile[i] = T(0);
   }
   __syncthreads();
 
@@ -353,7 +415,11 @@ macro_build_v1_kernel(const T* __restrict__ Fe, const int32_t* __restrict__ lidx
     const int j0 = p * kBuildAdds, c0 = r / nloc * nloc;
 #pragma unroll
     for (int k = 0; k < kBuildAdds; ++k) {
-      if (j0 + k < nloc) atomicAdd(&tile[lb[c0 + j0 + k] * U + u], fb[r * nloc + j0 + k]);
+      if (j0 + k < nloc) {
+        const int v = lb[c0 + j0 + k] - v0;
+        if (!BANDED || static_cast<unsigned>(v) < static_cast<unsigned>(rows))
+          atomicAdd(&tile[v * U + u], fb[r * nloc + j0 + k]);
+      }
     }
   }
   __syncthreads();
@@ -361,9 +427,9 @@ macro_build_v1_kernel(const T* __restrict__ Fe, const int32_t* __restrict__ lidx
   if (vec) {
     const V* t = reinterpret_cast<const V*>(tile);
     V* o = reinterpret_cast<V*>(out);
-    for (int i = tid; i < UU / L; i += kBuildV1Threads) o[i] = t[i];
+    for (int i = tid; i < n / L; i += kBuildV1Threads) o[i] = t[i];
   } else {
-    for (int i = tid; i < UU; i += kBuildV1Threads) out[i] = tile[i];
+    for (int i = tid; i < n; i += kBuildV1Threads) out[i] = tile[i];
   }
 }
 
@@ -371,30 +437,48 @@ template <typename T>
 int launch_build_v1(const T* Fe, const int32_t* lidx, T* FtT, int E, int B, int c_blk,
                     int nloc, int U, cudaStream_t s) {
   if (B <= 0) return 0;
-  const size_t smem = static_cast<size_t>(U) * U * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(macro_build_v1_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const int R = band_rows(U, U * sizeof(T), 0);
+  if (R <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(R) * U * sizeof(T);
+  auto kernel = R < U ? macro_build_v1_kernel<T, true> : macro_build_v1_kernel<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  macro_build_v1_kernel<T><<<B, kBuildV1Threads, smem, s>>>(Fe, lidx, FtT, E, c_blk, nloc, U);
+  const int nb = (U + R - 1) / R;
+  kernel<<<B * nb, kBuildV1Threads, smem, s>>>(Fe, lidx, FtT, E, c_blk, nloc, U, R);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory of kernel A: the [U, CV] panel of 16-byte vectors, then
-// the ring of FtT stages, which at the end holds the [U, C | 1] output.
+// Shared memory of kernel A at W output columns a CTA: the [U, CV] panel
+// of 16-byte vectors, then the ring of W-wide FtT stages, which at the end
+// holds the [W, C | 1] output.
 template <typename T>
-size_t matvec_smem_bytes(int C, int U) {
+size_t matvec_smem_bytes(int C, int U, int W) {
   constexpr int L = MvType<T>::L;
-  const size_t ring = std::max(kMatvecStages * kMatvecRows, C | 1) * static_cast<size_t>(U);
+  const size_t ring = std::max(kMatvecStages * kMatvecRows, C | 1) * static_cast<size_t>(W);
   return static_cast<size_t>(U) * ((C + L - 1) / L) * 16 + ring * sizeof(T);
 }
 
+// Kernel A's output columns a CTA: U where U <= kMatvecMaxW and the CTA's
+// shared memory holds it; else bands of W columns, the widest multiple of
+// 32 up to kMatvecMaxW that fits, balanced over the bands; 0 if none fits.
+template <typename T>
+int matvec_band_cols(int C, int U) {
+  if (U <= kMatvecMaxW && matvec_smem_bytes<T>(C, U, U) <= kMaxSmem) return U;
+  int w = kMatvecMaxW;
+  while (w >= 32 && matvec_smem_bytes<T>(C, U, w) > kMaxSmem) w -= 32;
+  if (w < 32) return 0;
+  const int nb = (U + w - 1) / w;
+  return ((U + nb - 1) / nb + 31) / 32 * 32;
+}
+
 // VEC: 16-byte copies of FtT (U a multiple of 16 bytes and an aligned
-// base), else one element a copy.
+// base), else one element a copy.  A CTA computes the W output columns
+// [u0, u0 + W) of block b (W = U: the whole block).
 template <typename T, int C, bool VEC>
-__global__ void __launch_bounds__(kMatvecMaxU)
+__global__ void __launch_bounds__(kMatvecMaxW)
 macro_matvec_kernel(const T* __restrict__ FtT, const T* __restrict__ xb,
-                    T* __restrict__ yb, int U, int ldx, int ldy) {
+                    T* __restrict__ yb, int U, int W, int ldx, int ldy) {
   using V = typename MvType<T>::V;
   constexpr int L = MvType<T>::L;
   constexpr int CV = (C + L - 1) / L;  // vectors of a panel row
@@ -402,9 +486,12 @@ macro_matvec_kernel(const T* __restrict__ FtT, const T* __restrict__ xb,
   extern __shared__ __align__(16) unsigned char mv_smem[];
   V* panel = reinterpret_cast<V*>(mv_smem);  // [U, CV]: rows padded with zero channels
   T* ring = reinterpret_cast<T*>(panel + U * CV);
-  const int tid = threadIdx.x, nthr = blockDim.x, b = blockIdx.x;
-  const T* F = FtT + static_cast<size_t>(b) * U * U;
-  const int stage = kMatvecRows * U;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int nb = (U + W - 1) / W;  // column bands a block, on neighbouring CTAs
+  const int b = blockIdx.x / nb, u0 = (blockIdx.x - b * nb) * W;
+  const int wb = min(W, U - u0);  // this CTA's output columns
+  const T* F = FtT + static_cast<size_t>(b) * U * U + u0;
+  const int stage = kMatvecRows * W;
   const int nchunk = (U + kMatvecRows - 1) / kMatvecRows;
 
   // every thread copies its share of rows [t * kMatvecRows, ...) into the
@@ -412,13 +499,27 @@ macro_matvec_kernel(const T* __restrict__ FtT, const T* __restrict__ xb,
   auto load_chunk = [&](int t) {
     if (t < nchunk) {
       const int v0 = t * kMatvecRows;
-      const int n = min(kMatvecRows, U - v0) * U;
+      const int nr = min(kMatvecRows, U - v0);
       T* dst = ring + (t % kMatvecStages) * stage;
       const T* src = F + static_cast<size_t>(v0) * U;
-      if (VEC) {
-        for (int i = L * tid; i < n; i += L * nthr) cp_async16(dst + i, src + i);
+      if (wb == U) {  // the whole block: its rows are contiguous
+        const int n = nr * U;
+        if (VEC) {
+          for (int i = L * tid; i < n; i += L * nthr) cp_async16(dst + i, src + i);
+        } else {
+          for (int i = tid; i < n; i += nthr) MvType<T>::copy1(dst + i, src + i);
+        }
+      } else if (VEC) {  // a band: nr segments of wb values at a stride of U
+        const int nv = wb / L;
+        for (int i = tid; i < nr * nv; i += nthr) {
+          const int r = i / nv, c = (i - r * nv) * L;
+          cp_async16(dst + r * W + c, src + static_cast<size_t>(r) * U + c);
+        }
       } else {
-        for (int i = tid; i < n; i += nthr) MvType<T>::copy1(dst + i, src + i);
+        for (int i = tid; i < nr * wb; i += nthr) {
+          const int r = i / wb, c = i - r * wb;
+          MvType<T>::copy1(dst + r * W + c, src + static_cast<size_t>(r) * U + c);
+        }
       }
     }
     cp_async_commit();
@@ -427,7 +528,7 @@ macro_matvec_kernel(const T* __restrict__ FtT, const T* __restrict__ xb,
   for (int t = 0; t < kMatvecStages - 1; ++t) load_chunk(t);
 
   T* pf = reinterpret_cast<T*>(panel);
-  const T* xblk = xb + static_cast<size_t>(b) * U * ldx;
+  const T* xblk = xb + static_cast<size_t>(b) * U * ldx;  // the whole block's panel
   for (int i = tid; i < U * L * CV; i += nthr) {
     const int v = i / (L * CV), c = i - v * (L * CV);
     pf[i] = c < C ? xblk[v * ldx + c] : T(0);
@@ -441,30 +542,30 @@ macro_matvec_kernel(const T* __restrict__ FtT, const T* __restrict__ xb,
     cp_async_wait<kMatvecStages - 2>();  // this thread's copies of chunk t have landed
     __syncthreads();                     // everyone's, and chunk t - 1 is consumed
     load_chunk(t + kMatvecStages - 1);   // into chunk t - 1's stage
-    if (u < U) {
+    if (u < wb) {
       const T* Fs = ring + (t % kMatvecStages) * stage;
       const int v0 = t * kMatvecRows, nv = min(kMatvecRows, U - v0);
 #pragma unroll 4
       for (int k = 0; k < nv; ++k) {
-        const T f = Fs[k * U + u];
+        const T f = Fs[k * W + u];
         const V* xr = panel + (v0 + k) * CV;
 #pragma unroll
         for (int q = 0; q < CV; ++q) MvType<T>::fma_vec(f, xr[q], acc + L * q);
       }
     }
   }
-  // The block's [U, C] output (rows at a stride of ldy): staged in the
+  // The CTA's [wb, C] output (rows at a stride of ldy): staged in the
   // ring, it goes out in coalesced stores (each thread's own row, C values
   // at a stride of C, touched a sector a store per thread: at C = 24 the
   // stores, not the bytes, bounded the kernel).
   __syncthreads();  // the ring's last stage is consumed
-  if (u < U) {
+  if (u < wb) {
 #pragma unroll
     for (int c = 0; c < C; ++c) ring[u * CS + c] = acc[c];
   }
   __syncthreads();
-  T* yblk = yb + static_cast<size_t>(b) * U * ldy;
-  for (int i = tid; i < U * C; i += nthr) {
+  T* yblk = yb + (static_cast<size_t>(b) * U + u0) * ldy;
+  for (int i = tid; i < wb * C; i += nthr) {
     const int r = i / C, c = i - r * C;
     yblk[r * ldy + c] = ring[r * CS + c];
   }
@@ -473,8 +574,10 @@ macro_matvec_kernel(const T* __restrict__ FtT, const T* __restrict__ xb,
 template <typename T, int C>
 int launch_matvec(const T* FtT, const T* xb, T* yb, int B, int U, int ldx, int ldy,
                   cudaStream_t s) {
-  const size_t smem = matvec_smem_bytes<T>(C, U);
-  const int threads = (U + 31) / 32 * 32;
+  const int W = matvec_band_cols<T>(C, U);
+  if (W <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = matvec_smem_bytes<T>(C, U, W);
+  const int threads = (W + 31) / 32 * 32;
   const bool vec = U % MvType<T>::L == 0 && reinterpret_cast<uintptr_t>(FtT) % 16 == 0;
   auto kernel = vec ? macro_matvec_kernel<T, C, true> : macro_matvec_kernel<T, C, false>;
   if (smem > 48 * 1024) {
@@ -482,7 +585,7 @@ int launch_matvec(const T* FtT, const T* xb, T* yb, int B, int U, int ldx, int l
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<B, threads, smem, s>>>(FtT, xb, yb, U, ldx, ldy);
+  kernel<<<B * ((U + W - 1) / W), threads, smem, s>>>(FtT, xb, yb, U, W, ldx, ldy);
   return 0;
 }
 
@@ -531,8 +634,7 @@ extern "C" int ns_macro_matvec_f32(const float* FtT, const float* xb, float* yb,
                                    int B, int U, int C, int ldx, int ldy, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0) return 0;
-  if (U < 1 || U > kMatvecMaxU || ldx < C || ldy < C)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (U < 1 || ldx < C || ldy < C) return static_cast<int>(cudaErrorInvalidValue);
   static_assert(kMaxC == 24, "the cases below take C = 1 .. kMaxC");
   int rc = 0;
   switch (C) {
@@ -557,8 +659,7 @@ extern "C" int ns_macro_matvec_f64(const double* FtT, const double* xb, double* 
                                    int B, int U, int C, int ldx, int ldy, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0) return 0;
-  if (U < 1 || U > kMatvecMaxU || ldx < C || ldy < C)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (U < 1 || ldx < C || ldy < C) return static_cast<int>(cudaErrorInvalidValue);
   static_assert(kMaxC64 == 12, "the cases below take C = 1 .. kMaxC64");
   int rc = 0;
   switch (C) {
@@ -604,20 +705,23 @@ extern "C" int ns_macro_build_f32(const float* Fe, const int32_t* lidx, float* F
   if (U % 2 != 0 || !aligned(FtT)) return static_cast<int>(cudaErrorInvalidValue);
   const int bulk_in = (nloc * nloc) % 4 == 0 && (c_blk * nloc) % 4 == 0 && aligned(Fe) &&
                       aligned(lidx);
-  const size_t smem = build_smem_bytes(c_blk, nloc, U);
+  const size_t fixed = build_stage_bytes(c_blk, nloc);
+  const int R = band_rows(U, 2 * U * sizeof(float), fixed);  // two tiles of R rows
+  if (R <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = fixed + 2 * static_cast<size_t>(R) * U * sizeof(float);
+  auto kernel = R < U ? macro_build_kernel<true> : macro_build_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      macro_build_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, macro_build_kernel,
-                                                           kBuildThreads, smem)) != cudaSuccess)
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBuildThreads,
+                                                           smem)) != cudaSuccess)
     return static_cast<int>(err);
-  const int grid = std::min(B, std::max(1, sms * per_sm));
-  macro_build_kernel<<<grid, kBuildThreads, smem, s>>>(Fe, lidx, FtT, E, B, c_blk, nloc, U,
-                                                        bulk_in);
+  const int items = B * ((U + R - 1) / R);
+  const int grid = std::min(items, std::max(1, sms * per_sm));
+  kernel<<<grid, kBuildThreads, smem, s>>>(Fe, lidx, FtT, E, B, c_blk, nloc, U, R, bulk_in);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -628,7 +732,8 @@ extern "C" int ns_macro_build_v1_f32(const float* Fe, const int32_t* lidx, float
                                 static_cast<cudaStream_t>(stream));
 }
 
-// Kernel B in double: the one-tile design (two double tiles do not fit).
+// Kernel B in double: the one-tile design (two double tiles do not fit;
+// past U = 170 one does not either, and the tile is banded).
 extern "C" int ns_macro_build_f64(const double* Fe, const int32_t* lidx, double* FtT,
                                   int E, int B, int c_blk, int nloc, int U,
                                   void* stream) {
@@ -636,16 +741,20 @@ extern "C" int ns_macro_build_f64(const double* Fe, const int32_t* lidx, double*
                                  static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int ns_macro_build_smem_bytes(int c_blk, int nloc, int U) {
-  return static_cast<int>(build_smem_bytes(c_blk, nloc, U));
+// Kernel B's rows a band in float32 (elem_bytes 4: two tiles and the
+// stages) or float64 (8: one tile): U when a block's tiles fit one CTA, 0
+// when not even a band does.
+extern "C" int ns_macro_build_band_rows(int c_blk, int nloc, int U, int elem_bytes) {
+  if (elem_bytes == 8) return band_rows(U, U * sizeof(double), 0);
+  return band_rows(U, 2 * U * sizeof(float), build_stage_bytes(c_blk, nloc));
 }
 
-extern "C" int ns_macro_build_f64_smem_bytes(int U) {
-  return static_cast<int>(static_cast<size_t>(U) * U * sizeof(double));
+// Kernel A's output columns a CTA at C channels (U: one CTA a block).
+extern "C" int ns_macro_matvec_band_cols(int C, int U, int elem_bytes) {
+  return elem_bytes == 8 ? matvec_band_cols<double>(C, U) : matvec_band_cols<float>(C, U);
 }
 
 extern "C" int ns_macro_max_channels() { return kMaxC; }
 
 extern "C" int ns_macro_max_channels_f64() { return kMaxC64; }
 
-extern "C" int ns_macro_max_slots() { return kMatvecMaxU; }

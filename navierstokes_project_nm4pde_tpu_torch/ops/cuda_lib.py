@@ -31,19 +31,18 @@ NVCC_FLAGS = (
 )
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (each returns an int: a CUDA error code,
-# or for ns_macro_max_channels*, ns_macro_max_slots and
-# ns_macro_build*_smem_bytes a size).  Kernels A-D have an entry point
+# or for ns_macro_max_channels*, ns_macro_build_band_rows and
+# ns_macro_matvec_band_cols a size).  Kernels A-D have an entry point
 # for each element type, suffixed _f32 and _f64.
 _SIGNATURES = {
     **{f"ns_macro_matvec_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _P] for t in ("f32", "f64")},
     "ns_macro_matvec_v1_f32": [_P, _P, _P, _I, _I, _I, _P],
     **{f"ns_macro_build_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _P] for t in ("f32", "f64")},
     "ns_macro_build_v1_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "ns_macro_build_smem_bytes": [_I, _I, _I],
-    "ns_macro_build_f64_smem_bytes": [_I],
+    "ns_macro_build_band_rows": [_I, _I, _I, _I],
+    "ns_macro_matvec_band_cols": [_I, _I, _I],
     "ns_macro_max_channels": [],
     "ns_macro_max_channels_f64": [],
-    "ns_macro_max_slots": [],
     **{
         f"ns_slot_{k}{w}_{t}": [_P, _P, _P, _P, _I, _I, _P] if k == "reduce"
         else [_P, _P, _P, ctypes.c_longlong, _I, _P]

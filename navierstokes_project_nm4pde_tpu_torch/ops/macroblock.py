@@ -14,7 +14,10 @@ reference's "vu" layout), which both kernels read and write coalesced.
 Each kernel wrapper runs the CUDA kernel for CUDA tensors (or raises) and
 its plain PyTorch version for CPU tensors; on the card both kernels take
 float32 or float64, each in its own type (`max_channels`: kernel A's
-widest payload a launch in each).  `launch_counts` counts the kernel
+widest payload a launch in each), and any even U: a block whose tiles do
+not fit one CTA's shared memory is built in bands of rows (`band_rows`),
+and past 256 slots kernel A splits a block's columns over CTAs
+(`band_cols`), each still one launch.  `launch_counts` counts the kernel
 launches only, by entry point (float32's under the kernel's name,
 float64's under the name with `_f64`), and `matvec_channels` kernel A's
 launches by channel count.
@@ -23,6 +26,7 @@ launches by channel count.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -34,11 +38,6 @@ from navierstokes_project_nm4pde_tpu_torch.ops.scatter import (
     apply_segment_plan,
     build_segment_plan,
 )
-
-# Shared memory a Hopper CTA may use (bytes); kernel B holds two [U, U] f32
-# tiles and two stages of a block's inputs, its float64 form and its
-# earlier design one tile.
-_MAX_SMEM = 232_448
 
 launch_counts = {"macro_build": 0, "macro_matvec": 0, "macro_build_f64": 0, "macro_matvec_f64": 0}
 matvec_channels: dict[int, int] = {}  # C -> kernel A launches at C channels
@@ -190,23 +189,27 @@ def _launch_build(entry: str, F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: 
     return out
 
 
+def band_rows(dtype: torch.dtype, c_blk: int, nloc: int, U: int) -> int:
+    """Kernel B's rows a band on the card: U where a block's tile(s) fit
+    one CTA's shared memory (float32: two [U, U] tiles and the input
+    stages, up to U = 162 at c_blk 20; float64: one tile, up to U = 170),
+    else the most rows that fit, balanced over the bands (0: none fits)."""
+    return cuda_lib.load().ns_macro_build_band_rows(c_blk, nloc, U, torch.finfo(dtype).bits // 8)
+
+
 def macro_build(F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: int) -> torch.Tensor:
     """Block values FtT [B, U, U] from element matrices F_e [E, nloc, nloc]
     and the local slot table lidx [B, c_blk, nloc] (kernel B: in float32
     persistent CTAs, two shared-memory tiles, bulk-copy staging and
-    write-out; in float64 a CTA a block and one tile)."""
+    write-out; in float64 a CTA a block and one tile; a wide block's tile
+    in bands of `band_rows` rows, one launch either way)."""
     if F_e.device.type == "cpu":
         return macro_build_plain(F_e, lidx, B, U)
     _check_build_args("macro_build", F_e, lidx, B, U)
-    lib = cuda_lib.load()
-    if F_e.dtype == torch.float64:
-        smem = lib.ns_macro_build_f64_smem_bytes(U)
-    else:
-        smem = lib.ns_macro_build_smem_bytes(lidx.shape[1], F_e.shape[1], U)
-    if U % 2 or smem > _MAX_SMEM:
+    if U % 2 or band_rows(F_e.dtype, lidx.shape[1], F_e.shape[1], U) < 1:
         raise ValueError(
-            f"macro_build: U={U} must be even and its {smem} bytes of shared "
-            f"memory ({F_e.dtype}) at most {_MAX_SMEM}"
+            f"macro_build: U={U} must be even (the tile store moves 16-byte "
+            f"vectors) and two rows of its tile must fit shared memory"
         )
     out = _launch_build(f"ns_macro_build_{cuda_lib.SUFFIX[F_e.dtype]}", F_e, lidx, B, U)
     launch_counts[cuda_lib.count_key("macro_build", F_e.dtype)] += 1
@@ -219,8 +222,6 @@ def macro_build_v1(F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: int) -> tor
     _check_build_args("macro_build_v1", F_e, lidx, B, U)
     if F_e.dtype != torch.float32:
         raise ValueError(f"macro_build_v1: float32 only, got {F_e.dtype}")
-    if U * U * 4 > _MAX_SMEM:
-        raise ValueError(f"macro_build_v1: a [{U}, {U}] f32 tile exceeds shared memory")
     return _launch_build("ns_macro_build_v1_f32", F_e, lidx, B, U)
 
 
@@ -252,25 +253,31 @@ def max_channels(dtype: torch.dtype) -> int:
     return lib.ns_macro_max_channels_f64() if dtype == torch.float64 else lib.ns_macro_max_channels()
 
 
+@functools.lru_cache(maxsize=None)
+def band_cols(dtype: torch.dtype, C: int, U: int) -> int:
+    """Kernel A's output columns a CTA at C channels a launch on the card:
+    U up to 256 (a thread a column), else bands of at most 256 (a multiple
+    of 32, balanced: 192 at U = 384); 0 if no band fits shared memory."""
+    return cuda_lib.load().ns_macro_matvec_band_cols(C, U, torch.finfo(dtype).bits // 8)
+
+
 def macro_matvec(FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
     """Batched block matvec [B, U, U] x [B, U, C] -> [B, U, C] (kernel A),
     float32 or float64.  Up to `max_channels(dtype)` (24; 12 in float64)
     channels ride one launch and one pass over FtT; a wider payload is
     split into launches of near-equal channel slices (`matvec_splits`),
-    each writing its slice of one output and reading FtT once more."""
+    each writing its slice of one output and reading FtT once more.  Past
+    U = 256 each launch splits a block's columns over CTAs (`band_cols`)."""
     if FtT.device.type == "cpu":
         return macro_matvec_plain(FtT, x_b)
     if FtT.device.type != "cuda":
         raise ValueError(f"macro_matvec: unsupported device {FtT.device}")
     B, U, U2 = FtT.shape
     lib = cuda_lib.load()
-    if (
-        FtT.dtype not in cuda_lib.SUFFIX or not FtT.is_contiguous() or U2 != U
-        or U > lib.ns_macro_max_slots()
-    ):
+    if FtT.dtype not in cuda_lib.SUFFIX or not FtT.is_contiguous() or U2 != U:
         raise ValueError(
             "macro_matvec: FtT must be a contiguous float32 or float64 [B, U, U] "
-            f"tensor with U <= {lib.ns_macro_max_slots()}, got {FtT.dtype} {tuple(FtT.shape)}"
+            f"tensor, got {FtT.dtype} {tuple(FtT.shape)}"
         )
     C = x_b.shape[-1] if x_b.dim() == 3 else -1
     if (
@@ -281,11 +288,14 @@ def macro_matvec(FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
             f"macro_matvec: x_b must be a contiguous {FtT.dtype} [B, U, C] tensor "
             f"on FtT's device with C >= 1, got {x_b.dtype} {tuple(x_b.shape)}"
         )
+    splits = matvec_splits(C, max_channels(FtT.dtype))
+    if min(band_cols(FtT.dtype, hi - lo, U) for lo, hi in splits) < 1:
+        raise ValueError(f"macro_matvec: no column band of U={U} fits shared memory at C={C}")
     y = torch.empty((B, U, C), dtype=FtT.dtype, device=FtT.device)
     stream = torch.cuda.current_stream(FtT.device).cuda_stream
     entry = f"ns_macro_matvec_{cuda_lib.SUFFIX[FtT.dtype]}"
     size = FtT.element_size()
-    for lo, hi in matvec_splits(C, max_channels(FtT.dtype)):
+    for lo, hi in splits:
         cuda_lib.check(
             getattr(lib, entry)(
                 FtT.data_ptr(), x_b.data_ptr() + size * lo, y.data_ptr() + size * lo,

@@ -108,6 +108,27 @@ def test_macro_matvec_matches_plain(cuda, B, U, C):
     _close(y, mb.macro_matvec_plain(FtT, x_b))
 
 
+# Past 256 slots a block's output columns split over CTAs (a thread a
+# column, bands of at most 256): U = 300 (bands of 160 and 140), 384 (two of
+# 192) and 512 (two of 256), at the single run's 3 channels and each type's
+# widest launch; odd block counts.
+@pytest.mark.parametrize("dtype,C", [
+    (torch.float32, 3), (torch.float32, 24), (torch.float64, 3), (torch.float64, 12),
+])
+@pytest.mark.parametrize("B,U", [(37, 300), (23, 384), (9, 512)])
+def test_macro_matvec_bands_wide_blocks(cuda, B, U, dtype, C):
+    assert mb.band_cols(dtype, C, U) == {300: 160, 384: 192, 512: 256}[U]
+    g = torch.Generator(device=cuda).manual_seed(U + C)
+    FtT = torch.randn((B, U, U), generator=g, device=cuda, dtype=dtype)
+    x_b = torch.randn((B, U, C), generator=g, device=cuda, dtype=dtype)
+    key = "macro_matvec" if dtype == torch.float32 else "macro_matvec_f64"
+    before = dict(mb.launch_counts)
+    y = mb.macro_matvec(FtT, x_b)
+    torch.cuda.synchronize()
+    assert mb.launch_counts == {**before, key: before[key] + 1}
+    _close(y, mb.macro_matvec_plain(FtT, x_b))
+
+
 @pytest.mark.parametrize("B,U,C", [(1, 128, 3), (37, 128, 8), (5, 30, 1)])
 def test_macro_matvec_v1_matches_plain_and_the_new_design(cuda, B, U, C):
     """Kernel A's earlier design, kept to be timed beside the new one: it
@@ -133,17 +154,26 @@ def test_macro_matvec_v1_matches_plain_and_the_new_design(cuda, B, U, C):
 # smaller U), so each CTA walks many blocks and reuses both tiles and both
 # stages; U < 128 with c_blk not dividing E, on the bulk-copy staging (even
 # c_blk) and on the global-memory reads (odd c_blk: lidx rows are not
-# 16-byte multiples).
+# 16-byte multiples).  Wide blocks, whose two tiles do not fit one CTA's
+# shared memory, in bands of rows: U = 164 (two bands of 82), 192 at c_blk
+# 34 (two of 96), 194 (U not a multiple of 4: even bands), 256 at c_blk 48
+# (86, 86 and 84: U not a multiple of the band), 384 (seven, the last 54),
+# more (block, band) items than the persistent grid, and odd c_blk.
 BUILD_SHAPES = [
     (1, 20, 128, 0), (11, 20, 128, 7), (9, 5, 64, 4), (4, 3, 32, 0),
     (1500, 20, 128, 7), (2000, 14, 64, 5), (3000, 3, 32, 2),
+    (301, 20, 164, 7), (133, 34, 192, 5), (41, 34, 194, 1), (301, 48, 256, 11),
+    (45, 33, 256, 2), (67, 48, 384, 3), (3, 48, 384, 47),
 ]
+# kernel B's rows a band at those widths (float32, nloc 10)
+BUILD_BANDS = {(20, 164): 82, (34, 192): 96, (34, 194): 98, (48, 256): 86, (33, 256): 86, (48, 384): 55}
 
 
 @pytest.mark.parametrize("B,c_blk,U,E_short", BUILD_SHAPES)
 def test_macro_build_matches_plain(cuda, B, c_blk, U, E_short):
     """Kernel B against its plain version (shapes: BUILD_SHAPES)."""
     nloc = 10
+    assert mb.band_rows(torch.float32, c_blk, nloc, U) == BUILD_BANDS.get((c_blk, U), U)
     E = B * c_blk - E_short
     lidx = _lidx(B, c_blk, nloc, U, seed=B + c_blk).to(cuda)
     g = torch.Generator(device=cuda).manual_seed(E)
@@ -155,11 +185,14 @@ def test_macro_build_matches_plain(cuda, B, c_blk, U, E_short):
     _close(out, mb.macro_build_plain(F_e, lidx, B, U))
 
 
-@pytest.mark.parametrize("B,c_blk,U,E_short", [(1295, 20, 128, 2), (40, 7, 64, 3), (33, 9, 128, 0)])
+@pytest.mark.parametrize("B,c_blk,U,E_short", [
+    (1295, 20, 128, 2), (40, 7, 64, 3), (33, 9, 128, 0), (301, 48, 256, 5), (133, 34, 192, 0),
+    (67, 48, 384, 1), (41, 33, 256, 7),
+])
 def test_macro_build_on_triangles(cuda, B, c_blk, U, E_short):
     """Kernel B on 2D cells (nloc 6): the 118,071-DoF channel's plan shape
     (c_blk 20: bulk-copy staging) and odd c_blk, whose c_blk * nloc is not
-    a multiple of 4 (the global-memory reads)."""
+    a multiple of 4 (the global-memory reads); wide blocks in bands."""
     nloc = 6
     E = B * c_blk - E_short
     lidx = _lidx(B, c_blk, nloc, U, seed=B + c_blk).to(cuda)
@@ -170,11 +203,14 @@ def test_macro_build_on_triangles(cuda, B, c_blk, U, E_short):
     _close(out, mb.macro_build_plain(F_e, lidx, B, U))
 
 
-@pytest.mark.parametrize("B,c_blk,U,E_short", [(11, 20, 128, 7), (9, 5, 64, 4), (300, 20, 128, 3)])
+@pytest.mark.parametrize("B,c_blk,U,E_short", [
+    (11, 20, 128, 7), (9, 5, 64, 4), (300, 20, 128, 3), (67, 48, 256, 5),
+])
 def test_macro_build_v1_matches_plain_and_the_new_design(cuda, B, c_blk, U, E_short):
     """Kernel B's earlier design, kept to be timed beside the new one: it
-    agrees with the plain version and with the new design, and launching
-    it does not count as a launch of kernel B."""
+    agrees with the plain version and with the new design (past one f32
+    tile's shared memory, both in bands), and launching it does not count
+    as a launch of kernel B."""
     nloc = 10
     E = B * c_blk - E_short
     lidx = _lidx(B, c_blk, nloc, U, seed=B).to(cuda)
@@ -479,11 +515,16 @@ def test_macro_matvec_float64_splits_past_its_widest_payload(cuda, C):
 @pytest.mark.parametrize("B,c_blk,U,E_short,nloc", [
     (11, 20, 128, 7, 10), (9, 5, 64, 4, 10), (1500, 20, 128, 7, 10), (33, 9, 128, 0, 10),
     (1295, 20, 128, 2, 6), (40, 7, 64, 3, 6), (6, 4, 168, 1, 10),
+    (33, 20, 164, 1, 10), (133, 34, 192, 5, 10), (301, 48, 256, 11, 10), (41, 48, 384, 0, 10),
+    (101, 48, 256, 7, 6), (67, 34, 192, 3, 6), (11, 48, 384, 29, 6),
 ])
 def test_macro_build_float64_matches_plain(cuda, B, c_blk, U, E_short, nloc):
     """Kernel B in float64 (one tile a CTA) on tetrahedra and triangles, a
-    last block partly filled, and U = 168, the widest tile shared memory
-    holds (225,792 bytes); counted under its float64 entry point."""
+    last block partly filled, U = 168 (one tile, 225,792 bytes of shared
+    memory), U = 164 (215,168), and U = 192-384 in bands of rows (113 f64
+    rows of 256 fit: bands of 86, 86 and 84); counted under its float64
+    entry point."""
+    assert mb.band_rows(torch.float64, c_blk, nloc, U) == {192: 96, 256: 86, 384: 64}.get(U, U)
     E = B * c_blk - E_short
     lidx = _lidx(B, c_blk, nloc, U, seed=B + c_blk).to(cuda)
     g = torch.Generator(device=cuda).manual_seed(E)
@@ -495,14 +536,18 @@ def test_macro_build_float64_matches_plain(cuda, B, c_blk, U, E_short, nloc):
     _close(out, mb.macro_build_plain(F_e, lidx, B, U))
 
 
-def test_macro_build_float64_refuses_a_tile_past_shared_memory(cuda):
-    """U = 170 needs 231,200 bytes, U = 172 236,672: the second is refused
-    by the wrapper, before any launch."""
-    lidx = _lidx(2, 3, 10, 170, seed=0).to(cuda)
-    F_e = torch.randn((6, 10, 10), device=cuda, dtype=torch.float64)
-    _close(mb.macro_build(F_e, lidx, 2, 170), mb.macro_build_plain(F_e, lidx, 2, 170))
-    with pytest.raises(ValueError, match="shared"):
-        mb.macro_build(F_e, lidx, 2, 172)
+@pytest.mark.parametrize("U,R", [(170, 170), (172, 86), (256, 86)])
+def test_macro_build_float64_bands_a_tile_past_shared_memory(cuda, U, R):
+    """U = 170 needs 231,200 bytes, one tile a CTA; U = 172 (236,672) and
+    256 do not fit and run in bands of R rows, one launch each."""
+    assert mb.band_rows(torch.float64, 3, 10, U) == R
+    lidx = _lidx(5, 3, 10, U, seed=U).to(cuda)
+    F_e = torch.randn((14, 10, 10), device=cuda, dtype=torch.float64)
+    before = mb.launch_counts["macro_build_f64"]
+    out = mb.macro_build(F_e, lidx, 5, U)
+    torch.cuda.synchronize()
+    assert mb.launch_counts["macro_build_f64"] == before + 1
+    _close(out, mb.macro_build_plain(F_e, lidx, 5, U))
 
 
 @pytest.mark.parametrize("E,n_rows,C", [
