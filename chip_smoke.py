@@ -53,7 +53,19 @@ Drives the port's paths once each:
     its F and S counts beside the U = 128 run's), kernels A and B on the
     965k plan at U = 384 as well (kernel A in bands of columns), the small
     duct against the CPU (with the macro options forced on and
-    f_warmstart=5) and cylinder2d --fast at U = 256;
+    f_warmstart=5) and cylinder2d --fast at U = 256; and kernels A and B
+    at very wide blocks (U = 2,336-29,184: A's input panel in chunks of
+    rows, B's tiles in bands of rows and columns);
+  * the DFG validation runs (validation/dfg_validate.py, DFG 2D-2 with
+    its kicked inlet, and validation/dfg3d_validate.py, DFG 3D-1Z): each on
+    a small mesh against the CPU and through its `main`, then at scale
+    (2D-2 at 53,049 DoF, 10 + 200 steps; 3D-1Z at 176,184 DoF, 5 + 50),
+    kernels A, B and C checked on each run's plans;
+    `--only dfg_full` runs VALIDATION.md's full-length runs (Re 100 and
+    200, 18,000 steps each, and the 3D-1Z ladder) and holds each quantity
+    to its limit, `--only dfg_spread` the small 2D-2 check's spread on the
+    card and `--only dfg_drift` the 3D-1Z drift runs (none of the three is
+    part of the default run);
 and runs the two TPU-era measurement probes (kernels E and F).  It builds
 the hand-written CUDA kernels from `navierstokes_project_nm4pde_tpu_torch/csrc`,
 holds each against its plain PyTorch version at the shapes its paths give
@@ -82,6 +94,9 @@ phases.
     python3 chip_smoke.py --only ensemble-variants ensemble-cli multi-device
     python3 chip_smoke.py --only float64-small unfolded-small
     python3 chip_smoke.py --only wide-macro
+    python3 chip_smoke.py --only fault7 dfg
+    python3 chip_smoke.py --only dfg_full --out-dir DIR   # or dfg_re100, dfg_re200, dfg_3d1z
+    python3 chip_smoke.py --only dfg_spread dfg_drift
 
 Every phase that fails makes the exit code non-zero; without a CUDA device
 the script exits 1 before printing any result.  The last three lines of
@@ -170,6 +185,10 @@ SLOT_SHAPES = {
     # the stacked gather at 9)
     "sharded rank 0": {"slot_reduce": (1, 3), "slot_gather": (3,)},
     "halo rank 0": {"slot_reduce": (3, 6), "slot_gather": (3, 9)},
+    # the DFG runs at scale (projection, macro path): diag C(w) reduced at 1
+    # once a step, no gather
+    "DFG 2D-2 at scale": {"slot_reduce": (1,)},
+    "DFG 3D-1Z at scale": {"slot_reduce": (1,)},
 }
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): device-memory
 # bytes a second, and float32 operations a second outside the tensor cores.
@@ -178,6 +197,11 @@ SLOT_SHAPES = {
 # more than 5% under its bound is a fault of the measurement, and fails.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# The card's L2 cache (50 MB): a kernel whose bytes fit it reads them from
+# there when called back to back, so the HBM bound does not hold it; where
+# a path's plan is that small (the DFG 2D-2 run's), its share is logged, not
+# held (`share(..., l2=True)`).
+L2_BYTES = 50e6
 # float64: the kernels' _f64 entry points move 8 bytes an element; their
 # operations are bounded by the FP64 tensor-core peak, 67 TFLOP/s, the
 # card's highest float64 rate (its FP64 vector rate is 34 TFLOP/s).
@@ -326,6 +350,91 @@ SMALL_CHECKS = {
     "cylinder2d --fast, macro U=256": (
         "channel", ("cli", ["cylinder2d", "--fast"], wide_changes("U=256")), AGREE_STEPS, 1e-4),
 }
+# Very wide blocks (Queue 3 fault 7), one or two blocks of 10-node cells
+# with seeded slot tables: kernel A past the widths at which a block's
+# whole [U, C] input panel fits one CTA's shared memory beside its
+# narrowest column band (U = 2,336 at 24 float32 channels, the last that
+# fits, 2,250 at 12 float64 ones, about 14,000 at 3), where it stages the
+# panel in chunks of rows; kernel B past one band of two tiles' rows (at
+# c_blk 20: U = 13,427 where U is not a multiple of 4, 26,854 where it
+# is; at c_blk 48: 11,887 / 23,774), where float32 takes the one-tile
+# design in row bands, and past one band of its whole rows (float32 past
+# U = 29,056 where U is not a multiple of 4, float64 past 29,056), where it
+# bands the columns too; U = 13,440 and 11,904 (multiples of 4) still run
+# in one-row bands of two tiles.  Each is checked against its plain version
+# (KERNELS, KERNEL_RTOL64) and timed with bound and share.
+FAULT7 = (  # (U, c_blk, dtype, blocks, kernel A's channel counts)
+    (2336, 20, "float32", 2, (24,)), (2560, 20, "float32", 2, (24,)), (2560, 20, "float64", 2, (12,)),
+    (14464, 20, "float32", 2, (3,)), (14464, 20, "float64", 2, (3,)),
+    (13440, 20, "float32", 2, (3,)), (13442, 20, "float32", 2, (3,)), (11904, 48, "float32", 2, (3,)),
+    (11906, 48, "float32", 2, (3,)), (29058, 20, "float32", 1, (3,)), (29184, 20, "float64", 1, (3,)),
+)
+# The DFG validation runs (validation/dfg_validate.py, dfg3d_validate.py),
+# the counterparts of scripts/dfg_validate.py and scripts/dfg3d_validate.py:
+# their flags (`argv`) on top of the modules' defaults.  Default run: each
+# on the small geometry with a ramp and a kick that switch off within
+# AGREE_STEPS steps (DFG_SMALL: name -> (flags, tolerance relative to max
+# |ref| as AGREE_RTOL is)), card float32 against CPU float64, and each
+# module's `main` for DFG_MAIN_STEPS steps on the card, its summary finite;
+# then each at scale, warm-up + timed steps through the solver `build`
+# makes: 2D-2 on VALIDATION.md:10-11's mesh (53,049 DoF), 3D-1Z on the
+# ladder's second rung (176k DoF).  The 2D-2 run's inlet reaches full speed
+# in two steps, and its pressure after five, which its solves reach to
+# rtol 1e-6 of the rhs, lies 1.45e-4 of max |p| from the float64 run's in
+# the JAX package's own float32 run (tests/test_torch_dfg.py measures it
+# and holds it under half of each tolerance); the card read 5.5e-5 and
+# 2.2e-4 (kernel B's atomics sum in another order each run).
+DFG_SMALL = {
+    "2D-2": (["--lc", str(SMALL_CHANNEL["lc"]), "--dt", "2e-3", "--t-ramp", "0.004", "--t-kick", "0.008"], 5e-4),
+    "3D-1Z": (["--lc", str(SMALL_DUCT["lc"]), "--nz", str(SMALL_DUCT["nz"]), "--dt", "2e-3", "--t-ramp", "0.004"],
+              AGREE_RTOL),
+}
+DFG_MAIN_STEPS = 20
+# `--only dfg_spread`: the small 2D-2 check DFG_SPREAD_RUNS times back to
+# back (kernel B's atomics sum in another order each run), then once with
+# kernel B's output on the card rounded to TF32's 10-bit mantissa (a
+# lower-precision kernel), which must read above its tolerance: the port's
+# CPU float32 run reads 1.3e-5 of max |p| sound and 2.5e-3 so rounded.
+DFG_SPREAD_RUNS = 5
+DFG_2D_SCALE = (["--lc", "0.015", "--dt", "1e-3", "--t-kick", "2.5", "--t-ramp", "1"], 10, 200)
+DFG_3D_SCALE = (["--lc", "0.05", "--nz", "10"], 5, 50)
+# `--only dfg_full` (or one run of it: dfg_re100, dfg_re200, dfg_3d1z): the
+# full-length runs of VALIDATION.md through each module's `main`, each
+# quantity held to its limit:
+#   2D-2 at Re 100 (VALIDATION.md:10-11): inside the Schaefer-Turek interval
+#   or within DFG_EDGE_RTOL of its edge, and within DFG_RE100_RTOL of the JAX
+#   package's recorded value (VALIDATION.md:18-23);
+#   Re 200 ("same mesh and workflow", VALIDATION.md:31-33): within
+#   DFG_RE200_RTOL of the JAX package's tracked values (:36-41);
+#   3D-1Z, the ladder of VALIDATION.md:85-93 at dt 4e-3 and t-end 3: c_l and
+#   delta-p inside the published intervals and c_d within DFG_3D_CD_RTOL of
+#   the JAX ladder's at 313k and 706k DoF, |cd_drift_rel| below
+#   DFG_3D_DRIFT on every rung.
+DFG_2D_FULL = {
+    "dfg_re100": ["--re", "100", "--lc", "0.015", "--dt", "1e-3", "--t-end", "18", "--t-kick", "2.5",
+                  "--t-ramp", "1", "--t-measure", "12"],
+    "dfg_re200": ["--re", "200", "--lc", "0.015", "--dt", "5e-4", "--t-end", "9", "--t-kick", "2.5",
+                  "--t-ramp", "1", "--t-measure", "5.5"],
+}
+DFG_RE100 = {  # key -> (published interval, the JAX package's value)
+    "cd_max": ((3.22, 3.24), 3.211), "cl_max": ((0.99, 1.01), 0.981),
+    "strouhal": ((0.295, 0.305), 0.3015), "delta_p_at_clmax": ((2.46, 2.50), 2.482),
+}
+DFG_EDGE_RTOL = 0.01
+DFG_RE100_RTOL = 0.01
+DFG_RE200 = {"cd_max": 3.248, "cl_max": 2.101, "cl_min": -2.152, "strouhal": 0.3217, "delta_p_mean": 10.77}
+DFG_RE200_RTOL = 0.02
+DFG_3D_LADDER = ((0.08, 6), (0.05, 10), (0.04, 12), (0.03, 16))
+DFG_3D_CD = {(0.04, 12): 5.923, (0.03, 16): 6.032}  # the JAX ladder's c_d at 313k / 706k DoF
+DFG_3D_CD_RTOL = 0.005
+DFG_3D_DRIFT = 0.002
+# `--only dfg_drift`: the ladder's rung at 176,184 DoF, whose c_d drift
+# over the tail window read 0.2077% against DFG_3D_DRIFT, as dfg3d_validate
+# builds it, in float32 twice (B's atomics), in float64 (the same run
+# without float32 rounding) and in float32 to a later t-end (whether the
+# drift shrinks as the flow settles): (dtype, t-end) a run; logged only.
+DFG_DRIFT_RUNG = (0.05, 10)
+DFG_DRIFT_RUNS = (("float32", 3.0), ("float32", 3.0), ("float64", 3.0), ("float32", 4.5))
 # One `apply_precond` of each of the seven kinds and of each inner-solver
 # case of MONO_CHECKS, card f32 against CPU f64 on the same seeded
 # (w, v_u, v_p) on SMALL_DUCT, relative to max |ref| of z_u and of z_p.
@@ -665,9 +774,13 @@ def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> dict:
     )
 
 
-def share(name: str, b: dict, dev_ms: float) -> float:
-    """bound / device time; fails above MAX_SHARE."""
+def share(name: str, b: dict, dev_ms: float, l2: bool = False) -> float | None:
+    """bound / device time; fails above MAX_SHARE.  With `l2`, a kernel whose
+    bytes fit L2_BYTES gets no share (None): the ratio is logged only."""
     s = b["bound_ms"] / dev_ms
+    if l2 and b["bytes"] <= L2_BYTES:
+        log(f"  {name}: {b['bytes'] / 1e6:.1f} MB fit the L2 cache: {s:.3f} of the HBM bound, not held")
+        return None
     if not s <= MAX_SHARE:
         fail(f"{name}: device time {dev_ms:.4f} ms is {s:.3f} of its {b['bound_ms']:.4f} ms bound")
     return s
@@ -698,11 +811,12 @@ def compare(name, out, ref) -> float:
     return err
 
 
-def check_kernels(solver, reps: int, widths=MATVEC_WIDTHS, main: bool = True) -> dict:
+def check_kernels(solver, reps: int, widths=MATVEC_WIDTHS, main: bool = True, l2: bool = False) -> dict:
     """Kernels A (at `widths` channels) and B against their plain versions
     on the solver's own plan, with seeded random inputs in the solver's
     dtype; returns per-kernel records (launch counts filled in later).  With
-    `main` (float32), the earlier designs are timed in turns beside them."""
+    `main` (float32), the earlier designs are timed in turns beside them;
+    `l2` as in `share`."""
     import torch
 
     from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
@@ -737,11 +851,11 @@ def check_kernels(solver, reps: int, widths=MATVEC_WIDTHS, main: bool = True) ->
         lambda: lib_out.zero_().index_add_(0, flat, F_flat), reps,
     )
     b = bound((F_e.numel() + FtT.numel()) * size + mp.lidx.numel() * 4, F_e.numel(), peak)
-    t["share"] = share(f"macro_build {dtype}", b, t["device_ms"])
+    t["share"] = share(f"macro_build {dtype}", b, t["device_ms"], l2)
     log(f"  macro_build ({dtype}): {fmt_times(t, b)}")
     rec["macro_build"] = dict(err=err_b, **t, **b)
     if not main:
-        return _check_matvec(rec, FtT, mp, gen, widths, reps, main)
+        return _check_matvec(rec, FtT, mp, gen, widths, reps, main, l2)
     # the two designs in turns: v1, new, new, v1
     turns = [
         (name, time_ms(f, reps), device_ms(f, reps))
@@ -761,7 +875,7 @@ def check_kernels(solver, reps: int, widths=MATVEC_WIDTHS, main: bool = True) ->
     return _check_matvec(rec, FtT, mp, gen, widths, reps, main)
 
 
-def _check_matvec(rec: dict, FtT, mp, gen, widths, reps: int, main: bool) -> dict:
+def _check_matvec(rec: dict, FtT, mp, gen, widths, reps: int, main: bool, l2: bool = False) -> dict:
     """Kernel A's part of `check_kernels`: at each of `widths` channels,
     checked, timed with bound and share, and (with `main`, at C = 3) its
     earlier design in turns.  A payload past 24 channels runs as
@@ -793,7 +907,7 @@ def _check_matvec(rec: dict, FtT, mp, gen, widths, reps: int, main: bool) -> dic
         )
         t["ftt_reads"] = reads
         b = bounds[C] = bound((FtT.numel() + 2 * x_b.numel()) * size, 2.0 * FtT.numel() * C, peak)
-        t["share"] = share(f"macro_matvec {dtype} C={C}", b, t["device_ms"])
+        t["share"] = share(f"macro_matvec {dtype} C={C}", b, t["device_ms"], l2)
         gbs = FtT.numel() * size / t["device_ms"] / 1e6
         log(f"  macro_matvec ({dtype}) C={C}: {fmt_times(t, b)} ({gbs:.1f} GB/s of values on device)")
         if C == 3 and main:
@@ -831,12 +945,12 @@ def _check_matvec(rec: dict, FtT, mp, gen, widths, reps: int, main: bool) -> dic
     return rec
 
 
-def add_macro_shapes(rec: dict, label: str, solver, widths, reps: int) -> None:
+def add_macro_shapes(rec: dict, label: str, solver, widths, reps: int, l2: bool = False) -> None:
     """Kernels A (at `widths`) and B checked and timed on another path's
-    macro plan, added to their records under "shapes"."""
+    macro plan, added to their records under "shapes"; `l2` as in `share`."""
     mp = solver.macro
     label = f"{label}, B={mp.B} U={mp.U} c_blk={mp.c_blk} nloc={mp.lidx.shape[2]}"
-    r = check_kernels(solver, reps, widths, main=False)
+    r = check_kernels(solver, reps, widths, main=False, l2=l2)
     keys = ("device_ms", "bound_ms", "share", "plain_device_ms", "library_ms", "lib_device_ms")
     rec["macro_build"]["err"] = max(rec["macro_build"]["err"], r["macro_build"]["err"])
     rec["macro_build"].setdefault("shapes", {})[label] = {k: r["macro_build"][k] for k in keys}
@@ -1017,11 +1131,11 @@ def small_errors(out: dict, ref: dict) -> dict:
 
 
 def check_small(device, name: str, mesh, problem, config, steps: int, rtol: float,
-                card_dtype: str = "float32") -> None:
+                card_dtype: str = "float32") -> dict:
     """The port on the card (`card_dtype`, kernels) against the port on the
     CPU (f64, plain versions): `steps` steps under `config(dtype)`, every
     quantity of `small_errors` within `rtol`; in float64 on both, also the
-    same F and S counts."""
+    same F and S counts.  Returns the errors."""
     from navierstokes_project_nm4pde_tpu_torch.models import NavierStokesSolver
 
     (sg, dg), (sc, dc) = (
@@ -1045,6 +1159,7 @@ def check_small(device, name: str, mesh, problem, config, steps: int, rtol: floa
     for k, v in errs.items():
         if not v <= rtol:
             fail(f"{name}: {k} err {v:.3e} > {rtol:g} of max |ref|")
+    return errs
 
 
 @contextlib.contextmanager
@@ -2203,6 +2318,257 @@ def drive_wide_macro(device, rec: dict, rec64: dict, mesh=None, base=None) -> di
     return out
 
 
+def check_fault7(device, rec: dict, rec64: dict) -> None:
+    """Kernels B and A at FAULT7's widths (Queue 3 fault 7): on each width's
+    seeded slot table and F_e, B checked against its plain version and
+    timed, then A at the width's channel counts on B's output
+    (`add_macro_shapes`, into `rec`, or `rec64` in float64)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
+
+    nloc, rng = 10, np.random.default_rng(7)
+    for U, c_blk, dt_name, B, widths in FAULT7:
+        dtype = getattr(torch, dt_name)
+        # each cell's nodes distinct slots; the last block one cell short
+        lidx = torch.as_tensor(np.stack([
+            np.stack([rng.choice(U, nloc, replace=False) for _ in range(c_blk)]) for _ in range(B)
+        ]).astype(np.int32), device=device)
+        plan = types.SimpleNamespace(lidx=lidx, B=B, U=U, c_blk=c_blk, E=B * c_blk - 1)
+        label = (f"fault 7 ({dt_name}): B in tiles of {mb.band_rows(dtype, c_blk, nloc, U)} rows x "
+                 f"{mb.build_band_cols(dtype, c_blk, nloc, U)} columns; A in bands of "
+                 + ", ".join(f"{mb.band_cols(dtype, C, U)} columns with the panel in chunks of "
+                             f"{mb.panel_rows(dtype, C, U)} rows at C={C}" for C in widths))
+        log(label)
+        add_macro_shapes(rec64 if dtype == torch.float64 else rec, label,
+                         types.SimpleNamespace(macro=plan, device=device, dtype=dtype), widths, KERNEL_REPS)
+        del lidx, plan
+        free_card()
+
+
+def dfg_args(mod, argv, dtype: str = "float32"):
+    """(mesh, problem, config at `dtype`, steps) of a DFG module's run at
+    its defaults with `argv`, built as its `main` builds it."""
+    import dataclasses
+
+    mesh, problem, cfg, n = mod.build(mod.parser().parse_args(argv))
+    return mesh, problem, dataclasses.replace(cfg, numerics=dataclasses.replace(cfg.numerics, dtype=dtype)), n
+
+
+def run_dfg_main(mod, argv: list, device) -> dict:
+    """A DFG module's `main(argv)` on the card, kernel counts set to 0 just
+    before and read just after: its JSON summary, its header line, the wall
+    seconds in `main`, the launches of kernels A-D and the peak device
+    memory.  Fails unless it exits 0 and prints one JSON line."""
+    import io
+
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
+    from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
+
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.reset_peak_memory_stats(device)
+    mb.reset_launch_counts()
+    oh.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = mod.main([*argv, "--device", str(device)])
+    wall = time.perf_counter() - t0
+    launches = {**launches_of(mb.launch_counts, ("macro_build", "macro_matvec"), "float32", mod.__name__),
+                **launches_of(oh.launch_counts, ("slot_reduce", "slot_gather"), "float32", mod.__name__)}
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0 or len(lines) != 1:
+        fail(f"{mod.__name__} {argv}: exit {rc}, stdout {out.getvalue()[-500:]!r}, stderr {err.getvalue()[-500:]!r}")
+    return dict(summary=json.loads(lines[0]), header=err.getvalue().strip(), wall=wall, launches=launches,
+                peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+
+
+def drive_dfg(device, rec: dict, out_dir=None) -> dict:
+    """The DFG validation path (`dfg`): (a) each module's run on the small
+    geometry (DFG_SMALL), card float32 against CPU float64 for AGREE_STEPS
+    steps (`check_small`), and each `main` on the card for
+    DFG_MAIN_STEPS steps; (b) each at scale (DFG_2D_SCALE, DFG_3D_SCALE):
+    warm-up + timed steps through `drive_single` (steps/s, iterations,
+    peak memory, finite coefficients; kernels A and B must launch, and C
+    launches once a step for diag C(w), the configuration leaving
+    freeze_conv_diag off), then on the run's own plans kernels A (at the
+    channel counts the timed steps launched it with) and B
+    (`add_macro_shapes`; the 2D-2 plan fits the L2 cache: its shares are
+    logged, not held) and C (SLOT_SHAPES) against their plain versions,
+    into `rec`.  Returns each path's launches."""
+    import math
+    import tempfile
+
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch.models import NavierStokesSolver
+    from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
+    from navierstokes_project_nm4pde_tpu_torch.validation import dfg3d_validate, dfg_validate
+
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, mod in (("2D-2", dfg_validate), ("3D-1Z", dfg3d_validate)):
+            small, rtol = DFG_SMALL[name]
+            mesh, problem, _, _ = dfg_args(mod, small)
+            check_small(device, f"DFG {name}, small ({' '.join(small)})", mesh, problem,
+                        lambda dtype: dfg_args(mod, small, dtype)[2], AGREE_STEPS, rtol)
+            t_end = DFG_MAIN_STEPS * float(small[small.index("--dt") + 1])
+            argv = [*small, "--t-end", f"{t_end:g}", "--chunk", "5", "--out-dir", out_dir or tmp]
+            if mod is dfg_validate:
+                argv += ["--t-measure", "0"]
+            r = run_dfg_main(mod, argv, device)
+            s = r["summary"]
+            log(f"{mod.__name__} main on the card ({' '.join(argv)}): {r['header']}; {r['wall']:.2f} s; "
+                f"launches {r['launches']}; summary {json.dumps(s)}")
+            finite = [k for k, v in s.items() if isinstance(v, float) and not math.isfinite(v)]
+            if finite or r["launches"]["macro_build"] <= 0 or r["launches"]["macro_matvec"] <= 0:
+                fail(f"{mod.__name__} main: non-finite {finite} or a macro kernel never launched ({r['launches']})")
+            paths[f"DFG {name} main, {DFG_MAIN_STEPS} steps"] = r["launches"]
+    for name, mod, (argv, warmup, timed) in (("2D-2", dfg_validate, DFG_2D_SCALE),
+                                             ("3D-1Z", dfg3d_validate, DFG_3D_SCALE)):
+        t0 = time.perf_counter()
+        mesh, problem, cfg, _ = dfg_args(mod, argv)
+        solver = NavierStokesSolver(mesh, problem, cfg, device=device)
+        solver.macro_mass  # built at first use (with the plan): this path's setup
+        torch.cuda.synchronize()
+        mp = solver.macro
+        path = f"DFG {name} ({' '.join(argv)}), {solver.space.n_dofs} DoF"
+        log(f"{path}: {mesh.n_cells} cells; macro B={mp.B} U={mp.U} c_blk={mp.c_blk} nloc={mp.lidx.shape[2]}; "
+            f"host setup {time.perf_counter() - t0:.2f} s")
+        _, _, _, launches = drive_single(path, solver, warmup, timed, ("macro_build", "macro_matvec"))
+        widths = tuple(sorted(mb.matvec_channels))
+        others = {k: launches[k] for k in ("slot_reduce", "slot_gather")}
+        log(f"  {path}: kernels C and D in the timed steps (C: diag C(w), once a step): {others}")
+        paths[path] = {k: launches[k] for k in ("macro_build", "macro_matvec", "slot_reduce", "slot_gather")}
+        free_card()
+        add_macro_shapes(rec, f"DFG {name} at scale", solver, widths, KERNEL_REPS, l2=True)
+        add_slot_shapes(rec, f"DFG {name} at scale", solver.op.onehot, KERNEL_REPS)
+        del solver
+        free_card()
+    return paths
+
+
+def _tf32(x):
+    """float32 `x` rounded to TF32's 10-bit mantissa (to nearest)."""
+    import torch
+
+    return ((x.view(torch.int32) + (1 << 12)) & -(1 << 13)).view(torch.float32)
+
+
+def drive_dfg_spread(device) -> None:
+    """The small DFG 2D-2 check (DFG_SMALL) DFG_SPREAD_RUNS times, each
+    held to its tolerance, then once with kernel B's card output rounded to
+    TF32 (`_tf32`), which fails unless it reads above the tolerance."""
+    from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
+    from navierstokes_project_nm4pde_tpu_torch.validation import dfg_validate
+
+    small, rtol = DFG_SMALL["2D-2"]
+    mesh, problem, _, _ = dfg_args(dfg_validate, small)
+
+    def config(dtype):
+        return dfg_args(dfg_validate, small, dtype)[2]
+
+    worst = [max(check_small(device, f"DFG 2D-2, small, run {i + 1}", mesh, problem, config, AGREE_STEPS,
+                             rtol).values()) for i in range(DFG_SPREAD_RUNS)]
+    build = mb.macro_build
+    mb.macro_build = lambda F_e, *a: (build(F_e, *a) if F_e.device.type == "cpu" else _tf32(build(F_e, *a)))
+    try:
+        planted = max(check_small(device, "DFG 2D-2, small, kernel B's output rounded to TF32", mesh, problem,
+                                  config, AGREE_STEPS, float("inf")).values())
+    finally:
+        mb.macro_build = build
+    log(f"DFG 2D-2 small check, worst quantity a run: {', '.join(f'{w:.3e}' for w in worst)} "
+        f"(max {max(worst):.3e}); B rounded to TF32 {planted:.3e}; tolerance {rtol:g}")
+    if not planted > rtol:
+        fail(f"the small DFG 2D-2 check did not see kernel B rounded to TF32: {planted:.3e} <= {rtol:g}")
+
+
+def drive_dfg_drift(device) -> None:
+    """The DFG_DRIFT_RUNS runs of the 3D-1Z rung DFG_DRIFT_RUNG on the card,
+    built by `dfg3d_validate.build`, each summary's c_d, c_l, delta-p,
+    drift, steps/s and iterations a step logged."""
+    from navierstokes_project_nm4pde_tpu_torch.models import NavierStokesSolver
+    from navierstokes_project_nm4pde_tpu_torch.validation import dfg3d_validate, timed_run
+
+    lc, nz = DFG_DRIFT_RUNG
+    for dtype, t_end in DFG_DRIFT_RUNS:
+        argv = ["--lc", str(lc), "--nz", str(nz), "--t-end", str(t_end)]
+        mesh, problem, cfg, n = dfg_args(dfg3d_validate, argv, dtype)
+        solver = NavierStokesSolver(mesh, problem, cfg, device=device)
+        _, diags, wall = timed_run(solver, n)
+        s = dfg3d_validate.summarize(dfg3d_validate.parser().parse_args(argv), problem, diags, n, wall,
+                                     solver.space.n_dofs, mesh.n_cells)
+        log(f"dfg_drift {dtype} t-end {t_end}: " + json.dumps({k: s[k] for k in (
+            "dofs", "window", "cd", "cl", "delta_p", "cd_drift_rel", "steps_per_sec", "iters_per_step_warm")}))
+        del solver
+        free_card()
+
+
+def _dfg_check(run: str, key: str, v: float, lo: float, hi: float, what: str, misses: list) -> None:
+    ok = lo <= v <= hi
+    log(f"  {run}: {key} = {v:.6g}, {what} [{lo:.6g}, {hi:.6g}]: {'inside' if ok else 'MISSED'}")
+    if not ok:
+        misses.append(f"{run} {key} {v:.6g} outside {what} [{lo:.6g}, {hi:.6g}]")
+
+
+def drive_dfg_full(device, runs, out_dir=None) -> None:
+    """The full-length DFG runs `runs` (names of DFG_2D_FULL, and
+    "dfg_3d1z": the DFG_3D_LADDER) through each module's `main` on the card,
+    each summary logged with the set-up time, peak memory and the kernels'
+    launches, each quantity held to its limit (DFG_RE100, DFG_RE200,
+    DFG_3D_CD, DFG_3D_DRIFT); fails after all ran if any missed."""
+    import tempfile
+
+    from navierstokes_project_nm4pde_tpu_torch.validation import dfg3d_validate, dfg_validate
+
+    misses = []
+    with tempfile.TemporaryDirectory() as tmp:
+        out = out_dir or tmp
+        jobs = [(run, dfg_validate, [*DFG_2D_FULL[run], "--out-dir", f"{out}/{run}"])
+                for run in runs if run in DFG_2D_FULL]
+        if "dfg_3d1z" in runs:
+            jobs += [(f"dfg_3d1z lc {lc} nz {nz}", dfg3d_validate,
+                      ["--lc", str(lc), "--nz", str(nz), "--out-dir", f"{out}/dfg_3d1z_{lc}_{nz}"])
+                     for lc, nz in DFG_3D_LADDER]
+        for run, mod, argv in jobs:
+            r = run_dfg_main(mod, argv, device)
+            s = r["summary"]
+            n_steps = round((s["window"][1] if mod is dfg3d_validate else float(argv[argv.index("--t-end") + 1]))
+                            / s["dt"])
+            setup = r["wall"] - n_steps / s["steps_per_sec"]
+            log(f"{run}: {r['header']}; {r['wall']:.1f} s in main ({n_steps} steps at {s['steps_per_sec']} steps/s; "
+                f"set-up and files {setup:.1f} s); peak device memory {r['peak_gib']:.3f} GiB; "
+                f"launches {r['launches']}")
+            log(f"{run} summary: {json.dumps(s)}")
+            if r["launches"]["macro_build"] <= 0 or r["launches"]["macro_matvec"] <= 0:
+                misses.append(f"{run}: a macro kernel never launched ({r['launches']})")
+            if run == "dfg_re100":
+                for k, ((lo, hi), ref) in DFG_RE100.items():
+                    _dfg_check(run, k, s[k], lo * (1 - DFG_EDGE_RTOL), hi * (1 + DFG_EDGE_RTOL),
+                               f"the published interval within {DFG_EDGE_RTOL:.0%} of its edges", misses)
+                    _dfg_check(run, k, s[k], *sorted((ref * (1 - DFG_RE100_RTOL), ref * (1 + DFG_RE100_RTOL))),
+                               f"the JAX package's {ref} within {DFG_RE100_RTOL:.0%}", misses)
+            elif run == "dfg_re200":
+                for k, ref in DFG_RE200.items():
+                    _dfg_check(run, k, s[k], *sorted((ref * (1 - DFG_RE200_RTOL), ref * (1 + DFG_RE200_RTOL))),
+                               f"the JAX package's {ref} within {DFG_RE200_RTOL:.0%}", misses)
+            else:
+                lc, nz = float(argv[1]), int(argv[3])
+                _dfg_check(run, "|cd_drift_rel|", abs(s["cd_drift_rel"]), 0.0, DFG_3D_DRIFT, "the limit", misses)
+                if (lc, nz) in DFG_3D_CD:
+                    ref = DFG_3D_CD[(lc, nz)]
+                    _dfg_check(run, "cd", s["cd"], ref * (1 - DFG_3D_CD_RTOL), ref * (1 + DFG_3D_CD_RTOL),
+                               f"the JAX ladder's {ref} within {DFG_3D_CD_RTOL:.1%}", misses)
+                    for k in ("cl", "delta_p"):
+                        _dfg_check(run, k, s[k], *s["published"][k], "the published interval", misses)
+    if misses:
+        fail("DFG runs outside their limits: " + "; ".join(misses))
+
+
 def kernel_entry(name: str, r: dict, launches: int) -> dict:
     """A kernel's numbers in the kernels' JSON line, from its record `r`
     (float32's, or the float64 record of its "f64" entry), logged."""
@@ -2218,14 +2584,23 @@ def kernel_entry(name: str, r: dict, launches: int) -> dict:
     )
 
 
-# Phases `--only` can run alone: name -> phase(device, kernel records).
+# Phases `--only` can run alone: name -> phase(device, kernel records,
+# float64 kernel records, the DFG runs' output directory or None).
 ONLY_PHASES = {
-    "ensemble-cli": drive_ensemble_cli,
-    "ensemble-variants": lambda device, rec: (check_small_ensemble(device), check_small_ensembles(device)),
-    "multi-device": drive_multi_device,
-    "float64-small": lambda device, rec: check_small_f64(device),
-    "unfolded-small": lambda device, rec: check_small_unfolded(device),
-    "wide-macro": lambda device, rec: drive_wide_macro(device, rec, {k: dict(err=0.0) for k in rec}),
+    "ensemble-cli": lambda device, rec, rec64, out: drive_ensemble_cli(device, rec),
+    "ensemble-variants": lambda device, rec, rec64, out: (check_small_ensemble(device),
+                                                          check_small_ensembles(device)),
+    "multi-device": lambda device, rec, rec64, out: drive_multi_device(device, rec),
+    "float64-small": lambda device, rec, rec64, out: check_small_f64(device),
+    "unfolded-small": lambda device, rec, rec64, out: check_small_unfolded(device),
+    "wide-macro": lambda device, rec, rec64, out: drive_wide_macro(device, rec, rec64),
+    "fault7": lambda device, rec, rec64, out: check_fault7(device, rec, rec64),
+    "dfg": lambda device, rec, rec64, out: drive_dfg(device, rec, out),
+    "dfg_spread": lambda device, rec, rec64, out: drive_dfg_spread(device),
+    "dfg_drift": lambda device, rec, rec64, out: drive_dfg_drift(device),
+    "dfg_full": lambda device, rec, rec64, out: drive_dfg_full(device, (*DFG_2D_FULL, "dfg_3d1z"), out),
+    **{run: functools.partial(lambda run, device, rec, rec64, out: drive_dfg_full(device, (run,), out), run)
+       for run in (*DFG_2D_FULL, "dfg_3d1z")},
 }
 
 
@@ -2236,6 +2611,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", nargs="+", choices=sorted(ONLY_PHASES), metavar="PHASE",
                     help=f"build the kernels and run only these phases ({', '.join(sorted(ONLY_PHASES))}); "
                          "prints no kernels record")
+    ap.add_argument("--out-dir", help="where the DFG runs write their CSV files (default: a temporary directory)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2274,10 +2650,10 @@ def main(argv=None) -> int:
     if cuda_lib.build_log.strip():
         log(cuda_lib.build_log.strip())
     if args.only:
-        rec = {k: dict(err=0.0) for k in KERNELS}
+        rec, rec64 = ({k: dict(err=0.0) for k in KERNELS} for _ in range(2))
         for phase in args.only:
             t0 = time.perf_counter()
-            ONLY_PHASES[phase](device, rec)
+            ONLY_PHASES[phase](device, rec, rec64, args.out_dir)
             log(f"{phase}: {time.perf_counter() - t0:.1f} s")
         imported = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN_MODULES)
         if imported:
@@ -2447,6 +2823,12 @@ def main(argv=None) -> int:
     wide_paths = drive_wide_macro(device, rec, rec64, mesh, base={"float32": d, "float64": d64})
     log(f"the single run at wide macro blocks: {time.perf_counter() - t0:.1f} s")
     del mesh
+    free_card()
+
+    # ---- 9d''. kernels A and B at very wide blocks (Queue 3 fault 7) --------
+    t0 = time.perf_counter()
+    check_fault7(device, rec, rec64)
+    log(f"kernels A and B at very wide blocks: {time.perf_counter() - t0:.1f} s")
 
     # ---- 9d. the cylinder3d entry point at --dtype float64 (142,692 DoF) ----
     # kernels C and D in float64 on its solver's plan: their float64 records,
@@ -2577,6 +2959,12 @@ def main(argv=None) -> int:
     free_card()
     log(f"the cylinder2d and convergence entry points: cylinder2d {t_2d:.1f} s, convergence "
         f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- 13b. the DFG validation runs (2D-2 and 3D-1Z) ---------------------
+    t0 = time.perf_counter()
+    paths.update(drive_dfg(device, rec, args.out_dir))
+    free_card()
+    log(f"the DFG validation runs: {time.perf_counter() - t0:.1f} s")
 
     # ---- 14. the ensemble entry point at its defaults, multi-device runs ----
     t0 = time.perf_counter()

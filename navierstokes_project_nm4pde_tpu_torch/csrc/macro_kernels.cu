@@ -37,7 +37,19 @@
 //   (block, band), the band's CTAs neighbours: each stages the whole [U, C]
 //   panel and reads its band's column segment of every FtT row (row
 //   stride U), so FtT is still read once (U = 384 on the 965k-DoF mesh:
-//   0.8772 ms, 92.3% of its bound; H100 80GB HBM3, 700 W).
+//   0.8772 ms, 92.3% of its bound; H100 80GB HBM3, 700 W).  The panel
+//   and the ring share the CTA's shared memory.  Up to U = 2,336 narrower
+//   bands make room for a wider panel (down to 32 columns: 24 float
+//   channels at U = 2,336).  Past that, where the whole panel does not fit
+//   beside bands of 256 columns (U past 10,432 at 3 float channels, 3,168
+//   at 3 double ones), the panel is staged in chunks of P rows as the FtT
+//   row chunks reach them, the accumulators staying in registers across
+//   chunks (P leaves room for two CTAs an SM, so that one streams FtT while
+//   the other stages).
+//   Narrower channel slices would fit too, but each reads FtT once more.
+//   (Two blocks at U = 14,464, C = 3: 0.8559 ms, 58.4% of the bound, in
+//   double 81.7%; at U = 2,560, C = 24 the 20 CTAs of two blocks leave most
+//   SMs idle: 4.6%; H100 80GB HBM3, 700 W.)
 //   macro_matvec_v1 is the earlier design
 //   (FtT read straight from global memory, output stored at a stride of
 //   C, up to 8 channels), kept to time the two in turns.
@@ -87,8 +99,16 @@
 //   lidx again (19 KB at c_blk 48, against a 256 KB output block); items
 //   are numbered band-fastest, so a block's bands run on neighbouring
 //   CTAs at the same time and the re-reads come from L2.  The one-tile
-//   design (float64, v1) bands the same way with a CTA an item.  A block
-//   whose tiles fit keeps the unbanded kernel (a template instance).  On
+//   design (float64, v1) bands the same way with a CTA an item.  Where not
+//   even one band of two tiles fits (at c_blk 20, past U = 13,427 where U
+//   is not a multiple of 4, past 26,854 where it is), float32 takes the one-tile
+//   design, whose single tile holds twice the rows, and past one tile row
+//   (U = 29,056 in float64) that design bands the columns too: a work item
+//   is an [R, W] sub-tile, which still scans its block's F_e and writes its
+//   R row segments of W values (one float32 block at U = 29,058: 69.7% of
+//   the bound; float64 at 29,184: 97.8%; H100 80GB HBM3, 700 W).  A block
+//   whose tiles fit keeps the unbanded kernel (a template instance), and
+//   the row bands theirs.  On
 //   the 965k-DoF mesh the bands hold the unbanded share of the bound: U =
 //   192 0.3880 ms, 256 0.4885 ms, 384 1.0188 ms (78-81%; U = 128 0.2959,
 //   81.5%), in float64 0.8103 / 0.9408 / 1.9244 ms (76-86%; H100 80GB
@@ -379,24 +399,35 @@ struct MvType<double> {
 // copy it out.  Zero and copy go in 16-byte vectors where the tile is a
 // whole number of them and the output's base is aligned.  BANDED: a CTA
 // a band of R rows v of a block's tile (the bands of a block on
-// neighbouring CTAs), its sum keeping the adds of its rows only.
-template <typename T, bool BANDED>
+// neighbouring CTAs), its sum keeping the adds of its rows only.  COLS
+// (with BANDED; where not even one band of whole rows fits): a CTA an
+// [R, W] sub-tile, rows [v0, v0 + R) by columns [u0, u0 + W), numbered
+// column-band fastest; its sum keeps the adds that fall in it, and its rows
+// go out one segment of W values each, strided by U.
+template <typename T, bool BANDED, bool COLS>
 __global__ void __launch_bounds__(kBuildV1Threads)
 macro_build_v1_kernel(const T* __restrict__ Fe, const int32_t* __restrict__ lidx,
-                      T* __restrict__ FtT, int E, int c_blk, int nloc, int U, int R) {
+                      T* __restrict__ FtT, int E, int c_blk, int nloc, int U, int R, int W) {
   using V = typename MvType<T>::V;
   constexpr int L = MvType<T>::L;
   extern __shared__ __align__(16) unsigned char v1_smem[];
-  T* tile = reinterpret_cast<T*>(v1_smem);  // tile[(v - v0) * U + u] = Ft[b, u, v]
+  T* tile = reinterpret_cast<T*>(v1_smem);  // tile[(v - v0) * TW + u - u0] = Ft[b, u, v]
   const int tid = threadIdx.x;
-  const int nb = BANDED ? (U + R - 1) / R : 1;
-  const int b = BANDED ? blockIdx.x / nb : blockIdx.x;
-  const int v0 = BANDED ? (blockIdx.x - b * nb) * R : 0;
+  const int nbu = COLS ? (U + W - 1) / W : 1;
+  const int nb = (BANDED ? (U + R - 1) / R : 1) * nbu;  // items a block
+  const int b = blockIdx.x / nb, item = blockIdx.x - b * nb;
+  const int v0 = BANDED ? item / nbu * R : 0;
+  const int u0 = COLS ? (item - item / nbu * nbu) * W : 0;
   const int rows = BANDED ? min(R, U - v0) : U;
-  const int n = rows * U;  // the values of the band (or block)
-  T* out = FtT + static_cast<size_t>(b) * U * U + static_cast<size_t>(v0) * U;
-  const bool vec = n % L == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (vec) {
+  const int TW = COLS ? W : U;            // the tile's row stride
+  const int cols = COLS ? min(W, U - u0) : U;
+  const int n = rows * TW;  // the values of the tile
+  T* out = FtT + static_cast<size_t>(b) * U * U + static_cast<size_t>(v0) * U + u0;
+  // COLS: every row segment is 16-byte aligned when its stride U is
+  const bool vec = COLS ? (U * sizeof(T)) % 16 == 0 && cols % L == 0 &&
+                              reinterpret_cast<uintptr_t>(out) % 16 == 0
+                        : n % L == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec || COLS) {  // COLS: TW (a multiple of 32) rows of whole vectors
     V* t = reinterpret_cast<V*>(tile);
     for (int i = tid; i < n / L; i += kBuildV1Threads) t[i] = V{};
   } else {
@@ -411,20 +442,35 @@ macro_build_v1_kernel(const T* __restrict__ Fe, const int32_t* __restrict__ lidx
   const int pieces = (nloc + kBuildAdds - 1) / kBuildAdds;
   for (int t = tid; t < nrows * pieces; t += kBuildV1Threads) {
     const int p = t / nrows, r = t - p * nrows;
-    const int u = lb[r];
+    const int u = lb[r] - u0;
+    if (COLS && static_cast<unsigned>(u) >= static_cast<unsigned>(cols)) continue;
     const int j0 = p * kBuildAdds, c0 = r / nloc * nloc;
 #pragma unroll
     for (int k = 0; k < kBuildAdds; ++k) {
       if (j0 + k < nloc) {
         const int v = lb[c0 + j0 + k] - v0;
         if (!BANDED || static_cast<unsigned>(v) < static_cast<unsigned>(rows))
-          atomicAdd(&tile[v * U + u], fb[r * nloc + j0 + k]);
+          atomicAdd(&tile[v * TW + u], fb[r * nloc + j0 + k]);
       }
     }
   }
   __syncthreads();
 
-  if (vec) {
+  if (COLS) {
+    if (vec) {
+      const V* t = reinterpret_cast<const V*>(tile);
+      const int nv = cols / L, tv = TW / L;
+      for (int i = tid; i < rows * nv; i += kBuildV1Threads) {
+        const int r = i / nv, c = i - r * nv;
+        reinterpret_cast<V*>(out + static_cast<size_t>(r) * U)[c] = t[r * tv + c];
+      }
+    } else {
+      for (int i = tid; i < rows * cols; i += kBuildV1Threads) {
+        const int r = i / cols, c = i - r * cols;
+        out[static_cast<size_t>(r) * U + c] = tile[r * TW + c];
+      }
+    }
+  } else if (vec) {
     const V* t = reinterpret_cast<const V*>(tile);
     V* o = reinterpret_cast<V*>(out);
     for (int i = tid; i < n / L; i += kBuildV1Threads) o[i] = t[i];
@@ -433,59 +479,106 @@ macro_build_v1_kernel(const T* __restrict__ Fe, const int32_t* __restrict__ lidx
   }
 }
 
+// The one-tile design's tile: R rows (band_rows: U where the whole [U, U]
+// tile fits) by W = U columns; where not even a band of rows fits (double
+// past U = 29,056, float past 58,112; half that where U is not a multiple
+// of 4), column bands of W, a multiple of 32 near kBuildColBytes of a row
+// (balanced over the bands), and as many rows R as fit (balanced).
+constexpr size_t kBuildColBytes = 16384;
+
+struct BuildTile {
+  int R, W;
+};
+
+BuildTile v1_tile(int U, size_t elem) {
+  const int R = band_rows(U, U * elem, 0);
+  if (R > 0) return {R, U};
+  const int wmax = static_cast<int>(kBuildColBytes / elem);
+  const int nbu = (U + wmax - 1) / wmax;
+  const int W = ((U + nbu - 1) / nbu + 31) / 32 * 32;
+  const int rmax = static_cast<int>(kMaxSmem / (W * elem));
+  const int nbv = (U + rmax - 1) / rmax;
+  return {(U + nbv - 1) / nbv, W};
+}
+
 template <typename T>
 int launch_build_v1(const T* Fe, const int32_t* lidx, T* FtT, int E, int B, int c_blk,
                     int nloc, int U, cudaStream_t s) {
   if (B <= 0) return 0;
-  const int R = band_rows(U, U * sizeof(T), 0);
-  if (R <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(R) * U * sizeof(T);
-  auto kernel = R < U ? macro_build_v1_kernel<T, true> : macro_build_v1_kernel<T, false>;
+  const BuildTile tl = v1_tile(U, sizeof(T));
+  const size_t smem = static_cast<size_t>(tl.R) * tl.W * sizeof(T);
+  auto kernel = tl.W < U   ? macro_build_v1_kernel<T, true, true>
+                : tl.R < U ? macro_build_v1_kernel<T, true, false>
+                           : macro_build_v1_kernel<T, false, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nb = (U + R - 1) / R;
-  kernel<<<B * nb, kBuildV1Threads, smem, s>>>(Fe, lidx, FtT, E, c_blk, nloc, U, R);
+  const int items = ((U + tl.R - 1) / tl.R) * ((U + tl.W - 1) / tl.W);
+  kernel<<<B * items, kBuildV1Threads, smem, s>>>(Fe, lidx, FtT, E, c_blk, nloc, U, tl.R,
+                                                  tl.W);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory of kernel A at W output columns a CTA: the [U, CV] panel
-// of 16-byte vectors, then the ring of W-wide FtT stages, which at the end
-// holds the [W, C | 1] output.
+// Shared memory of kernel A at W output columns a CTA and P staged panel
+// rows: the [P, CV] panel of 16-byte vectors, then the ring of W-wide FtT
+// stages, which at the end holds the [W, C | 1] output.
 template <typename T>
-size_t matvec_smem_bytes(int C, int U, int W) {
+size_t matvec_smem_bytes(int C, int P, int W) {
   constexpr int L = MvType<T>::L;
   const size_t ring = std::max(kMatvecStages * kMatvecRows, C | 1) * static_cast<size_t>(W);
-  return static_cast<size_t>(U) * ((C + L - 1) / L) * 16 + ring * sizeof(T);
+  return static_cast<size_t>(P) * ((C + L - 1) / L) * 16 + ring * sizeof(T);
 }
 
-// Kernel A's output columns a CTA: U where U <= kMatvecMaxW and the CTA's
-// shared memory holds it; else bands of W columns, the widest multiple of
-// 32 up to kMatvecMaxW that fits, balanced over the bands; 0 if none fits.
+// Kernel A's shape at C channels: W output columns a CTA and P panel rows
+// staged at a time.  W = U up to kMatvecMaxW, else bands of kMatvecMaxW
+// balanced over the block; the whole [U, C] panel is staged at once (P = U)
+// where it fits beside them.  Up to kMatvecNarrowMaxU (the widest block
+// that design took at every channel count: 24 float channels) the bands
+// narrow, to a multiple of 32, until it does (the design before panel
+// chunks, unchanged).  Otherwise the panel is staged in chunks of P rows, a
+// multiple of kMatvecRows: as many as leave room for two CTAs an SM (one
+// stages its chunk while the other streams FtT), or, where the ring alone
+// takes half (double's), as many as fit beside it.
+constexpr int kMatvecNarrowMaxU = 2336;
+
+struct MvShape {
+  int W, P;
+};
+
 template <typename T>
-int matvec_band_cols(int C, int U) {
-  if (U <= kMatvecMaxW && matvec_smem_bytes<T>(C, U, U) <= kMaxSmem) return U;
+MvShape matvec_shape(int C, int U) {
+  if (U <= kMatvecMaxW && matvec_smem_bytes<T>(C, U, U) <= kMaxSmem) return {U, U};
   int w = kMatvecMaxW;
-  while (w >= 32 && matvec_smem_bytes<T>(C, U, w) > kMaxSmem) w -= 32;
-  if (w < 32) return 0;
+  if (U <= kMatvecNarrowMaxU) {
+    while (w >= 32 && matvec_smem_bytes<T>(C, U, w) > kMaxSmem) w -= 32;
+    if (w < 32) w = kMatvecMaxW;
+  }
   const int nb = (U + w - 1) / w;
-  return ((U + nb - 1) / nb + 31) / 32 * 32;
+  const int W = ((U + nb - 1) / nb + 31) / 32 * 32;
+  if (matvec_smem_bytes<T>(C, U, W) <= kMaxSmem) return {W, U};
+  const size_t ring = matvec_smem_bytes<T>(C, 0, W), row = matvec_smem_bytes<T>(C, 1, 0);
+  const size_t half = kMaxSmem / 2 > ring ? (kMaxSmem / 2 - ring) / row / kMatvecRows : 0;
+  const size_t rows = half > 0 ? half : (kMaxSmem - ring) / row / kMatvecRows;
+  return {W, static_cast<int>(rows) * kMatvecRows};
 }
 
 // VEC: 16-byte copies of FtT (U a multiple of 16 bytes and an aligned
 // base), else one element a copy.  A CTA computes the W output columns
-// [u0, u0 + W) of block b (W = U: the whole block).
-template <typename T, int C, bool VEC>
+// [u0, u0 + W) of block b (W = U: the whole block).  CHUNKED: the panel is
+// staged P rows at a time (P a multiple of kMatvecRows), each chunk when
+// the FtT row chunks reach it, the accumulators staying in registers; else
+// the whole panel at once (P = U).
+template <typename T, int C, bool VEC, bool CHUNKED>
 __global__ void __launch_bounds__(kMatvecMaxW)
 macro_matvec_kernel(const T* __restrict__ FtT, const T* __restrict__ xb,
-                    T* __restrict__ yb, int U, int W, int ldx, int ldy) {
+                    T* __restrict__ yb, int U, int W, int ldx, int ldy, int P) {
   using V = typename MvType<T>::V;
   constexpr int L = MvType<T>::L;
   constexpr int CV = (C + L - 1) / L;  // vectors of a panel row
   constexpr int CS = C | 1;  // odd row stride of the staged output: no bank conflicts
   extern __shared__ __align__(16) unsigned char mv_smem[];
-  V* panel = reinterpret_cast<V*>(mv_smem);  // [U, CV]: rows padded with zero channels
-  T* ring = reinterpret_cast<T*>(panel + U * CV);
+  V* panel = reinterpret_cast<V*>(mv_smem);  // [P, CV]: rows padded with zero channels
+  T* ring = reinterpret_cast<T*>(panel + (CHUNKED ? P : U) * CV);
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int nb = (U + W - 1) / W;  // column bands a block, on neighbouring CTAs
   const int b = blockIdx.x / nb, u0 = (blockIdx.x - b * nb) * W;
@@ -529,10 +622,15 @@ macro_matvec_kernel(const T* __restrict__ FtT, const T* __restrict__ xb,
 
   T* pf = reinterpret_cast<T*>(panel);
   const T* xblk = xb + static_cast<size_t>(b) * U * ldx;  // the whole block's panel
-  for (int i = tid; i < U * L * CV; i += nthr) {
-    const int v = i / (L * CV), c = i - v * (L * CV);
-    pf[i] = c < C ? xblk[v * ldx + c] : T(0);
-  }
+  // rows [p0, p0 + P) of the panel (all U rows unless CHUNKED)
+  auto load_panel = [&](int p0) {
+    const int nr = CHUNKED ? min(P, U - p0) : U;
+    for (int i = tid; i < nr * L * CV; i += nthr) {
+      const int v = i / (L * CV), c = i - v * (L * CV);
+      pf[i] = c < C ? xblk[(p0 + v) * ldx + c] : T(0);
+    }
+  };
+  load_panel(0);
 
   const int u = tid;
   T acc[L * CV];
@@ -542,13 +640,19 @@ macro_matvec_kernel(const T* __restrict__ FtT, const T* __restrict__ xb,
     cp_async_wait<kMatvecStages - 2>();  // this thread's copies of chunk t have landed
     __syncthreads();                     // everyone's, and chunk t - 1 is consumed
     load_chunk(t + kMatvecStages - 1);   // into chunk t - 1's stage
+    const int v0 = t * kMatvecRows;
+    const int p0 = CHUNKED ? v0 / P * P : 0;  // the staged panel's first row
+    if (CHUNKED && t > 0 && v0 == p0) {  // chunk t starts the next panel chunk
+      load_panel(p0);                    // (every thread is past the last one's rows)
+      __syncthreads();
+    }
     if (u < wb) {
       const T* Fs = ring + (t % kMatvecStages) * stage;
-      const int v0 = t * kMatvecRows, nv = min(kMatvecRows, U - v0);
+      const int nv = min(kMatvecRows, U - v0);
 #pragma unroll 4
       for (int k = 0; k < nv; ++k) {
         const T f = Fs[k * W + u];
-        const V* xr = panel + (v0 + k) * CV;
+        const V* xr = panel + (v0 - p0 + k) * CV;
 #pragma unroll
         for (int q = 0; q < CV; ++q) MvType<T>::fma_vec(f, xr[q], acc + L * q);
       }
@@ -574,18 +678,22 @@ macro_matvec_kernel(const T* __restrict__ FtT, const T* __restrict__ xb,
 template <typename T, int C>
 int launch_matvec(const T* FtT, const T* xb, T* yb, int B, int U, int ldx, int ldy,
                   cudaStream_t s) {
-  const int W = matvec_band_cols<T>(C, U);
-  if (W <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = matvec_smem_bytes<T>(C, U, W);
-  const int threads = (W + 31) / 32 * 32;
+  const MvShape sh = matvec_shape<T>(C, U);
+  const bool chunked = sh.P < U;
+  const size_t smem = matvec_smem_bytes<T>(C, sh.P, sh.W);
+  const int threads = (sh.W + 31) / 32 * 32;
   const bool vec = U % MvType<T>::L == 0 && reinterpret_cast<uintptr_t>(FtT) % 16 == 0;
-  auto kernel = vec ? macro_matvec_kernel<T, C, true> : macro_matvec_kernel<T, C, false>;
+  auto kernel = chunked ? (vec ? macro_matvec_kernel<T, C, true, true>
+                               : macro_matvec_kernel<T, C, false, true>)
+                        : (vec ? macro_matvec_kernel<T, C, true, false>
+                               : macro_matvec_kernel<T, C, false, false>);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<B * ((U + W - 1) / W), threads, smem, s>>>(FtT, xb, yb, U, W, ldx, ldy);
+  kernel<<<B * ((U + sh.W - 1) / sh.W), threads, smem, s>>>(FtT, xb, yb, U, sh.W, ldx, ldy,
+                                                             sh.P);
   return 0;
 }
 
@@ -707,7 +815,9 @@ extern "C" int ns_macro_build_f32(const float* Fe, const int32_t* lidx, float* F
                       aligned(lidx);
   const size_t fixed = build_stage_bytes(c_blk, nloc);
   const int R = band_rows(U, 2 * U * sizeof(float), fixed);  // two tiles of R rows
-  if (R <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  // past two tiles of one row band: the one-tile design in bands of rows,
+  // then of columns
+  if (R <= 0) return launch_build_v1<float>(Fe, lidx, FtT, E, B, c_blk, nloc, U, s);
   const size_t smem = fixed + 2 * static_cast<size_t>(R) * U * sizeof(float);
   auto kernel = R < U ? macro_build_kernel<true> : macro_build_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -733,7 +843,8 @@ extern "C" int ns_macro_build_v1_f32(const float* Fe, const int32_t* lidx, float
 }
 
 // Kernel B in double: the one-tile design (two double tiles do not fit;
-// past U = 170 one does not either, and the tile is banded).
+// past U = 170 one does not either, and the tile is banded; past 29,056
+// not even a row does, and the tile is banded in columns too).
 extern "C" int ns_macro_build_f64(const double* Fe, const int32_t* lidx, double* FtT,
                                   int E, int B, int c_blk, int nloc, int U,
                                   void* stream) {
@@ -741,17 +852,34 @@ extern "C" int ns_macro_build_f64(const double* Fe, const int32_t* lidx, double*
                                  static_cast<cudaStream_t>(stream));
 }
 
-// Kernel B's rows a band in float32 (elem_bytes 4: two tiles and the
-// stages) or float64 (8: one tile): U when a block's tiles fit one CTA, 0
-// when not even a band does.
+// Kernel B's work item in float32 (elem_bytes 4: two tiles and the
+// stages, else the one-tile design) or float64 (8: one tile): R rows by W
+// columns of a block's [U, U] tile (U and U when a block's tiles fit one
+// CTA).
+static BuildTile build_tile(int c_blk, int nloc, int U, int elem_bytes) {
+  if (elem_bytes == 4) {
+    const int R = band_rows(U, 2 * U * sizeof(float), build_stage_bytes(c_blk, nloc));
+    if (R > 0) return {R, U};
+  }
+  return v1_tile(U, elem_bytes);
+}
+
 extern "C" int ns_macro_build_band_rows(int c_blk, int nloc, int U, int elem_bytes) {
-  if (elem_bytes == 8) return band_rows(U, U * sizeof(double), 0);
-  return band_rows(U, 2 * U * sizeof(float), build_stage_bytes(c_blk, nloc));
+  return build_tile(c_blk, nloc, U, elem_bytes).R;
+}
+
+extern "C" int ns_macro_build_band_cols(int c_blk, int nloc, int U, int elem_bytes) {
+  return build_tile(c_blk, nloc, U, elem_bytes).W;
 }
 
 // Kernel A's output columns a CTA at C channels (U: one CTA a block).
 extern "C" int ns_macro_matvec_band_cols(int C, int U, int elem_bytes) {
-  return elem_bytes == 8 ? matvec_band_cols<double>(C, U) : matvec_band_cols<float>(C, U);
+  return (elem_bytes == 8 ? matvec_shape<double>(C, U) : matvec_shape<float>(C, U)).W;
+}
+
+// Kernel A's panel rows staged at a time at C channels (U: the whole panel).
+extern "C" int ns_macro_matvec_panel_rows(int C, int U, int elem_bytes) {
+  return (elem_bytes == 8 ? matvec_shape<double>(C, U) : matvec_shape<float>(C, U)).P;
 }
 
 extern "C" int ns_macro_max_channels() { return kMaxC; }

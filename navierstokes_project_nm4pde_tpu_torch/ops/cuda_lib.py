@@ -31,16 +31,16 @@ NVCC_FLAGS = (
 )
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (each returns an int: a CUDA error code,
-# or for ns_macro_max_channels*, ns_macro_build_band_rows and
-# ns_macro_matvec_band_cols a size).  Kernels A-D have an entry point
+# or for ns_macro_max_channels*, ns_macro_build_band_* and
+# ns_macro_matvec_{band_cols,panel_rows} a size).  Kernels A-D have an entry point
 # for each element type, suffixed _f32 and _f64.
 _SIGNATURES = {
     **{f"ns_macro_matvec_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _P] for t in ("f32", "f64")},
     "ns_macro_matvec_v1_f32": [_P, _P, _P, _I, _I, _I, _P],
     **{f"ns_macro_build_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _P] for t in ("f32", "f64")},
     "ns_macro_build_v1_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "ns_macro_build_band_rows": [_I, _I, _I, _I],
-    "ns_macro_matvec_band_cols": [_I, _I, _I],
+    **{f"ns_macro_build_band_{k}": [_I, _I, _I, _I] for k in ("rows", "cols")},
+    **{f"ns_macro_matvec_{k}": [_I, _I, _I] for k in ("band_cols", "panel_rows")},
     "ns_macro_max_channels": [],
     "ns_macro_max_channels_f64": [],
     **{

@@ -16,11 +16,13 @@ its plain PyTorch version for CPU tensors; on the card both kernels take
 float32 or float64, each in its own type (`max_channels`: kernel A's
 widest payload a launch in each), and any even U: a block whose tiles do
 not fit one CTA's shared memory is built in bands of rows (`band_rows`),
-and past 256 slots kernel A splits a block's columns over CTAs
-(`band_cols`), each still one launch.  `launch_counts` counts the kernel
-launches only, by entry point (float32's under the kernel's name,
-float64's under the name with `_f64`), and `matvec_channels` kernel A's
-launches by channel count.
+and where not even a band of whole rows fits, of columns as well
+(`build_band_cols`); past 256 slots kernel A splits a block's columns over
+CTAs (`band_cols`), and where the block's whole input panel no longer fits
+beside them, stages it in chunks of rows (`panel_rows`); each is still one
+launch.  `launch_counts` counts the kernel launches only, by entry point
+(float32's under the kernel's name, float64's under the name with
+`_f64`), and `matvec_channels` kernel A's launches by channel count.
 """
 
 from __future__ import annotations
@@ -190,27 +192,33 @@ def _launch_build(entry: str, F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: 
 
 
 def band_rows(dtype: torch.dtype, c_blk: int, nloc: int, U: int) -> int:
-    """Kernel B's rows a band on the card: U where a block's tile(s) fit
-    one CTA's shared memory (float32: two [U, U] tiles and the input
+    """Kernel B's rows a work item on the card: U where a block's tile(s)
+    fit one CTA's shared memory (float32: two [U, U] tiles and the input
     stages, up to U = 162 at c_blk 20; float64: one tile, up to U = 170),
-    else the most rows that fit, balanced over the bands (0: none fits)."""
+    else the most rows that fit, balanced over the bands."""
     return cuda_lib.load().ns_macro_build_band_rows(c_blk, nloc, U, torch.finfo(dtype).bits // 8)
+
+
+def build_band_cols(dtype: torch.dtype, c_blk: int, nloc: int, U: int) -> int:
+    """Kernel B's columns a work item on the card: U, unless not even one
+    band of whole rows of its one-tile design fits (float64 past U =
+    29,056, float32 past 58,112; half that where U is not a multiple of
+    4), and then column bands of about 16 KB a row."""
+    return cuda_lib.load().ns_macro_build_band_cols(c_blk, nloc, U, torch.finfo(dtype).bits // 8)
 
 
 def macro_build(F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: int) -> torch.Tensor:
     """Block values FtT [B, U, U] from element matrices F_e [E, nloc, nloc]
     and the local slot table lidx [B, c_blk, nloc] (kernel B: in float32
     persistent CTAs, two shared-memory tiles, bulk-copy staging and
-    write-out; in float64 a CTA a block and one tile; a wide block's tile
-    in bands of `band_rows` rows, one launch either way)."""
+    write-out; in float64, and in float32 past two tiles of one row, a CTA
+    a block and one tile; a wide block's tile in bands of `band_rows` rows
+    and `build_band_cols` columns, one launch either way)."""
     if F_e.device.type == "cpu":
         return macro_build_plain(F_e, lidx, B, U)
     _check_build_args("macro_build", F_e, lidx, B, U)
-    if U % 2 or band_rows(F_e.dtype, lidx.shape[1], F_e.shape[1], U) < 1:
-        raise ValueError(
-            f"macro_build: U={U} must be even (the tile store moves 16-byte "
-            f"vectors) and two rows of its tile must fit shared memory"
-        )
+    if U % 2:
+        raise ValueError(f"macro_build: U={U} must be even (the tile store moves 16-byte vectors)")
     out = _launch_build(f"ns_macro_build_{cuda_lib.SUFFIX[F_e.dtype]}", F_e, lidx, B, U)
     launch_counts[cuda_lib.count_key("macro_build", F_e.dtype)] += 1
     return out
@@ -257,8 +265,18 @@ def max_channels(dtype: torch.dtype) -> int:
 def band_cols(dtype: torch.dtype, C: int, U: int) -> int:
     """Kernel A's output columns a CTA at C channels a launch on the card:
     U up to 256 (a thread a column), else bands of at most 256 (a multiple
-    of 32, balanced: 192 at U = 384); 0 if no band fits shared memory."""
+    of 32, balanced: 192 at U = 384); up to U = 2,336, narrower where the
+    whole input panel then fits beside them."""
     return cuda_lib.load().ns_macro_matvec_band_cols(C, U, torch.finfo(dtype).bits // 8)
+
+
+def panel_rows(dtype: torch.dtype, C: int, U: int) -> int:
+    """Kernel A's input-panel rows a CTA stages at a time at C channels a
+    launch: U (the whole [U, C] panel) where it fits beside `band_cols`
+    columns (up to U = 2,336 at 24 float32 channels, 2,250 at 12 float64
+    ones, 10,432 at 3 float32 ones, 3,168 at 3 float64 ones), else chunks
+    of a multiple of 16 rows, the accumulators kept across chunks."""
+    return cuda_lib.load().ns_macro_matvec_panel_rows(C, U, torch.finfo(dtype).bits // 8)
 
 
 def macro_matvec(FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
@@ -267,7 +285,9 @@ def macro_matvec(FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
     channels ride one launch and one pass over FtT; a wider payload is
     split into launches of near-equal channel slices (`matvec_splits`),
     each writing its slice of one output and reading FtT once more.  Past
-    U = 256 each launch splits a block's columns over CTAs (`band_cols`)."""
+    U = 256 each launch splits a block's columns over CTAs (`band_cols`),
+    and stages the input panel in chunks of `panel_rows` rows where it
+    does not fit whole."""
     if FtT.device.type == "cpu":
         return macro_matvec_plain(FtT, x_b)
     if FtT.device.type != "cuda":
@@ -289,8 +309,6 @@ def macro_matvec(FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
             f"on FtT's device with C >= 1, got {x_b.dtype} {tuple(x_b.shape)}"
         )
     splits = matvec_splits(C, max_channels(FtT.dtype))
-    if min(band_cols(FtT.dtype, hi - lo, U) for lo, hi in splits) < 1:
-        raise ValueError(f"macro_matvec: no column band of U={U} fits shared memory at C={C}")
     y = torch.empty((B, U, C), dtype=FtT.dtype, device=FtT.device)
     stream = torch.cuda.current_stream(FtT.device).cuda_stream
     entry = f"ns_macro_matvec_{cuda_lib.SUFFIX[FtT.dtype]}"

@@ -550,6 +550,56 @@ def test_macro_build_float64_bands_a_tile_past_shared_memory(cuda, U, R):
     _close(out, mb.macro_build_plain(F_e, lidx, 5, U))
 
 
+# Very wide blocks: kernel A stages the [U, C] input panel in chunks of P
+# rows where the whole panel no longer fits beside its column bands (up to
+# U = 2,336 the bands narrow to make room, to 32 columns at 24 float32
+# channels; at 12 float64 channels past 2,250; past U = 2,336 they stay at
+# 256: at 3 float32 channels past 10,432), the accumulators kept across
+# chunks; two blocks each.
+@pytest.mark.parametrize("dtype,C,U,W,P", [
+    (torch.float32, 24, 2336, 32, 2336), (torch.float32, 24, 2560, 256, 528),
+    (torch.float64, 12, 2560, 256, 1056), (torch.float32, 3, 14464, 256, 3168),
+    (torch.float64, 3, 14464, 256, 3168), (torch.float32, 3, 11904, 256, 3168),
+])
+def test_macro_matvec_stages_a_very_wide_panel_in_chunks(cuda, dtype, C, U, W, P):
+    assert (mb.band_cols(dtype, C, U), mb.panel_rows(dtype, C, U)) == (W, P)
+    g = torch.Generator(device=cuda).manual_seed(U + C)
+    FtT = torch.randn((2, U, U), generator=g, device=cuda, dtype=dtype)
+    x_b = torch.randn((2, U, C), generator=g, device=cuda, dtype=dtype)
+    key = "macro_matvec" if dtype == torch.float32 else "macro_matvec_f64"
+    before = dict(mb.launch_counts)
+    y = mb.macro_matvec(FtT, x_b)
+    torch.cuda.synchronize()
+    assert mb.launch_counts == {**before, key: before[key] + 1}
+    _close(y, mb.macro_matvec_plain(FtT, x_b))
+
+
+# Very wide blocks in kernel B: past one band of two float32 tiles' rows
+# (U not a multiple of 4: 13,442 at c_blk 20, 11,906 at 48) float32 takes
+# the one-tile design in bands of R rows; past one band of its whole rows
+# (float32 at U = 29,058, float64 at 29,184) the tiles are R x W.  U =
+# 13,440 and 11,904 still run in one-row bands of two tiles.  One or two
+# blocks, the last one cell short.
+@pytest.mark.parametrize("dtype,c_blk,U,B,R,W", [
+    (torch.float32, 20, 13440, 2, 1, 13440), (torch.float32, 20, 13442, 2, 4, 13442),
+    (torch.float32, 48, 11904, 2, 1, 11904), (torch.float32, 48, 11906, 2, 4, 11906),
+    (torch.float32, 20, 29058, 1, 15, 3648), (torch.float64, 20, 29184, 1, 14, 1952),
+])
+def test_macro_build_bands_very_wide_blocks(cuda, dtype, c_blk, U, B, R, W):
+    nloc = 10
+    assert (mb.band_rows(dtype, c_blk, nloc, U), mb.build_band_cols(dtype, c_blk, nloc, U)) == (R, W)
+    E = B * c_blk - 1
+    lidx = _lidx(B, c_blk, nloc, U, seed=U).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(U)
+    F_e = torch.randn((E, nloc, nloc), generator=g, device=cuda, dtype=dtype)
+    key = "macro_build" if dtype == torch.float32 else "macro_build_f64"
+    before = dict(mb.launch_counts)
+    out = mb.macro_build(F_e, lidx, B, U)
+    torch.cuda.synchronize()
+    assert mb.launch_counts == {**before, key: before[key] + 1}
+    _close(out, mb.macro_build_plain(F_e, lidx, B, U))
+
+
 @pytest.mark.parametrize("E,n_rows,C", [
     (40, 97, 1), (300, 500, 3), (60, 140, 9), (64, 150, 64), (64, 150, 192), (45, 110, 17),
     (33, 90, 20),

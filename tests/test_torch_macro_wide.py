@@ -13,9 +13,11 @@ channel's triangles).  Same values summed in another order: rtol 1e-12.
 Then 3 projection steps at macro_u=256, macro_cblk=48 through both solvers
 (at the stepper's defaults, and with macro_split on and f_warmstart=5):
 equal F and S counts, u and p to rtol 1e-8 / 1e-7 (the standard of
-tests/test_torch_slice.py).  The plain kernel versions run here; on the
-card tests/test_torch_kernels_cuda.py holds kernels A and B at these
-widths against them.
+tests/test_torch_slice.py).  U = 2,560 at c_blk 256 (past the width at
+which kernel A holds a block's whole input panel on the card) is held
+against the JAX plan and `apply_F` the same way.  The plain kernel
+versions run here; on the card tests/test_torch_kernels_cuda.py holds
+kernels A and B at these widths, and wider, against them.
 """
 
 import dataclasses
@@ -180,6 +182,23 @@ def test_wide_blocks_on_triangles():
     u = rng.normal(size=(tsp.n_unodes, 2))
     _close(tmb.apply_macro(tmp, FtT, _t(u)).numpy(),
            jmb.apply_macro(jmp, jmb.build_macro_values(jmp, jnp.asarray(F_e)), jnp.asarray(u)))
+
+
+def test_very_wide_blocks_match_reference_and_apply_F(duct):
+    """U = 2,560 at c_blk 256 (on the card kernel A stages such a block's
+    input panel in chunks of rows, and kernel B builds it in row bands):
+    the JAX package's plan, and the block build and apply against the JAX
+    element apply `apply_F` at float64."""
+    space, tsp, f = duct["space"], duct["tspace"], duct["f"]
+    jmp = jmb.build_macro_plan(np.asarray(space.cells_u), space.n_unodes, U=2560, c_blk=256,
+                               n_vertices=duct["mesh"].n_vertices)
+    tmp = tmb.build_macro_plan(tsp.cells_u, tsp.n_unodes, U=2560, c_blk=256, device="cpu")
+    _same_plan(jmp, tmp)
+    assert tmp.c_blk == 256 and int(tmp.lidx.max()) >= 512
+    jconv = jops.convection_setup(duct["jop"], jnp.asarray(f["w"]), fold=(NU, DT))
+    tconv = tops.convection_setup(duct["top"], _t(f["w"]), fold=(NU, DT))
+    y = tmb.apply_macro(tmp, tmb.build_macro_values(tmp, tconv.F_e), _t(f["u"])).numpy()
+    _close(y, jops.apply_F(duct["jop"], NU, DT, jconv, jnp.asarray(f["u"])))
 
 
 def _config(changes: dict):
