@@ -1,0 +1,180 @@
+"""The comparison that decides `correct`, and the control stepper.
+
+What the configuration states (the projection stepper, BDF1, implicit
+convection; `configs/*.json`), written from its equations.  One step from
+(u^n, p^n) at viscosity nu and time step dt:
+
+  1. u* = g on the Dirichlet nodes, and elsewhere
+        F(u^n) u* = M u^n / dt + D^T p^n,   F(w) = M / dt + nu K + C(w);
+  2. S1 phi = -D u* / dt,   S1 = D diag(M)^-1 D^T  (diag(M)^-1 zero on the
+     Dirichlet nodes);
+  3. p^{n+1} = p^n + phi,   u^{n+1} = u* + dt diag(M)^-1 D^T phi,
+     so that D u^{n+1} = 0;
+  4. c_d, c_l and delta_p of (u^{n+1}, p^{n+1}).
+
+`step_numbers` judges a step that the program produced by what it says:
+from the program's (u^n, p^n) and its (u^{n+1}, p^{n+1}, c_d, c_l,
+delta_p) it rebuilds u* = u^{n+1} - dt diag(M)^-1 D^T phi and reads, in
+float64 on the reference's own operators:
+
+  mom   ||r|| / ||rhs||, r = F(u^n) u* - (M u^n / dt + D^T p^n) on the free
+        rows and u* - g on the Dirichlet rows, rhs the same right-hand side
+        with g on the Dirichlet rows (the solve of step 1);
+  mom_row  the worst row of the same residual as a velocity: |r_i| over
+        the row's diagonal of F (1 on a Dirichlet row), over max |u^{n+1}|
+        (a fault at one node reads the same on any mesh);
+  div   ||D u^{n+1}|| / ||D u*||  (steps 2 and 3: what the projection left);
+  c_d, c_l   |c - c_ref| / |c_d ref|,  delta_p  |dp - dp_ref| / |dp_ref|
+        (step 4, c_l on c_d's scale: it is near nought).
+
+`control_step` is the reference put in the program's place: the same step
+solved to the configuration's tolerances with every product in TF32
+(`RefOperator(precision="tf32")`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+NUMBERS = ("mom", "mom_row", "div", "c_d", "c_l", "delta_p")
+
+
+def _norm(x: torch.Tensor) -> float:
+    return float(torch.linalg.norm(x.reshape(-1).to(torch.float64)))
+
+
+def _rel(gap: float, scale: float) -> float:
+    """gap / scale; infinite for a gap over a scale of nought."""
+    if scale > 0.0:
+        return gap / scale
+    return 0.0 if gap == 0.0 else float("inf")
+
+
+def step_numbers(ref, prob, u_n, p_n, u_new, p_new, diag: dict, nu: float, dt: float) -> dict:
+    """The numbers of one step of one member (float64 reference `ref`)."""
+    T = ref.T
+    u_n, p_n, u_new, p_new = T(u_n), T(p_n), T(u_new), T(p_new)
+    phi = p_new - p_n
+    u_star = u_new - dt * ref.inv1[:, None] * ref.div_t(phi)
+    mask = ref.mask[:, None]
+    b = ref.mass(u_n) / dt + ref.div_t(p_n)
+    F_e = ref.F_elements(nu, dt, u_n)
+    Fu = ref.apply_elements(F_e, u_star)
+    r = torch.where(mask, u_star - prob.g, Fu - b)
+    scale = torch.where(ref.mask, torch.ones_like(ref.diagM), ref.diag_F(F_e))
+    rhs = torch.where(mask, prob.g, b)
+    d = prob.diagnostics(u_new, p_new, nu)
+    return dict(
+        mom=_rel(_norm(r), _norm(rhs)),
+        mom_row=_rel(float((r / scale[:, None]).abs().max()), float(u_new.abs().max())),
+        div=_rel(_norm(ref.div(u_new)), _norm(ref.div(u_star))),
+        c_d=_rel(abs(diag["c_d"] - d["c_d"]), abs(d["c_d"])),
+        c_l=_rel(abs(diag["c_l"] - d["c_l"]), abs(d["c_d"])),
+        delta_p=_rel(abs(diag["delta_p"] - d["delta_p"]), abs(d["delta_p"])),
+    )
+
+
+def worst(rows) -> dict:
+    """The largest of each number over steps and members."""
+    return {k: max(r[k] for r in rows) for k in NUMBERS}
+
+
+def verdict(numbers: dict, limits: dict) -> bool:
+    return all(np.isfinite(numbers[k]) and numbers[k] <= limits[k] for k in NUMBERS)
+
+
+# ----------------------------------------------------------------------
+# The control: the same step solved in TF32
+# ----------------------------------------------------------------------
+def gmres(A, b, x0, M, tol: float, restart: int, maxiter: int):
+    """Right-preconditioned restarted GMRES on flat vectors until
+    ||b - A x|| <= tol; returns (x, iterations)."""
+    x = x0.clone()
+    its = 0
+    while its < maxiter:
+        r = b - A(x)
+        beta = torch.linalg.norm(r)
+        if float(beta) <= tol:
+            break
+        V = [r / beta]
+        Z = []
+        H = torch.zeros((restart + 1, restart), dtype=b.dtype, device=b.device)
+        k = 0
+        for k in range(restart):
+            z = M(V[k])
+            w = A(z)
+            for i in range(k + 1):
+                H[i, k] = torch.dot(w, V[i])
+                w = w - H[i, k] * V[i]
+            H[k + 1, k] = torch.linalg.norm(w)
+            Z.append(z)
+            V.append(w / H[k + 1, k])
+            its += 1
+            e1 = torch.zeros(k + 2, dtype=b.dtype, device=b.device)
+            e1[0] = beta
+            y = torch.linalg.lstsq(H[: k + 2, : k + 1].cpu().double(), e1.cpu().double()[:, None]).solution
+            res = float(torch.linalg.norm(H[: k + 2, : k + 1].cpu().double() @ y - e1.cpu().double()[:, None]))
+            if res <= tol or its >= maxiter:
+                break
+        y = y.to(b.dtype).to(b.device)[:, 0]
+        x = x + sum(y[i] * Z[i] for i in range(len(Z)))
+        if res <= tol:
+            break
+    return x, its
+
+
+def cg(A, b, x0, M, tol: float, maxiter: int):
+    x = x0.clone()
+    r = b - A(x)
+    z = M(r)
+    p = z.clone()
+    rz = torch.dot(r, z)
+    its = 0
+    while float(torch.linalg.norm(r)) > tol and its < maxiter:
+        Ap = A(p)
+        alpha = rz / torch.dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rz_new = torch.dot(r, z)
+        p = z + (rz_new / rz) * p
+        rz = rz_new
+        its += 1
+    return x, its
+
+
+def control_step(ref, prob, u_n, p_n, nu: float, dt: float, solver: dict):
+    """One step by the reference `ref` (precision "tf32" for the control),
+    to the configuration's tolerances (`solver`: rtol against the
+    right-hand side's norm, proj_div_cap, maxiter, restart); returns
+    (u^{n+1}, p^{n+1}, diagnostics, iterations)."""
+    T = ref.T
+    u_n, p_n = T(u_n), T(p_n)
+    n = ref.n_u
+    mask = ref.mask[:, None]
+    F_e = ref.F_elements(nu, dt, u_n)
+    b = ref.mass(u_n) / dt + ref.div_t(p_n)
+    rhs = torch.where(mask, prob.g, b).reshape(-1)
+
+    def A(v):
+        u = v.reshape(n, 3)
+        return torch.where(mask, u, ref.apply_elements(F_e, u)).reshape(-1)
+
+    dinv = torch.where(ref.mask, torch.ones_like(ref.diagM), 1.0 / ref.diag_F(F_e))
+    dinv = dinv[:, None].expand(n, 3).reshape(-1)
+    tol = solver["rtol"] * float(torch.linalg.norm(rhs))
+    x0 = torch.where(mask, prob.g, u_n).reshape(-1)
+    u_star, its_f = gmres(A, rhs, x0, lambda v: dinv * v, tol, solver["restart"], solver["maxiter"] * 10)
+    u_star = u_star.reshape(n, 3)
+    rhs_p = -ref.div(u_star) / dt
+    d1 = ref.diag_S1()
+
+    def S(q):
+        return ref.div(ref.inv1[:, None] * ref.div_t(q))
+
+    tol_p = min(tol / dt, solver["proj_div_cap"] * float(torch.linalg.norm(rhs_p)))
+    phi, its_s = cg(S, rhs_p, torch.zeros_like(rhs_p), lambda q: q / d1, tol_p, 20000)
+    p_new = p_n + phi
+    u_new = u_star + dt * ref.inv1[:, None] * ref.div_t(phi)
+    return u_new, p_new, prob.diagnostics(u_new, p_new, nu), (its_f, its_s)
