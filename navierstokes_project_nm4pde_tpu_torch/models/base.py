@@ -58,6 +58,17 @@ unused (the reference projects it only on the macro path).  The element
 passes move all members as packed channels through the slot gather and
 reduce (kernels D and C), and the Krylov solves are batched on [n, B]
 columns with per-member tolerances and counts.
+
+Spans (`utils/profiling.py`) name the set-up phases (`setup.reorder`,
+`setup.space`, `setup.operator`, `setup.boundary`, `setup.f_bound`,
+`setup.frozen_schur`, `setup.coarse_factor`, and `setup.macro`,
+`setup.macro_mass`, `setup.macro_stiff` built at first use), each phase
+of a projection step, single run and ensemble alike (`step.guess`,
+`step.gather`, `step.fold`, `step.build`, `step.rhs`, `step.f_solve`,
+`step.divergence`, `step.s_solve`, `step.update`, `step.diagnostics`),
+each read of a value to the host (`host_read`) and the copy of a chunk's
+diagnostics to the host (`run.host_copy`) in a running torch.profiler
+trace.
 """
 
 from __future__ import annotations
@@ -126,6 +137,7 @@ from navierstokes_project_nm4pde_tpu_torch.solvers.krylov import (
     SolveInfo,
     _cnorm,
     _host,
+    _host_float,
     _norm,
     cg,
     cg_recycled,
@@ -133,6 +145,7 @@ from navierstokes_project_nm4pde_tpu_torch.solvers.krylov import (
     gcr_recycled,
     ls_warmstart,
 )
+from navierstokes_project_nm4pde_tpu_torch.utils.profiling import setup_phase, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -411,193 +424,203 @@ class NavierStokesSolver:
         # (the frozen Schur's band is then taken on it, or its ELL fallback
         # where the band is too wide).
         wants_banded = frozen and nc.schur_spmv in ("auto", "banded")
-        self.mesh = mesh
-        if nc.spatial_reorder:
-            self.mesh = mesh.reorder_spatial("rcm" if nc.ensemble_onehot or wants_banded else "morton")
-        self.space = build_taylor_hood(self.mesh)
-        self.geom = cell_geometry(self.space)
-        space = self.space
-        dtags = sorted(self.problem.dirichlet.keys())
-        mask = space.dirichlet_mask(dtags)
+        with setup_phase("setup.reorder"):
+            self.mesh = mesh
+            if nc.spatial_reorder:
+                self.mesh = mesh.reorder_spatial("rcm" if nc.ensemble_onehot or wants_banded else "morton")
+        with setup_phase("setup.space"):
+            self.space = build_taylor_hood(self.mesh)
+            self.geom = cell_geometry(self.space)
+            space = self.space
+            dtags = sorted(self.problem.dirichlet.keys())
+            mask = space.dirichlet_mask(dtags)
         # the frozen S1 is assembled once on the host; the monolithic
         # stepper's block preconditioners and proj_schur="step" assemble S~
         # every step on the device
-        self.op, host = ops.build_operator(
-            space, self.geom, mask, dt_, dev, coarse_agg=nc.schur_agg,
-            device_schur_assembly=not frozen,
-        )
-        default_assembled = "element" if monolithic else "bsr"
-        if (default_assembled if nc.grad_apply == "auto" else nc.grad_apply) == "element":
-            self.op.grad = None
-        if (default_assembled if nc.div_apply == "auto" else nc.div_apply) == "element":
-            self.op.div = None
+        with setup_phase("setup.operator"):
+            self.op, host = ops.build_operator(
+                space, self.geom, mask, dt_, dev, coarse_agg=nc.schur_agg,
+                device_schur_assembly=not frozen,
+            )
+            default_assembled = "element" if monolithic else "bsr"
+            if (default_assembled if nc.grad_apply == "auto" else nc.grad_apply) == "element":
+                self.op.grad = None
+            if (default_assembled if nc.div_apply == "auto" else nc.div_apply) == "element":
+                self.op.div = None
 
-        # IMEX partition: a cell keeps its implicit C(w) iff
-        # u_max dt / h_cell > imex_cfl, h_cell its shortest edge.
-        self.imex = self.imex_frac = None
-        if conv_mode == "imex":
-            cc = self.mesh.coords[self.mesh.cells]  # [E, nvloc, dim]
-            h = None
-            for i in range(cc.shape[1]):
-                for j in range(i + 1, cc.shape[1]):
-                    e = np.linalg.norm(cc[:, i] - cc[:, j], axis=1)
-                    h = e if h is None else np.minimum(h, e)
-            implicit = cfg.time.imex_umax * cfg.time.dt / np.maximum(h, 1e-300) > cfg.time.imex_cfl
-            self.imex_frac = float(implicit.mean())
-            self.op.imex_scale = torch.as_tensor(implicit.astype(np.float64), dtype=dt_, device=dev)
-            if implicit.any():
-                self.imex = ops.build_imex_tables(
-                    space, self.geom, np.nonzero(implicit)[0], dt_, dev
+            # IMEX partition: a cell keeps its implicit C(w) iff
+            # u_max dt / h_cell > imex_cfl, h_cell its shortest edge.
+            self.imex = self.imex_frac = None
+            if conv_mode == "imex":
+                cc = self.mesh.coords[self.mesh.cells]  # [E, nvloc, dim]
+                h = None
+                for i in range(cc.shape[1]):
+                    for j in range(i + 1, cc.shape[1]):
+                        e = np.linalg.norm(cc[:, i] - cc[:, j], axis=1)
+                        h = e if h is None else np.minimum(h, e)
+                implicit = cfg.time.imex_umax * cfg.time.dt / np.maximum(h, 1e-300) > cfg.time.imex_cfl
+                self.imex_frac = float(implicit.mean())
+                self.op.imex_scale = torch.as_tensor(implicit.astype(np.float64), dtype=dt_, device=dev)
+                if implicit.any():
+                    self.imex = ops.build_imex_tables(
+                        space, self.geom, np.nonzero(implicit)[0], dt_, dev
+                    )
+
+            # The constant K = M/dt + nu A as one assembled operator, where the
+            # velocity block is constant (explicit or IMEX convection, BDF1).
+            va = nc.vel_apply
+            if va == "auto":
+                va = "bsr" if _constant_k(cfg) else "element"
+            self.kcsr: CSRMatrix | None = None
+            if va == "bsr":
+                self.kcsr = build_velocity_kcsr(
+                    space, self.geom, build_ref_tables(space.dim), self.problem.nu,
+                    cfg.time.dt, dt_, dev,
+                )
+            fa = nc.f_apply
+            if fa == "auto":
+                fa = "macro" if _macro_ok(cfg, self.problem) else "element"
+            self.f_apply = fa
+            self.macro_rhs = fa == "macro" and nc.macro_rhs != "off"
+            self.macro_wfuse = self.macro_rhs and nc.macro_wfuse != "off"
+            # the smoothers apply F through the element fold, which a
+            # convection-only fold cannot drive: f_iters > 0 turns the split off
+            self.macro_split = self.macro_rhs and nc.macro_split == "on" and pc.f_iters == 0
+            # the element FGMRES collects its applies' gathers into du_e, from
+            # which the element divergence needs no gather of its own
+            self.aux_div = fa == "element" and self.kcsr is None and self.op.div is None
+
+            # what the inner velocity solves read: the monolithic stepper's
+            # preconditioners always, the projection stepper's with f_iters > 0
+            inner_f = monolithic or pc.f_iters > 0
+            if pc.f_solver == "pmg" and inner_f:
+                self.op.pmg = build_velocity_pmg(space, self.geom, np.asarray(mask), dt_, dev)
+            if monolithic and pc.s_solver.startswith("spai"):
+                self.op.spai_vals = torch.as_tensor(
+                    build_spai_values(self.op, host, self.problem.nu, cfg.time.dt), dtype=dt_, device=dev,
                 )
 
-        # The constant K = M/dt + nu A as one assembled operator, where the
-        # velocity block is constant (explicit or IMEX convection, BDF1).
-        va = nc.vel_apply
-        if va == "auto":
-            va = "bsr" if _constant_k(cfg) else "element"
-        self.kcsr: CSRMatrix | None = None
-        if va == "bsr":
-            self.kcsr = build_velocity_kcsr(
-                space, self.geom, build_ref_tables(space.dim), self.problem.nu,
-                cfg.time.dt, dt_, dev,
-            )
-        fa = nc.f_apply
-        if fa == "auto":
-            fa = "macro" if _macro_ok(cfg, self.problem) else "element"
-        self.f_apply = fa
-        self.macro_rhs = fa == "macro" and nc.macro_rhs != "off"
-        self.macro_wfuse = self.macro_rhs and nc.macro_wfuse != "off"
-        # the smoothers apply F through the element fold, which a
-        # convection-only fold cannot drive: f_iters > 0 turns the split off
-        self.macro_split = self.macro_rhs and nc.macro_split == "on" and pc.f_iters == 0
-        # the element FGMRES collects its applies' gathers into du_e, from
-        # which the element divergence needs no gather of its own
-        self.aux_div = fa == "element" and self.kcsr is None and self.op.div is None
+        with setup_phase("setup.boundary"):
+            # Dirichlet node groups; later tags win at shared nodes.
+            taken = np.zeros(space.n_unodes, dtype=bool)
+            self._bc_groups = []
+            node_groups = []
+            for tag in reversed(dtags):
+                nodes = space.boundary_unodes([tag])
+                nodes = nodes[~taken[nodes]]
+                taken[nodes] = True
+                node_groups.append(nodes)
+                self._bc_groups.append((
+                    self.problem.dirichlet[tag],
+                    torch.as_tensor(space.unode_coords[nodes], dtype=dt_, device=dev),
+                ))
+            self._bc_inverse = build_inverse_map(node_groups, space.n_unodes, device=dev)
 
-        # what the inner velocity solves read: the monolithic stepper's
-        # preconditioners always, the projection stepper's with f_iters > 0
-        inner_f = monolithic or pc.f_iters > 0
-        if pc.f_solver == "pmg" and inner_f:
-            self.op.pmg = build_velocity_pmg(space, self.geom, np.asarray(mask), dt_, dev)
-        if monolithic and pc.s_solver.startswith("spai"):
-            self.op.spai_vals = torch.as_tensor(
-                build_spai_values(self.op, host, self.problem.nu, cfg.time.dt), dtype=dt_, device=dev,
-            )
-
-        # Dirichlet node groups; later tags win at shared nodes.
-        taken = np.zeros(space.n_unodes, dtype=bool)
-        self._bc_groups = []
-        node_groups = []
-        for tag in reversed(dtags):
-            nodes = space.boundary_unodes([tag])
-            nodes = nodes[~taken[nodes]]
-            taken[nodes] = True
-            node_groups.append(nodes)
-            self._bc_groups.append((
-                self.problem.dirichlet[tag],
-                torch.as_tensor(space.unode_coords[nodes], dtype=dt_, device=dev),
-            ))
-        self._bc_inverse = build_inverse_map(node_groups, space.n_unodes, device=dev)
-
-        bt = boundary_tables(space, self.geom, degree=4)
-        pb = self.problem
-        # the Neumann face's tables: int_Gamma h . v ds, reduced into the
-        # velocity rows by a segment plan of its facet slots
-        self.neumann = None
-        if pb.neumann_tag is not None:
-            sel = np.where(bt.tag == pb.neumann_tag)[0]
-            cells = np.asarray(space.cells_u[bt.cell[sel]], np.int64)
-            self.neumann = NeumannTables(
-                phi_u=torch.as_tensor(bt.phi_u[sel], dtype=dt_, device=dev),
-                jxw=torch.as_tensor(bt.jxw[sel], dtype=dt_, device=dev),
-                points=torch.as_tensor(bt.points[sel], dtype=dt_, device=dev),
-                plan=build_segment_plan(cells, space.n_unodes, device=dev),
-            )
-        self.backflow = None
-        if pb.backflow_tag is not None:
-            self.backflow = ops.build_backflow_tables(space, bt, pb.backflow_tag, dt_, dev)
-        # the forcing's cell quadrature (degree 4)
-        self.ftab = None
-        if pb.forcing is not None:
-            self.ftab = fn.build_error_tables(space, self.geom, degree=4, dtype=dt_, device=dev)
-        self.forces = None
-        if self.problem.obstacle_tag is not None:
-            self.forces = fn.build_force_tables(
-                space, bt, self.problem.obstacle_tag, dt_, dev
-            )
-        self.probe = None
-        if self.problem.probe_points is not None:
-            self.probe = fn.build_point_probe(
-                space, self.geom, self.problem.probe_points, dt_, dev
-            )
+            bt = boundary_tables(space, self.geom, degree=4)
+            pb = self.problem
+            # the Neumann face's tables: int_Gamma h . v ds, reduced into the
+            # velocity rows by a segment plan of its facet slots
+            self.neumann = None
+            if pb.neumann_tag is not None:
+                sel = np.where(bt.tag == pb.neumann_tag)[0]
+                cells = np.asarray(space.cells_u[bt.cell[sel]], np.int64)
+                self.neumann = NeumannTables(
+                    phi_u=torch.as_tensor(bt.phi_u[sel], dtype=dt_, device=dev),
+                    jxw=torch.as_tensor(bt.jxw[sel], dtype=dt_, device=dev),
+                    points=torch.as_tensor(bt.points[sel], dtype=dt_, device=dev),
+                    plan=build_segment_plan(cells, space.n_unodes, device=dev),
+                )
+            self.backflow = None
+            if pb.backflow_tag is not None:
+                self.backflow = ops.build_backflow_tables(space, bt, pb.backflow_tag, dt_, dev)
+            # the forcing's cell quadrature (degree 4)
+            self.ftab = None
+            if pb.forcing is not None:
+                self.ftab = fn.build_error_tables(space, self.geom, degree=4, dtype=dt_, device=dev)
+            self.forces = None
+            if self.problem.obstacle_tag is not None:
+                self.forces = fn.build_force_tables(
+                    space, bt, self.problem.obstacle_tag, dt_, dev
+                )
+            self.probe = None
+            if self.problem.probe_points is not None:
+                self.probe = fn.build_point_probe(
+                    space, self.geom, self.problem.probe_points, dt_, dev
+                )
 
         # A set-up bound on lam_max(diag(F)^-1 F) of the convection-free F,
         # for the damped smoothers: 8 power iterations.
         # BDF2's warm steps solve with dt_eff = dt / 1.5 (more mass-dominated:
         # a larger Jacobi-scaled lam_max), so the bound is taken there.
-        self._f_lam0 = None
-        if pc.f_solver in ("richardson", "chebyshev", "pmg") and inner_f:
-            nu, dt = self.problem.nu, cfg.time.dt
-            if cfg.time.scheme == "bdf2":
-                dt = dt / 1.5
-            self._f_lam0 = f_lam_power(self.op, nu, dt, None, inv_diag_Fhat(self.op, nu, dt, None), iters=8)
+        with setup_phase("setup.f_bound"):
+            self._f_lam0 = None
+            if pc.f_solver in ("richardson", "chebyshev", "pmg") and inner_f:
+                nu, dt = self.problem.nu, cfg.time.dt
+                if cfg.time.scheme == "bdf2":
+                    dt = dt / 1.5
+                self._f_lam0 = f_lam_power(self.op, nu, dt, None, inv_diag_Fhat(self.op, nu, dt, None), iters=8)
 
         # Frozen Schur S1 = D diag(M)^-1 D^T, its coarse factor and banded
         # form (or its ELL values, when the band is too wide or "ell" is
         # asked for), once on the host in float64.
         self.proj_schur = None
         if frozen:
-            mask_np = np.asarray(mask, dtype=bool)
-            inv1 = np.where(mask_np, 0.0, 1.0 / host["diagM"])
-            vals1 = host["vals1"]
-            diag1 = vals1[host["diag_slot"]]
-            diag1 = np.where(diag1 > 0, diag1, 1.0)
-            cs = self.op.coarse
-            Sc = host_coarse_dense(host, vals1, cs.nc, cs.agg)
-            band = None
-            if nc.schur_spmv in ("auto", "banded"):
-                smask = host["smask"]
-                band = build_banded_schur(
-                    host["srow"][smask], host["scol"][smask], vals1[smask],
-                    n_rows=len(diag1), dtype=dt_, device=dev,
-                )
-                if band is None and nc.schur_spmv == "banded":
-                    raise ValueError(
-                        "schur_spmv='banded': the RCM band is too wide for the "
-                        "dense form; use 'auto' or 'ell'"
+            with setup_phase("setup.frozen_schur"):
+                mask_np = np.asarray(mask, dtype=bool)
+                inv1 = np.where(mask_np, 0.0, 1.0 / host["diagM"])
+                vals1 = host["vals1"]
+                diag1 = vals1[host["diag_slot"]]
+                diag1 = np.where(diag1 > 0, diag1, 1.0)
+                cs = self.op.coarse
+                Sc = host_coarse_dense(host, vals1, cs.nc, cs.agg)
+                band = None
+                if nc.schur_spmv in ("auto", "banded"):
+                    smask = host["smask"]
+                    band = build_banded_schur(
+                        host["srow"][smask], host["scol"][smask], vals1[smask],
+                        n_rows=len(diag1), dtype=dt_, device=dev,
                     )
-            if band is None:  # the ELL SpMV over S1's values
-                self.op.schur = schur_from_host(host, dt_, dev)
-            inv = nc.coarse_solve == "inv"
-            self.proj_schur = FrozenSchur(
-                inv1=torch.as_tensor(inv1, dtype=dt_, device=dev),
-                diag1=torch.as_tensor(diag1, dtype=dt_, device=dev),
-                cho_L=None if inv else torch.as_tensor(np.linalg.cholesky(Sc), dtype=dt_, device=dev),
-                inv_c=torch.as_tensor(np.linalg.inv(Sc), dtype=dt_, device=dev) if inv else None,
-                band=band,
-                vals1=None if band is not None else torch.as_tensor(vals1, dtype=dt_, device=dev),
-            )
+                    if band is None and nc.schur_spmv == "banded":
+                        raise ValueError(
+                            "schur_spmv='banded': the RCM band is too wide for the "
+                            "dense form; use 'auto' or 'ell'"
+                        )
+                if band is None:  # the ELL SpMV over S1's values
+                    self.op.schur = schur_from_host(host, dt_, dev)
+            with setup_phase("setup.coarse_factor"):
+                inv = nc.coarse_solve == "inv"
+                self.proj_schur = FrozenSchur(
+                    inv1=torch.as_tensor(inv1, dtype=dt_, device=dev),
+                    diag1=torch.as_tensor(diag1, dtype=dt_, device=dev),
+                    cho_L=None if inv else torch.as_tensor(np.linalg.cholesky(Sc), dtype=dt_, device=dev),
+                    inv_c=torch.as_tensor(np.linalg.inv(Sc), dtype=dt_, device=dev) if inv else None,
+                    band=band,
+                    vals1=None if band is not None else torch.as_tensor(vals1, dtype=dt_, device=dev),
+                )
 
     @functools.cached_property
     def macro(self) -> mb.MacroPlan:
         """The single run's macro-block plan, built at first use (the
         ensemble step never reads it)."""
         nc = self.config.numerics
-        return mb.build_macro_plan(
-            self.space.cells_u, self.space.n_unodes, U=nc.macro_u,
-            c_blk=nc.macro_cblk, device=self.device,
-        )
+        with setup_phase("setup.macro"):
+            return mb.build_macro_plan(
+                self.space.cells_u, self.space.n_unodes, U=nc.macro_u,
+                c_blk=nc.macro_cblk, device=self.device,
+            )
 
     @functools.cached_property
     def macro_mass(self) -> torch.Tensor:
         """The mass matrix's macro blocks (single run; at first use)."""
-        return mb.build_macro_mass(self.macro, self.op.MHAT, self.op.detJ)
+        with setup_phase("setup.macro_mass"):
+            return mb.build_macro_mass(self.macro, self.op.MHAT, self.op.detJ)
 
     @functools.cached_property
     def macro_stiff(self) -> torch.Tensor:
         """The stiffness matrix's macro blocks, for the K/C split (kernel B
         on GKd:AHAT; single run, at first use)."""
-        return mb.build_macro_values(self.macro, self.op.stiff_e)
+        with setup_phase("setup.macro_stiff"):
+            return mb.build_macro_values(self.macro, self.op.stiff_e)
 
     # ------------------------------------------------------------------
     def initial_state(self, members: int | None = None) -> State:
@@ -723,7 +746,7 @@ class NavierStokesSolver:
     def _norms(self, x: torch.Tensor):
         """||x||: a float for a vector, [B] numpy for columns [N, B]."""
         precise = self.config.numerics.precise_dots
-        return float(_norm(x, precise)) if x.dim() == 1 else _host(_cnorm(x, precise))
+        return _host_float(_norm(x, precise)) if x.dim() == 1 else _host(_cnorm(x, precise))
 
     def _tol_kwargs(self, b: torch.Tensor) -> dict:
         """Solver tolerance from the config's tol_mode (the solve is in
@@ -840,263 +863,276 @@ class NavierStokesSolver:
         reference's vmapped `run_ensemble` keeps (no macro blocks, no
         assembled K, IMEX fine subset, D or G, no aux divergence, no
         set-up F bound)."""
-        cfg = self.config
-        op, fz, pc = self.op, self.proj_schur, cfg.precond
-        nu, tail, f_lam0 = self._members(nu)
-        single = not tail
-        precise = cfg.numerics.precise_dots
-        dt = cfg.time.dt
-        t_new = (state.step + 1.0) * dt
-        w, hist, dt_eff = self._bdf_terms(state, dt)
-        mask = op.dirichlet_mask.view(-1, 1, *(1,) * len(tail))
-        n, d = self.space.n_unodes, self.space.dim
-        explicit = cfg.time.convection == "explicit"
-        macro_rhs = self.macro_rhs and single
-        f_apply = self.f_apply if single else "element"
-        kcsr = self.kcsr if single else None
-        imex = self.imex if single else None
+        with span("step.guess"):
+            cfg = self.config
+            op, fz, pc = self.op, self.proj_schur, cfg.precond
+            nu, tail, f_lam0 = self._members(nu)
+            single = not tail
+            precise = cfg.numerics.precise_dots
+            dt = cfg.time.dt
+            t_new = (state.step + 1.0) * dt
+            w, hist, dt_eff = self._bdf_terms(state, dt)
+            mask = op.dirichlet_mask.view(-1, 1, *(1,) * len(tail))
+            n, d = self.space.n_unodes, self.space.dim
+            explicit = cfg.time.convection == "explicit"
+            macro_rhs = self.macro_rhs and single
+            f_apply = self.f_apply if single else "element"
+            kcsr = self.kcsr if single else None
+            imex = self.imex if single else None
 
-        g = self._dirichlet_values(t_new).view(n, d, *(1,) * len(tail))
-        u_guess, p_guess = self._warm_guess(state)
-        u0 = torch.where(mask, g, u_guess)
+            g = self._dirichlet_values(t_new).view(n, d, *(1,) * len(tail))
+            u_guess, p_guess = self._warm_guess(state)
+            u0 = torch.where(mask, g, u_guess)
 
-        # One gather of the step's node fields.  Macro path: a slot gather
-        # of [hist | u0 | pool | w] feeds the rhs pass, and w's element view
-        # comes from its slots.  Element path: one element gather (explicit
-        # convection gathers u^n, whose N(u^n) its rhs takes).
-        warm_f = macro_rhs and pc.f_warmstart > 0 and state.fwpool is not None
-        D_ch = None
-        if warm_f:
-            D_ch = state.fwpool.reshape(pc.f_warmstart, n, d).permute(1, 0, 2).reshape(n, -1)
-        x_b = h_e = u0_e = w_e = None
-        if self.macro_wfuse and single:
-            xs = [hist, u0] + ([D_ch] if warm_f else []) + [w]
-            x_b = mb.slot_gather(self.macro, torch.cat(xs, dim=1))
-            w_e = mb.slot_expand_elem(self.macro, x_b[..., -d:])
-            x_b = x_b[..., :-d]
-        elif macro_rhs:
-            w_e = ops.gather_u(op, w)
-        else:
-            wg = state.u if explicit else w
-            st_e = ops.gather_u(op, torch.cat([hist, u0, wg], dim=1))
-            h_e, u0_e, w_e = st_e[:, :, :d], st_e[:, :, d:2 * d], st_e[:, :, 2 * d:]
+        with span("step.gather"):
+            # One gather of the step's node fields.  Macro path: a slot gather
+            # of [hist | u0 | pool | w] feeds the rhs pass, and w's element view
+            # comes from its slots.  Element path: one element gather (explicit
+            # convection gathers u^n, whose N(u^n) its rhs takes).
+            warm_f = macro_rhs and pc.f_warmstart > 0 and state.fwpool is not None
+            D_ch = None
+            if warm_f:
+                D_ch = state.fwpool.reshape(pc.f_warmstart, n, d).permute(1, 0, 2).reshape(n, -1)
+            x_b = h_e = u0_e = w_e = None
+            if self.macro_wfuse and single:
+                xs = [hist, u0] + ([D_ch] if warm_f else []) + [w]
+                x_b = mb.slot_gather(self.macro, torch.cat(xs, dim=1))
+                w_e = mb.slot_expand_elem(self.macro, x_b[..., -d:])
+                x_b = x_b[..., :-d]
+            elif macro_rhs:
+                w_e = ops.gather_u(op, w)
+            else:
+                wg = state.u if explicit else w
+                st_e = ops.gather_u(op, torch.cat([hist, u0, wg], dim=1))
+                h_e, u0_e, w_e = st_e[:, :, :d], st_e[:, :, d:2 * d], st_e[:, :, 2 * d:]
 
-        conv = conv_rhs = FtT = n_cur = None
-        if explicit:
-            # N(u^n) = C(u^n)u^n on the rhs (Adams-Bashforth 2 under BDF2
-            # after the first step); the velocity block is K
-            n_cur = ops.apply_convection_self(op, state.u, w_e=w_e, backflow=self.backflow)
-            conv_rhs = n_cur
-            if state.conv_prev is not None and cfg.time.scheme == "bdf2" and state.step > 0:
-                conv_rhs = 2.0 * n_cur - state.conv_prev
-        else:
-            conv = ops.convection_setup(
-                op, w, fold=self._fold(nu, dt_eff), w_e=w_e,
-                with_diag=not pc.freeze_conv_diag,
-                conv_only=self.macro_split and single, backflow=self.backflow,
-            )
-            if f_apply == "macro":
+        with span("step.fold"):
+            conv = conv_rhs = FtT = n_cur = None
+            if explicit:
+                # N(u^n) = C(u^n)u^n on the rhs (Adams-Bashforth 2 under BDF2
+                # after the first step); the velocity block is K
+                n_cur = ops.apply_convection_self(op, state.u, w_e=w_e, backflow=self.backflow)
+                conv_rhs = n_cur
+                if state.conv_prev is not None and cfg.time.scheme == "bdf2" and state.step > 0:
+                    conv_rhs = 2.0 * n_cur - state.conv_prev
+            else:
+                conv = ops.convection_setup(
+                    op, w, fold=self._fold(nu, dt_eff), w_e=w_e,
+                    with_diag=not pc.freeze_conv_diag,
+                    conv_only=self.macro_split and single, backflow=self.backflow,
+                )
+
+        with span("step.build"):
+            if not explicit and f_apply == "macro":
                 FtT = mb.build_macro_values(self.macro, conv.F_e)
                 if conv.conv_only:  # K/C split: C's blocks + the setup-time M, A,
                     # added in place (no [B, U, U] temporaries)
                     FtT.add_(self.macro_mass, alpha=1.0 / dt_eff).add_(self.macro_stiff, alpha=nu)
 
-        # ---- 1. tentative velocity -----------------------------------
-        Yw = None
-        if macro_rhs:
-            out = mb.apply_rhs_and_r0_macro(
-                self.macro, self.macro_mass, FtT, hist, u0, extra=D_ch, x_b=x_b
-            )
-            b_u = out[0] - ops.apply_gradient(op, state.p)
-            r0_u = b_u - out[1]
-            if warm_f:  # the pool's images under this step's F, masked like Fop
-                FD = torch.where(mask, torch.zeros_like(out[2]), out[2])
-                Yw = FD.reshape(n, pc.f_warmstart, d).permute(1, 0, 2).reshape(pc.f_warmstart, -1)
-        else:
-            b_u, r0_u = ops.apply_rhs_and_r0(
-                op, hist, state.p, nu, dt_eff, conv, u0, h_e=h_e, u0_e=u0_e,
-                w_e=w_e if op.imex_scale is not None else None,
-            )
-        if explicit:
-            b_u = b_u - conv_rhs
-            r0_u = r0_u - conv_rhs
-        ext = self._external_rhs(t_new)
-        if ext is not None:
-            b_u = b_u + ext.view(g.shape)
-            r0_u = r0_u + ext.view(g.shape)
-        rhs_u = torch.where(mask, g, b_u)
-        r0_u = torch.where(mask, torch.zeros_like(r0_u), r0_u)
-
-        # Fcore: the unmasked operator on [n, C, *tail] for any channel count
-        # (the recycled GCR's wide round runs it unless the IMEX fine
-        # subset's pass rides every apply).
-        fine = kcsr is not None and imex is not None and not explicit
-        if kcsr is not None:
-            C_ef = ops.convection_fine_fold(op, imex, w_e[imex.f_idx]) if fine else None
-
-            def Fcore(u2):
-                y = apply_csr_scalar(kcsr, u2)
-                if C_ef is not None:
-                    y = y + ops.apply_convection_fine(imex, C_ef, u2)
-                return y
-        elif FtT is not None:
-            def Fcore(u2):
-                return mb.apply_macro(self.macro, FtT, u2)
-        else:
-            def Fcore(u2):
-                return ops.apply_F(op, nu, dt_eff, conv, u2)
-
-        # the flat vectors the Krylov solves see: [n * d] or [n * d, B]
-        def Fop(v):
-            u = v.reshape(n, d, *tail)
-            return torch.where(mask, u, Fcore(u)).reshape(v.shape)
-
-        # the F preconditioner: plain Jacobi, or with f_iters > 0 the block
-        # preconditioners' fixed inner solve; without the frozen S1, the
-        # step's S~ and its coarse factor come from the same state (built
-        # only when one of the two reads it)
-        pst = None
-        if pc.f_iters > 0 or fz is None:
-            pst = build_precond_state(
-                op, nu, dt_eff, conv, "yosida", s_solver="mg2", f_solver=pc.f_solver,
-                f_lam=f_lam0, skip_schur=fz is not None,
-            )
-            inv_F = pst.inv_diag_Fhat
-        else:
-            inv_F = inv_diag_Fhat(op, nu, dt_eff, conv)
-        minv = inv_F.unsqueeze(1).expand(n, d, *tail).reshape(n * d, *tail)
-        if pc.f_iters > 0:
-            def Mf(v):
-                return _solve_F(op, pst, nu, dt_eff, v.reshape(n, d, *tail), pc).reshape(v.shape)
-        else:
-            def Mf(v):
-                return minv * v
-        tol_kw = self._tol_kwargs(rhs_u.reshape(n * d, *tail))
-        r0 = r0_u.reshape(n * d, *tail)
-        du_e = None
-        fpool_new, fwpool_new = state.fpool, state.fwpool
-        if pc.f_recycle > 0 and not explicit and not fine and state.fpool is not None:
-            def Fop_block(Vc):  # [N, K, *tail] columns
-                u3 = Vc.reshape(n, d, -1, *tail)
-                y = Fcore(u3.reshape(n, -1, *tail)).reshape(u3.shape)
-                return torch.where(mask[:, :, None], u3, y).reshape(Vc.shape)
-
-            du, info_f, Dused = gcr_recycled(
-                Fop_block, r0, lambda Vc: minv[:, None] * Vc, state.fpool,
-                max_narrow=cfg.solver.maxiter, precise=precise, **tol_kw,
-            )
-            # next pool: the increment, the Jacobi direction, the first
-            # narrow directions
-            k = pc.f_recycle
-            fpool_new = torch.cat([du[None], Dused[:1], Dused[k + 1: 2 * k - 1]])[:k]
-        elif explicit:
-            # K is SPD on the free subspace: CG
-            if tol_kw["tol_mode"] == "abs":
-                cg_rtol, cg_atol = 0.0, np.maximum(tol_kw["rtol"], tol_kw["atol"])
+        with span("step.rhs"):
+            # ---- 1. tentative velocity -----------------------------------
+            Yw = None
+            if macro_rhs:
+                out = mb.apply_rhs_and_r0_macro(
+                    self.macro, self.macro_mass, FtT, hist, u0, extra=D_ch, x_b=x_b
+                )
+                b_u = out[0] - ops.apply_gradient(op, state.p)
+                r0_u = b_u - out[1]
+                if warm_f:  # the pool's images under this step's F, masked like Fop
+                    FD = torch.where(mask, torch.zeros_like(out[2]), out[2])
+                    Yw = FD.reshape(n, pc.f_warmstart, d).permute(1, 0, 2).reshape(pc.f_warmstart, -1)
             else:
-                cg_rtol, cg_atol = tol_kw["rtol"], tol_kw["atol"]
-            if single:
-                du, info = cg(
-                    lambda V: Fop(V[:, 0])[:, None], r0[:, None],
-                    M=lambda V: Mf(V[:, 0])[:, None], rtol=cg_rtol, atol=cg_atol,
+                b_u, r0_u = ops.apply_rhs_and_r0(
+                    op, hist, state.p, nu, dt_eff, conv, u0, h_e=h_e, u0_e=u0_e,
+                    w_e=w_e if op.imex_scale is not None else None,
+                )
+            if explicit:
+                b_u = b_u - conv_rhs
+                r0_u = r0_u - conv_rhs
+            ext = self._external_rhs(t_new)
+            if ext is not None:
+                b_u = b_u + ext.view(g.shape)
+                r0_u = r0_u + ext.view(g.shape)
+            rhs_u = torch.where(mask, g, b_u)
+            r0_u = torch.where(mask, torch.zeros_like(r0_u), r0_u)
+
+        with span("step.f_solve"):
+            # Fcore: the unmasked operator on [n, C, *tail] for any channel count
+            # (the recycled GCR's wide round runs it unless the IMEX fine
+            # subset's pass rides every apply).
+            fine = kcsr is not None and imex is not None and not explicit
+            if kcsr is not None:
+                C_ef = ops.convection_fine_fold(op, imex, w_e[imex.f_idx]) if fine else None
+
+                def Fcore(u2):
+                    y = apply_csr_scalar(kcsr, u2)
+                    if C_ef is not None:
+                        y = y + ops.apply_convection_fine(imex, C_ef, u2)
+                    return y
+            elif FtT is not None:
+                def Fcore(u2):
+                    return mb.apply_macro(self.macro, FtT, u2)
+            else:
+                def Fcore(u2):
+                    return ops.apply_F(op, nu, dt_eff, conv, u2)
+
+            # the flat vectors the Krylov solves see: [n * d] or [n * d, B]
+            def Fop(v):
+                u = v.reshape(n, d, *tail)
+                return torch.where(mask, u, Fcore(u)).reshape(v.shape)
+
+            # the F preconditioner: plain Jacobi, or with f_iters > 0 the block
+            # preconditioners' fixed inner solve; without the frozen S1, the
+            # step's S~ and its coarse factor come from the same state (built
+            # only when one of the two reads it)
+            pst = None
+            if pc.f_iters > 0 or fz is None:
+                pst = build_precond_state(
+                    op, nu, dt_eff, conv, "yosida", s_solver="mg2", f_solver=pc.f_solver,
+                    f_lam=f_lam0, skip_schur=fz is not None,
+                )
+                inv_F = pst.inv_diag_Fhat
+            else:
+                inv_F = inv_diag_Fhat(op, nu, dt_eff, conv)
+            minv = inv_F.unsqueeze(1).expand(n, d, *tail).reshape(n * d, *tail)
+            if pc.f_iters > 0:
+                def Mf(v):
+                    return _solve_F(op, pst, nu, dt_eff, v.reshape(n, d, *tail), pc).reshape(v.shape)
+            else:
+                def Mf(v):
+                    return minv * v
+            tol_kw = self._tol_kwargs(rhs_u.reshape(n * d, *tail))
+            r0 = r0_u.reshape(n * d, *tail)
+            du_e = None
+            fpool_new, fwpool_new = state.fpool, state.fwpool
+            if pc.f_recycle > 0 and not explicit and not fine and state.fpool is not None:
+                def Fop_block(Vc):  # [N, K, *tail] columns
+                    u3 = Vc.reshape(n, d, -1, *tail)
+                    y = Fcore(u3.reshape(n, -1, *tail)).reshape(u3.shape)
+                    return torch.where(mask[:, :, None], u3, y).reshape(Vc.shape)
+
+                du, info_f, Dused = gcr_recycled(
+                    Fop_block, r0, lambda Vc: minv[:, None] * Vc, state.fpool,
+                    max_narrow=cfg.solver.maxiter, precise=precise, **tol_kw,
+                )
+                # next pool: the increment, the Jacobi direction, the first
+                # narrow directions
+                k = pc.f_recycle
+                fpool_new = torch.cat([du[None], Dused[:1], Dused[k + 1: 2 * k - 1]])[:k]
+            elif explicit:
+                # K is SPD on the free subspace: CG
+                if tol_kw["tol_mode"] == "abs":
+                    cg_rtol, cg_atol = 0.0, np.maximum(tol_kw["rtol"], tol_kw["atol"])
+                else:
+                    cg_rtol, cg_atol = tol_kw["rtol"], tol_kw["atol"]
+                if single:
+                    du, info = cg(
+                        lambda V: Fop(V[:, 0])[:, None], r0[:, None],
+                        M=lambda V: Mf(V[:, 0])[:, None], rtol=cg_rtol, atol=cg_atol,
+                        maxiter=cfg.solver.maxiter, precise=precise,
+                    )
+                    du, info_f = du[:, 0], SolveInfo(iters=int(info.iters[0]), residual=float(info.residual[0]))
+                else:
+                    du, info_f = cg(Fop, r0, M=Mf, rtol=cg_rtol, atol=cg_atol,
+                                    maxiter=cfg.solver.maxiter, precise=precise)
+            elif self.aux_div and single:
+                def Fop_aux(v):
+                    u = v.reshape(n, d)
+                    u_e = ops.gather_u(op, u)
+                    y = ops.apply_F(op, nu, dt_eff, conv, u, u_e=u_e)
+                    return torch.where(mask, u, y).reshape(-1), u_e
+
+                du, info_f, du_e = fgmres(
+                    Fop_aux, r0, M=Mf, restart=cfg.solver.restart,
+                    maxiter=cfg.solver.maxiter, precise=precise, aux=True, **tol_kw,
+                )
+            else:
+                du_ws = None
+                if warm_f:  # project r0 on the pool's exact images first
+                    du_ws, r0 = ls_warmstart(state.fwpool, Yw, r0, precise=precise)
+                du, info_f = fgmres(
+                    Fop, r0, M=Mf, restart=cfg.solver.restart,
+                    maxiter=cfg.solver.maxiter, precise=precise, **tol_kw,
+                )
+                if warm_f:  # harvest the increment beyond the pool's span
+                    fwpool_new = torch.cat([du[None], state.fwpool[:-1]])
+                    du = du + du_ws
+            u_star = u0 + du.reshape(n, d, *tail)
+
+        with span("step.divergence"):
+            # ---- 2. pressure Poisson: S~ phi = -D u* ---------------------
+            rhs_p = -ops.apply_divergence(op, u_star) if du_e is None else (
+                # u*'s element view from the step's gather and the Krylov applies
+                -ops.apply_divergence_e(op, u0_e + du_e)
+            )
+
+        with span("step.s_solve"):
+            if fz is not None:
+                # S~ = dt S1 with S1 frozen at set-up: solve S1 phi = rhs / dt
+                rhs_p = rhs_p / dt_eff
+                inv_d, a_scale, upd_inv = 1.0 / fz.diag1, 1.0 / dt_eff, dt_eff * fz.inv1
+                solve_c = cho_solve_c(fz.cho_L) if fz.inv_c is None else inv_solve_c(fz.inv_c)
+                if fz.band is not None:
+                    def S(pv):
+                        return banded_matvec(fz.band, pv)
+                else:
+                    def S(pv):
+                        return schur_ell_matvec(op.schur, fz.vals1, pv)
+            else:  # the step's S~ (proj_schur="step"), the Cholesky coarse solve
+                inv_d, a_scale, upd_inv = 1.0 / pst.schur_diag, 1.0, pst.schur_inv
+                solve_c = cho_solve_c(pst.schur_cho_L)
+
+                def S(pv):
+                    return schur_ell_matvec(op.schur, pst.schur_vals, pv)
+
+            if pc.mg2_form == "additive":
+                def M2(v):
+                    return twolevel_apply_additive_g(op.coarse, solve_c, inv_d, v)
+            else:
+                def M2(v):
+                    return twolevel_apply_g(op.coarse, solve_c, S, inv_d, v)
+
+            s_rtol, s_atol = self._poisson_tol(tol_kw, rhs_p, a_scale)
+            phi0 = p_guess - state.p
+            if pc.s_recycle > 0 and fz is not None and state.spool is not None:
+                phi, info_s, harvest = cg_recycled(
+                    S, rhs_p, M2, phi0, state.spool[0], state.spool[1],
+                    rtol=s_rtol, atol=s_atol, maxiter=cfg.solver.maxiter,
+                    precise=precise,
+                )
+                spool_new = torch.cat([harvest[:, None], state.spool[:, :-1]], dim=1)
+            elif single:
+                phi, info = cg(
+                    S, rhs_p[:, None], M=M2, x0=phi0[:, None], rtol=s_rtol,
+                    atol=s_atol, maxiter=cfg.solver.maxiter, precise=precise,
+                )
+                phi, spool_new = phi[:, 0], state.spool
+                info_s = SolveInfo(iters=int(info.iters[0]), residual=float(info.residual[0]))
+            else:
+                phi, info_s = cg(
+                    S, rhs_p, M=M2, x0=phi0, rtol=s_rtol, atol=s_atol,
                     maxiter=cfg.solver.maxiter, precise=precise,
                 )
-                du, info_f = du[:, 0], SolveInfo(iters=int(info.iters[0]), residual=float(info.residual[0]))
-            else:
-                du, info_f = cg(Fop, r0, M=Mf, rtol=cg_rtol, atol=cg_atol,
-                                maxiter=cfg.solver.maxiter, precise=precise)
-        elif self.aux_div and single:
-            def Fop_aux(v):
-                u = v.reshape(n, d)
-                u_e = ops.gather_u(op, u)
-                y = ops.apply_F(op, nu, dt_eff, conv, u, u_e=u_e)
-                return torch.where(mask, u, y).reshape(-1), u_e
+                spool_new = state.spool
 
-            du, info_f, du_e = fgmres(
-                Fop_aux, r0, M=Mf, restart=cfg.solver.restart,
-                maxiter=cfg.solver.maxiter, precise=precise, aux=True, **tol_kw,
+        with span("step.update"):
+            # ---- 3. update -------------------------------------------------
+            p_new = state.p + phi
+            u_new = u_star - upd_inv.view(n, 1, *(1,) * len(tail)) * ops.apply_gradient(op, phi)
+
+            new_state = State(
+                u=u_new, p=p_new, t=t_new, step=state.step + 1, **self._next_history(state),
+                conv_prev=n_cur if explicit and state.conv_prev is not None else None,
+                spool=spool_new, fpool=fpool_new, fwpool=fwpool_new,
             )
-        else:
-            du_ws = None
-            if warm_f:  # project r0 on the pool's exact images first
-                du_ws, r0 = ls_warmstart(state.fwpool, Yw, r0, precise=precise)
-            du, info_f = fgmres(
-                Fop, r0, M=Mf, restart=cfg.solver.restart,
-                maxiter=cfg.solver.maxiter, precise=precise, **tol_kw,
+
+        with span("step.diagnostics"):
+            diag = self._diagnostics(u_new, p_new, t_new, None if single else nu)
+            diag.update(
+                iters=info_f.iters + info_s.iters,
+                residual=np.maximum(info_f.residual, info_s.residual),
+                iters_f=info_f.iters, iters_s=info_s.iters,
             )
-            if warm_f:  # harvest the increment beyond the pool's span
-                fwpool_new = torch.cat([du[None], state.fwpool[:-1]])
-                du = du + du_ws
-        u_star = u0 + du.reshape(n, d, *tail)
-
-        # ---- 2. pressure Poisson: S~ phi = -D u* ---------------------
-        rhs_p = -ops.apply_divergence(op, u_star) if du_e is None else (
-            # u*'s element view from the step's gather and the Krylov applies
-            -ops.apply_divergence_e(op, u0_e + du_e)
-        )
-        if fz is not None:
-            # S~ = dt S1 with S1 frozen at set-up: solve S1 phi = rhs / dt
-            rhs_p = rhs_p / dt_eff
-            inv_d, a_scale, upd_inv = 1.0 / fz.diag1, 1.0 / dt_eff, dt_eff * fz.inv1
-            solve_c = cho_solve_c(fz.cho_L) if fz.inv_c is None else inv_solve_c(fz.inv_c)
-            if fz.band is not None:
-                def S(pv):
-                    return banded_matvec(fz.band, pv)
-            else:
-                def S(pv):
-                    return schur_ell_matvec(op.schur, fz.vals1, pv)
-        else:  # the step's S~ (proj_schur="step"), the Cholesky coarse solve
-            inv_d, a_scale, upd_inv = 1.0 / pst.schur_diag, 1.0, pst.schur_inv
-            solve_c = cho_solve_c(pst.schur_cho_L)
-
-            def S(pv):
-                return schur_ell_matvec(op.schur, pst.schur_vals, pv)
-
-        if pc.mg2_form == "additive":
-            def M2(v):
-                return twolevel_apply_additive_g(op.coarse, solve_c, inv_d, v)
-        else:
-            def M2(v):
-                return twolevel_apply_g(op.coarse, solve_c, S, inv_d, v)
-
-        s_rtol, s_atol = self._poisson_tol(tol_kw, rhs_p, a_scale)
-        phi0 = p_guess - state.p
-        if pc.s_recycle > 0 and fz is not None and state.spool is not None:
-            phi, info_s, harvest = cg_recycled(
-                S, rhs_p, M2, phi0, state.spool[0], state.spool[1],
-                rtol=s_rtol, atol=s_atol, maxiter=cfg.solver.maxiter,
-                precise=precise,
-            )
-            spool_new = torch.cat([harvest[:, None], state.spool[:, :-1]], dim=1)
-        elif single:
-            phi, info = cg(
-                S, rhs_p[:, None], M=M2, x0=phi0[:, None], rtol=s_rtol,
-                atol=s_atol, maxiter=cfg.solver.maxiter, precise=precise,
-            )
-            phi, spool_new = phi[:, 0], state.spool
-            info_s = SolveInfo(iters=int(info.iters[0]), residual=float(info.residual[0]))
-        else:
-            phi, info_s = cg(
-                S, rhs_p, M=M2, x0=phi0, rtol=s_rtol, atol=s_atol,
-                maxiter=cfg.solver.maxiter, precise=precise,
-            )
-            spool_new = state.spool
-
-        # ---- 3. update -------------------------------------------------
-        p_new = state.p + phi
-        u_new = u_star - upd_inv.view(n, 1, *(1,) * len(tail)) * ops.apply_gradient(op, phi)
-
-        new_state = State(
-            u=u_new, p=p_new, t=t_new, step=state.step + 1, **self._next_history(state),
-            conv_prev=n_cur if explicit and state.conv_prev is not None else None,
-            spool=spool_new, fpool=fpool_new, fwpool=fwpool_new,
-        )
-        diag = self._diagnostics(u_new, p_new, t_new, None if single else nu)
-        diag.update(
-            iters=info_f.iters + info_s.iters,
-            residual=np.maximum(info_f.residual, info_s.residual),
-            iters_f=info_f.iters, iters_s=info_s.iters,
-        )
         return new_state, diag
 
     def _diagnostics(self, u, p, t, nu=None) -> dict:
@@ -1140,7 +1176,8 @@ class NavierStokesSolver:
             for _ in range(k):
                 state, dg = self.step(state)
                 rows.append(dg)
-            d = _stack_diagnostics(rows)
+            with span("run.host_copy"):
+                d = _stack_diagnostics(rows)
             done += k
             chunks.append(d)
             if not np.all(np.isfinite(d.residual)):
@@ -1170,7 +1207,9 @@ def _stack_diagnostics(rows: list) -> StepDiagnostics:
     for f in dataclasses.fields(StepDiagnostics):
         vals = [r[f.name] for r in rows]
         if vals and isinstance(vals[0], torch.Tensor):
-            cols[f.name] = torch.stack(vals).cpu().numpy()
+            stacked = torch.stack(vals)
+            with span("host_read"):
+                cols[f.name] = stacked.cpu().numpy()
         else:
             cols[f.name] = np.asarray(vals, dtype=np.int64 if "iters" in f.name else np.float64)
     return StepDiagnostics(**cols)

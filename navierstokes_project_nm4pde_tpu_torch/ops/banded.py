@@ -10,6 +10,8 @@ reorder S1's pattern is banded, so it is stored once as dense blocks of
 and the SpMV is a window gather plus one batched matvec (`torch.bmm`,
 full f32: the precision policy in `device.py` keeps TF32 off).  The dense
 values are materialised in float32 on the host, as in the reference.
+Each matvec runs in span `schur.banded_matvec` (`utils/profiling.py`),
+with its sizes: blocks, rows R, width W, n_rows, columns and element size.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from navierstokes_project_nm4pde_tpu_torch.utils.profiling import span
 
 TILE = 128
 
@@ -72,8 +76,10 @@ def banded_matvec(b: BandedSchur, p: torch.Tensor) -> torch.Tensor:
     shared, so all columns ride one pass over the band values)."""
     P = p.reshape(p.shape[0], -1)
     nc = P.shape[1]
-    pad = b.n_tiles_pad * TILE - p.shape[0]
-    p3d = torch.nn.functional.pad(P, (0, 0, 0, pad)).reshape(-1, TILE, nc)
-    n_blk, T = b.tiles.shape
-    win = p3d[b.tiles].reshape(n_blk, T * TILE, nc)
-    return torch.bmm(b.vals, win).reshape(-1, nc)[: b.n_rows].reshape(p.shape)
+    n_blk, R, W = b.vals.shape
+    with span("schur.banded_matvec", blocks=n_blk, rows=R, width=W, n_rows=b.n_rows, cols=nc,
+              itemsize=b.vals.element_size()):
+        pad = b.n_tiles_pad * TILE - p.shape[0]
+        p3d = torch.nn.functional.pad(P, (0, 0, 0, pad)).reshape(-1, TILE, nc)
+        win = p3d[b.tiles].reshape(n_blk, W, nc)
+        return torch.bmm(b.vals, win).reshape(-1, nc)[: b.n_rows].reshape(p.shape)

@@ -11,7 +11,10 @@ preconditioners, proj_schur="step") reduces its flat ELL values into the
 dense [nc, nc] matrix through the plan `build_coarse_schur` builds from the
 slot layout, on the device.  Either is Cholesky-factorised
 (`cholesky_ex`, no host sync: two triangular solves an application) or
-inverted (one [nc, nc] gemv an application).
+inverted (one [nc, nc] gemv an application).  Each application of a
+coarse solve runs in span `precond.coarse_solve` (`utils/profiling.py`),
+with its sizes: nc, the columns, the factors (1, or B), the element size
+and the form ("chol" or "inv").
 
     additive:  z = omega D^-1 r + R^T Sc^-1 R r
     V(1,1):    smooth, coarse correction, smooth (two S applies)
@@ -29,6 +32,7 @@ from navierstokes_project_nm4pde_tpu_torch.ops.scatter import (
     apply_segment_plan,
     build_segment_plan,
 )
+from navierstokes_project_nm4pde_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -109,12 +113,15 @@ def prolong(cs: CoarseSchur, rc: torch.Tensor, n_p: int) -> torch.Tensor:
 def cho_solve_c(cho_L: torch.Tensor):
     """Coarse solve from a dense lower Cholesky factor ([nc, nc] shared, or
     [B, nc, nc] for the B columns of rc [nc, B])."""
+    nc, factors = cho_L.shape[-1], cho_L.shape[0] if cho_L.dim() == 3 else 1
+    s = cho_L.element_size()
 
     def solve(rc):
-        if cho_L.dim() == 3:
-            return torch.cholesky_solve(rc.T[:, :, None], cho_L, upper=False)[:, :, 0].T
-        R = rc.reshape(rc.shape[0], -1)
-        return torch.cholesky_solve(R, cho_L, upper=False).reshape(rc.shape)
+        with span("precond.coarse_solve", nc=nc, cols=rc.numel() // nc, factors=factors, itemsize=s, form="chol"):
+            if cho_L.dim() == 3:
+                return torch.cholesky_solve(rc.T[:, :, None], cho_L, upper=False)[:, :, 0].T
+            R = rc.reshape(rc.shape[0], -1)
+            return torch.cholesky_solve(R, cho_L, upper=False).reshape(rc.shape)
 
     return solve
 
@@ -122,9 +129,11 @@ def cho_solve_c(cho_L: torch.Tensor):
 def inv_solve_c(Sc_inv: torch.Tensor):
     """Coarse solve from the dense inverse of the coarse matrix: one
     [nc, nc] product."""
+    nc, s = Sc_inv.shape[-1], Sc_inv.element_size()
 
     def solve(rc):
-        return (Sc_inv @ rc.reshape(rc.shape[0], -1)).reshape(rc.shape)
+        with span("precond.coarse_solve", nc=nc, cols=rc.numel() // nc, factors=1, itemsize=s, form="inv"):
+            return (Sc_inv @ rc.reshape(rc.shape[0], -1)).reshape(rc.shape)
 
     return solve
 

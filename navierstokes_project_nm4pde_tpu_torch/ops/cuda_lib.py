@@ -19,6 +19,8 @@ from pathlib import Path
 
 import torch
 
+from navierstokes_project_nm4pde_tpu_torch.utils.profiling import setup_phase
+
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(
     _PKG / "csrc" / name
@@ -110,22 +112,24 @@ def _build(so: Path) -> str:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library (argument types set), compiled on first call."""
+    """The kernel library (argument types set), compiled on first call
+    (set-up phase `setup.cuda_lib`)."""
     global _lib, build_log
     if _lib is not None:
         return _lib
-    digest = hashlib.sha1()
-    for src in _SOURCES:
-        digest.update(src.read_bytes())
-    so = BUILD_DIR / f"libns_kernels_{digest.hexdigest()[:12]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        build_log = _build(so)
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    _lib = lib
+    with setup_phase("setup.cuda_lib"):
+        digest = hashlib.sha1()
+        for src in _SOURCES:
+            digest.update(src.read_bytes())
+        so = BUILD_DIR / f"libns_kernels_{digest.hexdigest()[:12]}.so"
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            build_log = _build(so)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _lib = lib
     return lib
 
 

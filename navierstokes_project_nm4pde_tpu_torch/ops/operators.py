@@ -73,6 +73,7 @@ from navierstokes_project_nm4pde_tpu_torch.ops.schur_ell import (
     schur_from_host,
 )
 from navierstokes_project_nm4pde_tpu_torch.ops.tables import build_ref_tables
+from navierstokes_project_nm4pde_tpu_torch.utils.profiling import setup_phase
 
 
 @dataclasses.dataclass
@@ -124,15 +125,17 @@ class NSOperator:
         """Velocity element slots <-> [n_unodes] rows, built at first use:
         only the element passes read them (the ensemble step; in a single
         run, only an unfrozen convection diagonal)."""
-        return build_onehot_plans(
-            self.cells_u.cpu().numpy(), self.diagM.shape[0], device=self.cells_u.device
-        )
+        with setup_phase("setup.onehot"):
+            return build_onehot_plans(
+                self.cells_u.cpu().numpy(), self.diagM.shape[0], device=self.cells_u.device
+            )
 
     @functools.cached_property
     def stiff_e(self) -> torch.Tensor:
         """Constant element stiffness GKd:AHAT [E, nloc, nloc] (computed
         once, like the reference's DeviceData.conv_base)."""
-        return torch.einsum("ekl,klij->eij", self.GKd, self.AHAT)
+        with setup_phase("setup.stiff_e"):
+            return torch.einsum("ekl,klij->eij", self.GKd, self.AHAT)
 
     @property
     def dim(self) -> int:

@@ -30,6 +30,7 @@ from navierstokes_project_nm4pde_tpu_torch.models.base import (
     State,
     StepDiagnostics,
 )
+from navierstokes_project_nm4pde_tpu_torch.utils.profiling import span
 
 _ARRAYS = ("u", "p", "u_prev", "p_prev", "u_prev2", "conv_prev", "spool", "fpool", "fwpool")
 
@@ -42,10 +43,14 @@ def run_ensemble(solver, nus, n_steps: int, state: State | None = None):
 
     Steps are timed in chunks of `numerics.steps_per_chunk`; after the
     first chunk (which includes the kernels' build) the sustained
-    member-steps/s go to stderr, as in the reference."""
-    nus_t = torch.as_tensor(
-        np.array(nus, dtype=np.float64), dtype=solver.dtype, device=solver.device
-    )
+    member-steps/s go to stderr, as in the reference.  The viscosities'
+    copy to the device runs in span `host_write`, the chunk's synchronise
+    in `run.sync`, the diagnostics' copy to the host in `run.host_copy`
+    (`utils/profiling.py`)."""
+    with span("host_write"):
+        nus_t = torch.as_tensor(
+            np.array(nus, dtype=np.float64), dtype=solver.dtype, device=solver.device
+        )
     if nus_t.dim() != 1 or nus_t.shape[0] < 1:
         raise ValueError(f"nus must be a non-empty 1-D array, got shape {tuple(nus_t.shape)}")
     B = nus_t.shape[0]
@@ -63,7 +68,8 @@ def run_ensemble(solver, nus, n_steps: int, state: State | None = None):
                 )
             rows.append(dg)
         if solver.device.type == "cuda":
-            torch.cuda.synchronize(solver.device)
+            with span("run.sync"):
+                torch.cuda.synchronize(solver.device)
         walls.append((length, time.perf_counter() - t0))
         done += length
     if len(walls) > 1:
@@ -76,14 +82,17 @@ def run_ensemble(solver, nus, n_steps: int, state: State | None = None):
             file=sys.stderr, flush=True,
         )
     cols = {}
-    for f in dataclasses.fields(StepDiagnostics):
-        vals = [r[f.name] for r in rows]
-        if vals and isinstance(vals[0], torch.Tensor):
-            cols[f.name] = torch.stack(vals, dim=1).cpu().numpy()
-        else:
-            cols[f.name] = (
-                np.stack(vals, axis=1) if vals else np.zeros((B, 0))
-            )
+    with span("run.host_copy"):
+        for f in dataclasses.fields(StepDiagnostics):
+            vals = [r[f.name] for r in rows]
+            if vals and isinstance(vals[0], torch.Tensor):
+                stacked = torch.stack(vals, dim=1)
+                with span("host_read"):
+                    cols[f.name] = stacked.cpu().numpy()
+            else:
+                cols[f.name] = (
+                    np.stack(vals, axis=1) if vals else np.zeros((B, 0))
+                )
     return state, StepDiagnostics(**cols)
 
 

@@ -30,6 +30,13 @@ column is guarded in that column alone.
 and every dot product is all-reduced over the group (the reference's
 `axis_name` psum), so that every rank reads the same norms and takes the
 same branch.
+
+Each iteration runs inside a span (`utils/profiling.py`:
+`krylov.fgmres.iter`, `krylov.fgmres.cycle` for a cycle's back
+substitution and update, `krylov.cg.iter`, `krylov.cg_recycled.iter`,
+`krylov.gcr.iter`), each read of a value to the host inside a `host_read`
+span and each synchronising copy of a host array to the device inside a
+`host_write` span; with no profiler running a span costs one flag check.
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from navierstokes_project_nm4pde_tpu_torch.utils.profiling import span
 
 
 class SolveInfo(NamedTuple):
@@ -117,7 +126,21 @@ def _bcomb(c, V):
 
 def _host(t: torch.Tensor) -> np.ndarray:
     """A small tensor as float64 numpy (the host sync)."""
-    return t.detach().to("cpu", torch.float64).numpy()
+    with span("host_read"):
+        return t.detach().to("cpu", torch.float64).numpy()
+
+
+def _host_float(t: torch.Tensor) -> float:
+    """A 0-d tensor as a float (the host sync)."""
+    with span("host_read"):
+        return float(t)
+
+
+def _to_device(a, like: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A host array on `like`'s device (from pageable memory the copy
+    waits for the device's queue)."""
+    with span("host_write"):
+        return torch.as_tensor(a, dtype=dtype, device=like.device)
 
 
 # ----------------------------------------------------------------------
@@ -216,71 +239,73 @@ def fgmres(
             live = active & (res_c > tol)
             if not live.any():
                 break
-            z = M(V[:, j].T)
-            w, a = A_full(z)
-            w = w.T.contiguous()
-            Zaux.append(a)
-            Vj = V[:, : j + 1]
-            h1 = _bdots(Vj, w, precise, group)
-            w = w - _bcomb(h1, Vj)
-            h2 = _bdots(Vj, w, precise, group)
-            w = w - _bcomb(h2, Vj)
-            hlast_t = _cnorm(w.T, precise, group)
-            hcol = _host(torch.cat([h1 + h2, hlast_t[:, None]], dim=1)).T  # the sync, [j+2, B]
-            V[:, j + 1] = torch.where(hlast_t[:, None] > 0, w / hlast_t[:, None], w)
-            Z[:, j] = z.T
+            with span("krylov.fgmres.iter"):
+                z = M(V[:, j].T)
+                w, a = A_full(z)
+                w = w.T.contiguous()
+                Zaux.append(a)
+                Vj = V[:, : j + 1]
+                h1 = _bdots(Vj, w, precise, group)
+                w = w - _bcomb(h1, Vj)
+                h2 = _bdots(Vj, w, precise, group)
+                w = w - _bcomb(h2, Vj)
+                hlast_t = _cnorm(w.T, precise, group)
+                hcol = _host(torch.cat([h1 + h2, hlast_t[:, None]], dim=1)).T  # the sync, [j+2, B]
+                V[:, j + 1] = torch.where(hlast_t[:, None] > 0, w / hlast_t[:, None], w)
+                Z[:, j] = z.T
 
-            for i in range(j):  # accumulated Givens rotations, all members
-                t1 = cs[:, i] * hcol[i] + sn[:, i] * hcol[i + 1]
-                t2 = -sn[:, i] * hcol[i] + cs[:, i] * hcol[i + 1]
-                hcol[i], hcol[i + 1] = t1, t2
-            denom = np.sqrt(hcol[j] ** 2 + hcol[j + 1] ** 2)
-            safe = np.where(denom > 0, denom, 1.0)
-            c = np.where(denom > 0, hcol[j] / safe, 1.0)
-            s_ = np.where(denom > 0, hcol[j + 1] / safe, 0.0)
-            hcol[j], hcol[j + 1] = denom, 0.0
-            # only the members still iterating take this column
-            cs[live, j], sn[live, j] = c[live], s_[live]
-            H[live, : j + 2, j] = hcol.T[live]
-            gj = g[:, j].copy()
-            g[live, j + 1] = -s_[live] * gj[live]
-            g[live, j] = c[live] * gj[live]
-            res_c = np.where(live, np.abs(g[:, j + 1]), res_c)
-            jm += live
-            j += 1
+                for i in range(j):  # accumulated Givens rotations, all members
+                    t1 = cs[:, i] * hcol[i] + sn[:, i] * hcol[i + 1]
+                    t2 = -sn[:, i] * hcol[i] + cs[:, i] * hcol[i + 1]
+                    hcol[i], hcol[i + 1] = t1, t2
+                denom = np.sqrt(hcol[j] ** 2 + hcol[j + 1] ** 2)
+                safe = np.where(denom > 0, denom, 1.0)
+                c = np.where(denom > 0, hcol[j] / safe, 1.0)
+                s_ = np.where(denom > 0, hcol[j + 1] / safe, 0.0)
+                hcol[j], hcol[j + 1] = denom, 0.0
+                # only the members still iterating take this column
+                cs[live, j], sn[live, j] = c[live], s_[live]
+                H[live, : j + 2, j] = hcol.T[live]
+                gj = g[:, j].copy()
+                g[live, j + 1] = -s_[live] * gj[live]
+                g[live, j] = c[live] * gj[live]
+                res_c = np.where(live, np.abs(g[:, j + 1]), res_c)
+                jm += live
+                j += 1
 
-        # per member, as the reference masks it: y = H[:jm, :jm]^-1 g[:jm]
-        # by back substitution (an identity block past jm), x += Z^T y, and
-        # the next residual from the recurrence, r = g[jm] V^T Q^T e_jm
-        act = np.arange(m)[None, :] < jm[:, None]  # [B, m]
-        Hm = np.where(act[:, :, None] & act[:, None, :], H[:, :m, :m], 0.0)
-        Hm[:, np.arange(m), np.arange(m)] += np.where(act, 0.0, 1.0)
-        gm = np.where(act, g[:, :m], 0.0)
-        Y = np.zeros((B, m))
-        for i in range(m - 1, -1, -1):
-            Y[:, i] = (gm[:, i] - (Hm[:, i, i + 1:] * Y[:, i + 1:]).sum(1)) / Hm[:, i, i]
-        rows = np.arange(B)
-        wv = np.zeros((B, m + 1))
-        wv[rows, jm] = 1.0
-        for i in range(m - 1, -1, -1):  # Q^T e_jm: apply G_i^T in reverse, i < jm
-            wi = cs[:, i] * wv[:, i] - sn[:, i] * wv[:, i + 1]
-            wi1 = sn[:, i] * wv[:, i] + cs[:, i] * wv[:, i + 1]
-            sel = i < jm
-            wv[:, i] = np.where(sel, wi, wv[:, i])
-            wv[:, i + 1] = np.where(sel, wi1, wv[:, i + 1])
-        Cr = g[rows, jm][:, None] * wv
-        on = torch.as_tensor(active, device=b.device)[:, None]
-        Yt = torch.as_tensor(Y, dtype=b.dtype, device=b.device)
-        Crt = torch.as_tensor(Cr, dtype=b.dtype, device=b.device)
-        x = torch.where(on, x + _bcomb(Yt, Z), x)
-        r = torch.where(on, _bcomb(Crt, V), r)
-        if aux and Zaux:
-            # f(Z^T y) = sum_j y_j f(z_j); y is 0 for members not iterating
-            inc = sum(a * Yt[:, i] for i, a in enumerate(Zaux))
-            aux_x = inc if aux_x is None else aux_x + inc
-        res = np.where(active, res_c, res)
-        iters = iters + np.where(active, jm, 0)
-        active = (res > tol) & (iters < maxiter)
+        with span("krylov.fgmres.cycle"):
+            # per member, as the reference masks it: y = H[:jm, :jm]^-1 g[:jm]
+            # by back substitution (an identity block past jm), x += Z^T y, and
+            # the next residual from the recurrence, r = g[jm] V^T Q^T e_jm
+            act = np.arange(m)[None, :] < jm[:, None]  # [B, m]
+            Hm = np.where(act[:, :, None] & act[:, None, :], H[:, :m, :m], 0.0)
+            Hm[:, np.arange(m), np.arange(m)] += np.where(act, 0.0, 1.0)
+            gm = np.where(act, g[:, :m], 0.0)
+            Y = np.zeros((B, m))
+            for i in range(m - 1, -1, -1):
+                Y[:, i] = (gm[:, i] - (Hm[:, i, i + 1:] * Y[:, i + 1:]).sum(1)) / Hm[:, i, i]
+            rows = np.arange(B)
+            wv = np.zeros((B, m + 1))
+            wv[rows, jm] = 1.0
+            for i in range(m - 1, -1, -1):  # Q^T e_jm: apply G_i^T in reverse, i < jm
+                wi = cs[:, i] * wv[:, i] - sn[:, i] * wv[:, i + 1]
+                wi1 = sn[:, i] * wv[:, i] + cs[:, i] * wv[:, i + 1]
+                sel = i < jm
+                wv[:, i] = np.where(sel, wi, wv[:, i])
+                wv[:, i + 1] = np.where(sel, wi1, wv[:, i + 1])
+            Cr = g[rows, jm][:, None] * wv
+            on = _to_device(active, b)[:, None]
+            Yt = _to_device(Y, b, b.dtype)
+            Crt = _to_device(Cr, b, b.dtype)
+            x = torch.where(on, x + _bcomb(Yt, Z), x)
+            r = torch.where(on, _bcomb(Crt, V), r)
+            if aux and Zaux:
+                # f(Z^T y) = sum_j y_j f(z_j); y is 0 for members not iterating
+                inc = sum(a * Yt[:, i] for i, a in enumerate(Zaux))
+                aux_x = inc if aux_x is None else aux_x + inc
+            res = np.where(active, res_c, res)
+            iters = iters + np.where(active, jm, 0)
+            active = (res > tol) & (iters < maxiter)
     x = x.T.contiguous()
     if aux:
         return x, SolveInfo(iters=iters, residual=res), aux_x
@@ -310,13 +335,14 @@ def cg(
         x, r = torch.zeros_like(b), b
     else:
         x, r = x0, b - A(x0)
-    x, r, info = _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise)
+    x, r, info = _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise, "krylov.cg.iter")
     return x, info
 
 
-def _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise):
+def _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise, name):
     """The CG loop on [n, B] columns from the iterate x and its residual r
-    (the tolerance against ||b||); returns (x, r, SolveInfo)."""
+    (the tolerance against ||b||), each iteration in span `name`; returns
+    (x, r, SolveInfo)."""
     if M is None:
         M = lambda v: v  # noqa: E731
     B = b.shape[1]
@@ -329,19 +355,20 @@ def _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise):
     k = np.zeros(B, np.int64)
     active = (res > tol) & (k < maxiter)
     while active.any():
-        on = torch.as_tensor(active, device=b.device)
-        Ap = A(p)
-        alpha = rz / _cdot(p, Ap, precise)
-        x = torch.where(on, x + alpha * p, x)
-        r_new = r - alpha * Ap
-        z = M(r_new)
-        rz_new, rr = _cdot(z, r_new, precise), _cdot(r_new, r_new, precise)
-        p = torch.where(on, z + (rz_new / rz) * p, p)
-        r = torch.where(on, r_new, r)
-        rz = torch.where(on, rz_new, rz)
-        res = np.where(active, _host(torch.sqrt(rr)), res)  # the sync
-        k = k + active
-        active = (res > tol) & (k < maxiter)
+        with span(name):
+            on = _to_device(active, b)
+            Ap = A(p)
+            alpha = rz / _cdot(p, Ap, precise)
+            x = torch.where(on, x + alpha * p, x)
+            r_new = r - alpha * Ap
+            z = M(r_new)
+            rz_new, rr = _cdot(z, r_new, precise), _cdot(r_new, r_new, precise)
+            p = torch.where(on, z + (rz_new / rz) * p, p)
+            r = torch.where(on, r_new, r)
+            rz = torch.where(on, rz_new, rz)
+            res = np.where(active, _host(torch.sqrt(rr)), res)  # the sync
+            k = k + active
+            active = (res > tol) & (k < maxiter)
     return x, r, SolveInfo(iters=k, residual=res)
 
 
@@ -402,20 +429,21 @@ def cg_recycled(
     z = M(r)
     p = z
     rz, rr = _dot2(z, r, precise)
-    res = float(torch.sqrt(rr))
-    tol = max(rtol * float(_norm(b, precise)), float(atol))
+    res = _host_float(torch.sqrt(rr))
+    tol = max(rtol * _host_float(_norm(b, precise)), float(atol))
     j = 0
     while res > tol and j < maxiter:
-        Ap = A(p)
-        alpha = rz / _dot(p, Ap, precise)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = M(r)
-        rz_new, rr = _dot2(z, r, precise)
-        p = z + (rz_new / rz) * p
-        rz = rz_new
-        res = float(torch.sqrt(rr))  # the sync
-        j += 1
+        with span("krylov.cg_recycled.iter"):
+            Ap = A(p)
+            alpha = rz / _dot(p, Ap, precise)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = M(r)
+            rz_new, rr = _dot2(z, r, precise)
+            p = z + (rz_new / rz) * p
+            rz = rz_new
+            res = _host_float(torch.sqrt(rr))  # the sync
+            j += 1
     harvest = torch.stack([x - x_proj, r_proj - r])
     return x, SolveInfo(iters=j, residual=res), harvest
 
@@ -443,7 +471,7 @@ def _cg_recycled_columns(A, b, M, x0, poolD, poolW, rtol, atol, maxiter, precise
     x = x + _bcomb(c2, Dn).T
     r = r - _bcomb(c2, Wn).T
     x_proj, r_proj = x, r
-    x, r, info = _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise)
+    x, r, info = _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise, "krylov.cg_recycled.iter")
     return x, info, torch.stack([x - x_proj, r_proj - r])
 
 
@@ -518,51 +546,53 @@ def gcr_recycled(
     n, dtype, dev = b.shape[0], b.dtype, b.device
     k = pool.shape[0]
     K = 1 + k + max_narrow
-    ref = 1.0 if tol_mode == "abs" else float(_norm(b, precise))
+    ref = 1.0 if tol_mode == "abs" else _host_float(_norm(b, precise))
     tol = max(rtol * ref, float(atol))
 
-    D = b.new_zeros((K, n))
-    W = b.new_zeros((K, n))
-    D0 = torch.cat([M(b[:, None]).T, pool], dim=0)
-    W0 = A_block(D0.T.contiguous()).T
-    S0 = torch.cat([W0, b[None, :]], dim=0)
-    G0 = _matvec_dots(S0, S0.T, precise)  # [k + 2, k + 2]
-    wnorm = torch.sqrt(torch.clamp(torch.diagonal(G0)[: 1 + k], min=0.0))
-    scale0 = torch.where(wnorm > 0, 1.0 / wnorm, torch.zeros_like(wnorm))
-    D[: 1 + k] = D0 * scale0[:, None]
-    W[: 1 + k] = W0 * scale0[:, None]
-    act = torch.arange(K, device=dev) < 1 + k
-    G = b.new_zeros((K, K))
-    G[: 1 + k, : 1 + k] = G0[: 1 + k, : 1 + k] * scale0[:, None] * scale0[None, :]
-    h0 = b.new_zeros(K)
-    h0[: 1 + k] = G0[: 1 + k, 1 + k] * scale0
-    c = _solve_small(G, h0, act)
-    r = b - c @ W
-    d1 = _solve_small(G, _matvec_dots(W, r, precise), act)
-    c = c + d1
-    r = r - d1 @ W
-    res = float(_norm(r, precise))  # the sync
+    with span("krylov.gcr.iter"):  # round 1: the wide apply
+        D = b.new_zeros((K, n))
+        W = b.new_zeros((K, n))
+        D0 = torch.cat([M(b[:, None]).T, pool], dim=0)
+        W0 = A_block(D0.T.contiguous()).T
+        S0 = torch.cat([W0, b[None, :]], dim=0)
+        G0 = _matvec_dots(S0, S0.T, precise)  # [k + 2, k + 2]
+        wnorm = torch.sqrt(torch.clamp(torch.diagonal(G0)[: 1 + k], min=0.0))
+        scale0 = torch.where(wnorm > 0, 1.0 / wnorm, torch.zeros_like(wnorm))
+        D[: 1 + k] = D0 * scale0[:, None]
+        W[: 1 + k] = W0 * scale0[:, None]
+        act = torch.arange(K, device=dev) < 1 + k
+        G = b.new_zeros((K, K))
+        G[: 1 + k, : 1 + k] = G0[: 1 + k, : 1 + k] * scale0[:, None] * scale0[None, :]
+        h0 = b.new_zeros(K)
+        h0[: 1 + k] = G0[: 1 + k, 1 + k] * scale0
+        c = _solve_small(G, h0, act)
+        r = b - c @ W
+        d1 = _solve_small(G, _matvec_dots(W, r, precise), act)
+        c = c + d1
+        r = r - d1 @ W
+        res = _host_float(_norm(r, precise))  # the sync
     j = 0
     while res > tol and j < max_narrow:
-        i = 1 + k + j
-        d = M(r[:, None])[:, 0]
-        w = A_block(d[:, None])[:, 0]
-        T = _matvec_dots(torch.cat([W, w[None, :]], dim=0), torch.stack([w, r], dim=1), precise)
-        wn = torch.sqrt(torch.clamp(T[K, 0], min=0.0))
-        s = torch.where(wn > 0, 1.0 / wn, torch.zeros_like(wn))
-        D[i] = d * s
-        W[i] = w * s
-        gcol = T[:K, 0] * s
-        gcol[i] = (wn > 0).to(dtype)
-        G[:, i] = gcol
-        G[i, :] = gcol
-        hr = T[:K, 1].clone()
-        hr[i] = T[K, 1] * s
-        delta = _solve_small(G, hr, torch.arange(K, device=dev) <= i)
-        c = c + delta
-        r = r - delta @ W
-        res = float(_norm(r, precise))  # the sync
-        j += 1
+        with span("krylov.gcr.iter"):
+            i = 1 + k + j
+            d = M(r[:, None])[:, 0]
+            w = A_block(d[:, None])[:, 0]
+            T = _matvec_dots(torch.cat([W, w[None, :]], dim=0), torch.stack([w, r], dim=1), precise)
+            wn = torch.sqrt(torch.clamp(T[K, 0], min=0.0))
+            s = torch.where(wn > 0, 1.0 / wn, torch.zeros_like(wn))
+            D[i] = d * s
+            W[i] = w * s
+            gcol = T[:K, 0] * s
+            gcol[i] = (wn > 0).to(dtype)
+            G[:, i] = gcol
+            G[i, :] = gcol
+            hr = T[:K, 1].clone()
+            hr[i] = T[K, 1] * s
+            delta = _solve_small(G, hr, torch.arange(K, device=dev) <= i)
+            c = c + delta
+            r = r - delta @ W
+            res = _host_float(_norm(r, precise))  # the sync
+            j += 1
     return c @ D, SolveInfo(iters=1 + j, residual=res), D
 
 
@@ -578,61 +608,63 @@ def _gcr_recycled_columns(A_block, b, M, pool, rtol, atol, tol_mode, max_narrow,
     tol = np.maximum(rtol * ref, np.broadcast_to(np.asarray(atol, np.float64), (B,)))
     bm = _rows(b)  # [B, n]
 
-    D = b.new_zeros((B, K, n))
-    W = b.new_zeros((B, K, n))
-    D0 = torch.cat([M(b[:, None, :]), pool.movedim(0, 1)], dim=1)  # [n, 1 + k, B]
-    W0 = _rows(A_block(D0.contiguous())).transpose(1, 2)  # [B, 1 + k, n]
-    D0 = _rows(D0).transpose(1, 2)
-    G0 = _gram(torch.cat([W0, bm[:, None]], dim=1), precise)  # [B, k + 2, k + 2]
-    wnorm = torch.sqrt(torch.clamp(torch.diagonal(G0, dim1=1, dim2=2)[:, : 1 + k], min=0.0))
-    scale0 = torch.where(wnorm > 0, 1.0 / wnorm, torch.zeros_like(wnorm))
-    D[:, : 1 + k] = D0 * scale0[:, :, None]
-    W[:, : 1 + k] = W0 * scale0[:, :, None]
-    G = b.new_zeros((B, K, K))
-    G[:, : 1 + k, : 1 + k] = G0[:, : 1 + k, : 1 + k] * scale0[:, :, None] * scale0[:, None, :]
-    h0 = b.new_zeros((B, K))
-    h0[:, : 1 + k] = G0[:, : 1 + k, 1 + k] * scale0
-    act = torch.arange(K, device=dev) < 1 + k
-    c = _solve_small_rows(G, h0, act)
-    r = bm - _bcomb(c, W)
-    d1 = _solve_small_rows(G, _bdots(W, r, precise), act)
-    c = c + d1
-    r = r - _bcomb(d1, W)
-    res = _host(_cnorm(r.T, precise))  # the sync
+    with span("krylov.gcr.iter"):  # round 1: the wide apply
+        D = b.new_zeros((B, K, n))
+        W = b.new_zeros((B, K, n))
+        D0 = torch.cat([M(b[:, None, :]), pool.movedim(0, 1)], dim=1)  # [n, 1 + k, B]
+        W0 = _rows(A_block(D0.contiguous())).transpose(1, 2)  # [B, 1 + k, n]
+        D0 = _rows(D0).transpose(1, 2)
+        G0 = _gram(torch.cat([W0, bm[:, None]], dim=1), precise)  # [B, k + 2, k + 2]
+        wnorm = torch.sqrt(torch.clamp(torch.diagonal(G0, dim1=1, dim2=2)[:, : 1 + k], min=0.0))
+        scale0 = torch.where(wnorm > 0, 1.0 / wnorm, torch.zeros_like(wnorm))
+        D[:, : 1 + k] = D0 * scale0[:, :, None]
+        W[:, : 1 + k] = W0 * scale0[:, :, None]
+        G = b.new_zeros((B, K, K))
+        G[:, : 1 + k, : 1 + k] = G0[:, : 1 + k, : 1 + k] * scale0[:, :, None] * scale0[:, None, :]
+        h0 = b.new_zeros((B, K))
+        h0[:, : 1 + k] = G0[:, : 1 + k, 1 + k] * scale0
+        act = torch.arange(K, device=dev) < 1 + k
+        c = _solve_small_rows(G, h0, act)
+        r = bm - _bcomb(c, W)
+        d1 = _solve_small_rows(G, _bdots(W, r, precise), act)
+        c = c + d1
+        r = r - _bcomb(d1, W)
+        res = _host(_cnorm(r.T, precise))  # the sync
     j = np.zeros(B, np.int64)
     active = (res > tol) & (j < max_narrow)
     rnd = 0  # every member still iterating has taken `rnd` narrow rounds
     while active.any():
-        on = torch.as_tensor(active, device=dev)
-        i = 1 + k + rnd
-        d = _rows(M(r.T[:, None, :].contiguous())[:, 0])  # [B, n]
-        w = _rows(A_block(d.T[:, None, :].contiguous())[:, 0])
-        lhs, rhs = torch.cat([W, w[:, None]], dim=1), torch.stack([w, r], dim=2)
-        if precise and dtype != torch.float64:
-            T = torch.bmm(lhs.double(), rhs.double()).to(dtype)
-        else:
-            T = torch.bmm(lhs, rhs)  # [B, K + 1, 2]
-        wn = torch.sqrt(torch.clamp(T[:, K, 0], min=0.0))
-        s = torch.where(wn > 0, 1.0 / wn, torch.zeros_like(wn))
-        Dn, Wn, Gn = D.clone(), W.clone(), G.clone()
-        Dn[:, i] = d * s[:, None]
-        Wn[:, i] = w * s[:, None]
-        gcol = T[:, :K, 0] * s[:, None]
-        gcol[:, i] = (wn > 0).to(dtype)
-        Gn[:, :, i] = gcol
-        Gn[:, i, :] = gcol
-        hr = T[:, :K, 1].clone()
-        hr[:, i] = T[:, K, 1] * s
-        delta = _solve_small_rows(Gn, hr, torch.arange(K, device=dev) <= i)
-        D = torch.where(on[:, None, None], Dn, D)
-        W = torch.where(on[:, None, None], Wn, W)
-        G = torch.where(on[:, None, None], Gn, G)
-        c = torch.where(on[:, None], c + delta, c)
-        r = torch.where(on[:, None], r - _bcomb(delta, Wn), r)
-        res = np.where(active, _host(_cnorm(r.T, precise)), res)  # the sync
-        j = j + active
-        rnd += 1
-        active = (res > tol) & (j < max_narrow)
+        with span("krylov.gcr.iter"):
+            on = _to_device(active, b)
+            i = 1 + k + rnd
+            d = _rows(M(r.T[:, None, :].contiguous())[:, 0])  # [B, n]
+            w = _rows(A_block(d.T[:, None, :].contiguous())[:, 0])
+            lhs, rhs = torch.cat([W, w[:, None]], dim=1), torch.stack([w, r], dim=2)
+            if precise and dtype != torch.float64:
+                T = torch.bmm(lhs.double(), rhs.double()).to(dtype)
+            else:
+                T = torch.bmm(lhs, rhs)  # [B, K + 1, 2]
+            wn = torch.sqrt(torch.clamp(T[:, K, 0], min=0.0))
+            s = torch.where(wn > 0, 1.0 / wn, torch.zeros_like(wn))
+            Dn, Wn, Gn = D.clone(), W.clone(), G.clone()
+            Dn[:, i] = d * s[:, None]
+            Wn[:, i] = w * s[:, None]
+            gcol = T[:, :K, 0] * s[:, None]
+            gcol[:, i] = (wn > 0).to(dtype)
+            Gn[:, :, i] = gcol
+            Gn[:, i, :] = gcol
+            hr = T[:, :K, 1].clone()
+            hr[:, i] = T[:, K, 1] * s
+            delta = _solve_small_rows(Gn, hr, torch.arange(K, device=dev) <= i)
+            D = torch.where(on[:, None, None], Dn, D)
+            W = torch.where(on[:, None, None], Wn, W)
+            G = torch.where(on[:, None, None], Gn, G)
+            c = torch.where(on[:, None], c + delta, c)
+            r = torch.where(on[:, None], r - _bcomb(delta, Wn), r)
+            res = np.where(active, _host(_cnorm(r.T, precise)), res)  # the sync
+            j = j + active
+            rnd += 1
+            active = (res > tol) & (j < max_narrow)
     return _bcomb(c, D).T.contiguous(), SolveInfo(iters=1 + j, residual=res), D.permute(1, 2, 0)
 
 

@@ -1,40 +1,80 @@
-"""Profiling helpers: torch.profiler trace capture around solver phases.
+"""Spans of the port's phases and layers on the profiler's clock.
 
-The counterpart of the reference's `utils/profiling.py` (`trace`,
-`annotate`).  `trace(dir)` records the host and the card's kernels of
-the enclosed region and writes a Chrome trace (open it in Perfetto or
-chrome://tracing) and the kernel table under `dir`; `annotate(name)`
-names a region in that timeline."""
+`span(name)` names a region of the program (a set-up phase, a step phase,
+a Krylov iteration, a host read, a preconditioner layer) in a
+torch.profiler trace, on the same clock as the CUDA kernels launched
+inside it, as `PREFIX + name`.  With no profiler running it costs one
+check of a flag and returns a shared null context: it never records a
+range and never reads a tensor.  While a profiler runs, the sizes a span
+is given (plain numbers taken from shapes, never from values) are kept
+per name, one dict a call, so that a reader of the trace can set each
+call's bytes and operations beside the device time of its kernels.
+
+`setup_phase(name)` is a span that also keeps its host seconds, whether
+or not a profiler runs; set-up runs once, so that costs nothing a step.
+A phase's seconds are its own: the time of phases nested inside it is
+kept under their names, so the values add up to the time in set-up
+phases.
+
+The profiler is one per process, and so is what is recorded here;
+`reset()` clears it.
+"""
 
 from __future__ import annotations
 
 import contextlib
-import os
+import time
+
+from torch.autograd import profiler as _profiler
+
+PREFIX = "ns."  # the namespace of the port's spans in a trace
+ENABLED = True  # False: no span is recorded even while a profiler runs
+
+_NULL = contextlib.nullcontext()
+_sizes: dict = {}  # name -> [sizes of each call made while a profiler ran]
+_setup: dict = {}  # set-up phase -> its own host seconds
+_setup_stack: list = []  # the open set-up phases' nested seconds
+
+
+def span(name: str, **sizes):
+    """A context manager naming the enclosed region `PREFIX + name` in a
+    running torch.profiler trace (the shared null context otherwise),
+    recording `sizes` under `name` while it runs."""
+    if not (_profiler._is_profiler_enabled and ENABLED):
+        return _NULL
+    if sizes:
+        _sizes.setdefault(name, []).append(sizes)
+    return _profiler.record_function(PREFIX + name)
 
 
 @contextlib.contextmanager
-def trace(log_dir: str):
-    """Capture a torch.profiler trace of the enclosed region into
-    `log_dir` (trace.json and kernels.txt)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-    sort = "self_device_time_total" if torch.cuda.is_available() else "self_cpu_time_total"
-    with open(os.path.join(log_dir, "kernels.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by=sort, row_limit=50))
+def setup_phase(name: str):
+    """`span(name)` that also adds its own host seconds to
+    `setup_seconds()[name]`."""
+    _setup_stack.append(0.0)
+    t0 = time.perf_counter()
+    try:
+        with span(name):
+            yield
+    finally:
+        total = time.perf_counter() - t0
+        nested = _setup_stack.pop()
+        _setup[name] = _setup.get(name, 0.0) + total - nested
+        if _setup_stack:
+            _setup_stack[-1] += total
 
 
-def annotate(name: str):
-    """Named region of the trace (a context manager)."""
-    from torch.profiler import record_function
+def sizes(name: str) -> list:
+    """The sizes of each call of span `name` made while a profiler ran."""
+    return list(_sizes.get(name, ()))
 
-    return record_function(name)
+
+def setup_seconds() -> dict:
+    """Each set-up phase that ran -> its own host seconds."""
+    return dict(_setup)
+
+
+def reset() -> None:
+    """Forget the recorded sizes and set-up seconds."""
+    _sizes.clear()
+    _setup.clear()
