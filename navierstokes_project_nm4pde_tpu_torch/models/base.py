@@ -42,7 +42,9 @@ One single-run step (`step`, the reference's `_step_projection`):
      blocks (kernel A), the element fold (kernels D and C), or the
      assembled constant K (`ops/bsr.py`) plus the IMEX fine subset
      (kernels D and C on its own plan); u* = u0 + du;
-  5. S1 phi = -D u* / dt with CG; p = p_n + phi;
+  5. S1 phi = -D u* / dt with CG (on the frozen S1 on the card, with no
+     process group, each iteration a replay of the CUDA graphs captured at
+     the first solve, `solvers/krylov.py CGGraphs`); p = p_n + phi;
      u = u* - dt diag(M)^-1 G phi on free nodes;
   6. drag, lift and the pressure difference.
 
@@ -62,7 +64,8 @@ columns with per-member tolerances and counts.
 Spans (`utils/profiling.py`) name the set-up phases (`setup.reorder`,
 `setup.space`, `setup.operator`, `setup.boundary`, `setup.f_bound`,
 `setup.frozen_schur`, `setup.coarse_factor`, and `setup.macro`,
-`setup.macro_mass`, `setup.macro_stiff` built at first use), each phase
+`setup.macro_mass`, `setup.macro_stiff` built at first use, and
+`setup.krylov_graphs`, the pressure CG's capture), each phase
 of a projection step, single run and ensemble alike (`step.guess`,
 `step.gather`, `step.fold`, `step.build`, `step.rhs`, `step.f_solve`,
 `step.divergence`, `step.s_solve`, `step.update`, `step.diagnostics`),
@@ -134,6 +137,7 @@ from navierstokes_project_nm4pde_tpu_torch.precond.blocks import (
     inv_diag_Fhat,
 )
 from navierstokes_project_nm4pde_tpu_torch.solvers.krylov import (
+    CGGraphs,
     SolveInfo,
     _cnorm,
     _host,
@@ -251,6 +255,7 @@ class StepDiagnostics:
     delta_p: np.ndarray
     iters_f: np.ndarray
     iters_s: np.ndarray
+    graphed_s: np.ndarray  # the S iterations replayed as CUDA graphs (a sweep's lockstep count)
 
 
 @dataclasses.dataclass
@@ -269,6 +274,7 @@ class FrozenSchur:
 
     inv1: torch.Tensor  # [n_unodes] 1/diagM on free nodes, 0 constrained
     diag1: torch.Tensor  # [n_p] diagonal of S1
+    inv_d: torch.Tensor  # [n_p] 1 / diag1, the preconditioner's Jacobi part
     cho_L: torch.Tensor | None  # dense lower Cholesky factor of the coarse matrix
     inv_c: torch.Tensor | None  # dense inverse of the coarse matrix (coarse_solve="inv")
     band: BandedSchur | None  # None: the ELL SpMV over vals1 (op.schur's layout)
@@ -410,6 +416,7 @@ class NavierStokesSolver:
         self.config = config
         self.device = pick_device(device)
         self.dtype = torch_dtype(config.numerics.dtype)
+        self._cg_graphs = CGGraphs()
         self._setup(mesh)
 
     # ------------------------------------------------------------------
@@ -589,9 +596,11 @@ class NavierStokesSolver:
                     self.op.schur = schur_from_host(host, dt_, dev)
             with setup_phase("setup.coarse_factor"):
                 inv = nc.coarse_solve == "inv"
+                diag1 = torch.as_tensor(diag1, dtype=dt_, device=dev)
                 self.proj_schur = FrozenSchur(
                     inv1=torch.as_tensor(inv1, dtype=dt_, device=dev),
-                    diag1=torch.as_tensor(diag1, dtype=dt_, device=dev),
+                    diag1=diag1,
+                    inv_d=1.0 / diag1,
                     cho_L=None if inv else torch.as_tensor(np.linalg.cholesky(Sc), dtype=dt_, device=dev),
                     inv_c=torch.as_tensor(np.linalg.inv(Sc), dtype=dt_, device=dev) if inv else None,
                     band=band,
@@ -854,7 +863,8 @@ class NavierStokesSolver:
         new_state = State(u=u_new, p=p_new, t=t_new, step=state.step + 1, **self._next_history(state))
         diag = self._diagnostics(u_new, p_new, t_new, nu if tail else None)
         diag.update(iters=info.iters, residual=info.residual, iters_f=info.iters,
-                    iters_s=np.zeros_like(info.iters) if tail else 0)
+                    iters_s=np.zeros_like(info.iters) if tail else 0,
+                    graphed_s=np.zeros_like(info.iters) if tail else 0)
         return new_state, diag
 
     def _step_projection(self, state: State, nu=None):
@@ -1070,50 +1080,36 @@ class NavierStokesSolver:
             if fz is not None:
                 # S~ = dt S1 with S1 frozen at set-up: solve S1 phi = rhs / dt
                 rhs_p = rhs_p / dt_eff
-                inv_d, a_scale, upd_inv = 1.0 / fz.diag1, 1.0 / dt_eff, dt_eff * fz.inv1
-                solve_c = cho_solve_c(fz.cho_L) if fz.inv_c is None else inv_solve_c(fz.inv_c)
-                if fz.band is not None:
-                    def S(pv):
-                        return banded_matvec(fz.band, pv)
-                else:
-                    def S(pv):
-                        return schur_ell_matvec(op.schur, fz.vals1, pv)
-            else:  # the step's S~ (proj_schur="step"), the Cholesky coarse solve
-                inv_d, a_scale, upd_inv = 1.0 / pst.schur_diag, 1.0, pst.schur_inv
-                solve_c = cho_solve_c(pst.schur_cho_L)
-
-                def S(pv):
-                    return schur_ell_matvec(op.schur, pst.schur_vals, pv)
-
-            if pc.mg2_form == "additive":
-                def M2(v):
-                    return twolevel_apply_additive_g(op.coarse, solve_c, inv_d, v)
-            else:
-                def M2(v):
-                    return twolevel_apply_g(op.coarse, solve_c, S, inv_d, v)
+                a_scale, upd_inv = 1.0 / dt_eff, dt_eff * fz.inv1
+            else:  # the step's S~ (proj_schur="step")
+                a_scale, upd_inv = 1.0, pst.schur_inv
+            S, M2 = self._pressure_operators(fz, pst)
 
             s_rtol, s_atol = self._poisson_tol(tol_kw, rhs_p, a_scale)
             phi0 = p_guess - state.p
+            gkw = self._s_graphs(fz)
+            replays = self._cg_graphs.replays
             if pc.s_recycle > 0 and fz is not None and state.spool is not None:
                 phi, info_s, harvest = cg_recycled(
                     S, rhs_p, M2, phi0, state.spool[0], state.spool[1],
                     rtol=s_rtol, atol=s_atol, maxiter=cfg.solver.maxiter,
-                    precise=precise,
+                    precise=precise, **gkw,
                 )
                 spool_new = torch.cat([harvest[:, None], state.spool[:, :-1]], dim=1)
             elif single:
                 phi, info = cg(
                     S, rhs_p[:, None], M=M2, x0=phi0[:, None], rtol=s_rtol,
-                    atol=s_atol, maxiter=cfg.solver.maxiter, precise=precise,
+                    atol=s_atol, maxiter=cfg.solver.maxiter, precise=precise, **gkw,
                 )
                 phi, spool_new = phi[:, 0], state.spool
                 info_s = SolveInfo(iters=int(info.iters[0]), residual=float(info.residual[0]))
             else:
                 phi, info_s = cg(
                     S, rhs_p, M=M2, x0=phi0, rtol=s_rtol, atol=s_atol,
-                    maxiter=cfg.solver.maxiter, precise=precise,
+                    maxiter=cfg.solver.maxiter, precise=precise, **gkw,
                 )
                 spool_new = state.spool
+            replays = self._cg_graphs.replays - replays
 
         with span("step.update"):
             # ---- 3. update -------------------------------------------------
@@ -1132,8 +1128,47 @@ class NavierStokesSolver:
                 iters=info_f.iters + info_s.iters,
                 residual=np.maximum(info_f.residual, info_s.residual),
                 iters_f=info_f.iters, iters_s=info_s.iters,
+                graphed_s=replays if single else np.full(tail, replays),
             )
         return new_state, diag
+
+    def _pressure_operators(self, fz: FrozenSchur | None, pst=None):
+        """(S, M): the pressure CG's operator and two-level preconditioner,
+        on the frozen S1 or, with fz None, on the step's S~ in `pst` (the
+        Cholesky coarse solve)."""
+        op, pc = self.op, self.config.precond
+        if fz is not None:
+            inv_d = fz.inv_d
+            solve_c = cho_solve_c(fz.cho_L) if fz.inv_c is None else inv_solve_c(fz.inv_c)
+            if fz.band is not None:
+                def S(pv):
+                    return banded_matvec(fz.band, pv)
+            else:
+                def S(pv):
+                    return schur_ell_matvec(op.schur, fz.vals1, pv)
+        else:
+            inv_d = 1.0 / pst.schur_diag
+            solve_c = cho_solve_c(pst.schur_cho_L)
+
+            def S(pv):
+                return schur_ell_matvec(op.schur, pst.schur_vals, pv)
+
+        if pc.mg2_form == "additive":
+            def M(v):
+                return twolevel_apply_additive_g(op.coarse, solve_c, inv_d, v)
+        else:
+            def M(v):
+                return twolevel_apply_g(op.coarse, solve_c, S, inv_d, v)
+        return S, M
+
+    def _s_graphs(self, fz: FrozenSchur | None) -> dict:
+        """The pressure CG's graph arguments (`solvers/krylov.py CGGraphs`)
+        where its operators never change: the frozen S1 and its two-level
+        preconditioner, built once at set-up, on the card, with no process
+        group (a sharded operator's); none elsewhere."""
+        if fz is None or self.device.type != "cuda" or self.op.group is not None:
+            return {}
+        return dict(graphs=self._cg_graphs)
 
     def _diagnostics(self, u, p, t, nu=None) -> dict:
         """drag, lift, c_d, c_l and delta_p: 0-d tensors, or [B] for an
@@ -1211,5 +1246,6 @@ def _stack_diagnostics(rows: list) -> StepDiagnostics:
             with span("host_read"):
                 cols[f.name] = stacked.cpu().numpy()
         else:
-            cols[f.name] = np.asarray(vals, dtype=np.int64 if "iters" in f.name else np.float64)
+            counts = "iters" in f.name or f.name == "graphed_s"
+            cols[f.name] = np.asarray(vals, dtype=np.int64 if counts else np.float64)
     return StepDiagnostics(**cols)

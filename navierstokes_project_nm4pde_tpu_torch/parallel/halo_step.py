@@ -123,7 +123,7 @@ class HaloProjectionStep:
         self.mask = own(op.dirichlet_mask.to(self.dtype)[:, None])[:, 0] > 0.5
         self.invdiag = own(pst.inv_diag_Fhat[:, None])[:, 0]
         self.inv1 = own(fz.inv1[:, None])[:, 0]
-        self.inv_d = 1.0 / fz.diag1
+        self.inv_d = fz.inv_d
         self.solve_c = cho_solve_c(fz.cho_L) if fz.inv_c is None else inv_solve_c(fz.inv_c)
 
     # -- layout helpers ------------------------------------------------

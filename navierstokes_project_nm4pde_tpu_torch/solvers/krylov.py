@@ -12,8 +12,17 @@ The reference runs its loops under `lax.while_loop` on the device.  Here
 the loops run in Python and read the residual norm back to the host once
 per iteration (one device synchronisation each), which also keeps the
 small Hessenberg/Givens algebra of FGMRES on the host in float64.
-Removing those synchronisations (checking every k iterations, or CUDA
-graphs) is later work.
+
+The CG loops (`cg`, `cg_recycled`) keep their state in tensors that one
+function per loop updates in place, an iteration a call: the batched loop
+also keeps its per-member stop mask, its counts and its tolerances on the
+device, so the host only reads the residuals.  Given a `CGGraphs` cache
+(the projection step's pressure solve on the frozen S1 and its two-level
+preconditioner, on the card, with no process group), that function is
+captured once per loop and shape as CUDA graphs cut at the layers' spans,
+and each iteration is one replay of them; every other caller runs it
+eagerly.  The FGMRES and GCR loops read operators that change every step
+and stay eager.
 
 Every solver also solves [n, B] batches, one column per ensemble member
 (`gcr_recycled` and `cg_recycled` with pools [k, n, B]), with the
@@ -37,16 +46,24 @@ substitution and update, `krylov.cg.iter`, `krylov.cg_recycled.iter`,
 `krylov.gcr.iter`), each read of a value to the host inside a `host_read`
 span and each synchronising copy of a host array to the device inside a
 `host_write` span; with no profiler running a span costs one flag check.
+A replayed CG iteration runs inside its iteration span as consecutive
+graph launches, each layer it calls (`precond.coarse_solve`,
+`schur.banded_matvec`) inside that layer's span with the sizes of an eager
+call.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import gc
+import warnings
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from navierstokes_project_nm4pde_tpu_torch.utils.profiling import span
+from navierstokes_project_nm4pde_tpu_torch.utils.profiling import cutting, setup_phase, span
 
 
 class SolveInfo(NamedTuple):
@@ -315,6 +332,142 @@ def fgmres(
 # ----------------------------------------------------------------------
 # CG
 # ----------------------------------------------------------------------
+class CGGraphs:
+    """CUDA graphs of CG iterations whose operators never change.
+
+    One iteration's graphs per key (the loop, its shapes, dtype and
+    settings), captured at the key's first solve and replayed by every
+    later one: A and M must read only tensors that outlive the cache (one
+    solver's frozen operators).  The capture is cut at each span given
+    sizes (`schur.banded_matvec`, `precond.coarse_solve`) into consecutive
+    graphs (`_Cuts`), so that a replay runs each layer's kernels inside
+    its span with the sizes of an eager call, as an eager iteration does.
+    The capture is timed as set-up phase `setup.krylov_graphs`.  All
+    graphs share one memory pool; `replays` counts the iterations
+    replayed."""
+
+    WARMUP = 3  # eager iterations on the scratch state before a capture
+
+    def __init__(self):
+        self._graphs: dict = {}
+        self._pool = None
+        self.replays = 0
+
+    def load(self, key, body, state: list):
+        """(key's static tensors, loaded with `state`; a function that
+        replays one iteration on them), capturing `body(static)` first if
+        the key is new."""
+        if key not in self._graphs:
+            with setup_phase("setup.krylov_graphs"):
+                self._graphs[key] = self._capture(body, state)
+        cuts, static = self._graphs[key]
+        for s, t in zip(static, state):
+            s.copy_(t)
+        dev = static[0].device
+
+        def replay():
+            with torch.cuda.device(dev):
+                cuts.replay()
+            self.replays += 1
+
+        return static, replay
+
+    def _capture(self, body, state: list):
+        # PyTorch keeps a cuBLAS workspace (32 MiB on sm90) for each stream
+        # that calls cuBLAS.  Dropping them before the warm-up, before the
+        # capture and after it (torch._inductor's cudagraph trees do the
+        # same) keeps one allocated at a time: the graph's own, allocated
+        # while it is captured, goes back to the graph pool, which only
+        # these graphs' captures draw on, and its replays keep using it.
+        dev = state[0].device
+        with torch.cuda.device(dev):
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            static = [t.clone() for t in state]  # the warm-up's scratch, then the graph's
+            torch._C._cuda_clearCublasWorkspaces()
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(self.WARMUP):
+                    body(static)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch._C._cuda_clearCublasWorkspaces()
+            # as torch.cuda.graph does before a capture
+            torch.cuda.synchronize(dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+            cuts = _Cuts(self._pool)
+            with torch.cuda.stream(side), cutting(cuts.span):
+                cuts.begin()
+                body(static)
+                cuts.end()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch._C._cuda_clearCublasWorkspaces()
+        return cuts, static
+
+
+class _Cuts:
+    """One capture on the current (side) stream, cut into consecutive
+    graphs at each span given sizes: `parts` [(span name, its sizes,
+    graph)] in the order they run, name None for the work between spans
+    (left out where there is none).  Graphs of one pool captured one after
+    another may pass tensors on, since they are replayed in the same
+    order.  Spans given sizes do not nest.  `graph` is the graph class
+    (`torch.cuda.CUDAGraph`)."""
+
+    def __init__(self, pool, graph=None):
+        self.pool, self.parts, self._empty = pool, [], []
+        self._graph = graph or torch.cuda.CUDAGraph
+
+    def begin(self, name=None, sizes=None):
+        graph = self._graph()
+        graph.capture_begin(self.pool)
+        self.parts.append((name, sizes, graph))
+
+    def end(self):
+        name, _, graph = self.parts[-1]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            graph.capture_end()
+        for w in caught:
+            if name is None and "CUDA Graph is empty" in str(w.message):
+                # no work between two spans: nothing to replay, but the graph
+                # is kept, since freeing a graph of the pool while later
+                # captures still draw on it breaks the pool
+                self._empty.append(self.parts.pop()[2])
+            else:
+                warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+
+    @contextlib.contextmanager
+    def span(self, name: str, sizes: dict):
+        self.end()
+        self.begin(name, sizes)
+        yield
+        self.end()
+        self.begin()
+
+    def replay(self):
+        for name, sizes, graph in self.parts:
+            if name is None:
+                graph.replay()
+            else:
+                with span(name, **sizes):
+                    graph.replay()
+
+
+def _iterations(body, state: list, graphs: CGGraphs | None, key):
+    """(the loop's tensors, a function running one iteration on them):
+    `body` eagerly, or with `graphs` the replay of key's graph on its
+    static tensors.  The eager loop works on copies of the vectors x, r
+    and p: x and r may be the caller's (x0, b) or a projection's that the
+    harvest reads again, and p is r itself where M is the identity; the
+    per-member scalars are the loop's own."""
+    if graphs is None:
+        st = [t.clone() for t in state[:3]] + state[3:]
+        return st, functools.partial(body, st)
+    return graphs.load(key, body, state)
+
+
 def cg(
     A: Callable,
     b: torch.Tensor,
@@ -325,50 +478,73 @@ def cg(
     atol=0.0,
     maxiter: int = 1000,
     precise: bool = True,
+    graphs: CGGraphs | None = None,
 ):
     """Preconditioned CG for B systems at once: b [n, B], A and M map
     [n, B] -> [n, B] column by column; `atol` is a float or a [B] array.
     The residual norm rides the loop (fused with r.z), as in the
     reference.  Returns (x [n, B], SolveInfo with [B] numpy iters and
-    residuals).  A single system is the case B = 1."""
+    residuals).  A single system is the case B = 1.  With `graphs`, each
+    iteration is a replay of CUDA graphs (`CGGraphs`)."""
     if x0 is None:
         x, r = torch.zeros_like(b), b
     else:
         x, r = x0, b - A(x0)
-    x, r, info = _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise, "krylov.cg.iter")
+    x, r, info = _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise, "krylov.cg.iter", graphs)
     return x, info
 
 
-def _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise, name):
+def _cg_columns_iter(A, M, st: list, maxiter: int, precise: bool):
+    """One iteration of the batched CG loop, in place on its state st = [x,
+    r, p, rz, res, k, tol]: the members with res > tol and k < maxiter take
+    it, the others stay frozen; res (float64) and the counts k follow."""
+    x, r, p, rz, res, k, tol = st
+    on = (res > tol) & (k < maxiter)
+    Ap = A(p)
+    alpha = rz / _cdot(p, Ap, precise)
+    torch.where(on, x + alpha * p, x, out=x)
+    r_new = r - alpha * Ap
+    z = M(r_new)
+    rz_new, rr = _cdot(z, r_new, precise), _cdot(r_new, r_new, precise)
+    torch.where(on, z + (rz_new / rz) * p, p, out=p)
+    torch.where(on, r_new, r, out=r)
+    torch.where(on, rz_new, rz, out=rz)
+    torch.where(on, torch.sqrt(rr).double(), res, out=res)
+    k.add_(on)
+
+
+def _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise, name, graphs=None):
     """The CG loop on [n, B] columns from the iterate x and its residual r
     (the tolerance against ||b||), each iteration in span `name`; returns
-    (x, r, SolveInfo)."""
+    (x, r, SolveInfo).  The device decides which members iterate, from the
+    same float64 residuals and tolerances as the host's `active`, so the
+    two agree bit for bit and the host reads the residuals alone."""
     if M is None:
         M = lambda v: v  # noqa: E731
     B = b.shape[1]
     z = M(r)
-    p = z
     rz, rr = _cdot(z, r, precise), _cdot(r, r, precise)
-    res = _host(torch.sqrt(rr))
+    res_t = torch.sqrt(rr).double()
+    res = _host(res_t)
     bnorm = _host(_cnorm(b, precise))
     tol = np.maximum(rtol * bnorm, np.broadcast_to(np.asarray(atol, np.float64), (B,)))
     k = np.zeros(B, np.int64)
     active = (res > tol) & (k < maxiter)
+    if not active.any():
+        return x, r, SolveInfo(iters=k, residual=res)
+    state = [x, r, z, rz, res_t, torch.zeros(B, dtype=torch.int64, device=b.device),
+             _to_device(tol, b, torch.float64)]
+    body = functools.partial(_cg_columns_iter, A, M, maxiter=maxiter, precise=precise)
+    st, step = _iterations(body, state, graphs, ("columns", tuple(b.shape), b.dtype, maxiter, precise))
     while active.any():
         with span(name):
-            on = _to_device(active, b)
-            Ap = A(p)
-            alpha = rz / _cdot(p, Ap, precise)
-            x = torch.where(on, x + alpha * p, x)
-            r_new = r - alpha * Ap
-            z = M(r_new)
-            rz_new, rr = _cdot(z, r_new, precise), _cdot(r_new, r_new, precise)
-            p = torch.where(on, z + (rz_new / rz) * p, p)
-            r = torch.where(on, r_new, r)
-            rz = torch.where(on, rz_new, rz)
-            res = np.where(active, _host(torch.sqrt(rr)), res)  # the sync
+            step()
+            res = _host(st[4])  # the sync
             k = k + active
             active = (res > tol) & (k < maxiter)
+    x, r = st[0], st[1]
+    if graphs is not None:  # out of the static tensors
+        x, r = x.clone(), r.clone()
     return x, r, SolveInfo(iters=k, residual=res)
 
 
@@ -387,6 +563,7 @@ def cg_recycled(
     atol: float = 0.0,
     maxiter: int = 1000,
     precise: bool = True,
+    graphs: CGGraphs | None = None,
 ):
     """Preconditioned CG warm-started by a least-squares projection onto
     recycled directions `poolD` [k, n] whose exact images `poolW = A poolD`
@@ -395,9 +572,9 @@ def cg_recycled(
     harvest = [x - x_proj, r_proj - r_final] ([2, n]): the next pool row
     (direction, image) of this call's CG increment.  For B columns b
     [n, B] the pools are [k, n, B] and the harvest [2, n, B], each member
-    projected on its own pool."""
+    projected on its own pool.  `graphs`: as in `cg`."""
     if b.dim() == 2:
-        return _cg_recycled_columns(A, b, M, x0, poolD, poolW, rtol, atol, maxiter, precise)
+        return _cg_recycled_columns(A, b, M, x0, poolD, poolW, rtol, atol, maxiter, precise, graphs)
     if M is None:
         M = lambda v: v  # noqa: E731
     if x0 is None:
@@ -427,28 +604,43 @@ def cg_recycled(
     x_proj, r_proj = x, r
 
     z = M(r)
-    p = z
     rz, rr = _dot2(z, r, precise)
-    res = _host_float(torch.sqrt(rr))
+    res_t = torch.sqrt(rr)
+    res = _host_float(res_t)
     tol = max(rtol * _host_float(_norm(b, precise)), float(atol))
     j = 0
-    while res > tol and j < maxiter:
-        with span("krylov.cg_recycled.iter"):
-            Ap = A(p)
-            alpha = rz / _dot(p, Ap, precise)
-            x = x + alpha * p
-            r = r - alpha * Ap
-            z = M(r)
-            rz_new, rr = _dot2(z, r, precise)
-            p = z + (rz_new / rz) * p
-            rz = rz_new
-            res = _host_float(torch.sqrt(rr))  # the sync
-            j += 1
+    if res > tol and j < maxiter:
+        body = functools.partial(_cg_vector_iter, A, M, precise=precise)
+        st, step = _iterations(body, [x, r, z, rz, res_t], graphs,
+                               ("vector", tuple(b.shape), dtype, precise))
+        while res > tol and j < maxiter:
+            with span("krylov.cg_recycled.iter"):
+                step()
+                res = _host_float(st[4])  # the sync
+                j += 1
+        x, r = st[0], st[1]
+        if graphs is not None:  # out of the static tensors
+            x, r = x.clone(), r.clone()
     harvest = torch.stack([x - x_proj, r_proj - r])
     return x, SolveInfo(iters=j, residual=res), harvest
 
 
-def _cg_recycled_columns(A, b, M, x0, poolD, poolW, rtol, atol, maxiter, precise):
+def _cg_vector_iter(A, M, st: list, precise: bool):
+    """One iteration of the single-vector CG loop, in place on its state
+    st = [x, r, p, rz, res] (rz and res 0-d)."""
+    x, r, p, rz, res = st
+    Ap = A(p)
+    alpha = rz / _dot(p, Ap, precise)
+    x.add_(alpha * p)
+    r.sub_(alpha * Ap)
+    z = M(r)
+    rz_new, rr = _dot2(z, r, precise)
+    torch.add(z, (rz_new / rz) * p, out=p)
+    rz.copy_(rz_new)
+    torch.sqrt(rr, out=res)
+
+
+def _cg_recycled_columns(A, b, M, x0, poolD, poolW, rtol, atol, maxiter, precise, graphs=None):
     """`cg_recycled` for B members at once (b [n, B], pools [k, n, B]):
     each member's projection on its own pool, then the batched CG."""
     if x0 is None:
@@ -471,7 +663,8 @@ def _cg_recycled_columns(A, b, M, x0, poolD, poolW, rtol, atol, maxiter, precise
     x = x + _bcomb(c2, Dn).T
     r = r - _bcomb(c2, Wn).T
     x_proj, r_proj = x, r
-    x, r, info = _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise, "krylov.cg_recycled.iter")
+    x, r, info = _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise, "krylov.cg_recycled.iter",
+                             graphs)
     return x, info, torch.stack([x - x_proj, r_proj - r])
 
 

@@ -16,6 +16,11 @@ A phase's seconds are its own: the time of phases nested inside it is
 kept under their names, so the values add up to the time in set-up
 phases.
 
+While a CUDA graph is captured (`solvers/krylov.py CGGraphs`), `cutting(cut)`
+hands each span that is given sizes to `cut`, which ends the graph there and
+captures the span's own work as a graph of its own: a replay then runs that
+graph inside the span, with the sizes seen at capture.
+
 The profiler is one per process, and so is what is recorded here;
 `reset()` clears it.
 """
@@ -34,12 +39,15 @@ _NULL = contextlib.nullcontext()
 _sizes: dict = {}  # name -> [sizes of each call made while a profiler ran]
 _setup: dict = {}  # set-up phase -> its own host seconds
 _setup_stack: list = []  # the open set-up phases' nested seconds
+_cut = None  # while a CUDA graph is captured: name, sizes -> the span's context (`cutting`)
 
 
 def span(name: str, **sizes):
     """A context manager naming the enclosed region `PREFIX + name` in a
     running torch.profiler trace (the shared null context otherwise),
     recording `sizes` under `name` while it runs."""
+    if _cut is not None and sizes:
+        return _cut(name, sizes)
     if not (_profiler._is_profiler_enabled and ENABLED):
         return _NULL
     if sizes:
@@ -62,6 +70,18 @@ def setup_phase(name: str):
         _setup[name] = _setup.get(name, 0.0) + total - nested
         if _setup_stack:
             _setup_stack[-1] += total
+
+
+@contextlib.contextmanager
+def cutting(cut):
+    """While the block runs, each span given sizes is `cut(name, sizes)`,
+    a context manager, in place of the span."""
+    global _cut
+    prev, _cut = _cut, cut
+    try:
+        yield
+    finally:
+        _cut = prev
 
 
 def sizes(name: str) -> list:

@@ -115,8 +115,9 @@ def test_an_ensemble_step_counts_its_lockstep_maxima(solvers, tmp_path):
     # the same sites on [n, B] columns; plain CG reads ||b|| and its first
     # residual, then one a lockstep iteration
     assert names["host_read"] == 2 + (1 + cycles + it_f) + (2 + it_s) + DIAGNOSTIC_COPIES
-    # and CG's mask an iteration, and the viscosities once a call
-    assert names["host_write"] == 3 * cycles + it_s + 1
+    # and CG's tolerances once a solve (its stop mask is made on the
+    # device), and the viscosities once a call
+    assert names["host_write"] == 3 * cycles + 1 + 1
     assert profiling.sizes("precond.coarse_solve")[0]["cols"] == len(NUS)
     assert profiling.sizes("schur.banded_matvec")[0]["cols"] == len(NUS)
 
