@@ -56,14 +56,34 @@ def load_json(path: Path) -> dict:
         return json.load(f)
 
 
+def load_named(kind: str, name: str, root: Path = ROOT) -> dict:
+    """The data file `<kind>/<name>.json` under `root`, or the file at
+    `name` where it is a path ending in `.json`."""
+    return load_json(Path(name) if name.endswith(".json") else root / kind / f"{name}.json")
+
+
+def refuse_uncovered(cfg: dict) -> None:
+    """Raise ValueError, naming the setting, for a configuration whose
+    stepper, scheme, convection or dimension the correctness check
+    (`reference/check.py`) does not cover; reads no mesh."""
+    from nsbench import meshgen
+    from nsbench.reference import check
+
+    rc = cfg["run_config"]
+    check.refuse_uncovered(rc["time"], rc["solver"], meshgen.DIMENSION.get(cfg["mesh"]["generator"]))
+
+
 def find_cell(bench: dict, name: str, root: Path = ROOT) -> dict:
     """The cell `name` with its configuration, traffic, limits and the
     per-layer metrics it reports (those whose `workloads` lists it, or
-    that have no list and move an end-to-end metric it reports)."""
+    that have no list and move an end-to-end metric it reports); raises
+    ValueError where the check does not cover its configuration."""
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json (have {sorted(cells)})")
     w = cells[name]
+    config = load_named("configs", w["config"], root)
+    refuse_uncovered(config)
     e2e = [m for m in bench["end_to_end"] if name in m.get("workloads", [name])]
     e2e_names = {m["name"] for m in e2e}
     layer = [
@@ -72,8 +92,8 @@ def find_cell(bench: dict, name: str, root: Path = ROOT) -> dict:
     ]
     return dict(
         name=name, chips=int(w["chips"]),
-        config=load_json(root / "configs" / f"{w['config']}.json"),
-        traffic=load_json(root / "traffic" / f"{w['traffic']}.json"),
+        config=config,
+        traffic=load_named("traffic", w["traffic"], root),
         limits=load_json(root / "limits" / f"{name}.json"),
         end_to_end=e2e, per_layer=layer,
     )
@@ -216,6 +236,10 @@ def _with_fault(advance, fault: str | None):
             u = new.u.clone()
             u[u.shape[0] // 2] += 1e-3 * float(u.abs().max())
             new = dataclasses.replace(new, u=u)
+        elif fault == "pressure":  # one pressure node altered where it is produced
+            p = new.p.clone()
+            p[p.shape[0] // 2] += 1e-3 * float(p.abs().max())
+            new = dataclasses.replace(new, p=p)
         elif fault == "drag":
             d = dict(d, c_d=d["c_d"] * (1.0 + 1e-3))
         else:
@@ -323,11 +347,15 @@ def card_info() -> dict:
 class Checker:
     """The reference on `device` for a configuration's mesh, aligned with
     the program's output nodes (`labels`: the coordinates of its velocity
-    and pressure nodes, the labels of its state's rows)."""
+    and pressure nodes, the labels of its state's rows), with the numbers
+    and the control of the configuration's stepper (`check.SCHEMES`)."""
 
     def __init__(self, cfg: dict, arrays, labels: dict, device):
+        from nsbench.reference import check
+
         pb = cfg["problem"]
         self.cfg, self.pb = cfg, pb
+        self.scheme = check.SCHEMES[cfg["run_config"]["time"]["stepper"]]
         pm = problem_module(cfg)
         self.space, self.ref, self.prob = pm.build(arrays, pb, precision="float64", device=device)
         self.iu, self.ip = self.space.match(labels["u"]), self.space.match_vertices(labels["p"])
@@ -351,16 +379,18 @@ class Checker:
         for pre_u, pre_p, u, p, d in samples:
             for b in range(pre_u.shape[-1]):
                 diag = {k: float(d[k][b]) for k in ("c_d", "c_l", "delta_p")}
-                rows.append(check.step_numbers(
+                rows.append(self.scheme.numbers(
                     self.ref, self.prob, self.on_ref(pre_u[..., b], self.iu), self.on_ref(pre_p[..., b], self.ip),
                     self.on_ref(u[..., b], self.iu), self.on_ref(p[..., b], self.ip), diag, self.nu(nus, b), self.dt,
                 ))
         return check.worst(rows)
 
-    def control_numbers(self, samples: list, nus, precision: str = "tf32") -> dict:
+    def control_numbers(self, samples: list, nus, precision: str = "tf32", log: list | None = None) -> dict:
         """The same numbers with the reference at `precision` put in the
         program's place: each sampled step taken again from the program's
-        pre-step state by `check.control_step`."""
+        pre-step state by the stepper's control (`check.SCHEMES`).  With
+        `log`, each control step appends its solver's information and its
+        seconds."""
         from nsbench.reference import check
 
         _, ref_c, prob_c = self._pm.build(self._arrays, self.pb, precision=precision, device=self._device)
@@ -369,8 +399,11 @@ class Checker:
         for pre_u, pre_p, _, _, _ in samples:
             for b in range(pre_u.shape[-1]):
                 un, pn = self.on_ref(pre_u[..., b], self.iu), self.on_ref(pre_p[..., b], self.ip)
-                u, p, diag, _ = check.control_step(ref_c, prob_c, un, pn, self.nu(nus, b), self.dt, solver)
-                rows.append(check.step_numbers(
+                t0 = time.perf_counter()
+                u, p, diag, info = self.scheme.control(ref_c, prob_c, un, pn, self.nu(nus, b), self.dt, solver)
+                if log is not None:
+                    log.append(dict(info=info, seconds=time.perf_counter() - t0))
+                rows.append(self.scheme.numbers(
                     self.ref, self.prob, un, pn, u.double().cpu().numpy(), p.double().cpu().numpy(),
                     diag, self.nu(nus, b), self.dt,
                 ))
@@ -431,6 +464,15 @@ class Window:
         self.state = state
 
 
+def failed_steps(diags: list, maxit: int) -> int:
+    """The (member-)steps of `diags` at the Krylov cap or with a
+    non-finite residual."""
+    return sum(
+        int(np.sum((d["iters_f"] >= maxit) | (d["iters_s"] >= maxit) | ~np.isfinite(d["residual"])))
+        for d in diags
+    )
+
+
 def host_samples(samples: list) -> list:
     """(pre_u, pre_p, u, p, diagnostics) of sampled (pre, post, d) steps,
     the fields as float64 numpy with a trailing member axis."""
@@ -489,12 +531,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
         state, ctx.syncs = count_syncs(prog, advance, state, ctx.sync_steps)
 
     # ---- counts, then the program's state freed -----------------------
-    maxit = cfg["run_config"]["solver"]["maxiter"]
     members = prog.members
-    failed = sum(
-        int(np.sum((d["iters_f"] >= maxit) | (d["iters_s"] >= maxit) | ~np.isfinite(d["residual"])))
-        for d in diags
-    )
+    failed = failed_steps(diags, cfg["run_config"]["solver"]["maxiter"])
     diverged = any(not np.all(np.isfinite(d["residual"])) for d in diags)
     samples = host_samples([first] + win.reservoir)
     labels, nus = prog.labels(), prog.nus

@@ -307,3 +307,8 @@ def _split_prisms(a, b, c, A, B, C):
     )
     out = np.where(use_v1[:, None, None], caseA, caseB)
     return out.reshape(-1, 4)
+
+
+# Each generator's dimension: the harness reads it, before any mesh is
+# built, to refuse a configuration that the correctness check does not cover.
+DIMENSION = {"cylinder_channel_2d": 2, "cylinder_duct_3d": 3}

@@ -293,12 +293,21 @@ class RefOperator:
         y_e = self.mm(self.D_e.reshape(E, 4, 30).transpose(1, 2), p[self.cells_p].reshape(E, 4, 1))
         return self.scatter_u(y_e.reshape(E, 10, 3))
 
+    def div_abs(self, u: torch.Tensor) -> torch.Tensor:
+        """|D| |u| [n_p]: the divergence pass with every element entry and
+        every velocity in absolute value (the divergence without
+        cancellation)."""
+        E = self.D_e.shape[0]
+        y_e = self.mm(self.D_e.reshape(E, 4, 30).abs(), u[self.cells_u].reshape(E, 30, 1).abs())
+        return self.scatter_p(y_e)
+
     def diag_F(self, F_e: torch.Tensor) -> torch.Tensor:
         """The diagonal of F [n_u] from its element matrices F_e."""
         return self.scatter_u(torch.diagonal(F_e, dim1=1, dim2=2)[..., None])[:, 0]
 
-    def diag_S1(self) -> torch.Tensor:
-        """diag(D diag(M)^-1_free D^T) from D's assembled entries."""
+    def diag_S1(self, inv: torch.Tensor | None = None) -> torch.Tensor:
+        """diag(D diag(M)^-1_free D^T) from D's assembled entries; with
+        `inv` [n_u], diag(D diag(inv) D^T)."""
         E = self.D_e.shape[0]
         rows = self.cells_p[:, :, None, None].expand(E, 4, 10, 3)
         cols = (self.cells_u[:, None, :, None] * 3 + torch.arange(3, device=self.device)).expand(E, 4, 10, 3)
@@ -309,6 +318,6 @@ class RefOperator:
                 (self.n_p, 3 * self.n_u),
             ).coalesce()
         r, c = D.indices()
-        vals = D.values() ** 2 * self.inv1[c // 3]
+        vals = D.values() ** 2 * (self.inv1 if inv is None else inv)[c // 3]
         out = torch.zeros(self.n_p, dtype=self.dtype, device=self.device)
         return out.index_add_(0, r, vals)

@@ -12,8 +12,8 @@ from nsbench import harness
 from nsbench.reference import check
 
 FAULTS = {
-    "duct965k.single": ["unchanged", "node", "drag"],
-    "sweep47k.b64": ["unchanged", "half", "node", "drag"],
+    "duct965k.single": ["unchanged", "node", "pressure", "drag"],
+    "sweep47k.b64": ["unchanged", "half", "node", "pressure", "drag"],
 }
 
 
@@ -26,7 +26,8 @@ def test_a_sound_run_is_correct(small, bench, workload):
 @pytest.mark.parametrize("workload,fault", [(w, f) for w, fs in sorted(FAULTS.items()) for f in fs])
 def test_a_broken_timed_path_is_not_correct(small, bench, workload, fault):
     """A step that returns its state unchanged; half the members left out;
-    one answer altered where it is produced (a velocity node, or c_d)."""
+    one answer altered where it is produced (a velocity node, a pressure
+    node, or c_d)."""
     r = small_run(bench, small, workload, fault=fault)
     assert not r["correct"], r["checks"]
 
