@@ -12,11 +12,13 @@ mix that no cell names yet (`--config`, `--traffic`: a name under
 Either is refused, as a run refuses it, where the check does not cover
 the configuration.  One set-up of the program; then for each seed the
 seeded initial state, the traffic's warm-up and a short window at the
-cell's own load, and its sampled steps judged as a run judges them (the
-lower readings).  For the first `--control-seeds` seeds, the same steps
-are taken again from the program's pre-step states by the reference in
-TF32 put in the program's place (the control: the upper readings), and by
-the reference in float64 (a witness that reads near nought).  One JSON
+cell's own load (`--seconds`, and at least `harness.MIN_WINDOW_STEPS`
+steps, as a run's window), and its sampled steps judged as a run judges
+them (the lower readings).  For the first `--control-seeds` seeds, the
+same steps are taken again from the program's pre-step states by the
+reference in TF32 put in the program's place (the control: the upper
+readings), and by the reference in float64 (a witness that reads near
+nought).  One JSON
 line a seed on standard output: the numbers, the window's steps, ms a
 step, outer Krylov iterations a step and failed steps, and each control
 step's solver information (iterations; for the monolithic control also
@@ -65,7 +67,10 @@ def main(argv=None) -> int:
     for i, seed in enumerate(args.seeds):
         t1 = time.perf_counter()
         state, first = harness.warm_up(prog, prog.advance, prog.initial_state(seed, cfg, traffic), traffic)
-        win = harness.Window(prog, prog.advance, state, args.seconds, int(traffic["check_steps"]), seed)
+        win = harness.Window(
+            prog, prog.advance, state, args.seconds, int(traffic["check_steps"]), seed,
+            harness.MIN_WINDOW_STEPS,
+        )
         samples = harness.host_samples([first] + win.reservoir)
         window = dict(
             steps=len(win.step_s), ms_per_step=1e3 * win.seconds / len(win.step_s),

@@ -11,7 +11,8 @@ A run: set-up (the mesh from the configuration, the program's solver,
 the seeded initial state, the traffic's warm-up steps), then a window of
 `seconds` in which each call of the program's entry point advances one
 step and ends with the diagnostics' copy to the host and a device
-synchronise; with `trace`, then a profiled block of steps in the
+synchronise (under the profiler's device activity where the cell reports
+`device_ms_per_step`); with `trace`, then a profiled block of steps in the
 benchmark's host spans and a count of host syncs; then the check of a
 seeded sample of the window's steps against the plain reference, and one
 JSON line.
@@ -24,6 +25,7 @@ import gc
 import importlib.util
 import json
 import os
+import resource
 import subprocess
 import sys
 import tempfile
@@ -73,6 +75,12 @@ def refuse_uncovered(cfg: dict) -> None:
     check.refuse_uncovered(rc["time"], rc["solver"], meshgen.DIMENSION.get(cfg["mesh"]["generator"]))
 
 
+# End-to-end metrics read from the window's host clock.  A cell that
+# reports device_ms_per_step runs its window under the profiler, which
+# loads the host, and so reports none of them.
+HOST_TIMED = {"steps_per_s", "step_ms_p95"}
+
+
 def find_cell(bench: dict, name: str, root: Path = ROOT) -> dict:
     """The cell `name` with its configuration, traffic, limits and the
     per-layer metrics it reports (those whose `workloads` lists it, or
@@ -86,6 +94,11 @@ def find_cell(bench: dict, name: str, root: Path = ROOT) -> dict:
     refuse_uncovered(config)
     e2e = [m for m in bench["end_to_end"] if name in m.get("workloads", [name])]
     e2e_names = {m["name"] for m in e2e}
+    if "device_ms_per_step" in e2e_names and e2e_names & HOST_TIMED:
+        raise ValueError(
+            f"cell {name!r} reports device_ms_per_step, whose window runs under the profiler, "
+            f"beside {sorted(e2e_names & HOST_TIMED)}, which read that window's host clock"
+        )
     layer = [
         m for m in bench["per_layer"]
         if (name in m["workloads"] if "workloads" in m else m["moves"] in e2e_names)
@@ -328,17 +341,36 @@ def count_syncs(prog, advance, state, steps: int):
     return state, sum("called a synchronizing" in str(w.message) for w in caught)
 
 
-def card_info() -> dict:
-    """The card's name and power limit (nvidia-smi), where it answers."""
+def cpu_seconds() -> float:
+    """The CPU seconds, user and system, of all this process's threads so
+    far (getrusage)."""
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    return ru.ru_utime + ru.ru_stime
+
+
+def card_info(window_cpu_s: float | None = None) -> dict:
+    """The card's name and power limit (nvidia-smi), where it answers, and
+    `host`: the CPUs this process may run on (`affinity`, where the host
+    answers) and `window_cpu_s`, the CPU seconds the process used in the
+    window (a synchronise that spins counts as busy)."""
+    out, host = {}, {}
     try:
-        out = subprocess.run(
+        line = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=30, check=True,
         ).stdout.strip().splitlines()[0]
-        name, limit = (x.strip() for x in out.split(","))
-        return dict(name=name, power_limit=limit)
+        name, limit = (x.strip() for x in line.split(","))
+        out = dict(name=name, power_limit=limit)
     except (OSError, subprocess.SubprocessError, IndexError, ValueError):
-        return {}
+        pass
+    try:
+        host["affinity"] = sorted(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        pass
+    if window_cpu_s is not None:
+        host["window_cpu_s"] = window_cpu_s
+    out["host"] = host
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -434,14 +466,19 @@ def warm_up(prog, advance, state, traffic: dict):
     return state, first
 
 
+# The least number of steps in a run's window, whatever its seconds: p95
+# then rests on a dozen steps beyond it (240 x 5%) in a cell of long steps.
+MIN_WINDOW_STEPS = 240
+
+
 class Window:
     """The measured window: one step a call until `seconds` have passed
-    (the clock from the first step's start to the synchronise after the
-    last), each step's wall time and diagnostics, and a uniform sample of
-    `k` of its steps drawn from the seed (reservoir sampling; the states
-    are held, not copied)."""
+    and at least `min_steps` steps are done (the clock from the first
+    step's start to the synchronise after the last), each step's wall
+    time and diagnostics, and a uniform sample of `k` of its steps drawn
+    from the seed (reservoir sampling; the states are held, not copied)."""
 
-    def __init__(self, prog, advance, state, seconds: float, k: int, seed: int):
+    def __init__(self, prog, advance, state, seconds: float, k: int, seed: int, min_steps: int = 1):
         rng = np.random.default_rng([seed, 1])
         self.reservoir, self.step_s, self.diags = [], [], []
         t0 = time.perf_counter()
@@ -458,7 +495,7 @@ class Window:
                 self.reservoir.append((pre, state, d))
             elif rng.random() < k / i:
                 self.reservoir[int(rng.integers(k))] = (pre, state, d)
-            if now - t0 >= seconds:
+            if now - t0 >= seconds and i >= min_steps:
                 break
         self.seconds = now - t0
         self.state = state
@@ -516,7 +553,16 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
     setup_s = time.perf_counter() - t_start
 
     # ---- the window -----------------------------------------------------
-    win = Window(prog, advance, state, seconds, int(traffic["check_steps"]), seed)
+    # device_ms_per_step: the whole window under the profiler, its device
+    # activity alone, and the union of that activity over the window's steps
+    from nsbench.trace import device_activity, device_busy_s
+
+    on_device = on_card and not trace and any(m["name"] == "device_ms_per_step" for m in cell["end_to_end"])
+    with device_activity(on_device) as prof:
+        cpu0 = cpu_seconds()
+        win = Window(prog, advance, state, seconds, int(traffic["check_steps"]), seed, MIN_WINDOW_STEPS)
+        window_cpu_s = cpu_seconds() - cpu0
+    busy_s = device_busy_s(prof) if on_device else None
     state, step_s, diags, window_s = win.state, win.step_s, win.diags, win.seconds
     peak = torch.cuda.max_memory_allocated(prog.device) if on_card else 0
 
@@ -554,9 +600,11 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
             step_ms_p95=1e3 * float(np.percentile(step_s, 95)),
             peak_mem_gib=peak / 2**30,
             setup_s=setup_s,
+            device_ms_per_step=None if busy_s is None else 1e3 * busy_s / len(step_s),
         )
         for m in cell["end_to_end"]:
-            metrics[m["name"]] = dict(value=float(values[m["name"]]), unit=m["unit"])
+            if values[m["name"]] is not None:  # device_ms_per_step is read on the card only
+                metrics[m["name"]] = dict(value=float(values[m["name"]]), unit=m["unit"])
 
     # ---- the check --------------------------------------------------------
     numbers = Checker(cfg, arrays, labels, device).numbers(samples, nus)
@@ -575,7 +623,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
         result["device"].update(busy_s=ctx.trace.busy_s(), window_s=ctx.trace.window_s())
         result["breakdown"] = dict(device_ops=ctx.trace.top_kernels(10), idle_gaps=ctx.trace.idle_gaps(10))
     if on_card:
-        result["card"] = card_info()
+        result["card"] = card_info(window_cpu_s)
     result["window"] = dict(
         steps=len(step_s), seconds=window_s, checked_steps=len(samples),
         step_ms_median=1e3 * float(np.median(step_s)),

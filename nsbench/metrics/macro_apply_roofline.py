@@ -4,7 +4,7 @@ share of its roofline.  The benchmark wraps `apply_macro` in a host span;
 the device time is that of the kernels launched inside the span.  Each
 call's least time counts the block values FtT [B, U, U] and the input and
 output [n, C] once, and one 4-byte slot index a block slot, against
-2 B U^2 C operations (`nsbench/roofline.py`).  Moves steps_per_s."""
+2 B U^2 C operations (`nsbench/roofline.py`).  Moves device_ms_per_step."""
 
 from nsbench.roofline import share_percent
 

@@ -5,7 +5,7 @@ device time is that of the kernels launched inside it.  Each call's least
 time counts the element matrices F_e [E, nloc, nloc] and the block values
 FtT [B, U, U] once, and the slot table [B, c_blk, nloc] at 4 bytes a
 slot, against E nloc^2 additions (`nsbench/roofline.py`).  Moves
-steps_per_s."""
+device_ms_per_step."""
 
 from nsbench.roofline import share_percent
 

@@ -58,10 +58,15 @@ def small(tmp_path, bench):
     return small_root(tmp_path, bench)
 
 
-def small_run(bench, root, workload, seed=2**31 + 7, trace=False, fault=None, seconds=0.3):
+def small_run(bench, root, workload, seed=2**31 + 7, trace=False, fault=None, seconds=0.3, min_steps=1):
+    """A run on the CPU, its window held to `min_steps` steps at least in
+    place of the cells' MIN_WINDOW_STEPS (240 of the sweep's small CPU
+    steps would take most of a minute)."""
     import time
+    from unittest import mock
 
-    return harness.run(
-        workload, seed, seconds, trace, time.perf_counter(), bench=bench, root=root,
-        device="cpu", fault=fault, log=lambda msg: None,
-    )
+    with mock.patch.object(harness, "MIN_WINDOW_STEPS", min_steps):
+        return harness.run(
+            workload, seed, seconds, trace, time.perf_counter(), bench=bench, root=root,
+            device="cpu", fault=fault, log=lambda msg: None,
+        )

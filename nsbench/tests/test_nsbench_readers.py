@@ -75,3 +75,64 @@ def test_the_trace_reading_by_hand(tmp_path):
     ctx.trace = tr
     assert abs(harness.load_reader("device_idle_share").read(ctx) - 81.0) < 1e-9
     assert harness.load_reader("launches_per_step").read(ctx) == 1.0
+
+
+class _KinetoEvent:
+    def __init__(self, device, start, end, span=False):
+        self.device, self.start, self.end, self.span = device, start, end, span
+
+    def device_type(self):
+        from torch.autograd import DeviceType
+
+        return DeviceType.CUDA if self.device else DeviceType.CPU
+
+    def is_user_annotation(self):
+        return self.span
+
+    def start_ns(self):
+        return self.start
+
+    def end_ns(self):
+        return self.end
+
+
+def test_device_busy_is_the_union_of_the_device_activity():
+    from nsbench.trace import device_busy_s
+
+    events = [
+        _KinetoEvent(True, 100, 300),  # a kernel
+        _KinetoEvent(True, 250, 400),  # another, overlapping the first
+        _KinetoEvent(True, 500, 550),  # a copy
+        _KinetoEvent(True, 550, 560),  # a memset
+        _KinetoEvent(True, 0, 10_000, span=True),  # a span on the device's row, not work
+        _KinetoEvent(False, 0, 5_000),  # a runtime call on the host
+    ]
+    prof = SimpleNamespace(profiler=SimpleNamespace(kineto_results=SimpleNamespace(events=lambda: events)))
+    assert abs(device_busy_s(prof) - 360e-9) < 1e-18  # [100, 400] and [500, 560]
+
+
+def test_a_cell_times_its_window_on_one_clock(bench):
+    """device_ms_per_step profiles the window, so a cell that reports it
+    reports no metric of the window's host clock."""
+    both = json.loads(json.dumps(bench))
+    for m in both["end_to_end"]:
+        if m["name"] in ("steps_per_s", "device_ms_per_step"):
+            m["workloads"] = ["duct965k.single", "sweep47k.b64"]
+    try:
+        harness.find_cell(both, "duct965k.single")
+    except ValueError as e:
+        assert "device_ms_per_step" in str(e) and "steps_per_s" in str(e)
+    else:
+        raise AssertionError("a cell timed on both clocks was found")
+    assert harness.find_cell(bench, "duct965k.single")["name"] == "duct965k.single"
+
+
+def test_the_device_time_readers_read_as_their_base_readers():
+    ctx = harness.Context(True)
+    ctx.diags = [dict(iters_f=[5, 7], iters_s=[3, 2]), dict(iters_f=[4], iters_s=[4])]
+    import importlib
+
+    for name in ("krylov_iters_per_step", "launches_per_step", "coarse_solve_roofline", "schur_matvec_roofline"):
+        dev = harness.load_reader(f"{name}.device")
+        assert dev.read is importlib.import_module(f"nsbench.metrics.{name}").read
+    assert harness.load_reader("krylov_iters_per_step.device").read(ctx) == 9.0

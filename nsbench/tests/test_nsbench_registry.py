@@ -17,9 +17,11 @@ def test_every_cell_finds_its_files(bench):
         cell = harness.find_cell(bench, w["name"])
         assert cell["config"]["name"] == w["config"]
         assert set(cell["limits"]["limits"]) >= {"mom", "mom_row", "div", "c_d", "c_l", "delta_p"}
-        assert {m["name"] for m in cell["end_to_end"]} == {m["name"] for m in bench["end_to_end"]}
+        e2e = {m["name"] for m in cell["end_to_end"]}
+        assert "setup_s" in e2e and len(e2e) >= 2 and cell["per_layer"]
         for m in cell["per_layer"]:
             assert hasattr(harness.load_reader(m["name"]), "read")
+            assert m["moves"] in e2e  # a cell reports what each of its per-layer metrics moves
 
 
 def test_per_layer_metrics_follow_their_workloads_lists(bench):
@@ -27,7 +29,10 @@ def test_per_layer_metrics_follow_their_workloads_lists(bench):
     sweep = {m["name"] for m in harness.find_cell(bench, "sweep47k.b64")["per_layer"]}
     assert "macro_apply_roofline" in duct and "macro_apply_roofline" not in sweep
     assert "element_pass_roofline" in sweep and "element_pass_roofline" not in duct
-    assert {"device_idle_share", "launches_per_step", "krylov_iters_per_step", "host_syncs_per_step"} <= duct & sweep
+    host = {"device_idle_share", "launches_per_step", "krylov_iters_per_step", "host_syncs_per_step", "krylov_graph_share"}
+    assert host <= sweep and not host & duct  # the duct's step is timed on the device
+    assert {"launches_per_step.device", "krylov_iters_per_step.device", "schur_matvec_roofline.device"} <= duct - sweep
+    assert "setup_solver_s" in duct & sweep
 
 
 def test_benchmark_json_keeps_the_contract_shapes(bench):

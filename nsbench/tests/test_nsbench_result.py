@@ -29,7 +29,8 @@ def _keys_ok(r: dict, traced: bool):
 def test_the_result_holds_the_contract_keys_in_order(small, bench):
     r = small_run(bench, small, "duct965k.single")
     _keys_ok(r, traced=False)
-    assert set(r["metrics"]) == {"steps_per_s", "step_ms_p95", "peak_mem_gib", "setup_s"}
+    # the duct's device_ms_per_step is read on the card only; off it, the rest
+    assert set(r["metrics"]) == {"peak_mem_gib", "setup_s"}
     assert r["correct"] and r["failed"] == 0 and r["attempted"] == r["window"]["steps"] >= 1
     json.dumps(r)
 

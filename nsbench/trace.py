@@ -6,13 +6,18 @@ interval holds the runtime call that launched it, matched by the
 profiler's correlation id).
 
 Times in the export are microseconds on one clock for host and device.
+`device_busy_s` reads the device's busy time of a whole profiled window
+(`device_ms_per_step`) from the profiler's events without an export.
 """
 
 from __future__ import annotations
 
 import bisect
+import contextlib
 import json
 from collections import defaultdict
+
+import numpy as np
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
@@ -30,6 +35,37 @@ def _union(intervals):
         else:
             out.append([a, b])
     return out
+
+
+def device_activity(on: bool):
+    """torch.profiler over the device's activity alone (kernels, copies,
+    memsets and the runtime calls that launch them) where `on`; else a
+    null context."""
+    if not on:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def device_busy_s(prof) -> float:
+    """Seconds in which a kernel, copy or memset ran on the device over a
+    whole profiler session: the union of the intervals of its kineto
+    events on the device that are not a span (no Chrome export: a window
+    holds some hundred thousand kernels)."""
+    from torch.autograd import DeviceType
+
+    ev = [e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+    ev = [e for e in ev if not e.is_user_annotation()]
+    if not ev:
+        return 0.0
+    start = np.fromiter((e.start_ns() for e in ev), np.int64, len(ev))
+    end = np.fromiter((e.end_ns() for e in ev), np.int64, len(ev))
+    order = np.argsort(start, kind="stable")
+    start, reach = start[order], np.maximum.accumulate(end[order])
+    first = np.r_[True, start[1:] > reach[:-1]]  # each merged interval's first event
+    last = np.r_[first[1:], True]
+    return float((reach[last] - start[first]).sum()) / 1e9
 
 
 class Trace:
