@@ -98,6 +98,7 @@ phases.
     python3 chip_smoke.py --only fault7 dfg
     python3 chip_smoke.py --only dfg_full --out-dir DIR   # or dfg_re100, dfg_re200, dfg_3d1z
     python3 chip_smoke.py --only dfg_spread dfg_drift dfg_3d_spread
+    python3 chip_smoke.py --only coarse   # the frozen coarse solve at the duct's and the sweep's sizes
 
 Every phase that fails makes the exit code non-zero; without a CUDA device
 the script exits 1 before printing any result.  The last three lines of
@@ -215,6 +216,9 @@ KERNEL_RTOL64 = {"macro_matvec": 1e-12, "macro_build": 1e-12, "slot_reduce": 1e-
 # torch.cuda._sleep counts clock cycles: at no more than 2 GHz, this many
 # cycles last at least a second.
 SPIN_CYCLES_PER_S = 2e9
+# `cold_device_ms` reads this many bytes before each call: five times the
+# L2, so that nothing the call reads is left there.
+FLUSH_BYTES = 5 * L2_BYTES
 # Top-level modules the port and this script must never import.
 FORBIDDEN_MODULES = ("jax", "jaxlib", "navierstokes_project_nm4pde_tpu")
 # The ensemble path: scripts/bench_ensemble.py's mesh and member count
@@ -1485,25 +1489,87 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
-def coarse_solve_times(solver, reps: int) -> None:
-    """The coarse solve of one Schur CG iteration at the solver's coarse
-    size: the Cholesky factor's two triangular solves against one gemv
-    with the inverse (coarse_solve "chol" / "inv"), call and device ms."""
+def cold_device_ms(fn, reps: int) -> float:
+    """Device time of one call of fn() that finds nothing of its operands in
+    L2, as inside the pressure CG, where a Schur matvec streams its band
+    between two coarse solves: each of `reps` calls between two CUDA
+    events, after a read of FLUSH_BYTES (a read, as the band's: a write
+    would leave L2 dirty, and the call would pay for writing it back), all
+    queued behind a spin that outlasts their enqueue (taken again behind a
+    longer spin where it did not; fails after three such)."""
     import torch
 
-    from navierstokes_project_nm4pde_tpu_torch.ops.coarse import cho_solve_c, inv_solve_c
+    flush = torch.zeros(int(FLUSH_BYTES) // 4, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        flush.sum()
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    for attempt in range(3):
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(reps)]
+        torch.cuda._sleep(int(2 * 4**attempt * max(host_s, 1e-3) * SPIN_CYCLES_PER_S))
+        for start, end in events:
+            flush.sum()
+            start.record()
+            fn()
+            end.record()
+        if not events[0][0].query():
+            torch.cuda.synchronize()
+            return sum(start.elapsed_time(end) for start, end in events) / reps
+        torch.cuda.synchronize()
+    fail("cold_device_ms: the spin kernel ended before the last call was queued, three times")
 
-    L = solver.proj_schur.cho_L
-    nc = L.shape[0]
-    Sc_inv = torch.cholesky_inverse(L)
-    rc = torch.randn(nc, generator=torch.Generator(device=L.device).manual_seed(3), device=L.device)
-    chol, inv = cho_solve_c(L), inv_solve_c(Sc_inv)
-    err = float((inv(rc) - chol(rc)).abs().max() / chol(rc).abs().max())
-    log(f"coarse solve at nc={nc} (f32): cholesky_solve call {time_ms(lambda: chol(rc), reps):.4f} ms, "
-        f"device {device_ms(lambda: chol(rc), reps):.4f} ms; inverse gemv call "
-        f"{time_ms(lambda: inv(rc), reps):.4f} ms, device "
-        f"{device_ms(lambda: inv(rc), reps):.4f} ms; "
-        f"max rel difference {err:.3e}")
+
+def coarse_solve_times(label: str, solver, cols: int, reps: int) -> dict:
+    """The frozen coarse solve of one pressure-CG iteration at the solver's
+    coarse size and `cols` columns (the duct's 1, the sweep's 64), from what
+    `FrozenSchur` holds (`cho_w`: W = L^-1 and W^T, packed): the
+    `coarse_solve` kernel against its plain version, `torch.cholesky_solve`
+    on L = W^-1 (the library call, and the solve before the kernel) and one
+    product with the dense inverse W^T W (coarse_solve "inv").  Call ms;
+    device ms back to back (`device_ms`: W stays in L2) and with L2 emptied
+    before each call (`cold_device_ms`), the latter held to the benchmark
+    reader's bound (`nsbench/metrics/coarse_solve_roofline.py`: the
+    triangle read twice, the coarse vector in and out).  Fails where the
+    kernel misses its plain version by more than 1e-5 of max |plain|
+    (1e-12 in float64).  Logs and returns the record."""
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch.ops import coarse
+
+    W = solver.proj_schur.cho_w
+    nc, dev, dt = W.shape[0], W.device, W.dtype
+    W64 = torch.tril(W[:, :nc]).double()
+    L = torch.linalg.solve_triangular(W64, torch.eye(nc, dtype=torch.float64, device=dev), upper=False).to(dt)
+    Sc_inv = (W64.T @ W64).to(dt)
+    rc = torch.randn((nc, cols), generator=torch.Generator(device=dev).manual_seed(3), device=dev, dtype=dt)
+    rc = rc - rc.mean(dim=0)
+    fns = dict(
+        kernel=lambda: coarse.coarse_solve(W, rc),
+        plain=lambda: coarse.coarse_solve_plain(W, rc),
+        cholesky_solve=lambda: torch.cholesky_solve(rc, L, upper=False),
+        inverse=lambda: Sc_inv @ rc,
+    )
+    out = {k: fn() for k, fn in fns.items()}
+    scale = float(out["plain"].abs().max())
+    err = float((out["kernel"] - out["plain"]).abs().max()) / scale
+    if not err <= (1e-12 if dt == torch.float64 else 1e-5):
+        fail(f"coarse_solve {label}: the kernel misses its plain version by {err:.3e} of max |plain|")
+    s = W.element_size()
+    b = bound(nc * (nc + 1) * s + 2 * nc * cols * s, 2 * nc * nc * cols,
+              F64_OPS_PER_S if dt == torch.float64 else F32_OPS_PER_S)
+    r = dict(nc=nc, cols=cols, dtype=str(dt).replace("torch.", ""), max_rel_err=err,
+             rel_diff_cholesky_solve=float((out["kernel"] - out["cholesky_solve"]).abs().max()) / scale,
+             **{f"{k}_ms": time_ms(fn, reps) for k, fn in fns.items()},
+             **{f"{k}_warm_device_ms": device_ms(fn, reps) for k, fn in fns.items()},
+             **{f"{k}_device_ms": cold_device_ms(fn, reps) for k, fn in fns.items()}, **b)
+    r["share"] = share(f"coarse_solve {label}", b, r["kernel_device_ms"])
+    log(f"coarse_solve {label}: {json.dumps(r)}")
+    return r
 
 
 def imex_operator_times(solver, reps: int) -> None:
@@ -2722,9 +2788,29 @@ def kernel_entry(name: str, r: dict, launches: int) -> dict:
     )
 
 
+def drive_coarse(device) -> None:
+    """The frozen coarse solve at the single run's (965k duct, 1 column)
+    and the ensemble's (64 x 47k, 64 columns) coarse sizes, in float32 and
+    float64 (`coarse_solve_times`)."""
+    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
+    from navierstokes_project_nm4pde_tpu_torch.models import Cylinder3DProblem, NavierStokesSolver
+
+    for label, mesh_kw, config, cols in (
+        ("single run", dict(lc=0.024, nz=14), bench_config, 1),
+        ("ensemble", ENSEMBLE_MESH, ensemble_config, ENSEMBLE_MEMBERS),
+    ):
+        mesh = cylinder_duct_3d(**mesh_kw)
+        for dtype in ("float32", "float64"):
+            solver = NavierStokesSolver(mesh, Cylinder3DProblem(test_case=2), config(dtype), device=device)
+            coarse_solve_times(f"{label} {dtype}", solver, cols, KERNEL_REPS)
+            del solver
+            free_card()
+
+
 # Phases `--only` can run alone: name -> phase(device, kernel records,
 # float64 kernel records, the DFG runs' output directory or None).
 ONLY_PHASES = {
+    "coarse": lambda device, rec, rec64, out: drive_coarse(device),
     "ensemble-cli": lambda device, rec, rec64, out: drive_ensemble_cli(device, rec),
     "ensemble-variants": lambda device, rec, rec64, out: (check_small_ensemble(device),
                                                           check_small_ensembles(device)),
@@ -2830,6 +2916,7 @@ def main(argv=None) -> int:
         f"B={B}: {B * esolver.space.n_dofs} DoF in all; {plans.n_slots} element slots, "
         f"max valence {int(plans.reduce.lengths.max())}; host setup {e_setup:.2f} s")
     add_slot_shapes(rec, "ensemble", plans, KERNEL_REPS, base=3 * B)
+    coarse_solve_times("ensemble", esolver, B, KERNEL_REPS)
 
     # ---- 5. the probes --------------------------------------------------------
     prec = run_probes(KERNEL_REPS)
@@ -2868,7 +2955,7 @@ def main(argv=None) -> int:
     )
     launches = {k: launches[k] for k in ("macro_build", "macro_matvec")}
     n = TIMED_STEPS
-    coarse_solve_times(solver, KERNEL_REPS)
+    coarse_solve_times("single run", solver, 1, KERNEL_REPS)
 
     if args.profile:
         busy = profile_steps(lambda st, k: solver.run(k, state=st), state, 3, args.profile, "single")

@@ -107,6 +107,8 @@ from navierstokes_project_nm4pde_tpu_torch.ops.bsr import (
 )
 from navierstokes_project_nm4pde_tpu_torch.ops.coarse import (
     cho_solve_c,
+    cho_w_solve_c,
+    frozen_cho_w,
     host_coarse_dense,
     inv_solve_c,
     twolevel_apply_additive_g,
@@ -275,7 +277,7 @@ class FrozenSchur:
     inv1: torch.Tensor  # [n_unodes] 1/diagM on free nodes, 0 constrained
     diag1: torch.Tensor  # [n_p] diagonal of S1
     inv_d: torch.Tensor  # [n_p] 1 / diag1, the preconditioner's Jacobi part
-    cho_L: torch.Tensor | None  # dense lower Cholesky factor of the coarse matrix
+    cho_w: torch.Tensor | None  # [nc, ld] W = L^-1 of the coarse matrix's factor, W^T above (`frozen_cho_w`)
     inv_c: torch.Tensor | None  # dense inverse of the coarse matrix (coarse_solve="inv")
     band: BandedSchur | None  # None: the ELL SpMV over vals1 (op.schur's layout)
     vals1: torch.Tensor | None = None  # [n_slots] S1's ELL values (without a band)
@@ -567,9 +569,10 @@ class NavierStokesSolver:
                     dt = dt / 1.5
                 self._f_lam0 = f_lam_power(self.op, nu, dt, None, inv_diag_Fhat(self.op, nu, dt, None), iters=8)
 
-        # Frozen Schur S1 = D diag(M)^-1 D^T, its coarse factor and banded
-        # form (or its ELL values, when the band is too wide or "ell" is
-        # asked for), once on the host in float64.
+        # Frozen Schur S1 = D diag(M)^-1 D^T, its coarse factor's inverse
+        # (or the coarse matrix's) and banded form (or its ELL values, when
+        # the band is too wide or "ell" is asked for), once on the host in
+        # float64.
         self.proj_schur = None
         if frozen:
             with setup_phase("setup.frozen_schur"):
@@ -601,7 +604,7 @@ class NavierStokesSolver:
                     inv1=torch.as_tensor(inv1, dtype=dt_, device=dev),
                     diag1=diag1,
                     inv_d=1.0 / diag1,
-                    cho_L=None if inv else torch.as_tensor(np.linalg.cholesky(Sc), dtype=dt_, device=dev),
+                    cho_w=None if inv else frozen_cho_w(Sc, dt_, dev),
                     inv_c=torch.as_tensor(np.linalg.inv(Sc), dtype=dt_, device=dev) if inv else None,
                     band=band,
                     vals1=None if band is not None else torch.as_tensor(vals1, dtype=dt_, device=dev),
@@ -1134,12 +1137,12 @@ class NavierStokesSolver:
 
     def _pressure_operators(self, fz: FrozenSchur | None, pst=None):
         """(S, M): the pressure CG's operator and two-level preconditioner,
-        on the frozen S1 or, with fz None, on the step's S~ in `pst` (the
-        Cholesky coarse solve)."""
+        on the frozen S1 (its coarse factor's inverse) or, with fz None, on
+        the step's S~ in `pst` (its coarse factor's triangular solves)."""
         op, pc = self.op, self.config.precond
         if fz is not None:
             inv_d = fz.inv_d
-            solve_c = cho_solve_c(fz.cho_L) if fz.inv_c is None else inv_solve_c(fz.inv_c)
+            solve_c = cho_w_solve_c(fz.cho_w) if fz.inv_c is None else inv_solve_c(fz.inv_c)
             if fz.band is not None:
                 def S(pv):
                     return banded_matvec(fz.band, pv)

@@ -9,12 +9,19 @@ reshape + sum and prolongation a repeat.  The frozen S1's dense coarse
 matrix is assembled once on the host in float64; a per-step S~ (the block
 preconditioners, proj_schur="step") reduces its flat ELL values into the
 dense [nc, nc] matrix through the plan `build_coarse_schur` builds from the
-slot layout, on the device.  Either is Cholesky-factorised
-(`cholesky_ex`, no host sync: two triangular solves an application) or
-inverted (one [nc, nc] gemv an application).  Each application of a
-coarse solve runs in span `precond.coarse_solve` (`utils/profiling.py`),
-with its sizes: nc, the columns, the factors (1, or B), the element size
-and the form ("chol" or "inv").
+slot layout, on the device.  Either is Cholesky-factorised or inverted
+(one [nc, nc] gemv an application).  The per-step factor (`cholesky_ex`,
+no host sync) is applied by two triangular solves (`cho_solve_c`); the
+frozen one is inverted once at set-up, W = L^-1 in float64 on the host
+(`frozen_cho_w`), and applied as z = W^T (W r) (`cho_w_solve_c`): on the
+card by the hand-written `coarse_solve` kernel (`csrc/coarse_kernels.cu`,
+two launches, each reading one triangle), on the CPU by its plain version.
+Each application of a coarse solve runs in span `precond.coarse_solve`
+(`utils/profiling.py`), with its sizes: nc, the columns, the factors (1,
+or B), the element size and the form ("chol" or "inv"); a Cholesky
+form's also with `impl`, the path it took ("kernel", "plain" or
+"cholesky_solve").  `launch_counts` counts the kernel's launches:
+float32's under its name, float64's under the name with `_f64`.
 
     additive:  z = omega D^-1 r + R^T Sc^-1 R r
     V(1,1):    smooth, coarse correction, smooth (two S applies)
@@ -27,12 +34,20 @@ import dataclasses
 import numpy as np
 import torch
 
+from navierstokes_project_nm4pde_tpu_torch.ops import cuda_lib
 from navierstokes_project_nm4pde_tpu_torch.ops.scatter import (
     SegmentPlan,
     apply_segment_plan,
     build_segment_plan,
 )
 from navierstokes_project_nm4pde_tpu_torch.utils.profiling import span
+
+launch_counts = {"coarse_solve": 0, "coarse_solve_f64": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
 
 
 @dataclasses.dataclass
@@ -111,17 +126,91 @@ def prolong(cs: CoarseSchur, rc: torch.Tensor, n_p: int) -> torch.Tensor:
 
 
 def cho_solve_c(cho_L: torch.Tensor):
-    """Coarse solve from a dense lower Cholesky factor ([nc, nc] shared, or
-    [B, nc, nc] for the B columns of rc [nc, B])."""
+    """Coarse solve from a dense lower Cholesky factor made on the device
+    ([nc, nc] shared, or [B, nc, nc] for the B columns of rc [nc, B]): two
+    triangular solves (`torch.cholesky_solve`)."""
     nc, factors = cho_L.shape[-1], cho_L.shape[0] if cho_L.dim() == 3 else 1
     s = cho_L.element_size()
 
     def solve(rc):
-        with span("precond.coarse_solve", nc=nc, cols=rc.numel() // nc, factors=factors, itemsize=s, form="chol"):
+        with span("precond.coarse_solve", nc=nc, cols=rc.numel() // nc, factors=factors, itemsize=s, form="chol",
+                  impl="cholesky_solve"):
             if cho_L.dim() == 3:
                 return torch.cholesky_solve(rc.T[:, :, None], cho_L, upper=False)[:, :, 0].T
             R = rc.reshape(rc.shape[0], -1)
             return torch.cholesky_solve(R, cho_L, upper=False).reshape(rc.shape)
+
+    return solve
+
+
+def frozen_cho_w(Sc: np.ndarray, dtype: torch.dtype, device=None) -> torch.Tensor:
+    """The operand of `cho_w_solve_c` for the frozen coarse matrix Sc (float64,
+    [nc, nc]), built once in float64 on the host and rounded once to
+    `dtype`: [nc, ld] holding W = L^-1 (L Sc's lower Cholesky factor) in its
+    lower triangle, diagonal included, and W^T's strict upper part above
+    it; ld is nc rounded up to a multiple of 4, the columns past nc zero."""
+    nc = Sc.shape[0]
+    L = torch.as_tensor(np.linalg.cholesky(Sc))
+    W = torch.linalg.solve_triangular(L, torch.eye(nc, dtype=L.dtype), upper=False)
+    M = torch.zeros((nc, -(-nc // 4) * 4), dtype=L.dtype)
+    M[:, :nc] = torch.tril(W) + torch.tril(W, -1).T
+    return M.to(dtype=dtype, device=device)
+
+
+def coarse_solve_plain(cho_w: torch.Tensor, rc: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch `coarse_solve`: z = W^T (W rc), rc [nc] or [nc, cols],
+    from `frozen_cho_w`'s packed W."""
+    nc = cho_w.shape[0]
+    M = cho_w[:, :nc]
+    R = rc.reshape(nc, -1)
+    return (torch.triu(M) @ (torch.tril(M) @ R)).reshape(rc.shape)
+
+
+def coarse_solve(cho_w: torch.Tensor, rc: torch.Tensor) -> torch.Tensor:
+    """z = Sc^-1 rc = W^T (W rc) for rc [nc] or [nc, cols]: the hand-written
+    kernel on a CUDA tensor (two launches), the plain version on a CPU one."""
+    if rc.device.type == "cpu":
+        return coarse_solve_plain(cho_w, rc)
+    if rc.device.type != "cuda":
+        raise ValueError(f"coarse_solve: unsupported device {rc.device}")
+    nc, ld = cho_w.shape[0], cho_w.shape[-1]
+    if (
+        rc.dtype not in cuda_lib.SUFFIX or cho_w.dtype != rc.dtype or cho_w.device != rc.device
+        or cho_w.dim() != 2 or ld < nc or ld % 4 or cho_w.data_ptr() % 16
+        or not (cho_w.is_contiguous() and rc.is_contiguous())
+        or rc.dim() not in (1, 2) or rc.shape[0] != nc
+    ):
+        raise ValueError(
+            f"coarse_solve: expected a contiguous float32 or float64 [{nc}] or [{nc}, cols] "
+            f"tensor beside a contiguous, 16-byte aligned [{nc}, ld] operand of its dtype and "
+            f"device (ld a multiple of 4, at least {nc}); got {rc.dtype} {tuple(rc.shape)} on "
+            f"{rc.device} and {cho_w.dtype} {tuple(cho_w.shape)} on {cho_w.device}"
+        )
+    cols = rc.numel() // nc
+    y = torch.empty((nc, cols), dtype=rc.dtype, device=rc.device)  # W rc, the second launch's input
+    z = torch.empty_like(rc)
+    entry = f"ns_coarse_solve_{cuda_lib.SUFFIX[rc.dtype]}"
+    stream = torch.cuda.current_stream(rc.device).cuda_stream
+    cuda_lib.check(
+        getattr(cuda_lib.load(), entry)(
+            cho_w.data_ptr(), rc.data_ptr(), y.data_ptr(), z.data_ptr(), nc, ld, cols, stream,
+        ),
+        entry,
+    )
+    launch_counts[cuda_lib.count_key("coarse_solve", rc.dtype)] += 2
+    return z
+
+
+def cho_w_solve_c(cho_w: torch.Tensor):
+    """Coarse solve of the frozen factor, from `frozen_cho_w`'s operand
+    [nc, ld], shared by the columns of rc [nc] or [nc, B] (`coarse_solve`)."""
+    nc, s = cho_w.shape[0], cho_w.element_size()
+    impl = "kernel" if cho_w.device.type == "cuda" else "plain"
+
+    def solve(rc):
+        with span("precond.coarse_solve", nc=nc, cols=rc.numel() // nc, factors=1, itemsize=s, form="chol",
+                  impl=impl):
+            return coarse_solve(cho_w, rc)
 
     return solve
 

@@ -24,7 +24,7 @@ from navierstokes_project_nm4pde_tpu_torch.utils.profiling import setup_phase
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(
     _PKG / "csrc" / name
-    for name in ("macro_kernels.cu", "ensemble_kernels.cu", "probe_kernels.cu")
+    for name in ("macro_kernels.cu", "ensemble_kernels.cu", "probe_kernels.cu", "coarse_kernels.cu")
 )
 BUILD_DIR = _PKG / "build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -34,8 +34,9 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (each returns an int: a CUDA error code,
 # or for ns_macro_max_channels*, ns_macro_build_band_* and
-# ns_macro_matvec_{band_cols,panel_rows} a size).  Kernels A-D have an entry point
-# for each element type, suffixed _f32 and _f64.
+# ns_macro_matvec_{band_cols,panel_rows} a size).  Kernels A-D and the
+# coarse solve have an entry point for each element type, suffixed _f32 and
+# _f64.
 _SIGNATURES = {
     **{f"ns_macro_matvec_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _P] for t in ("f32", "f64")},
     "ns_macro_matvec_v1_f32": [_P, _P, _P, _I, _I, _I, _P],
@@ -52,6 +53,7 @@ _SIGNATURES = {
     },
     "ns_sgemm_tn_f32": [_P, _P, _P, _I, _I, _I, _P],
     "ns_column_gather_f32": [_P, _P, _P, _I, _I, _P],
+    **{f"ns_coarse_solve_{t}": [_P, _P, _P, _P, _I, _I, _I, _P] for t in ("f32", "f64")},
 }
 # element type -> the suffix of its kernels' entry points
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

@@ -34,7 +34,7 @@ import torch
 
 from navierstokes_project_nm4pde_tpu_torch.ops.banded import banded_matvec
 from navierstokes_project_nm4pde_tpu_torch.ops.coarse import (
-    cho_solve_c,
+    cho_w_solve_c,
     inv_solve_c,
     twolevel_apply_additive_g,
 )
@@ -124,7 +124,7 @@ class HaloProjectionStep:
         self.invdiag = own(pst.inv_diag_Fhat[:, None])[:, 0]
         self.inv1 = own(fz.inv1[:, None])[:, 0]
         self.inv_d = fz.inv_d
-        self.solve_c = cho_solve_c(fz.cho_L) if fz.inv_c is None else inv_solve_c(fz.inv_c)
+        self.solve_c = cho_w_solve_c(fz.cho_w) if fz.inv_c is None else inv_solve_c(fz.inv_c)
 
     # -- layout helpers ------------------------------------------------
     def shard(self, x: torch.Tensor) -> torch.Tensor:

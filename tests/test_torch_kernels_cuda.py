@@ -7,10 +7,11 @@ repository's JAX test configuration:
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
 Tolerances: kernel and plain version sum the same f32 terms in another
-order (kernel B with shared-memory atomics, the slot reduce and the GEMM
-probe in their own fixed orders), so results agree to a few f32 ulps of
-the largest entry; 1e-5 relative to max |plain| is stated.  In float64
-(kernels A-D) the same holds in f64 ulps: 1e-12 is stated.  The slot
+order (kernel B with shared-memory atomics, the slot reduce, the GEMM
+probe and the coarse solve in their own fixed orders), so results agree
+to a few f32 ulps of the largest entry; 1e-5 relative to max |plain| is
+stated.  In float64 (kernels A-D and the coarse solve) the same holds in
+f64 ulps: 1e-12 is stated.  The slot
 gather and the column gather copy values: equality is exact.
 """
 
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from navierstokes_project_nm4pde_tpu_torch.ops import coarse
 from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
 from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
 from navierstokes_project_nm4pde_tpu_torch.ops import probes
@@ -623,3 +625,86 @@ def test_slot_kernels_float64_match_plain(cuda, E, n_rows, C):
     if C <= 16:
         assert torch.equal(oh.onehot_reduce_wide(plans, y), out)
         assert torch.equal(oh.onehot_gather_wide(plans, x), ye)
+
+
+def _coarse_w(nc, dtype, device):
+    """`frozen_cho_w` of an SPD matrix like the coarse Schur matrix: the
+    leading [nc, nc] block of a 3D grid's Laplacian, shifted by 1e-6 of
+    its mean diagonal as `host_coarse_dense` shifts."""
+    n = int(np.ceil(nc ** (1 / 3)))
+    idx = np.arange(n**3).reshape(n, n, n)
+    A = np.zeros((n**3, n**3))
+    for ax in range(3):
+        a, b = (np.moveaxis(idx, ax, 0)[s].ravel() for s in (slice(None, -1), slice(1, None)))
+        np.add.at(A, (a, b), -1.0)
+        np.add.at(A, (b, a), -1.0)
+        np.add.at(A, (a, a), 1.0)
+        np.add.at(A, (b, b), 1.0)
+    A = A[:nc, :nc]
+    return coarse.frozen_cho_w(A + 1e-6 * np.trace(A) / nc * np.eye(nc), dtype, device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nc,cols", [(1708, 1), (88, 64), (301, 3), (45, 9)])
+def test_coarse_solve_matches_plain(cuda, nc, cols, dtype):
+    """The frozen coarse solve at the duct's (nc, 1 column: one warp a row,
+    rows in bands of 8) and the sweep's (nc 88, 64 columns in groups of 8)
+    shapes, an odd nc with 3 columns (a partial last band, a group of 4
+    with one column masked) and 9 columns (a partial last group): two
+    launches, and the plain version's result (1e-5 / 1e-12 of max |plain|:
+    the same products summed in another order).  A 1-D rc takes the one
+    column's path."""
+    w = _coarse_w(nc, dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(nc + cols)
+    rc = torch.randn((nc, cols), generator=g, device=cuda, dtype=dtype)
+    key = "coarse_solve" if dtype == torch.float32 else "coarse_solve_f64"
+    before = dict(coarse.launch_counts)
+    z = coarse.coarse_solve(w, rc)
+    torch.cuda.synchronize()
+    assert coarse.launch_counts == {**before, key: before[key] + 2}
+    assert z.shape == rc.shape and z.dtype == dtype
+    _close(z, coarse.coarse_solve_plain(w, rc))
+    if cols == 1:
+        assert torch.equal(coarse.coarse_solve(w, rc[:, 0]), z[:, 0])
+
+
+@pytest.mark.parametrize("nc,cols", [(1708, 1), (88, 64)])
+def test_coarse_solve_replays_repeat_bit_for_bit(cuda, nc, cols):
+    """Captured in a CUDA graph, two replays and an eager call give the same
+    bits: no atomics, every sum in a fixed order."""
+    w = _coarse_w(nc, torch.float32, cuda)
+    rc = torch.randn((nc, cols), generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        coarse.coarse_solve(w, rc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        z = coarse.coarse_solve(w, rc)
+    graph.replay()
+    first = z.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(z, first)
+    assert torch.equal(coarse.coarse_solve(w, rc), first)
+
+
+def test_coarse_solve_rejects_what_the_kernel_does_not_take(cuda):
+    w = _coarse_w(30, torch.float32, cuda)  # [30, 32]
+    rc = torch.randn((30, 4), device=cuda)
+    for half in (torch.bfloat16, torch.float16):
+        with pytest.raises(ValueError):
+            coarse.coarse_solve(w.to(half), rc.to(half))
+    with pytest.raises(ValueError):
+        coarse.coarse_solve(w, rc.double())  # the types differ
+    with pytest.raises(ValueError):
+        coarse.coarse_solve(w.cpu(), rc)  # the devices differ
+    with pytest.raises(ValueError):
+        coarse.coarse_solve(w, rc.T.contiguous().T)  # not contiguous
+    with pytest.raises(ValueError):
+        coarse.coarse_solve(w[:, :30].contiguous(), rc)  # ld not a multiple of 4
+    with pytest.raises(ValueError):
+        coarse.coarse_solve(w, rc[:29].contiguous())  # rows other than nc
+    with pytest.raises(ValueError):
+        coarse.coarse_solve(w, rc[None])  # three dimensions

@@ -28,7 +28,7 @@ import chip_smoke
 from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
 from navierstokes_project_nm4pde_tpu_torch.models import Cylinder3DProblem, NavierStokesSolver
 from navierstokes_project_nm4pde_tpu_torch.ops.banded import banded_matvec
-from navierstokes_project_nm4pde_tpu_torch.ops.coarse import cho_solve_c, twolevel_apply_additive_g
+from navierstokes_project_nm4pde_tpu_torch.ops.coarse import cho_w_solve_c, twolevel_apply_additive_g
 from navierstokes_project_nm4pde_tpu_torch.parallel import run_ensemble
 from navierstokes_project_nm4pde_tpu_torch.solvers import krylov
 from navierstokes_project_nm4pde_tpu_torch.solvers.krylov import (
@@ -108,7 +108,7 @@ def duct():
 def _operators(kind, duct):
     if kind == "frozen S1":
         fz, cs = duct.proj_schur, duct.op.coarse
-        solve_c = cho_solve_c(fz.cho_L)
+        solve_c = cho_w_solve_c(fz.cho_w)
         return (lambda v: banded_matvec(fz.band, v)), (lambda v: twolevel_apply_additive_g(cs, solve_c, fz.inv_d, v)), \
             fz.diag1.shape[0], fz.diag1.dtype, False
     n = 60

@@ -7,7 +7,9 @@ layers' spans, and replays it each iteration.  Every form of those
 operators the projection step builds is held here: the banded S1 and
 the ELL SpMV (`schur_spmv`), the additive and the V(1,1) preconditioner
 (`mg2_form`, the latter applying S inside M), the Cholesky factor and
-the dense inverse (`coarse_solve`), in float32 and float64.  The replay
+the dense inverse (`coarse_solve`), in float32 and float64; the frozen
+factor is applied by the hand-written `coarse_solve` kernel, whose path
+every coarse solve's span records.  The replay
 runs exactly the kernels of the eager iteration, so iterates, residuals
 and iteration counts must be equal bit for bit, over successive solves
 with other right-hand sides, and every iteration of a graphed solve is
@@ -171,6 +173,8 @@ def test_a_replay_records_the_layers_spans_and_sizes_as_an_eager_iteration(form,
         recorded[graphed] = {name: profiling.sizes(name) for name in LAYERS}
         shares[graphed] = (schur_matvec_roofline.read(ctx), coarse_solve_roofline.read(ctx))
     assert recorded[True] == recorded[False]
+    impls = {c.get("impl") for c in recorded[True]["precond.coarse_solve"]}
+    assert impls == ({None} if form == "coarse_solve=inv" else {"kernel"})
     m = MAXITER + 1  # the applications of A and of M: the start's and one an iteration
     assert len(recorded[True]["precond.coarse_solve"]) == m
     assert len(recorded[True]["schur.banded_matvec"]) == {"ell": 0, "mg2_form=v11": 3 * m}.get(form, m)
@@ -213,6 +217,30 @@ def test_a_single_run_replays_every_pressure_iteration_and_no_velocity_one():
     _, d = _solver(cfg).run(3)
     assert np.all(d.iters_f > 0) and np.all(d.iters_s > 0)
     np.testing.assert_array_equal(d.graphed_s, d.iters_s)
+
+
+@pytest.mark.parametrize("proj_schur", ["frozen", "step"])
+def test_every_coarse_solve_of_a_run_records_its_path(proj_schur):
+    """Under a profiler, two steps of the duct: on the frozen S1 every
+    coarse solve, eager or replayed, is the `coarse_solve` kernel and no
+    cuBLAS triangular solve runs; a per-step S~ (proj_schur="step") keeps
+    `torch.cholesky_solve`."""
+    if proj_schur == "frozen":
+        s = _duct()
+    else:
+        _card()
+        s = _solver(chip_smoke.with_changes(chip_smoke.bench_config(), {"numerics": dict(proj_schur="step")}))
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        s.run(2)
+        torch.cuda.synchronize()
+    calls = profiling.sizes("precond.coarse_solve")
+    impl = {"frozen": "kernel", "step": "cholesky_solve"}[proj_schur]
+    assert calls and {c["impl"] for c in calls} == {impl}
+    kernels = {e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("coarse_trimv" in k for k in kernels) == (proj_schur == "frozen")
+    assert any("trsv" in k for k in kernels) == (proj_schur == "step")
 
 
 def test_a_capture_leaves_only_its_static_tensors_allocated():

@@ -146,6 +146,54 @@ def test_coarse_preconditioner_matches_reference(duct):
     _close(z.numpy(), z_ref, 1e-12)
 
 
+def _coarse_matrix(duct, lc, nz):
+    """The frozen S1's coarse matrix (`host_coarse_dense`) of the fixture's
+    duct, or of the port's duct at (lc, nz)."""
+    if (lc, nz) == (0.25, 3):
+        th, tc = duct["thost"], duct["top"].coarse
+    else:
+        tsp = tspace.build_taylor_hood(port_duct(lc=lc, nz=nz).reorder_spatial("rcm"))
+        top, th = tops.build_operator(
+            tsp, tgeometry.cell_geometry(tsp), tsp.dirichlet_mask([0, 2, 3]), F64, "cpu", coarse_agg=24
+        )
+        tc = top.coarse
+    return tcoarse.host_coarse_dense(th, th["vals1"], tc.nc, tc.agg)
+
+
+@pytest.mark.parametrize("lc, nz", [(0.25, 3), (0.08, 6)])
+def test_frozen_coarse_solve_by_the_factors_inverse(duct, lc, nz):
+    """The frozen coarse solve's form, z = W^T (W r) with W = L^-1 packed by
+    `frozen_cho_w`, on the coarse matrix of a duct's S1 (nc 11, and 90 at
+    the sweep's mesh): in float64 the Cholesky solve to 1e-12; in float32,
+    over 64 zero-mean residuals, its largest error against the float64
+    solve at most twice float32 `cholesky_solve`'s (a rounded W applied
+    by two products against two substitutions; 0.65 and 1.06 of it
+    measured)."""
+    Sc = _coarse_matrix(duct, lc, nz)
+    nc = Sc.shape[0]
+    L = torch.as_tensor(np.linalg.cholesky(Sc))
+    r = np.random.default_rng(nc).standard_normal((nc, 64))
+    r = torch.as_tensor(r - r.mean(axis=0))
+    ref = torch.cholesky_solve(r, L, upper=False)
+    w64 = tcoarse.frozen_cho_w(Sc, F64)
+    assert w64.shape == (nc, -(-nc // 4) * 4) and not w64[:, nc:].any()
+    np.testing.assert_array_equal(torch.tril(w64[:, :nc]).numpy(), torch.triu(w64[:, :nc]).T.numpy())
+    _close(tcoarse.coarse_solve_plain(w64, r).numpy(), ref.numpy(), 1e-12, atol_scale=1e-12)
+    _close(tcoarse.cho_w_solve_c(w64)(r[:, 0]).numpy(), ref[:, 0].numpy(), 1e-12, atol_scale=1e-12)
+
+    r32 = r.float()
+    z_w = tcoarse.coarse_solve_plain(tcoarse.frozen_cho_w(Sc, torch.float32), r32)
+    z_c = torch.cholesky_solve(r32, L.float(), upper=False)
+    err_w, err_c = (float((z.double() - ref).abs().max()) for z in (z_w, z_c))
+    assert err_w <= 2 * err_c, (err_w, err_c)
+
+
+def test_frozen_coarse_solve_raises_off_cpu_and_cuda(duct):
+    w = tcoarse.frozen_cho_w(_coarse_matrix(duct, 0.25, 3), F64)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tcoarse.coarse_solve(w.to("meta"), torch.empty(w.shape[0], dtype=F64, device="meta"))
+
+
 # ----------------------------------------------------------------------
 # Gather-sum plans, D and G
 # ----------------------------------------------------------------------
@@ -290,6 +338,10 @@ def test_cpu_path_launches_no_kernel(duct):
     tmp = duct["tmp"]
     tmb.apply_macro(tmp, tmb.build_macro_mass(tmp, duct["top"].MHAT, duct["top"].detJ), _t(duct["f"]["u"]))
     assert tmb.launch_counts == {"macro_build": 0, "macro_matvec": 0, "macro_build_f64": 0, "macro_matvec_f64": 0}
+    tcoarse.reset_launch_counts()
+    w = tcoarse.frozen_cho_w(_coarse_matrix(duct, 0.25, 3), F64)
+    tcoarse.coarse_solve(w, _t(np.ones(w.shape[0])))
+    assert tcoarse.launch_counts == {"coarse_solve": 0, "coarse_solve_f64": 0}
 
 
 # ----------------------------------------------------------------------

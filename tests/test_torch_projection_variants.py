@@ -107,7 +107,7 @@ def test_variants_take_their_paths(runs):
     assert runs["macro_wfuse=off"][2].macro_rhs and not runs["macro_wfuse=off"][2].macro_wfuse
     assert runs["macro_split"][2].macro_split
     assert runs["coarse_solve=inv"][2].proj_schur.inv_c is not None
-    assert runs["coarse_solve=inv"][2].proj_schur.cho_L is None
+    assert runs["coarse_solve=inv"][2].proj_schur.cho_w is None
 
 
 @pytest.mark.parametrize("name", ["f_warmstart=2", "f_recycle=3"])

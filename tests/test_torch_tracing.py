@@ -97,7 +97,7 @@ def test_a_single_step_holds_each_phase_and_a_span_per_iteration_and_read(solver
     assert names["precond.coarse_solve"] == len(calls) == it_s + 1
     assert names["schur.banded_matvec"] == len(profiling.sizes("schur.banded_matvec")) == it_s + 1
     band = s.proj_schur.band
-    assert calls[0] == dict(nc=s.op.coarse.nc, cols=1, factors=1, itemsize=4, form="chol")
+    assert calls[0] == dict(nc=s.op.coarse.nc, cols=1, factors=1, itemsize=4, form="chol", impl="plain")
     assert profiling.sizes("schur.banded_matvec")[0] == dict(
         blocks=band.vals.shape[0], rows=band.vals.shape[1], width=band.vals.shape[2], n_rows=band.n_rows,
         cols=1, itemsize=4,
@@ -120,6 +120,22 @@ def test_an_ensemble_step_counts_its_lockstep_maxima(solvers, tmp_path):
     assert names["host_write"] == 3 * cycles + 1 + 1
     assert profiling.sizes("precond.coarse_solve")[0]["cols"] == len(NUS)
     assert profiling.sizes("schur.banded_matvec")[0]["cols"] == len(NUS)
+
+
+def test_each_coarse_solve_records_the_path_it_took(solvers, tmp_path):
+    """The frozen factor's solves take the plain W form here (the kernel on
+    the card); a per-step S~ (proj_schur="step") keeps `cholesky_solve`."""
+    profiling.reset()
+    _traced(tmp_path, lambda: run_ensemble(solvers["ensemble"], NUS, 1, state=solvers["estate"]))
+    frozen = profiling.sizes("precond.coarse_solve")
+    step = _solver(chip_smoke.with_changes(chip_smoke.bench_config(), {"numerics": dict(proj_schur="step")}))
+    assert step.proj_schur is None
+    profiling.reset()
+    _traced(tmp_path, lambda: step.run(1))
+    per_step = profiling.sizes("precond.coarse_solve")
+    assert frozen and {c["impl"] for c in frozen} == {"plain"}
+    assert per_step and {c["impl"] for c in per_step} == {"cholesky_solve"}
+    assert {c["form"] for c in frozen + per_step} == {"chol"}
 
 
 def test_set_up_keeps_each_phase_that_ran(solvers):
