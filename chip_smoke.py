@@ -159,7 +159,6 @@ F64_MATVEC_WIDTHS = (3, 12, 13)
 # Krylov apply, and the full plan once a step (the rhs reduce at 6, the
 # stacked [hist | u0 | w] gather at 9); explicit at 47k the full plan
 # (N(u) and the rhs reduce at 3 and 6, the gather at 9).
-SLOT_NARROW_C = 16  # kernels C and D: the narrow kernels' widest payload
 SLOT_SHAPES = {
     # the ensemble's 64 members: every element pass at 3 B = 192 channels,
     # the rhs reduce at 6 B, the stacked gather at 9 B
@@ -868,11 +867,10 @@ def compare(name, out, ref) -> float:
     return err
 
 
-def check_kernels(solver, reps: int, widths=MATVEC_WIDTHS, main: bool = True, l2: bool = False) -> dict:
+def check_kernels(solver, reps: int, widths=MATVEC_WIDTHS, l2: bool = False) -> dict:
     """Kernels A (at `widths` channels) and B against their plain versions
     on the solver's own plan, with seeded random inputs in the solver's
-    dtype; returns per-kernel records (launch counts filled in later).  With
-    `main` (float32), the earlier designs are timed in turns beside them;
+    dtype; returns per-kernel records (launch counts filled in later).
     `l2` as in `share`."""
     import torch
 
@@ -890,11 +888,6 @@ def check_kernels(solver, reps: int, widths=MATVEC_WIDTHS, main: bool = True, l2
     FtT = mb.macro_build(F_e, mp.lidx, mp.B, mp.U)
     ref = mb.macro_build_plain(F_e, mp.lidx, mp.B, mp.U)
     err_b = compare("macro_build", FtT, ref)
-    if main:
-        err_v1 = float((mb.macro_build_v1(F_e, mp.lidx, mp.B, mp.U) - ref).abs().max())
-        log(f"  macro_build_v1 (the earlier one-CTA-a-block design): max abs err {err_v1:.3e}")
-        if not err_v1 <= KERNELS["macro_build"][2] * float(ref.abs().max()):
-            fail(f"macro_build_v1 disagrees with the plain version: {err_v1:.3e}")
     del ref
     # the library call: index_add_ into zeros, its flat index built once
     UU = mp.U * mp.U
@@ -911,32 +904,14 @@ def check_kernels(solver, reps: int, widths=MATVEC_WIDTHS, main: bool = True, l2
     t["share"] = share(f"macro_build {dtype}", b, t["device_ms"], l2)
     log(f"  macro_build ({dtype}): {fmt_times(t, b)}")
     rec["macro_build"] = dict(err=err_b, **t, **b)
-    if not main:
-        return _check_matvec(rec, FtT, mp, gen, widths, reps, main, l2)
-    # the two designs in turns: v1, new, new, v1
-    turns = [
-        (name, time_ms(f, reps), device_ms(f, reps))
-        for name, f in (
-            ("v1", lambda: mb.macro_build_v1(F_e, mp.lidx, mp.B, mp.U)),
-            ("new", lambda: mb.macro_build(F_e, mp.lidx, mp.B, mp.U)),
-            ("new", lambda: mb.macro_build(F_e, mp.lidx, mp.B, mp.U)),
-            ("v1", lambda: mb.macro_build_v1(F_e, mp.lidx, mp.B, mp.U)),
-        )
-    ]
-    log("  macro_build designs in turns (call ms, device ms): " + "; ".join(
-        f"{n} {c:.4f} / {d:.4f} ({b['bound_ms'] / d:.1%} of bound)" for n, c, d in turns))
-    v1 = [(c, d) for n, c, d in turns if n == "v1"]
-    rec["macro_build"].update(v1_ms=sum(c for c, _ in v1) / 2, v1_device_ms=sum(d for _, d in v1) / 2)
-    share("macro_build_v1", b, rec["macro_build"]["v1_device_ms"])
     del F_e, F_flat, flat, lib_out, li
-    return _check_matvec(rec, FtT, mp, gen, widths, reps, main)
+    return _check_matvec(rec, FtT, mp, gen, widths, reps, l2)
 
 
-def _check_matvec(rec: dict, FtT, mp, gen, widths, reps: int, main: bool, l2: bool = False) -> dict:
+def _check_matvec(rec: dict, FtT, mp, gen, widths, reps: int, l2: bool = False) -> dict:
     """Kernel A's part of `check_kernels`: at each of `widths` channels,
-    checked, timed with bound and share, and (with `main`, at C = 3) its
-    earlier design in turns.  A payload past 24 channels runs as
-    ceil(C / 24) launches, each reading FtT once."""
+    checked and timed with bound and share.  A payload past 24 channels
+    runs as ceil(C / 24) launches, each reading FtT once."""
     import torch
 
     from navierstokes_project_nm4pde_tpu_torch.ops import macroblock as mb
@@ -945,7 +920,6 @@ def _check_matvec(rec: dict, FtT, mp, gen, widths, reps: int, main: bool, l2: bo
     size = FtT.element_size()
     peak = F64_OPS_PER_S if dtype == torch.float64 else F32_OPS_PER_S
     errs, times, bounds = [], {}, {}
-    v1_ms = v1_device_ms = None
     key = "macro_matvec" if dtype == torch.float32 else "macro_matvec_f64"  # its entry point's count
     for C in widths:
         x_b = torch.randn((mp.B, mp.U, C), generator=gen, device=dev, dtype=dtype)
@@ -967,26 +941,6 @@ def _check_matvec(rec: dict, FtT, mp, gen, widths, reps: int, main: bool, l2: bo
         t["share"] = share(f"macro_matvec {dtype} C={C}", b, t["device_ms"], l2)
         gbs = FtT.numel() * size / t["device_ms"] / 1e6
         log(f"  macro_matvec ({dtype}) C={C}: {fmt_times(t, b)} ({gbs:.1f} GB/s of values on device)")
-        if C == 3 and main:
-            # the two designs in turns at the main path's width: v1, new, new, v1
-            err_v1 = float((mb.macro_matvec_v1(FtT, x_b) - mb.macro_matvec_plain(FtT, x_b)).abs().max())
-            log(f"  macro_matvec_v1 (the earlier design): max abs err {err_v1:.3e}")
-            if not err_v1 <= KERNELS["macro_matvec"][2] * float(mb.macro_matvec_plain(FtT, x_b).abs().max()):
-                fail(f"macro_matvec_v1 disagrees with the plain version: {err_v1:.3e}")
-            turns = [
-                (name, time_ms(f, reps), device_ms(f, reps))
-                for name, f in (
-                    ("v1", lambda: mb.macro_matvec_v1(FtT, x_b)),
-                    ("new", lambda: mb.macro_matvec(FtT, x_b)),
-                    ("new", lambda: mb.macro_matvec(FtT, x_b)),
-                    ("v1", lambda: mb.macro_matvec_v1(FtT, x_b)),
-                )
-            ]
-            log("  macro_matvec designs in turns at C=3 (call ms, device ms): " + "; ".join(
-                f"{n} {c:.4f} / {d:.4f} ({b['bound_ms'] / d:.1%} of bound)" for n, c, d in turns))
-            v1 = [(c, d) for n, c, d in turns if n == "v1"]
-            v1_ms, v1_device_ms = sum(c for c, _ in v1) / 2, sum(d for _, d in v1) / 2
-            share("macro_matvec_v1 C=3", b, v1_device_ms)
         del x_b
     C0 = widths[0]
     rec["macro_matvec"] = dict(
@@ -997,8 +951,6 @@ def _check_matvec(rec: dict, FtT, mp, gen, widths, reps: int, main: bool, l2: bo
                         ftt_reads=times[C]["ftt_reads"])
                 for C in widths},
     )
-    if main:
-        rec["macro_matvec"].update(v1_ms=v1_ms, v1_device_ms=v1_device_ms)
     return rec
 
 
@@ -1007,7 +959,7 @@ def add_macro_shapes(rec: dict, label: str, solver, widths, reps: int, l2: bool 
     macro plan, added to their records under "shapes"; `l2` as in `share`."""
     mp = solver.macro
     label = f"{label}, B={mp.B} U={mp.U} c_blk={mp.c_blk} nloc={mp.lidx.shape[2]}"
-    r = check_kernels(solver, reps, widths, main=False, l2=l2)
+    r = check_kernels(solver, reps, widths, l2=l2)
     keys = ("device_ms", "bound_ms", "share", "plain_device_ms", "library_ms", "lib_device_ms")
     rec["macro_build"]["err"] = max(rec["macro_build"]["err"], r["macro_build"]["err"])
     rec["macro_build"].setdefault("shapes", {})[label] = {k: r["macro_build"][k] for k in keys}
@@ -1035,20 +987,18 @@ def check_slot_kernels(plans, widths: dict, reps: int, dtype=None) -> dict:
         "slot_reduce": (plans.reduce.perm.numel() + plans.reduce.offsets.numel()) * 8,
         "slot_gather": plans.gather.numel() * 8,
     }
-    # kernel -> (wrapper, plain version, library call, payload rows, the
-    # wide design, timed against the narrow kernel in turns at C <= 16)
+    # kernel -> (wrapper, plain version, library call, payload rows)
     kernels = {
         "slot_reduce": (oh.onehot_reduce, oh.onehot_reduce_plain,
                         lambda x: torch.zeros((plans.n_rows, x.shape[1]), device=dev, dtype=dtype).index_add_(
                             0, plans.gather, x),
-                        plans.n_slots, oh.onehot_reduce_wide),
+                        plans.n_slots),
         "slot_gather": (oh.onehot_gather, oh.onehot_gather_plain,
-                        lambda x: x.index_select(0, plans.gather), plans.n_rows,
-                        oh.onehot_gather_wide),
+                        lambda x: x.index_select(0, plans.gather), plans.n_rows),
     }
     rec = {}
     for name, Cs in widths.items():
-        fn, plain, lib, rows, wide = kernels[name]
+        fn, plain, lib, rows = kernels[name]
         errs, per_width = [], {}
         for C in Cs:
             x = torch.randn((rows, C), generator=gen, device=dev, dtype=dtype)
@@ -1063,20 +1013,6 @@ def check_slot_kernels(plans, widths: dict, reps: int, dtype=None) -> dict:
             t["share"] = share(f"{name} {dtype} C={C}", b, t["device_ms"])
             gbs = (plans.n_slots + plans.n_rows) * C * size / t["device_ms"] / 1e6
             log(f"  {name} ({dtype}) C={C}: {fmt_times(t, b)} ({gbs:.1f} GB/s on device)")
-            if C <= SLOT_NARROW_C:
-                # the narrow kernel sums in the wide one's order: equal bits
-                if not torch.equal(wide(plans, x), fn(plans, x)):
-                    fail(f"{name} C={C}: the narrow and the wide design differ")
-                turns = [
-                    (k, device_ms(f, reps)) for k, f in (
-                        ("wide", lambda: wide(plans, x)), ("narrow", lambda: fn(plans, x)),
-                        ("narrow", lambda: fn(plans, x)), ("wide", lambda: wide(plans, x)),
-                    )
-                ]
-                log(f"  {name} C={C} designs in turns (device ms): " + "; ".join(
-                    f"{k} {d:.4f} ({b['bound_ms'] / d:.1%} of bound)" for k, d in turns))
-                t["wide_device_ms"] = sum(d for k, d in turns if k == "wide") / 2
-                share(f"{name} wide design C={C}", b, t["wide_device_ms"])
             per_width[C] = dict(**t, **b)
             del x
         rec[name] = dict(err=max(errs), widths=per_width)
@@ -1096,7 +1032,7 @@ def add_slot_shapes(rec: dict, label: str, plans, reps: int, dtype=None, base=No
         for C, t in r["widths"].items():
             kr.setdefault("shapes", {})[f"{label}, {plans.n_slots} slots, C={C}"] = {
                 k: t[k] for k in ("device_ms", "bound_ms", "share", "plain_device_ms",
-                                  "library_ms", "lib_device_ms", "wide_device_ms") if k in t
+                                  "library_ms", "lib_device_ms")
             }
 
 
@@ -2784,7 +2720,7 @@ def kernel_entry(name: str, r: dict, launches: int) -> dict:
         bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         device_ms=r["device_ms"], plain_device_ms=r["plain_device_ms"], lib_device_ms=r["lib_device_ms"],
         share=share(name, r, r["device_ms"]),
-        **{k: r[k] for k in ("v1_ms", "v1_device_ms", "widths", "shapes", "launches_by_path") if k in r},
+        **{k: r[k] for k in ("widths", "shapes", "launches_by_path") if k in r},
     )
 
 
@@ -3035,7 +2971,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"single run float64: host setup {time.perf_counter() - t0:.2f} s (mesh reused); macro B={fmp.B} "
         f"U={fmp.U} c_blk={fmp.c_blk}")
-    rec64 = check_kernels(fsolver, KERNEL_REPS, F64_MATVEC_WIDTHS, main=False)
+    rec64 = check_kernels(fsolver, KERNEL_REPS, F64_MATVEC_WIDTHS)
     free_card()
     _, d64, _, f64_all = drive_single(
         "single run float64", fsolver, F64_WARMUP, F64_TIMED, ("macro_build_f64", "macro_matvec_f64")

@@ -43,9 +43,6 @@
 //   IMEX's fine subset: 0.0320 ms, 40% of bound, against index_select's
 //   0.0262; now 0.0193, 67%; H100 80GB HBM3, 700 W).
 //
-//   ns_slot_reduce_wide_* and ns_slot_gather_wide_* run the wide designs
-//   at any C, kept to time the two in turns at narrow C.
-//
 // Both kernels are templates on the element type: the _f32 entry points
 // take float payloads, the _f64 ones double (the float64 runs).  In double
 // the wide designs' 16-byte vectors hold 2 channels (double2, where
@@ -289,17 +286,6 @@ int slot_gather(const T* x, const int64_t* idx, T* y, long long n_slots, int C, 
   extern "C" int ns_slot_gather_##SUFFIX(const T* x, const int64_t* idx, T* y,                   \
                                          long long n_slots, int C, void* stream) {               \
     return slot_gather<T>(x, idx, y, n_slots, C, stream);                                        \
-  }                                                                                              \
-  extern "C" int ns_slot_reduce_wide_##SUFFIX(const T* y, const int64_t* perm,                   \
-                                              const int64_t* off, T* out, int n_rows, int C,     \
-                                              void* stream) {                                    \
-    if (n_rows <= 0 || C <= 0) return 0;                                                         \
-    return reduce_wide<T>(y, perm, off, out, n_rows, C, static_cast<cudaStream_t>(stream));      \
-  }                                                                                              \
-  extern "C" int ns_slot_gather_wide_##SUFFIX(const T* x, const int64_t* idx, T* y,              \
-                                              long long n_slots, int C, void* stream) {          \
-    if (n_slots <= 0 || C <= 0) return 0;                                                        \
-    return gather_wide<T>(x, idx, y, n_slots, C, static_cast<cudaStream_t>(stream));             \
   }
 
 NS_SLOT_ENTRIES(float, f32)

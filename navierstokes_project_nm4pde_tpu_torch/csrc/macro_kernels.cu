@@ -50,9 +50,6 @@
 //   (Two blocks at U = 14,464, C = 3: 0.8559 ms, 58.4% of the bound, in
 //   double 81.7%; at U = 2,560, C = 24 the 20 CTAs of two blocks leave most
 //   SMs idle: 4.6%; H100 80GB HBM3, 700 W.)
-//   macro_matvec_v1 is the earlier design
-//   (FtT read straight from global memory, output stored at a stride of
-//   C, up to 8 channels), kept to time the two in turns.
 //
 // Kernel B, macro_build: FtT[b, lidx[c, j], lidx[c, i]] += F_e[c, i, j]
 //   Replaces the Pallas prototypes _kern_cells / _kern_bd / _kern_cells16 /
@@ -83,9 +80,9 @@
 //   tile[v * U + u] += F_e[c, i, j] for its two j.
 //   Where the inputs' sizes or bases are not 16-byte multiples (an odd
 //   c_blk), the sum reads F_e and lidx from global memory instead.
-//   macro_build_v1 is the earlier design (one CTA a block, zero / sum /
-//   copy out in sequence, one tile; its sum in the same row pairs), kept
-//   to time the two in turns, and in double kernel B's float64 form.
+//   The earlier design, one tile (launch_build_v1: one CTA a block, zero /
+//   sum / copy out in sequence; its sum in the same row pairs), is kernel
+//   B's float64 form and float32's past two tiles.
 //
 //   Wide blocks (the JAX package's numerics.macro_u runs any lane multiple
 //   of 128; its profile measured U = 192 and 256): two [U, U] f32 tiles
@@ -120,7 +117,7 @@
 // to kMaxC64 channels a launch, since each thread holds C double
 // accumulators (twice the registers of float's).  Kernel B in double cannot
 // hold two [U, U] tiles (2 x 128 KB at U = 128, past the 227 KB a block may
-// have), so ns_macro_build_f64 runs macro_build_v1's design in double (one
+// have), so ns_macro_build_f64 runs the one-tile design in double (one
 // template for both types): a CTA a block, zero, sum with shared-memory
 // atomicAdd on doubles (a native instruction on sm_90, not a
 // compare-and-swap loop), then copy out with 16-byte stores.  Both stay
@@ -147,9 +144,6 @@ constexpr size_t kMaxSmem = 232448;
 constexpr int kMatvecMaxW = 256;
 constexpr int kMatvecRows = 16;
 constexpr int kMatvecStages = 4;
-// Kernel A's earlier design: 128 threads a block, up to 8 channels.
-constexpr int kMatvecV1Threads = 128;
-constexpr int kMatvecV1MaxC = 8;
 // Kernel B: one CTA of 1024 threads an SM; each thread adds kBuildAdds
 // values of a (c, i) row.  Hopper has no shared-memory f32 add: atomicAdd
 // there is a compare-and-swap loop (ATOMS.CAST.SPIN), so what bounds the
@@ -697,43 +691,6 @@ int launch_matvec(const T* FtT, const T* xb, T* yb, int B, int U, int ldx, int l
   return 0;
 }
 
-// Kernel A's earlier design (up to kMatvecV1MaxC channels): each thread
-// reads its column of FtT straight from global memory and stores its row
-// of the output at a stride of C.  Kept to time the two designs in turns.
-template <int C>
-__global__ void __launch_bounds__(kMatvecV1Threads)
-macro_matvec_v1_kernel(const float* __restrict__ FtT, const float* __restrict__ xb,
-                       float* __restrict__ yb, int U) {
-  extern __shared__ float panel_v1[];  // [U, C] input slots of this block
-  const int b = blockIdx.x;
-  const float* xblk = xb + static_cast<size_t>(b) * U * C;
-  for (int i = threadIdx.x; i < U * C; i += blockDim.x) panel_v1[i] = xblk[i];
-  __syncthreads();
-
-  const float* F = FtT + static_cast<size_t>(b) * U * U;
-  for (int u = threadIdx.x; u < U; u += blockDim.x) {
-    float acc[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = 0.f;
-#pragma unroll 8
-    for (int v = 0; v < U; ++v) {
-      const float f = __ldg(F + static_cast<size_t>(v) * U + u);
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] = fmaf(f, panel_v1[v * C + c], acc[c]);
-    }
-    float* y = yb + (static_cast<size_t>(b) * U + u) * C;
-#pragma unroll
-    for (int c = 0; c < C; ++c) y[c] = acc[c];
-  }
-}
-
-template <int C>
-void launch_matvec_v1(const float* FtT, const float* xb, float* yb, int B, int U,
-                      cudaStream_t s) {
-  const size_t smem = static_cast<size_t>(U) * C * sizeof(float);
-  macro_matvec_v1_kernel<C><<<B, kMatvecV1Threads, smem, s>>>(FtT, xb, yb, U);
-}
-
 }  // namespace
 
 // y[b, u, c] (row stride ldy) = sum_v FtT[b, v, u] x[b, v, c] (row stride
@@ -784,25 +741,6 @@ extern "C" int ns_macro_matvec_f64(const double* FtT, const double* xb, double* 
   return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int ns_macro_matvec_v1_f32(const float* FtT, const float* xb, float* yb,
-                                      int B, int U, int C, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0) return 0;
-  static_assert(kMatvecV1MaxC == 8, "the cases below take C = 1 .. kMatvecV1MaxC");
-  switch (C) {
-    case 1: launch_matvec_v1<1>(FtT, xb, yb, B, U, s); break;
-    case 2: launch_matvec_v1<2>(FtT, xb, yb, B, U, s); break;
-    case 3: launch_matvec_v1<3>(FtT, xb, yb, B, U, s); break;
-    case 4: launch_matvec_v1<4>(FtT, xb, yb, B, U, s); break;
-    case 5: launch_matvec_v1<5>(FtT, xb, yb, B, U, s); break;
-    case 6: launch_matvec_v1<6>(FtT, xb, yb, B, U, s); break;
-    case 7: launch_matvec_v1<7>(FtT, xb, yb, B, U, s); break;
-    case 8: launch_matvec_v1<8>(FtT, xb, yb, B, U, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 extern "C" int ns_macro_build_f32(const float* Fe, const int32_t* lidx, float* FtT,
                                   int E, int B, int c_blk, int nloc, int U,
                                   void* stream) {
@@ -833,13 +771,6 @@ extern "C" int ns_macro_build_f32(const float* Fe, const int32_t* lidx, float* F
   const int grid = std::min(items, std::max(1, sms * per_sm));
   kernel<<<grid, kBuildThreads, smem, s>>>(Fe, lidx, FtT, E, B, c_blk, nloc, U, R, bulk_in);
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int ns_macro_build_v1_f32(const float* Fe, const int32_t* lidx, float* FtT,
-                                     int E, int B, int c_blk, int nloc, int U,
-                                     void* stream) {
-  return launch_build_v1<float>(Fe, lidx, FtT, E, B, c_blk, nloc, U,
-                                static_cast<cudaStream_t>(stream));
 }
 
 // Kernel B in double: the one-tile design (two double tiles do not fit;

@@ -140,7 +140,6 @@ from navierstokes_project_nm4pde_tpu_torch.precond.blocks import (
 )
 from navierstokes_project_nm4pde_tpu_torch.solvers.krylov import (
     CGGraphs,
-    SolveInfo,
     _cnorm,
     _host,
     _host_float,
@@ -1038,16 +1037,8 @@ class NavierStokesSolver:
                     cg_rtol, cg_atol = 0.0, np.maximum(tol_kw["rtol"], tol_kw["atol"])
                 else:
                     cg_rtol, cg_atol = tol_kw["rtol"], tol_kw["atol"]
-                if single:
-                    du, info = cg(
-                        lambda V: Fop(V[:, 0])[:, None], r0[:, None],
-                        M=lambda V: Mf(V[:, 0])[:, None], rtol=cg_rtol, atol=cg_atol,
-                        maxiter=cfg.solver.maxiter, precise=precise,
-                    )
-                    du, info_f = du[:, 0], SolveInfo(iters=int(info.iters[0]), residual=float(info.residual[0]))
-                else:
-                    du, info_f = cg(Fop, r0, M=Mf, rtol=cg_rtol, atol=cg_atol,
-                                    maxiter=cfg.solver.maxiter, precise=precise)
+                du, info_f = cg(Fop, r0, M=Mf, rtol=cg_rtol, atol=cg_atol,
+                                maxiter=cfg.solver.maxiter, precise=precise)
             elif self.aux_div and single:
                 def Fop_aux(v):
                     u = v.reshape(n, d)
@@ -1099,13 +1090,6 @@ class NavierStokesSolver:
                     precise=precise, **gkw,
                 )
                 spool_new = torch.cat([harvest[:, None], state.spool[:, :-1]], dim=1)
-            elif single:
-                phi, info = cg(
-                    S, rhs_p[:, None], M=M2, x0=phi0[:, None], rtol=s_rtol,
-                    atol=s_atol, maxiter=cfg.solver.maxiter, precise=precise, **gkw,
-                )
-                phi, spool_new = phi[:, 0], state.spool
-                info_s = SolveInfo(iters=int(info.iters[0]), residual=float(info.residual[0]))
             else:
                 phi, info_s = cg(
                     S, rhs_p, M=M2, x0=phi0, rtol=s_rtol, atol=s_atol,

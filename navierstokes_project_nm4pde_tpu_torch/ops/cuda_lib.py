@@ -39,17 +39,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # _f64.
 _SIGNATURES = {
     **{f"ns_macro_matvec_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _P] for t in ("f32", "f64")},
-    "ns_macro_matvec_v1_f32": [_P, _P, _P, _I, _I, _I, _P],
     **{f"ns_macro_build_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _P] for t in ("f32", "f64")},
-    "ns_macro_build_v1_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     **{f"ns_macro_build_band_{k}": [_I, _I, _I, _I] for k in ("rows", "cols")},
     **{f"ns_macro_matvec_{k}": [_I, _I, _I] for k in ("band_cols", "panel_rows")},
     "ns_macro_max_channels": [],
     "ns_macro_max_channels_f64": [],
     **{
-        f"ns_slot_{k}{w}_{t}": [_P, _P, _P, _P, _I, _I, _P] if k == "reduce"
+        f"ns_slot_{k}_{t}": [_P, _P, _P, _P, _I, _I, _P] if k == "reduce"
         else [_P, _P, _P, ctypes.c_longlong, _I, _P]
-        for k in ("reduce", "gather") for w in ("", "_wide") for t in ("f32", "f64")
+        for k in ("reduce", "gather") for t in ("f32", "f64")
     },
     "ns_sgemm_tn_f32": [_P, _P, _P, _I, _I, _I, _P],
     "ns_column_gather_f32": [_P, _P, _P, _I, _I, _P],

@@ -138,7 +138,7 @@ def macro_build_plain(
 
 
 def _check_build_args(name: str, F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: int) -> None:
-    """Raise ValueError for inputs kernel B (either design) does not take."""
+    """Raise ValueError for inputs kernel B does not take."""
     if F_e.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {F_e.device}")
     E, nloc, nloc2 = F_e.shape
@@ -177,20 +177,6 @@ def _check_slots(name: str, lidx: torch.Tensor, U: int) -> None:
     lidx._slots_checked = mark
 
 
-def _launch_build(entry: str, F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: int) -> torch.Tensor:
-    out = torch.empty((B, U, U), dtype=F_e.dtype, device=F_e.device)
-    stream = torch.cuda.current_stream(F_e.device).cuda_stream
-    E, nloc, _ = F_e.shape
-    cuda_lib.check(
-        getattr(cuda_lib.load(), entry)(
-            F_e.data_ptr(), lidx.data_ptr(), out.data_ptr(),
-            E, B, lidx.shape[1], nloc, U, stream,
-        ),
-        entry,
-    )
-    return out
-
-
 def band_rows(dtype: torch.dtype, c_blk: int, nloc: int, U: int) -> int:
     """Kernel B's rows a work item on the card: U where a block's tile(s)
     fit one CTA's shared memory (float32: two [U, U] tiles and the input
@@ -219,18 +205,19 @@ def macro_build(F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: int) -> torch.
     _check_build_args("macro_build", F_e, lidx, B, U)
     if U % 2:
         raise ValueError(f"macro_build: U={U} must be even (the tile store moves 16-byte vectors)")
-    out = _launch_build(f"ns_macro_build_{cuda_lib.SUFFIX[F_e.dtype]}", F_e, lidx, B, U)
+    out = torch.empty((B, U, U), dtype=F_e.dtype, device=F_e.device)
+    stream = torch.cuda.current_stream(F_e.device).cuda_stream
+    E, nloc, _ = F_e.shape
+    entry = f"ns_macro_build_{cuda_lib.SUFFIX[F_e.dtype]}"
+    cuda_lib.check(
+        getattr(cuda_lib.load(), entry)(
+            F_e.data_ptr(), lidx.data_ptr(), out.data_ptr(),
+            E, B, lidx.shape[1], nloc, U, stream,
+        ),
+        entry,
+    )
     launch_counts[cuda_lib.count_key("macro_build", F_e.dtype)] += 1
     return out
-
-
-def macro_build_v1(F_e: torch.Tensor, lidx: torch.Tensor, B: int, U: int) -> torch.Tensor:
-    """Kernel B's earlier design (one CTA a block, one tile), on CUDA
-    tensors only.  Not on any path: kept to time the designs in turns."""
-    _check_build_args("macro_build_v1", F_e, lidx, B, U)
-    if F_e.dtype != torch.float32:
-        raise ValueError(f"macro_build_v1: float32 only, got {F_e.dtype}")
-    return _launch_build("ns_macro_build_v1_f32", F_e, lidx, B, U)
 
 
 def build_macro_values(mp: MacroPlan, F_e: torch.Tensor) -> torch.Tensor:
@@ -323,37 +310,6 @@ def macro_matvec(FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
         )
         launch_counts[cuda_lib.count_key("macro_matvec", FtT.dtype)] += 1
         matvec_channels[hi - lo] = matvec_channels.get(hi - lo, 0) + 1
-    return y
-
-
-# the earlier design's widest payload
-MATVEC_V1_MAX_C = 8
-
-
-def macro_matvec_v1(FtT: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
-    """Kernel A's earlier design (FtT read straight from global memory, up
-    to 8 channels), on CUDA tensors only.  Not on any path: kept to time
-    the designs in turns."""
-    B, U, _ = FtT.shape
-    if not (
-        FtT.is_cuda and FtT.dtype == torch.float32 and FtT.is_contiguous()
-        and FtT.shape[2] == U and x_b.dim() == 3 and x_b.device == FtT.device
-        and x_b.dtype == torch.float32 and x_b.is_contiguous()
-        and tuple(x_b.shape[:2]) == (B, U) and 1 <= x_b.shape[2] <= MATVEC_V1_MAX_C
-    ):
-        raise ValueError(
-            "macro_matvec_v1: FtT [B, U, U] and x_b [B, U, C <= "
-            f"{MATVEC_V1_MAX_C}] must be contiguous float32 CUDA tensors"
-        )
-    B, U, C = x_b.shape
-    y = torch.empty((B, U, C), dtype=torch.float32, device=FtT.device)
-    stream = torch.cuda.current_stream(FtT.device).cuda_stream
-    cuda_lib.check(
-        cuda_lib.load().ns_macro_matvec_v1_f32(
-            FtT.data_ptr(), x_b.data_ptr(), y.data_ptr(), B, U, C, stream
-        ),
-        "ns_macro_matvec_v1_f32",
-    )
     return y
 
 

@@ -97,21 +97,7 @@ def onehot_gather(plans: OneHotPlans, x: torch.Tensor) -> torch.Tensor:
         return onehot_gather_plain(plans, x)
     if x.device.type != "cuda":
         raise ValueError(f"onehot_gather: unsupported device {x.device}")
-    y = _launch_gather("onehot_gather", "ns_slot_gather", plans, x)
-    launch_counts[cuda_lib.count_key("slot_gather", x.dtype)] += 1
-    return y
-
-
-def onehot_gather_wide(plans: OneHotPlans, x: torch.Tensor) -> torch.Tensor:
-    """Kernel D's wide design at any C, on CUDA tensors only.  Not on any
-    path: kept to time it against the narrow kernel in turns."""
-    if x.device.type != "cuda":
-        raise ValueError("onehot_gather_wide: CUDA tensors only")
-    return _launch_gather("onehot_gather_wide", "ns_slot_gather_wide", plans, x)
-
-
-def _launch_gather(name: str, entry: str, plans: OneHotPlans, x: torch.Tensor) -> torch.Tensor:
-    entry = f"{entry}_{_check_payload(name, x, plans.n_rows, plans)}"
+    entry = f"ns_slot_gather_{_check_payload('onehot_gather', x, plans.n_rows, plans)}"
     C = x.shape[1]
     y = torch.empty((plans.n_slots, C), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -121,6 +107,7 @@ def _launch_gather(name: str, entry: str, plans: OneHotPlans, x: torch.Tensor) -
         ),
         entry,
     )
+    launch_counts[cuda_lib.count_key("slot_gather", x.dtype)] += 1
     return y
 
 
@@ -139,22 +126,7 @@ def onehot_reduce(plans: OneHotPlans, y: torch.Tensor) -> torch.Tensor:
         return onehot_reduce_plain(plans, y)
     if y.device.type != "cuda":
         raise ValueError(f"onehot_reduce: unsupported device {y.device}")
-    out = _launch_reduce("onehot_reduce", "ns_slot_reduce", plans, y)
-    launch_counts[cuda_lib.count_key("slot_reduce", y.dtype)] += 1
-    return out
-
-
-def onehot_reduce_wide(plans: OneHotPlans, y: torch.Tensor) -> torch.Tensor:
-    """Kernel C's wide design (a warp a row) at any C, on CUDA tensors
-    only.  Not on any path: kept to time it against the narrow kernel in
-    turns."""
-    if y.device.type != "cuda":
-        raise ValueError("onehot_reduce_wide: CUDA tensors only")
-    return _launch_reduce("onehot_reduce_wide", "ns_slot_reduce_wide", plans, y)
-
-
-def _launch_reduce(name: str, entry: str, plans: OneHotPlans, y: torch.Tensor) -> torch.Tensor:
-    entry = f"{entry}_{_check_payload(name, y, plans.n_slots, plans)}"
+    entry = f"ns_slot_reduce_{_check_payload('onehot_reduce', y, plans.n_slots, plans)}"
     C = y.shape[1]
     out = torch.empty((plans.n_rows, C), dtype=y.dtype, device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
@@ -165,4 +137,5 @@ def _launch_reduce(name: str, entry: str, plans: OneHotPlans, y: torch.Tensor) -
         ),
         entry,
     )
+    launch_counts[cuda_lib.count_key("slot_reduce", y.dtype)] += 1
     return out

@@ -303,11 +303,9 @@ class HaloProjectionStep:
                 maxiter=cfg.solver.maxiter, precise=precise,
             )
             spool = torch.cat([harv[:, None, :], spool[:, :-1]], dim=1)
-            its = info_s.iters
         else:
-            phi, info = cg(S, rhs_p[:, None], M=M2, x0=phi0[:, None], rtol=0.0, atol=s_atol,
-                           maxiter=cfg.solver.maxiter, precise=precise)
-            phi, its = phi[:, 0], int(info.iters[0])
+            phi, info_s = cg(S, rhs_p, M=M2, x0=phi0, rtol=0.0, atol=s_atol,
+                             maxiter=cfg.solver.maxiter, precise=precise)
 
         # ---- 3. update
         gphi_e = -torch.einsum("ekc,kij,ei->ejc", Jinv, op.BHAT, phi[self.cp_nat]) * detJ[:, None, None]
@@ -321,5 +319,5 @@ class HaloProjectionStep:
             p_prev=state.p if self._extrap else None,
             spool=spool,
         )
-        return new_state, (int(info_f.iters), int(its))
+        return new_state, (int(info_f.iters), int(info_s.iters))
 

@@ -6,7 +6,7 @@ Needs one CUDA card and nvcc.  Builds `macro_build_parts.cu` into the
 package's `build/`, makes the single run's macro plan (the DFG duct at
 965,265 DoF: B = 10,864 blocks of 20 cells, U = 128) and seeded F_e, and
 times, in two rounds, each variant of that file (CUDA events around 20
-launches), the package's `macro_build` and `macro_build_v1`, and a memset
+launches), the package's `macro_build`, and a memset
 and a copy of the same 712 MB (the card's write and copy rates).  Every
 variant that writes the full result is checked against the plain version.
 It also lists the shared-memory atomic instructions the build compiled
@@ -121,12 +121,8 @@ def main() -> int:
             ms = event_ms(variant(v))
             print(f"round {rnd} variant {v} ({name}): {ms:.4f} ms, {bound / ms:.1%} of bound"
                   + (f", max abs err {err:.3e}" if full else ""))
-        for name, fn in (
-            ("package macro_build", lambda: mb.macro_build(F_e, mp.lidx, mp.B, mp.U)),
-            ("package macro_build_v1", lambda: mb.macro_build_v1(F_e, mp.lidx, mp.B, mp.U)),
-        ):
-            ms = event_ms(fn)
-            print(f"round {rnd} {name}: {ms:.4f} ms, {bound / ms:.1%} of bound")
+        ms = event_ms(lambda: mb.macro_build(F_e, mp.lidx, mp.B, mp.U))
+        print(f"round {rnd} package macro_build: {ms:.4f} ms, {bound / ms:.1%} of bound")
         for name, fn, moved in (
             ("memset (zero_) of the result's bytes", lambda: out.zero_(), ref.numel() * 4),
             ("copy_ of the result's bytes", lambda: out.copy_(ref), 2 * ref.numel() * 4),

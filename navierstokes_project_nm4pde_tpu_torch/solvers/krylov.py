@@ -13,26 +13,35 @@ the loops run in Python and read the residual norm back to the host once
 per iteration (one device synchronisation each), which also keeps the
 small Hessenberg/Givens algebra of FGMRES on the host in float64.
 
-The CG loops (`cg`, `cg_recycled`) keep their state in tensors that one
-function per loop updates in place, an iteration a call: the batched loop
-also keeps its per-member stop mask, its counts and its tolerances on the
-device, so the host only reads the residuals.  Given a `CGGraphs` cache
-(the projection step's pressure solve on the frozen S1 and its two-level
-preconditioner, on the card, with no process group), that function is
-captured once per loop and shape as CUDA graphs cut at the layers' spans,
-and each iteration is one replay of them; every other caller runs it
-eagerly.  The FGMRES and GCR loops read operators that change every step
-and stay eager.
-
-Every solver also solves [n, B] batches, one column per ensemble member
+Every solver solves [n, B] batches, one column per ensemble member
 (`gcr_recycled` and `cg_recycled` with pools [k, n, B]), with the
 semantics of `jax.vmap` over the reference's loops: each member iterates
 exactly as its own solve would, with its own tolerance and iteration
 count, and a member that has stopped is frozen while the others run on.
 In FGMRES the members still iterating share the inner index j, so their
 restart cycles run in lockstep.  One host sync per iteration reads all B
-residuals; a single system is the batch B = 1.  A zero norm in one
-column is guarded in that column alone.
+residuals.  A zero norm in one column is guarded in that column alone.
+Each method has one loop for a single system b [n] (pools [k, n],
+SolveInfo as (int, float)) and for columns: `fgmres` runs one system as
+the batch of one; the others pick their products and layouts by rank
+(matrix-vector products on one system, batched products on member-major
+rows for columns), since the batched forms would cost one system a fifth
+more host time a call, and a B = 1 column runs as its [n] view.
+
+The CG loop (`cg`, `cg_recycled`) keeps its state in tensors that one
+function updates in place, an iteration a call.  For B > 1 columns that
+function also keeps the per-member stop mask, the counts and the
+tolerances on the device, so the host only reads the residuals.  One
+system takes a body with no mask, since the host alone decides when to
+stop: the mask's selects and column reductions would add 10 kernels to an
+iteration of 28, and 2% to the device time of a step of the 965k-DoF duct
+on an H100.  Given a `CGGraphs` cache (the projection step's pressure
+solve on the frozen S1 and its two-level preconditioner, on the card,
+with no process group), that function is captured once per body and
+shape as CUDA graphs cut at the layers' spans, and each iteration is one
+replay of them; every other caller runs it eagerly.  The FGMRES and GCR
+loops read operators that change every step and stay eager; GCR's narrow
+rounds keep the members' stop mask on the device.
 
 `fgmres` takes a process `group` (the owned+halo step of
 `parallel/halo_step.py`): each rank then holds its block of every vector,
@@ -124,10 +133,11 @@ def _bdots(V, w, precise: bool, group=None):
 
 
 def _gram(S, precise: bool):
-    """[B, k, k] Gram matrices S S^T of member-major rows S [B, k, n]."""
+    """[*batch, k, k] Gram matrices S S^T of (member-major) rows S [*batch,
+    k, n]."""
     if precise and S.dtype != torch.float64:
-        return torch.bmm(S.double(), S.double().transpose(1, 2)).to(S.dtype)
-    return torch.bmm(S, S.transpose(1, 2))
+        return (S.double() @ S.double().mT).to(S.dtype)
+    return S @ S.mT
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -158,6 +168,22 @@ def _to_device(a, like: torch.Tensor, dtype: torch.dtype | None = None) -> torch
     waits for the device's queue)."""
     with span("host_write"):
         return torch.as_tensor(a, dtype=dtype, device=like.device)
+
+
+def _vector_op(f: Callable) -> Callable:
+    """An operator on B = 1 columns [n, 1] (blocks [n, K, 1]) as the
+    operator on their [n] ([n, K]) views."""
+    return lambda v: f(v[..., None])[..., 0]
+
+
+def _first(atol) -> float:
+    """A tolerance given as a float or a [1] array, as the float."""
+    return float(np.broadcast_to(np.asarray(atol, np.float64), (1,))[0])
+
+
+def _batch_info(info: SolveInfo) -> SolveInfo:
+    """One system's SolveInfo (int, float) as a B = 1 batch's ([1] arrays)."""
+    return SolveInfo(iters=np.array([info.iters]), residual=np.array([info.residual]))
 
 
 # ----------------------------------------------------------------------
@@ -335,7 +361,7 @@ def fgmres(
 class CGGraphs:
     """CUDA graphs of CG iterations whose operators never change.
 
-    One iteration's graphs per key (the loop, its shapes, dtype and
+    One iteration's graphs per key (the iteration body, its shapes, dtype and
     settings), captured at the key's first solve and replayed by every
     later one: A and M must read only tensors that outlive the cache (one
     solver's frozen operators).  The capture is cut at each span given
@@ -480,24 +506,48 @@ def cg(
     precise: bool = True,
     graphs: CGGraphs | None = None,
 ):
-    """Preconditioned CG for B systems at once: b [n, B], A and M map
-    [n, B] -> [n, B] column by column; `atol` is a float or a [B] array.
-    The residual norm rides the loop (fused with r.z), as in the
-    reference.  Returns (x [n, B], SolveInfo with [B] numpy iters and
-    residuals).  A single system is the case B = 1.  With `graphs`, each
-    iteration is a replay of CUDA graphs (`CGGraphs`)."""
+    """Preconditioned CG.  The residual norm rides the loop (fused with
+    r.z), as in the reference.  b is one system [n] (returns x [n] and
+    SolveInfo(int, float)) or B systems [n, B] (A and M map [n, B] -> [n,
+    B] column by column, `atol` is a float or a [B] array; returns x [n, B]
+    and SolveInfo with [B] numpy iters and residuals; a B = 1 column runs
+    as its [n] view).  With `graphs`, each iteration is a replay of CUDA
+    graphs (`CGGraphs`)."""
+    if M is None:
+        M = lambda v: v  # noqa: E731
+    if b.dim() == 2 and b.shape[1] == 1:  # a B = 1 column runs as its [n] view
+        x, info = cg(_vector_op(A), b[:, 0], _vector_op(M), None if x0 is None else x0[:, 0], rtol=rtol,
+                     atol=_first(atol), maxiter=maxiter, precise=precise, graphs=graphs)
+        return x[:, None], _batch_info(info)
     if x0 is None:
         x, r = torch.zeros_like(b), b
     else:
         x, r = x0, b - A(x0)
-    x, r, info = _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise, "krylov.cg.iter", graphs)
+    x, r, info = _cg_loop(A, M, b, x, r, rtol, atol, maxiter, precise, "krylov.cg.iter", graphs)
     return x, info
 
 
-def _cg_columns_iter(A, M, st: list, maxiter: int, precise: bool):
-    """One iteration of the batched CG loop, in place on its state st = [x,
-    r, p, rz, res, k, tol]: the members with res > tol and k < maxiter take
-    it, the others stay frozen; res (float64) and the counts k follow."""
+def _cg_single_iter(A, M, st: list, precise: bool):
+    """One iteration of the CG loop on one system, in place on its state st
+    = [x, r, p, rz, res] ([n] vectors, rz and res 0-d): no stop mask, since
+    the host alone decides when to stop."""
+    x, r, p, rz, res = st
+    Ap = A(p)
+    alpha = rz / _dot(p, Ap, precise)
+    x.add_(alpha * p)
+    r.sub_(alpha * Ap)
+    z = M(r)
+    rz_new, rr = _dot2(z, r, precise)
+    torch.add(z, (rz_new / rz) * p, out=p)
+    rz.copy_(rz_new)
+    torch.sqrt(rr, out=res)
+
+
+def _cg_masked_iter(A, M, st: list, maxiter: int, precise: bool):
+    """One iteration of the CG loop on B > 1 columns, in place on its state
+    st = [x, r, p, rz, res, k, tol]: the members with res > tol and k <
+    maxiter take it, the others stay frozen; res (float64) and the counts k
+    follow."""
     x, r, p, rz, res, k, tol = st
     on = (res > tol) & (k < maxiter)
     Ap = A(p)
@@ -513,38 +563,49 @@ def _cg_columns_iter(A, M, st: list, maxiter: int, precise: bool):
     k.add_(on)
 
 
-def _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise, name, graphs=None):
-    """The CG loop on [n, B] columns from the iterate x and its residual r
-    (the tolerance against ||b||), each iteration in span `name`; returns
-    (x, r, SolveInfo).  The device decides which members iterate, from the
-    same float64 residuals and tolerances as the host's `active`, so the
-    two agree bit for bit and the host reads the residuals alone."""
-    if M is None:
-        M = lambda v: v  # noqa: E731
-    B = b.shape[1]
+def _cg_loop(A, M, b, x, r, rtol, atol, maxiter, precise, name, graphs=None):
+    """The CG loop from the iterate x and its residual r (the tolerance
+    against ||b||), each iteration in span `name`; returns (x, r,
+    SolveInfo), the info as `cg`'s.  One system b [n] takes the mask-free
+    body, its count and residual kept on the host as Python numbers.  B > 1
+    columns [n, B] take the masked one: the device decides which members
+    iterate, from the same float64 residuals and tolerances as the host's
+    `active`, so the two agree bit for bit and the host reads the residuals
+    alone."""
+    single = b.dim() == 1
     z = M(r)
-    rz, rr = _cdot(z, r, precise), _cdot(r, r, precise)
-    res_t = torch.sqrt(rr).double()
-    res = _host(res_t)
-    bnorm = _host(_cnorm(b, precise))
-    tol = np.maximum(rtol * bnorm, np.broadcast_to(np.asarray(atol, np.float64), (B,)))
-    k = np.zeros(B, np.int64)
+    if single:
+        rz, rr = _dot2(z, r, precise)
+        res_t = torch.sqrt(rr)
+        read, more, k = _host_float, bool, 0
+        tol = max(rtol * _host_float(_norm(b, precise)), float(atol))
+        state = [x, r, z, rz, res_t]
+        body = functools.partial(_cg_single_iter, A, M, precise=precise)
+        key = ("single", tuple(b.shape), b.dtype, precise)
+    else:
+        B = b.shape[1]
+        rz, rr = _cdot(z, r, precise), _cdot(r, r, precise)
+        res_t = torch.sqrt(rr).double()
+        read, more, k = _host, np.any, np.zeros(B, np.int64)
+        tol = np.maximum(rtol * _host(_cnorm(b, precise)), np.broadcast_to(np.asarray(atol, np.float64), (B,)))
+        state = [x, r, z, rz, res_t, torch.zeros(B, dtype=torch.int64, device=b.device)]
+        body = functools.partial(_cg_masked_iter, A, M, maxiter=maxiter, precise=precise)
+        key = ("masked", tuple(b.shape), b.dtype, maxiter, precise)
+    res = read(res_t)
     active = (res > tol) & (k < maxiter)
-    if not active.any():
-        return x, r, SolveInfo(iters=k, residual=res)
-    state = [x, r, z, rz, res_t, torch.zeros(B, dtype=torch.int64, device=b.device),
-             _to_device(tol, b, torch.float64)]
-    body = functools.partial(_cg_columns_iter, A, M, maxiter=maxiter, precise=precise)
-    st, step = _iterations(body, state, graphs, ("columns", tuple(b.shape), b.dtype, maxiter, precise))
-    while active.any():
-        with span(name):
-            step()
-            res = _host(st[4])  # the sync
-            k = k + active
-            active = (res > tol) & (k < maxiter)
-    x, r = st[0], st[1]
-    if graphs is not None:  # out of the static tensors
-        x, r = x.clone(), r.clone()
+    if more(active):
+        if not single:
+            state.append(_to_device(tol, b, torch.float64))
+        st, step = _iterations(body, state, graphs, key)
+        while more(active):
+            with span(name):
+                step()
+                res = read(st[4])  # the sync
+                k = k + active
+                active = (res > tol) & (k < maxiter)
+        x, r = st[0], st[1]
+        if graphs is not None:  # out of the static tensors
+            x, r = x.clone(), r.clone()
     return x, r, SolveInfo(iters=k, residual=res)
 
 
@@ -560,7 +621,7 @@ def cg_recycled(
     poolW: torch.Tensor,
     *,
     rtol: float = 1e-6,
-    atol: float = 0.0,
+    atol=0.0,
     maxiter: int = 1000,
     precise: bool = True,
     graphs: CGGraphs | None = None,
@@ -573,99 +634,49 @@ def cg_recycled(
     (direction, image) of this call's CG increment.  For B columns b
     [n, B] the pools are [k, n, B] and the harvest [2, n, B], each member
     projected on its own pool.  `graphs`: as in `cg`."""
-    if b.dim() == 2:
-        return _cg_recycled_columns(A, b, M, x0, poolD, poolW, rtol, atol, maxiter, precise, graphs)
     if M is None:
         M = lambda v: v  # noqa: E731
-    if x0 is None:
-        x0 = torch.zeros_like(b)
-        r = b
-    else:
-        r = b - A(x0)
-    k = poolD.shape[0]
-    dtype = b.dtype
-
-    S = torch.cat([poolW, r[None, :]], dim=0)
-    G = _matvec_dots(S, S.T, precise)  # [k+1, k+1]
-    wn = torch.sqrt(torch.clamp(torch.diagonal(G)[:k], min=0.0))
-    sc = torch.where(wn > 0, 1.0 / wn, torch.zeros_like(wn))
-    eye = torch.eye(k, dtype=dtype, device=b.device)
-    Gn = G[:k, :k] * sc[:, None] * sc[None, :] + 1e-5 * eye
-    Gn = torch.where((eye > 0) & (wn == 0)[:, None], torch.ones_like(Gn), Gn)
-    h = G[:k, k] * sc
-    c = torch.linalg.solve_ex(Gn, h).result
-    Dn = poolD * sc[:, None]
-    Wn = poolW * sc[:, None]
-    x = x0 + c @ Dn
-    r = r - c @ Wn
-    c2 = torch.linalg.solve_ex(Gn, _matvec_dots(Wn, r, precise)).result
-    x = x + c2 @ Dn
-    r = r - c2 @ Wn
-    x_proj, r_proj = x, r
-
-    z = M(r)
-    rz, rr = _dot2(z, r, precise)
-    res_t = torch.sqrt(rr)
-    res = _host_float(res_t)
-    tol = max(rtol * _host_float(_norm(b, precise)), float(atol))
-    j = 0
-    if res > tol and j < maxiter:
-        body = functools.partial(_cg_vector_iter, A, M, precise=precise)
-        st, step = _iterations(body, [x, r, z, rz, res_t], graphs,
-                               ("vector", tuple(b.shape), dtype, precise))
-        while res > tol and j < maxiter:
-            with span("krylov.cg_recycled.iter"):
-                step()
-                res = _host_float(st[4])  # the sync
-                j += 1
-        x, r = st[0], st[1]
-        if graphs is not None:  # out of the static tensors
-            x, r = x.clone(), r.clone()
-    harvest = torch.stack([x - x_proj, r_proj - r])
-    return x, SolveInfo(iters=j, residual=res), harvest
-
-
-def _cg_vector_iter(A, M, st: list, precise: bool):
-    """One iteration of the single-vector CG loop, in place on its state
-    st = [x, r, p, rz, res] (rz and res 0-d)."""
-    x, r, p, rz, res = st
-    Ap = A(p)
-    alpha = rz / _dot(p, Ap, precise)
-    x.add_(alpha * p)
-    r.sub_(alpha * Ap)
-    z = M(r)
-    rz_new, rr = _dot2(z, r, precise)
-    torch.add(z, (rz_new / rz) * p, out=p)
-    rz.copy_(rz_new)
-    torch.sqrt(rr, out=res)
-
-
-def _cg_recycled_columns(A, b, M, x0, poolD, poolW, rtol, atol, maxiter, precise, graphs=None):
-    """`cg_recycled` for B members at once (b [n, B], pools [k, n, B]):
-    each member's projection on its own pool, then the batched CG."""
+    if b.dim() == 2 and b.shape[1] == 1:  # a B = 1 column runs as its [n] view
+        x, info, harvest = cg_recycled(
+            _vector_op(A), b[:, 0], _vector_op(M), None if x0 is None else x0[:, 0], poolD[..., 0],
+            poolW[..., 0], rtol=rtol, atol=_first(atol), maxiter=maxiter, precise=precise, graphs=graphs,
+        )
+        return x[:, None], _batch_info(info), harvest[..., None]
     if x0 is None:
         x0, r = torch.zeros_like(b), b
     else:
         r = b - A(x0)
-    k = poolD.shape[0]
-    Wm, Dm = _rows(poolW), _rows(poolD)  # [B, k, n]
-    G = _gram(torch.cat([Wm, _rows(r)[:, None]], dim=1), precise)  # [B, k+1, k+1]
-    wn = torch.sqrt(torch.clamp(torch.diagonal(G, dim1=1, dim2=2)[:, :k], min=0.0))
-    sc = torch.where(wn > 0, 1.0 / wn, torch.zeros_like(wn))
-    eye = torch.eye(k, dtype=b.dtype, device=b.device)
-    Gn = G[:, :k, :k] * sc[:, :, None] * sc[:, None, :] + 1e-5 * eye
-    Gn = torch.where((eye > 0) & (wn == 0)[:, :, None], torch.ones_like(Gn), Gn)
-    c = torch.linalg.solve_ex(Gn, G[:, :k, k] * sc).result
-    Dn, Wn = Dm * sc[:, :, None], Wm * sc[:, :, None]
-    x = x0 + _bcomb(c, Dn).T
-    r = r - _bcomb(c, Wn).T
-    c2 = torch.linalg.solve_ex(Gn, _bdots(Wn, _rows(r), precise)).result
-    x = x + _bcomb(c2, Dn).T
-    r = r - _bcomb(c2, Wn).T
+    x, r = _pool_projection(x0, r, poolD, poolW, precise)
     x_proj, r_proj = x, r
-    x, r, info = _cg_columns(A, M, b, x, r, rtol, atol, maxiter, precise, "krylov.cg_recycled.iter",
-                             graphs)
+    x, r, info = _cg_loop(A, M, b, x, r, rtol, atol, maxiter, precise, "krylov.cg_recycled.iter", graphs)
     return x, info, torch.stack([x - x_proj, r_proj - r])
+
+
+def _pool_projection(x0, r, poolD, poolW, precise):
+    """(x, r) after the least-squares projection of the residual on the
+    pool, refined once against the projected residual: one system's r [n]
+    on its pool ([k, n] directions and images), or each member's column of
+    r [n, B] on its own pool ([k, n, B]; member-major rows inside, batched
+    products)."""
+    if r.dim() == 1:
+        rows = cols = lambda x: x  # noqa: E731
+        dots, comb = _matvec_dots, (lambda c, V: c @ V)
+    else:
+        rows, cols, dots, comb = _rows, (lambda x: x.T), _bdots, _bcomb
+    k = poolD.shape[0]
+    Wm, Dm = rows(poolW), rows(poolD)  # [*batch, k, n]
+    G = _gram(torch.cat([Wm, rows(r)[..., None, :]], dim=-2), precise)  # [*batch, k+1, k+1]
+    wn = torch.sqrt(torch.clamp(torch.diagonal(G, dim1=-2, dim2=-1)[..., :k], min=0.0))
+    sc = torch.where(wn > 0, 1.0 / wn, torch.zeros_like(wn))
+    eye = torch.eye(k, dtype=r.dtype, device=r.device)
+    Gn = G[..., :k, :k] * sc[..., :, None] * sc[..., None, :] + 1e-5 * eye
+    Gn = torch.where((eye > 0) & (wn == 0)[..., :, None], torch.ones_like(Gn), Gn)
+    c = torch.linalg.solve_ex(Gn, G[..., :k, k] * sc).result
+    Dn, Wn = Dm * sc[..., None], Wm * sc[..., None]
+    x = x0 + cols(comb(c, Dn))
+    r = r - cols(comb(c, Wn))
+    c2 = torch.linalg.solve_ex(Gn, dots(Wn, rows(r), precise)).result
+    return x + cols(comb(c2, Dn)), r - cols(comb(c2, Wn))
 
 
 # ----------------------------------------------------------------------
@@ -692,20 +703,6 @@ def ls_warmstart(D: torch.Tensor, Y: torch.Tensor, r0: torch.Tensor, precise: bo
 # ----------------------------------------------------------------------
 # Recycled-block GCR
 # ----------------------------------------------------------------------
-def _solve_small(G: torch.Tensor, h: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
-    """Solve the normalised Gram system on the `active` rows (ridge 1e-5 on
-    the diagonal); inactive rows are identity rows with zero rhs, so their
-    coefficients are exactly 0."""
-    K = G.shape[0]
-    eye = torch.eye(K, dtype=torch.bool, device=G.device)
-    Gm = torch.where(
-        eye,
-        torch.where(active, torch.diagonal(G) + 1e-5, torch.ones_like(h)),
-        torch.where(active[:, None] & active[None, :], G, torch.zeros_like(G)),
-    )
-    return torch.linalg.solve_ex(Gm, torch.where(active, h, torch.zeros_like(h))).result
-
-
 def gcr_recycled(
     A_block: Callable,
     b: torch.Tensor,
@@ -733,143 +730,128 @@ def gcr_recycled(
     directions (row 0 = M b, rows 1..k = the pool, then the narrow
     rounds'); SolveInfo.iters = 1 + the narrow rounds.  For B columns b
     [n, B] (pool [k, n, B], D [K, n, B]) `A_block` and `M` map [n, K, B]
-    -> [n, K, B], each member with its own operator."""
-    if b.dim() == 2:
-        return _gcr_recycled_columns(A_block, b, M, pool, rtol, atol, tol_mode, max_narrow, precise)
+    -> [n, K, B], each member with its own operator; a member whose
+    residual meets its tolerance is frozen while the others take narrow
+    rounds; a B = 1 column runs as its [n] view.  One loop, its layouts
+    and products picked by rank (member-major bases [B, K, n] and batched
+    products for columns), since the batched ones and the members' selects
+    would cost one system a fifth more host time a call."""
+    if b.dim() == 2 and b.shape[1] == 1:
+        x, info, D = gcr_recycled(
+            _vector_op(A_block), b[:, 0], _vector_op(M), pool[..., 0], rtol=rtol, atol=_first(atol),
+            tol_mode=tol_mode, max_narrow=max_narrow, precise=precise,
+        )
+        return x[:, None], _batch_info(info), D[..., None]
     n, dtype, dev = b.shape[0], b.dtype, b.device
     k = pool.shape[0]
     K = 1 + k + max_narrow
-    ref = 1.0 if tol_mode == "abs" else _host_float(_norm(b, precise))
-    tol = max(rtol * ref, float(atol))
+    if b.dim() == 1:
+        batch, bm = (), b
+        ref = 1.0 if tol_mode == "abs" else _host_float(_norm(b, precise))
+        tol = max(rtol * ref, float(atol))
+        read, more, j = _host_float, bool, 0
+        dots, comb = _matvec_dots, (lambda c, V: c @ V)
+        rnorm = lambda x: _norm(x, precise)  # noqa: E731
+        narrow = lambda op, x: op(x[:, None])[:, 0]  # noqa: E731
+
+        def wide():  # round 1's block [M b, pool rows] and its image, as rows
+            D0 = torch.cat([M(b[:, None]).T, pool], dim=0)  # [1 + k, n]
+            return D0, A_block(D0.T.contiguous()).T
+    else:
+        B = b.shape[1]
+        batch, bm = (B,), _rows(b)  # [B, n]; the bases are member-major [B, K, n]
+        ref_t = b.new_ones(B, dtype=torch.float64) if tol_mode == "abs" else _cnorm(b, precise).double()
+        ref = np.ones(B) if tol_mode == "abs" else _host(ref_t)
+        tol = np.maximum(rtol * ref, np.broadcast_to(np.asarray(atol, np.float64), (B,)))
+        read, more, j = _host, np.any, np.zeros(B, np.int64)
+        dots, comb = _bdots, _bcomb
+        rnorm = lambda x: _cnorm(x.T, precise).double()  # noqa: E731
+        narrow = lambda op, x: _rows(op(x.T[:, None, :].contiguous())[:, 0])  # noqa: E731
+
+        def wide():
+            D0 = torch.cat([M(b[:, None, :]), pool.movedim(0, 1)], dim=1)  # [n, 1 + k, B]
+            W0 = _rows(A_block(D0.contiguous())).transpose(1, 2)  # [B, 1 + k, n]
+            return _rows(D0).transpose(1, 2), W0
 
     with span("krylov.gcr.iter"):  # round 1: the wide apply
-        D = b.new_zeros((K, n))
-        W = b.new_zeros((K, n))
-        D0 = torch.cat([M(b[:, None]).T, pool], dim=0)
-        W0 = A_block(D0.T.contiguous()).T
-        S0 = torch.cat([W0, b[None, :]], dim=0)
-        G0 = _matvec_dots(S0, S0.T, precise)  # [k + 2, k + 2]
-        wnorm = torch.sqrt(torch.clamp(torch.diagonal(G0)[: 1 + k], min=0.0))
+        D0, W0 = wide()
+        D = b.new_zeros((*batch, K, n))
+        W = b.new_zeros((*batch, K, n))
+        G0 = _gram(torch.cat([W0, bm[..., None, :]], dim=-2), precise)  # [*batch, k + 2, k + 2]
+        wnorm = torch.sqrt(torch.clamp(torch.diagonal(G0, dim1=-2, dim2=-1)[..., : 1 + k], min=0.0))
         scale0 = torch.where(wnorm > 0, 1.0 / wnorm, torch.zeros_like(wnorm))
-        D[: 1 + k] = D0 * scale0[:, None]
-        W[: 1 + k] = W0 * scale0[:, None]
-        act = torch.arange(K, device=dev) < 1 + k
-        G = b.new_zeros((K, K))
-        G[: 1 + k, : 1 + k] = G0[: 1 + k, : 1 + k] * scale0[:, None] * scale0[None, :]
-        h0 = b.new_zeros(K)
-        h0[: 1 + k] = G0[: 1 + k, 1 + k] * scale0
-        c = _solve_small(G, h0, act)
-        r = b - c @ W
-        d1 = _solve_small(G, _matvec_dots(W, r, precise), act)
-        c = c + d1
-        r = r - d1 @ W
-        res = _host_float(_norm(r, precise))  # the sync
-    j = 0
-    while res > tol and j < max_narrow:
-        with span("krylov.gcr.iter"):
-            i = 1 + k + j
-            d = M(r[:, None])[:, 0]
-            w = A_block(d[:, None])[:, 0]
-            T = _matvec_dots(torch.cat([W, w[None, :]], dim=0), torch.stack([w, r], dim=1), precise)
-            wn = torch.sqrt(torch.clamp(T[K, 0], min=0.0))
-            s = torch.where(wn > 0, 1.0 / wn, torch.zeros_like(wn))
-            D[i] = d * s
-            W[i] = w * s
-            gcol = T[:K, 0] * s
-            gcol[i] = (wn > 0).to(dtype)
-            G[:, i] = gcol
-            G[i, :] = gcol
-            hr = T[:K, 1].clone()
-            hr[i] = T[K, 1] * s
-            delta = _solve_small(G, hr, torch.arange(K, device=dev) <= i)
-            c = c + delta
-            r = r - delta @ W
-            res = _host_float(_norm(r, precise))  # the sync
-            j += 1
-    return c @ D, SolveInfo(iters=1 + j, residual=res), D
-
-
-def _gcr_recycled_columns(A_block, b, M, pool, rtol, atol, tol_mode, max_narrow, precise):
-    """`gcr_recycled` for B members at once, member-major inside ([B, K, n]
-    bases); a member whose residual meets its tolerance is frozen while the
-    others take narrow rounds."""
-    n, B = b.shape
-    dtype, dev = b.dtype, b.device
-    k = pool.shape[0]
-    K = 1 + k + max_narrow
-    ref = np.ones(B) if tol_mode == "abs" else _host(_cnorm(b, precise))
-    tol = np.maximum(rtol * ref, np.broadcast_to(np.asarray(atol, np.float64), (B,)))
-    bm = _rows(b)  # [B, n]
-
-    with span("krylov.gcr.iter"):  # round 1: the wide apply
-        D = b.new_zeros((B, K, n))
-        W = b.new_zeros((B, K, n))
-        D0 = torch.cat([M(b[:, None, :]), pool.movedim(0, 1)], dim=1)  # [n, 1 + k, B]
-        W0 = _rows(A_block(D0.contiguous())).transpose(1, 2)  # [B, 1 + k, n]
-        D0 = _rows(D0).transpose(1, 2)
-        G0 = _gram(torch.cat([W0, bm[:, None]], dim=1), precise)  # [B, k + 2, k + 2]
-        wnorm = torch.sqrt(torch.clamp(torch.diagonal(G0, dim1=1, dim2=2)[:, : 1 + k], min=0.0))
-        scale0 = torch.where(wnorm > 0, 1.0 / wnorm, torch.zeros_like(wnorm))
-        D[:, : 1 + k] = D0 * scale0[:, :, None]
-        W[:, : 1 + k] = W0 * scale0[:, :, None]
-        G = b.new_zeros((B, K, K))
-        G[:, : 1 + k, : 1 + k] = G0[:, : 1 + k, : 1 + k] * scale0[:, :, None] * scale0[:, None, :]
-        h0 = b.new_zeros((B, K))
-        h0[:, : 1 + k] = G0[:, : 1 + k, 1 + k] * scale0
+        D[..., : 1 + k, :] = D0 * scale0[..., None]
+        W[..., : 1 + k, :] = W0 * scale0[..., None]
+        G = b.new_zeros((*batch, K, K))
+        G[..., : 1 + k, : 1 + k] = G0[..., : 1 + k, : 1 + k] * scale0[..., :, None] * scale0[..., None, :]
+        h0 = b.new_zeros((*batch, K))
+        h0[..., : 1 + k] = G0[..., : 1 + k, 1 + k] * scale0
         act = torch.arange(K, device=dev) < 1 + k
         c = _solve_small_rows(G, h0, act)
-        r = bm - _bcomb(c, W)
-        d1 = _solve_small_rows(G, _bdots(W, r, precise), act)
+        r = bm - comb(c, W)
+        d1 = _solve_small_rows(G, dots(W, r, precise), act)
         c = c + d1
-        r = r - _bcomb(d1, W)
-        res = _host(_cnorm(r.T, precise))  # the sync
-    j = np.zeros(B, np.int64)
+        r = r - comb(d1, W)
+        res_t = rnorm(r)
+        res = read(res_t)  # the sync
     active = (res > tol) & (j < max_narrow)
+    if batch and active.any():  # the tolerances on the device, bit for bit; a scalar atol needs no copy
+        atol_t = float(atol) if np.ndim(atol) == 0 else _to_device(atol, b, torch.float64)
+        tol_t = torch.clamp(rtol * ref_t, min=atol_t)
     rnd = 0  # every member still iterating has taken `rnd` narrow rounds
-    while active.any():
+    while more(active):
         with span("krylov.gcr.iter"):
-            on = _to_device(active, b)
+            # the members still iterating are those above their tolerance,
+            # since each of them has taken rnd < max_narrow rounds; one
+            # system takes every round the loop runs
+            on = res_t > tol_t if batch else None
             i = 1 + k + rnd
-            d = _rows(M(r.T[:, None, :].contiguous())[:, 0])  # [B, n]
-            w = _rows(A_block(d.T[:, None, :].contiguous())[:, 0])
-            lhs, rhs = torch.cat([W, w[:, None]], dim=1), torch.stack([w, r], dim=2)
-            if precise and dtype != torch.float64:
-                T = torch.bmm(lhs.double(), rhs.double()).to(dtype)
-            else:
-                T = torch.bmm(lhs, rhs)  # [B, K + 1, 2]
-            wn = torch.sqrt(torch.clamp(T[:, K, 0], min=0.0))
+            d = narrow(M, r)  # [*batch, n]
+            w = narrow(A_block, d)
+            T = _matvec_dots(torch.cat([W, w[..., None, :]], dim=-2), torch.stack([w, r], dim=-1), precise)
+            wn = torch.sqrt(torch.clamp(T[..., K, 0], min=0.0))  # T [*batch, K + 1, 2]
             s = torch.where(wn > 0, 1.0 / wn, torch.zeros_like(wn))
-            Dn, Wn, Gn = D.clone(), W.clone(), G.clone()
-            Dn[:, i] = d * s[:, None]
-            Wn[:, i] = w * s[:, None]
-            gcol = T[:, :K, 0] * s[:, None]
-            gcol[:, i] = (wn > 0).to(dtype)
-            Gn[:, :, i] = gcol
-            Gn[:, i, :] = gcol
-            hr = T[:, :K, 1].clone()
-            hr[:, i] = T[:, K, 1] * s
-            delta = _solve_small_rows(Gn, hr, torch.arange(K, device=dev) <= i)
-            D = torch.where(on[:, None, None], Dn, D)
-            W = torch.where(on[:, None, None], Wn, W)
-            G = torch.where(on[:, None, None], Gn, G)
-            c = torch.where(on[:, None], c + delta, c)
-            r = torch.where(on[:, None], r - _bcomb(delta, Wn), r)
-            res = np.where(active, _host(_cnorm(r.T, precise)), res)  # the sync
+            # row i of D and W and row and column i of G, written for the
+            # members that take the round (the others' stay zero)
+            D[..., i, :] = _keep(on, d * s[..., None], D[..., i, :])
+            W[..., i, :] = _keep(on, w * s[..., None], W[..., i, :])
+            gcol = T[..., :K, 0] * s[..., None]
+            gcol[..., i] = (wn > 0).to(dtype)
+            gcol = _keep(on, gcol, G[..., i, :])
+            G[..., :, i] = gcol
+            G[..., i, :] = gcol
+            hr = T[..., :K, 1].clone()
+            hr[..., i] = T[..., K, 1] * s
+            delta = _solve_small_rows(G, hr, torch.arange(K, device=dev) <= i)
+            c = _keep(on, c + delta, c)
+            r = _keep(on, r - comb(delta, W), r)
+            res_t = _keep(on, rnorm(r), res_t)
+            res = read(res_t)  # the sync
             j = j + active
             rnd += 1
             active = (res > tol) & (j < max_narrow)
-    return _bcomb(c, D).T.contiguous(), SolveInfo(iters=1 + j, residual=res), D.permute(1, 2, 0)
+    if batch:
+        return _bcomb(c, D).T.contiguous(), SolveInfo(iters=1 + j, residual=res), D.permute(1, 2, 0)
+    return c @ D, SolveInfo(iters=1 + j, residual=res), D
+
+
+def _keep(on, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """`new` in the rows of the members in `on` [B], `old` in the others';
+    `on` None: `new`."""
+    return new if on is None else torch.where(on.view(-1, *(1,) * (new.dim() - 1)), new, old)
 
 
 def _solve_small_rows(G: torch.Tensor, h: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
-    """`_solve_small` for B members at once: G [B, K, K], h [B, K], the
-    `active` rows [K] shared."""
+    """Solve the normalised Gram system (G [*batch, K, K], h [*batch, K],
+    each member's its own) on the `active` rows [K] (ridge 1e-5 on the
+    diagonal); inactive rows are identity rows with zero rhs, so their
+    coefficients are exactly 0."""
     K = G.shape[-1]
     eye = torch.eye(K, dtype=torch.bool, device=G.device)
-    diag = torch.diagonal(G, dim1=1, dim2=2)
+    diag = torch.diagonal(G, dim1=-2, dim2=-1)
     Gm = torch.where(
         eye,
-        torch.where(active, diag + 1e-5, torch.ones_like(diag))[:, :, None],
+        torch.where(active, diag + 1e-5, torch.ones_like(diag))[..., :, None],
         torch.where(active[:, None] & active[None, :], G, torch.zeros_like(G)),
     )
     return torch.linalg.solve_ex(Gm, torch.where(active, h, torch.zeros_like(h))).result
@@ -910,58 +892,41 @@ def gmres_fixed(A: Callable, b: torch.Tensor, M: Callable, iters: int, precise: 
     then the least squares on the Hessenberg by its normal equations (with
     the reference's 1e-30 ridge), solved on the device by `solve_ex`
     (`torch.linalg.solve` would read its error flag back): no host sync.
-    b is one vector [n] or B columns [n, B], each its own cycle."""
-    if b.dim() == 2:
-        return _gmres_fixed_columns(A, b, M, iters, precise)
-    n = b.shape[0]
+    b is one vector [n] (bases [m + 1, n], matrix-vector products) or B
+    columns [n, B] (A and M then map [n, B] -> [n, B]; bases member-major
+    [B, m + 1, n], batched products), each its own cycle; a B = 1 column
+    runs as its [n] view.  One loop, its products picked by rank, since the
+    batched ones would cost one system a quarter more host time a call."""
+    if b.dim() == 2 and b.shape[1] == 1:
+        return gmres_fixed(_vector_op(A), b[:, 0], _vector_op(M), iters, precise)[:, None]
+    if b.dim() == 1:
+        rows = cols = lambda x: x  # noqa: E731
+        dots, comb, norm, rnorm = _matvec_dots, (lambda c, V: V.T @ c), _norm, _norm
+    else:
+        rows, cols, dots, comb, norm = _rows, (lambda x: x.T), _bdots, _bcomb, _cnorm
+        rnorm = lambda x, p: _cnorm(x.T, p)  # noqa: E731
     m = iters
-    beta = _norm(b, precise)
-    V = b.new_zeros((m + 1, n))
-    Z = b.new_zeros((m, n))
-    H = b.new_zeros((m + 1, m + 1))
-    V[0] = torch.where(beta > 0, b / beta, b)
+    beta = norm(b, precise)  # [*batch]
+    bm = rows(torch.where(beta > 0, b / beta, b))
+    V = b.new_zeros((*bm.shape[:-1], m + 1, bm.shape[-1]))
+    Z = b.new_zeros((*bm.shape[:-1], m, bm.shape[-1]))
+    H = b.new_zeros((*bm.shape[:-1], m + 1, m + 1))
+    V[..., 0, :] = bm
     for j in range(m):
-        z = M(V[j])
-        w = A(z)
+        z = M(cols(V[..., j, :]))
+        w = rows(A(z))
         # rows > j of V are zero, so the full product is the partial one
-        hcol = _matvec_dots(V, w, precise)
-        w = w - V.T @ hcol
-        hlast = _norm(w, precise)
-        V[j + 1] = torch.where(hlast > 0, w / hlast, w)
-        Z[j] = z
-        hcol[j + 1] = hlast
-        H[:, j] = hcol
-    Hm = H[:, :m]
-    e1 = b.new_zeros(m + 1)
-    e1[0] = beta
-    HtH = Hm.T @ Hm + 1e-30 * torch.eye(m, dtype=b.dtype, device=b.device)
-    y = torch.linalg.solve_ex(HtH, Hm.T @ e1).result
-    return Z.T @ y
-
-
-def _gmres_fixed_columns(A, b, M, m: int, precise: bool):
-    """`gmres_fixed` on B columns b [n, B]: A and M map [n, B] -> [n, B];
-    the bases are member-major ([B, m + 1, n]) for batched products."""
-    n, B = b.shape
-    beta = _cnorm(b, precise)  # [B]
-    V = b.new_zeros((B, m + 1, n))
-    Z = b.new_zeros((B, m, n))
-    H = b.new_zeros((B, m + 1, m + 1))
-    V[:, 0] = _rows(torch.where(beta > 0, b / beta, b))
-    for j in range(m):
-        z = M(V[:, j].T)
-        w = _rows(A(z))
-        hcol = _bdots(V, w, precise)  # [B, m + 1]
-        w = w - _bcomb(hcol, V)
-        hlast = _cnorm(w.T, precise)
-        V[:, j + 1] = torch.where(hlast[:, None] > 0, w / hlast[:, None], w)
-        Z[:, j] = z.T
-        hcol[:, j + 1] = hlast
-        H[:, :, j] = hcol
-    Hm = H[:, :, :m]
-    e1 = b.new_zeros((B, m + 1))
-    e1[:, 0] = beta
-    Ht = Hm.transpose(1, 2)
+        hcol = dots(V, w, precise)  # [*batch, m + 1]
+        w = w - comb(hcol, V)
+        hlast = rnorm(w, precise)[..., None]
+        V[..., j + 1, :] = torch.where(hlast > 0, w / hlast, w)
+        Z[..., j, :] = cols(z)
+        hcol[..., j + 1] = hlast[..., 0]
+        H[..., :, j] = hcol
+    Hm = H[..., :m]
+    e1 = b.new_zeros((*bm.shape[:-1], m + 1))
+    e1[..., 0] = beta
+    Ht = Hm.mT
     HtH = Ht @ Hm + 1e-30 * torch.eye(m, dtype=b.dtype, device=b.device)
-    y = torch.linalg.solve_ex(HtH, (Ht @ e1[:, :, None])[:, :, 0]).result
-    return _bcomb(y, Z).T.contiguous()
+    y = torch.linalg.solve_ex(HtH, dots(Ht, e1, False)).result
+    return cols(comb(y, Z)).contiguous()

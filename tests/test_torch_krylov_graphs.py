@@ -1,14 +1,16 @@
-"""The CG loops' in-place iteration bodies and the device-side stop mask,
-on the CPU.
+"""The CG loop's in-place iteration bodies and the device-side stop mask,
+on the CPU, and one system as the batch of one.
 
 `solvers/krylov.py` runs each CG iteration as one function that updates
-the loop's tensors in place; the batched loop decides on the device which
-members iterate, from float64 residuals and tolerances.  Here both loops
+the loop's tensors in place: for one system the mask-free body, for B > 1
+columns the masked body, which decides on the device which members
+iterate, from float64 residuals and tolerances.  Here both bodies
 are held bit for bit to copies of the loops they replaced (the host's
 mask copied to the device every iteration; the functional single-vector
 loop), on the small duct's frozen S1 and two-level preconditioner and on
 a float64 system, with members stopping at different iterations and one
-at maxiter.  And no CUDA graph engages off the card, with a process
+at maxiter; and each solver's call on one vector to its call on the B = 1
+column.  And no CUDA graph engages off the card, with a process
 group, or for the explicit-convection CG on F (`graphed_s` stays 0), and
 a capture cut at the layers' spans (with a stand-in for the graphs)
 replays those spans with the sizes of an eager iteration.  The graphed
@@ -137,12 +139,18 @@ def test_the_device_mask_takes_the_host_masks_iterates_and_counts(duct, kind, B)
     r0 = b - A(x0)
     atol = np.zeros(B)
     atol[: B - 1] = np.logspace(-1, -5, B - 1) * _host(_cnorm(r0, precise))[: B - 1]
-    x, r, info = krylov._cg_columns(A, M, b, x0, r0, 0.0, atol, maxiter, precise, "krylov.cg.iter")
-    xo, ro, io = _host_mask_cg_columns(A, M, b, x0, r0, 0.0, atol, maxiter, precise)
+    if B == 1:  # one vector's call: the mask-free body
+        x, r, info = krylov._cg_loop(A, M, b[:, 0], x0[:, 0], r0[:, 0], 0.0, atol[0], maxiter, precise,
+                                     "krylov.cg.iter")
+        xo, ro, jo, reso = _functional_cg_vector(A, M, x0[:, 0], r0[:, 0], 0.0, maxiter, precise)
+        io = SolveInfo(iters=jo, residual=reso)
+    else:
+        x, r, info = krylov._cg_loop(A, M, b, x0, r0, 0.0, atol, maxiter, precise, "krylov.cg.iter")
+        xo, ro, io = _host_mask_cg_columns(A, M, b, x0, r0, 0.0, atol, maxiter, precise)
     assert torch.equal(x, xo) and torch.equal(r, ro)
     np.testing.assert_array_equal(info.iters, io.iters)
     np.testing.assert_array_equal(info.residual, io.residual)
-    assert info.iters.max() == maxiter and (B == 1 or len(set(info.iters.tolist())) > 1)
+    assert np.max(info.iters) == maxiter and (B == 1 or len(set(info.iters.tolist())) > 1)
     # the caller's guess and right-hand side are left as they were
     assert torch.equal(x0, _columns(n, B, dtype, seed=B)[1])
 
@@ -182,6 +190,52 @@ def _projection(A, b, x0, poolD, poolW, precise):
     r = r - c @ Wn
     c2 = torch.linalg.solve_ex(Gn, krylov._matvec_dots(Wn, r, precise)).result
     return x + c2 @ Dn, r - c2 @ Wn
+
+
+@pytest.mark.parametrize("method", ["cg", "cg_recycled", "gcr_recycled", "gmres_fixed"])
+def test_one_vector_is_the_batch_of_one(method):
+    """Each solver's call on one vector b [n] and on its B = 1 column [n, 1]
+    (the operators the same products on either) give the same iterate, bit
+    for bit, and the same counts."""
+    n, k = 60, 3
+    rng = np.random.default_rng(7)
+    Q = rng.standard_normal((n, n))
+    K = torch.as_tensor(Q @ Q.T + n * np.diag(rng.uniform(0.5, 20.0, n)))
+    inv = 1.0 / torch.diagonal(K)
+
+    def A(v):  # [n], [n, K] or [n, K, 1]: one matrix product on [n, -1]
+        return (K @ v.reshape(n, -1)).reshape(v.shape)
+
+    def M(v):
+        return inv.reshape(-1, *(1,) * (v.dim() - 1)) * v
+
+    b = torch.as_tensor(rng.standard_normal(n))
+    x0 = torch.as_tensor(0.1 * rng.standard_normal(n))
+    poolD = torch.as_tensor(rng.standard_normal((k, n)))
+    poolD[-1] = 0.0  # a zero pool row is ignored
+    poolW = A(poolD.T.contiguous()).T.contiguous()
+    kw = dict(rtol=1e-8, precise=True)
+    if method == "cg":
+        (xv, iv), (xc, ic) = krylov.cg(A, b, M, x0, **kw), krylov.cg(A, b[:, None], M, x0[:, None], **kw)
+        rest_v, rest_c = (), ()
+    elif method == "cg_recycled":
+        xv, iv, hv = krylov.cg_recycled(A, b, M, x0, poolD, poolW, **kw)
+        xc, ic, hc = krylov.cg_recycled(A, b[:, None], M, x0[:, None], poolD[..., None], poolW[..., None], **kw)
+        rest_v, rest_c = (hv,), (hc[..., 0],)
+    elif method == "gcr_recycled":
+        xv, iv, Dv = krylov.gcr_recycled(A, b, M, poolD, tol_mode="b", max_narrow=12, **kw)
+        xc, ic, Dc = krylov.gcr_recycled(A, b[:, None], M, poolD[..., None], tol_mode="b", max_narrow=12, **kw)
+        rest_v, rest_c = (Dv,), (Dc[..., 0],)
+    else:
+        xv, xc = krylov.gmres_fixed(A, b, M, iters=8), krylov.gmres_fixed(A, b[:, None], M, iters=8)
+        iv = ic = None
+        rest_v, rest_c = (), ()
+    assert xv.shape == (n,) and xc.shape == (n, 1)
+    assert torch.equal(xv, xc[:, 0])
+    assert all(torch.equal(u, v) for u, v in zip(rest_v, rest_c))
+    if iv is not None:
+        assert isinstance(iv.iters, int) and isinstance(iv.residual, float) and iv.iters > 1
+        assert iv.iters == int(ic.iters[0]) and iv.residual == float(ic.residual[0])
 
 
 # ----------------------------------------------------------------------
@@ -288,7 +342,7 @@ class _StandInGraph:
         pass
 
 
-@pytest.mark.parametrize("loop", ["columns", "vector"])
+@pytest.mark.parametrize("loop", ["masked", "single"])
 @pytest.mark.parametrize("form", ["additive", "v11"])
 def test_a_capture_is_cut_at_the_layers_spans_and_a_replay_records_them(duct, monkeypatch, form, loop):
     """`_Cuts` ends a graph at each span given sizes and captures the
@@ -299,17 +353,17 @@ def test_a_capture_is_cut_at_the_layers_spans_and_a_replay_records_them(duct, mo
         duct.config, precond=dataclasses.replace(duct.config.precond, mg2_form=form)))
     A, M = duct._pressure_operators(duct.proj_schur)
     n = duct.proj_schur.diag1.shape[0]
-    b, x0 = _columns(n, 4 if loop == "columns" else 1, duct.dtype, seed=2)
+    b, x0 = _columns(n, 4 if loop == "masked" else 1, duct.dtype, seed=2)
     r = b - A(x0)
     z = M(r)
     rz, rr = _cdot(z, r, False), _cdot(r, r, False)
-    if loop == "columns":
+    if loop == "masked":
         state = [x0, r, z, rz, torch.sqrt(rr).double(), torch.zeros(4, dtype=torch.int64),
                  torch.zeros(4, dtype=torch.float64)]
-        body = lambda st: krylov._cg_columns_iter(A, M, st, maxiter=25, precise=False)  # noqa: E731
+        body = lambda st: krylov._cg_masked_iter(A, M, st, maxiter=25, precise=False)  # noqa: E731
     else:
         state = [t[:, 0].clone() for t in (x0, r, z)] + [rz[0].clone(), torch.sqrt(rr[0])]
-        body = lambda st: krylov._cg_vector_iter(A, M, st, precise=False)  # noqa: E731
+        body = lambda st: krylov._cg_single_iter(A, M, st, precise=False)  # noqa: E731
     def traced(run):
         profiling.reset()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
