@@ -99,6 +99,7 @@ phases.
     python3 chip_smoke.py --only dfg_full --out-dir DIR   # or dfg_re100, dfg_re200, dfg_3d1z
     python3 chip_smoke.py --only dfg_spread dfg_drift dfg_3d_spread
     python3 chip_smoke.py --only coarse   # the frozen coarse solve at the duct's and the sweep's sizes
+    python3 chip_smoke.py --only member-product   # kernel G at the sweep's plan, then on its path
 
 Every phase that fails makes the exit code non-zero; without a CUDA device
 the script exits 1 before printing any result.  The last three lines of
@@ -1508,6 +1509,120 @@ def coarse_solve_times(label: str, solver, cols: int, reps: int) -> dict:
     return r
 
 
+def member_product_times(solver, reps: int) -> list:
+    """Kernel G (`onehot.member_product`) at the ensemble solver's element
+    plan (E cells of nloc nodes, 3 channels, ENSEMBLE_MEMBERS members), in
+    float32 and float64, with seeded random inputs: on node rows with the
+    gather fused in (`apply_F`'s mode) and on the velocity's channel slice
+    of a stacked [hist | u0 | w] gather (the rhs pass's).  Each against its
+    plain version (kernel D's gather and the multiply-add chain, as `apply_F`
+    ran before; the chain alone), held to 1e-6 of max |plain| (1e-13 in
+    float64), then timed beside its bound (F_e read once, y written once,
+    and the input once: the node rows and their int64 index, or the slice)
+    and the library call `torch.einsum("jeib,ejcb->eicb", F_e, x_e)`, which
+    the port never calls.  The element pass around it (kernel C's reduce
+    after kernel G on node rows, against D, the chain and C) is timed too.
+    Logs and returns the records."""
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
+
+    plans, B = solver.op.onehot, ENSEMBLE_MEMBERS
+    E, nloc = solver.op.cells_u.shape
+    n, C, dev = plans.n_rows, solver.space.dim, plans.gather.device
+    recs = []
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator(device=dev).manual_seed(11)
+        F_e = torch.randn((nloc, E, nloc, B), generator=gen, device=dev, dtype=dtype)
+        u = torch.randn((n, C, B), generator=gen, device=dev, dtype=dtype)
+        stacked = oh.onehot_gather(plans, torch.cat([u, u, u], dim=1).reshape(n, -1))
+        x_e = stacked.view(E, nloc, 3 * C, B)[:, :, C:2 * C]
+        s, peak = F_e.element_size(), F64_OPS_PER_S if dtype == torch.float64 else F32_OPS_PER_S
+        f_bytes, y_bytes = F_e.numel() * s, E * nloc * C * B * s
+        ops = 2 * F_e.numel() * C
+        modes = {
+            "node rows": (lambda: oh.member_product(F_e, u, plans),
+                          lambda: oh.member_product_plain(F_e, oh.onehot_gather(plans, u.reshape(n, -1)).view(
+                              E, nloc, C, B)),
+                          f_bytes + y_bytes + u.numel() * s + plans.gather.numel() * 8),
+            "element view": (lambda: oh.member_product(F_e, x_e),
+                             lambda: oh.member_product_plain(F_e, x_e), f_bytes + 2 * y_bytes),
+        }
+        lib = lambda: torch.einsum("jeib,ejcb->eicb", F_e, x_e)  # noqa: E731
+        for mode, (fn, plain, nbytes) in modes.items():
+            label = f"member_product {str(dtype).replace('torch.', '')} {mode}"
+            ref = plain()
+            err = float((fn() - ref).abs().max()) / float(ref.abs().max())
+            tol = 1e-13 if dtype == torch.float64 else 1e-6
+            if not err <= tol:
+                fail(f"{label}: the kernel misses its plain version by {err:.3e} of max |plain| (tol {tol:g})")
+            t = kernel_times(fn, plain, lib, reps)
+            b = bound(nbytes, ops, peak)
+            r = dict(kernel="member_product", mode=mode, dtype=str(dtype).replace("torch.", ""), E=E, nloc=nloc,
+                     C=C, B=B, max_rel_err=err, **t, **b)
+            r["share"] = share(label, b, t["device_ms"])
+            log(f"{label}: {fmt_times(t, b)}; max rel err {err:.3e}")
+            recs.append(r)
+        # the element pass of apply_F: kernel G then C, against D, the chain, C
+        pass_ms = device_ms(lambda: oh.onehot_reduce(plans, oh.member_product(F_e, u, plans).view(E * nloc, -1)),
+                            reps)
+        plain_pass_ms = device_ms(lambda: oh.onehot_reduce(plans, modes["node rows"][1]().view(E * nloc, -1)), reps)
+        log(f"member_product {dtype}: element pass (G + C) {pass_ms:.4f} ms on device, with D + chain + C "
+            f"{plain_pass_ms:.4f} ms")
+        recs[-1].update(pass_device_ms=pass_ms, plain_pass_device_ms=plain_pass_ms)
+        del F_e, u, stacked, x_e
+    log(f"member_product records: {json.dumps(recs)}")
+    return recs
+
+
+def member_product_path(solver, nus, steps: int = 2) -> None:
+    """`steps` ensemble steps with `operators.apply_F` wrapped: every call
+    must launch kernel G once, kernel C once and kernel D never (the
+    gather fused into G); fails otherwise."""
+    import torch
+
+    from navierstokes_project_nm4pde_tpu_torch.ops import onehot as oh
+    from navierstokes_project_nm4pde_tpu_torch.ops import operators as ops
+    from navierstokes_project_nm4pde_tpu_torch.parallel import run_ensemble
+
+    inner, calls = ops.apply_F, []
+    keys = ("member_product", "slot_gather", "slot_reduce")
+
+    def counted(*args, **kwargs):
+        before = dict(oh.launch_counts)
+        y = inner(*args, **kwargs)
+        calls.append(tuple(oh.launch_counts[k] - before[k] for k in keys))
+        return y
+
+    ops.apply_F = counted
+    try:
+        oh.reset_launch_counts()
+        run_ensemble(solver, nus, steps)
+        torch.cuda.synchronize()
+    finally:
+        ops.apply_F = inner
+    bad = [c for c in calls if c != (1, 0, 1)]
+    log(f"member_product on the ensemble path: {len(calls)} apply_F calls in {steps} steps, launches "
+        f"{dict(zip(keys, map(sum, zip(*calls))))} inside them, {dict(oh.launch_counts)} in all")
+    if not calls or bad:
+        fail(f"ensemble apply_F: {len(bad)} of {len(calls)} calls did not launch exactly kernel G and C "
+             f"(member_product, slot_gather, slot_reduce): {bad[:3]}")
+
+
+def drive_member_product(device) -> None:
+    """Kernel G at the ensemble benchmark's plan (64 x 46,928 DoF), timed in
+    both dtypes and its modes (`member_product_times`), then on the
+    ensemble's path (`member_product_path`)."""
+    from navierstokes_project_nm4pde_tpu_torch.mesh import cylinder_duct_3d
+    from navierstokes_project_nm4pde_tpu_torch.models import Cylinder3DProblem, NavierStokesSolver
+
+    problem = Cylinder3DProblem(test_case=2)
+    solver = NavierStokesSolver(cylinder_duct_3d(**ENSEMBLE_MESH), problem, ensemble_config("float32"),
+                                device=device)
+    member_product_times(solver, KERNEL_REPS)
+    member_product_path(solver, sweep_nus(problem, ENSEMBLE_MEMBERS))
+
+
 def imex_operator_times(solver, reps: int) -> None:
     """The IMEX path's two per-iteration operators at [n, 3]: the assembled
     K (gather, product, segmented sum) with its bound and the one PyTorch
@@ -2747,6 +2862,7 @@ def drive_coarse(device) -> None:
 # float64 kernel records, the DFG runs' output directory or None).
 ONLY_PHASES = {
     "coarse": lambda device, rec, rec64, out: drive_coarse(device),
+    "member-product": lambda device, rec, rec64, out: drive_member_product(device),
     "ensemble-cli": lambda device, rec, rec64, out: drive_ensemble_cli(device, rec),
     "ensemble-variants": lambda device, rec, rec64, out: (check_small_ensemble(device),
                                                           check_small_ensembles(device)),
@@ -2853,6 +2969,8 @@ def main(argv=None) -> int:
         f"max valence {int(plans.reduce.lengths.max())}; host setup {e_setup:.2f} s")
     add_slot_shapes(rec, "ensemble", plans, KERNEL_REPS, base=3 * B)
     coarse_solve_times("ensemble", esolver, B, KERNEL_REPS)
+    member_product_times(esolver, KERNEL_REPS)
+    member_product_path(esolver, nus)
 
     # ---- 5. the probes --------------------------------------------------------
     prec = run_probes(KERNEL_REPS)
@@ -3032,7 +3150,8 @@ def main(argv=None) -> int:
     estate, ed, e_ms = timed_steps(
         lambda st, k: run_ensemble(esolver, nus, k, state=st), estate, ENSEMBLE_TIMED
     )
-    e_launches = launches_of(oh.launch_counts, ("slot_reduce", "slot_gather"), "float32", "ensemble")
+    e_launches = launches_of(oh.launch_counts, ("slot_reduce", "slot_gather", "member_product"), "float32",
+                             "ensemble")
     launches.update(e_launches)
     launches.update(probe_launches)
     ne, q = ENSEMBLE_TIMED, np.percentile(e_ms, [25, 50, 75])

@@ -24,19 +24,22 @@ from navierstokes_project_nm4pde_tpu_torch.utils.profiling import setup_phase
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(
     _PKG / "csrc" / name
-    for name in ("macro_kernels.cu", "ensemble_kernels.cu", "probe_kernels.cu", "coarse_kernels.cu")
+    for name in (
+        "macro_kernels.cu", "ensemble_kernels.cu", "element_kernels.cu", "probe_kernels.cu",
+        "coarse_kernels.cu",
+    )
 )
 BUILD_DIR = _PKG / "build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argument types (each returns an int: a CUDA error code,
 # or for ns_macro_max_channels*, ns_macro_build_band_* and
 # ns_macro_matvec_{band_cols,panel_rows} a size).  Kernels A-D and the
-# coarse solve have an entry point for each element type, suffixed _f32 and
-# _f64.
+# coarse solve and the member product (kernel G) have an entry point for
+# each element type, suffixed _f32 and _f64.
 _SIGNATURES = {
     **{f"ns_macro_matvec_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _P] for t in ("f32", "f64")},
     **{f"ns_macro_build_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _P] for t in ("f32", "f64")},
@@ -52,6 +55,7 @@ _SIGNATURES = {
     "ns_sgemm_tn_f32": [_P, _P, _P, _I, _I, _I, _P],
     "ns_column_gather_f32": [_P, _P, _P, _I, _I, _P],
     **{f"ns_coarse_solve_{t}": [_P, _P, _P, _P, _I, _I, _I, _P] for t in ("f32", "f64")},
+    **{f"ns_member_product_{t}": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _P] for t in ("f32", "f64")},
 }
 # element type -> the suffix of its kernels' entry points
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

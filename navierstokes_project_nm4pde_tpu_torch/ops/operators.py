@@ -30,7 +30,9 @@ nu a [B] tensor): the element passes take any trailing axes and move
 them as packed channels (C = dim * B, component-major) through the slot
 gather and reduce of `ops/onehot.py` (kernels D and C on the card).  The
 per-member element matrices are then held as F_e[j, e, i, b] = F_e^(b)[e, i, j]
-([nloc, E, nloc, B], see `element_apply`), and D and G are element passes.
+([nloc, E, nloc, B]), their product is kernel G (`onehot.member_product`;
+`apply_F` hands it the node rows, so it gathers them itself), and D and G
+are element passes.
 
 A cell-sharded operator (`parallel/sharding.py`) holds one rank's block
 of the cells and its process group: every node reduce (`scatter_u`,
@@ -58,6 +60,7 @@ from navierstokes_project_nm4pde_tpu_torch.ops.coarse import (
 from navierstokes_project_nm4pde_tpu_torch.ops.onehot import (
     OneHotPlans,
     build_onehot_plans,
+    member_product,
     onehot_gather,
     onehot_reduce,
 )
@@ -507,11 +510,8 @@ def element_apply(F_e: torch.Tensor, x_e: torch.Tensor) -> torch.Tensor:
     """y[e, i, ...] = sum_j F_e[e, i, j] x_e[e, j, ...].
 
     With per-member matrices (F_e [j, E, i, B], x_e [E, j, c, B]) the
-    product is nloc fused multiply-adds into one [E, i, c, B] accumulator,
-    each streaming one contiguous [E, i, B] slab of F_e: no [B, E, i, j, c]
-    intermediate and no copy of x_e or y.  (cuBLAS's batched GEMM over the
-    612,864 tiny (member, cell) products of the 64-member ensemble took
-    3.9 ms an apply on an H100, this form 0.74 ms.)"""
+    product is kernel G on the card (`onehot.member_product`, reading x_e
+    with its strides), its plain chain of multiply-adds on the CPU."""
     if F_e.dim() == 3:
         # one broadcast product and one sum over j: cuBLAS's batched GEMM
         # over 198,086 [10, 10] x [10, 3] products took 1.3443 ms on an
@@ -520,10 +520,7 @@ def element_apply(F_e: torch.Tensor, x_e: torch.Tensor) -> torch.Tensor:
         E, n = F_e.shape[:2]
         y = (F_e[:, :, :, None] * x_e.reshape(E, n, 1, -1).transpose(1, 2)).sum(2)
         return y.view(x_e.shape)
-    y = F_e[0][:, :, None, :] * x_e[:, 0][:, None, :, :]
-    for j in range(1, F_e.shape[0]):
-        y.addcmul_(F_e[j][:, :, None, :], x_e[:, j][:, None, :, :])
-    return y
+    return member_product(F_e, x_e)
 
 
 def _apply_K_e(op: NSOperator, nu, dt, u_e: torch.Tensor) -> torch.Tensor:
@@ -572,7 +569,8 @@ def apply_F(
     operator, a single run's element fallback, the block preconditioners'
     inner solves and the element reference the macro path is tested
     against); with conv=None the convection-free K = M/dt + nu A.  `u_e` is
-    a pre-gathered element view of u.
+    a pre-gathered element view of u; without it, per-member F_e go to
+    kernel G with u's node rows (no element view of u is written).
 
     A bfloat16 `u` (the preconditioners' low_precision mode) moves
     bfloat16 values: its gather payload and the element contributions the
@@ -582,9 +580,11 @@ def apply_F(
     lowp = u.dtype == torch.bfloat16
     if lowp:
         u = u.to(op.MHAT.dtype)  # exact: a bfloat16 value is representable
-    if u_e is None:
-        u_e = gather_u(op, u)
-    y_e = _apply_F_e(op, nu, dt, conv, u_e)
+    if u_e is None and conv is not None and conv.F_e is not None and conv.F_e.dim() == 4:
+        _check_fold(conv, nu, dt)
+        y_e = member_product(conv.F_e, u, op.onehot)
+    else:
+        y_e = _apply_F_e(op, nu, dt, conv, gather_u(op, u) if u_e is None else u_e)
     if lowp:
         y = scatter_u(op, y_e.to(torch.bfloat16).to(y_e.dtype)).to(torch.bfloat16)
     else:

@@ -322,6 +322,104 @@ def test_slot_kernels_reject_what_they_do_not_take(cuda):
         oh.onehot_gather(plans, torch.randn((4, 60), device=cuda).T)
 
 
+# ----------------------------------------------------------------------
+# Kernel G: the per-member element product
+# ----------------------------------------------------------------------
+# The kernel sums j in the plain chain's order with fused multiply-adds:
+# a few ulps of the largest entry apart
+RTOL_G = {torch.float32: 1e-6, torch.float64: 1e-13}
+
+
+def _member_inputs(nloc, B, dtype, device, C=None, offset=0, seed=0):
+    """F_e [nloc, E, nloc, B] (its base `offset` elements past the
+    allocation's alignment), node rows u [n_rows, C, B] with their plans, and
+    u's element view as the middle channel block of a stacked gather
+    [E, nloc, 3 C, B] (the step's [hist | u0 | w])."""
+    E, n_rows, C = 300, 500, C or {10: 3, 6: 2}[nloc]
+    plans = oh.build_onehot_plans(_cells(E, nloc, n_rows, seed=seed), n_rows, device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    F_e = torch.randn((nloc * E * nloc * B + offset,), generator=g, device=device, dtype=dtype)
+    F_e = F_e[offset:].view(nloc, E, nloc, B)
+    u = torch.randn((n_rows, C, B), generator=g, device=device, dtype=dtype)
+    wide = oh.onehot_gather(plans, torch.cat([u, u, u], dim=1).reshape(n_rows, -1))
+    x_e = wide.view(E, nloc, 3 * C, B)[:, :, C:2 * C]
+    return F_e, u, plans, x_e
+
+
+def _member_calls(F_e, u, plans, x_e):
+    """Kernel G in both modes, each call counted once."""
+    key = "member_product" if F_e.dtype == torch.float32 else "member_product_f64"
+    out = []
+    for args in ((F_e, x_e), (F_e, u, plans)):
+        before = dict(oh.launch_counts)
+        out.append(oh.member_product(*args))
+        assert oh.launch_counts == {**before, key: before[key] + 1}
+    torch.cuda.synchronize()
+    return out
+
+
+def _close_g(out, ref):
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    err = float((out - ref).abs().max())
+    assert err <= RTOL_G[ref.dtype] * float(ref.abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [64, 3, 1])
+@pytest.mark.parametrize("nloc", [10, 6])
+def test_member_product_matches_plain(cuda, nloc, B, dtype):
+    """Kernel G on an element view (a channel slice of a wider gathered
+    view, read in place) and on node rows (the gather fused in): each
+    within RTOL_G of the plain chain; the two modes and a second call equal
+    bit for bit."""
+    F_e, u, plans, x_e = _member_inputs(nloc, B, dtype, cuda, seed=nloc * B)
+    assert not x_e.is_contiguous()
+    y_view, y_rows = _member_calls(F_e, u, plans, x_e)
+    ref = oh.member_product_plain(F_e, x_e)
+    _close_g(y_view, ref)
+    assert torch.equal(y_rows, y_view)
+    assert torch.equal(oh.member_product(F_e, x_e), y_view)
+    assert torch.equal(oh.member_product(F_e, u, plans), y_rows)
+
+
+@pytest.mark.parametrize("case", ["F_e misaligned", "view misaligned", "rows strided", "C 6", "C 9", "C 5"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_member_product_takes_misaligned_strided_and_wide_payloads(cuda, case, dtype):
+    """Off the 16-byte path (a base past the alignment), node rows that are
+    a channel slice, and channel counts past one group of 3 (2 and 3
+    groups of 3, and 5 groups of 1: F_e stays in registers across them)."""
+    C = int(case[2:]) if case.startswith("C ") else None
+    F_e, u, plans, x_e = _member_inputs(10, 64, dtype, cuda, C=C, offset=int(case == "F_e misaligned"), seed=7)
+    if case == "view misaligned":  # the same values one element past the alignment
+        x_e, u = (torch.empty(t.numel() + 1, device=cuda, dtype=dtype)[1:].view(t.shape).copy_(t)
+                  for t in (x_e, u))
+    if case == "rows strided":
+        u = torch.cat([u, u], dim=1)[:, u.shape[1]:]
+        assert not u.is_contiguous()
+    y_view, y_rows = _member_calls(F_e, u, plans, x_e)
+    _close_g(y_view, oh.member_product_plain(F_e, x_e))
+    assert torch.equal(y_rows, y_view)
+
+
+def test_member_product_rejects_what_it_does_not_take(cuda):
+    F_e, u, plans, x_e = _member_inputs(10, 8, torch.float32, cuda)
+    bad = [
+        (F_e.to(torch.bfloat16), x_e.to(torch.bfloat16)),
+        (F_e.to(torch.bfloat16), u.to(torch.bfloat16), plans),
+        (F_e, x_e.double()),
+        (F_e.transpose(0, 2), x_e),  # not contiguous
+        (F_e[..., :4], x_e[..., :4]),  # not contiguous
+        (F_e, x_e[:, :6]),  # another nloc
+        (F_e, x_e[..., :4]),  # another B
+        (F_e, u[:-1], plans),  # not the plans' rows
+        (F_e, x_e, plans),  # an element view where node rows are due
+        (F_e[:4, :, :4].contiguous(), x_e[:, :4]),  # nloc 4
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            oh.member_product(*args)
+
+
 def _offset_view(shape, gen, device, offset):
     """A contiguous random tensor whose base is `offset` floats past an
     allocation's (16-byte) alignment."""
