@@ -826,47 +826,65 @@ class NavierStokesSolver:
         `_step_dispatch`): the folded F_e and diag C of the step
         (`convection_setup`), the block preconditioner's state, b = (M hist
         with Dirichlet rows g, 0), and flexible GMRES on the increment from
-        the extrapolated guess, A = `apply_system`, M = `apply_precond`."""
-        cfg = self.config
-        op, pc = self.op, cfg.precond
-        nu, tail, f_lam0 = self._members(nu)
-        dt = cfg.time.dt
-        t_new = (state.step + 1.0) * dt
-        w, hist, dt_eff = self._bdf_terms(state, dt)
-        mask = op.dirichlet_mask.view(-1, 1, *(1,) * len(tail))
-        conv = ops.convection_setup(op, w, fold=self._fold(nu, dt_eff), backflow=self.backflow)
-        pst = build_precond_state(
-            op, nu, dt_eff, conv, pc.kind, s_solver=pc.s_solver, f_solver=pc.f_solver,
-            f_lam=f_lam0,
-        )
-        g = self._dirichlet_values(t_new).view(mask.shape[0], -1, *(1,) * len(tail))
-        rhs_u = ops.apply_mass(op, hist)
-        ext = self._external_rhs(t_new)
-        if ext is not None:
-            rhs_u = rhs_u + ext.view(g.shape)
-        rhs_u = torch.where(mask, g, rhs_u)
-        rhs_p = torch.zeros((self.space.n_pnodes, *tail), dtype=self.dtype, device=self.device)
+        the extrapolated guess, A = `apply_system`, M = `apply_precond`.
+        Its phases run in the projection step's spans: `step.fold`,
+        `step.build` (the preconditioner's state), `step.rhs`, `step.guess`
+        (x0 and its residual), `step.solve`, `step.update` and
+        `step.diagnostics`."""
+        with span("step.fold"):
+            cfg = self.config
+            op, pc = self.op, cfg.precond
+            nu, tail, f_lam0 = self._members(nu)
+            dt = cfg.time.dt
+            t_new = (state.step + 1.0) * dt
+            w, hist, dt_eff = self._bdf_terms(state, dt)
+            mask = op.dirichlet_mask.view(-1, 1, *(1,) * len(tail))
+            conv = ops.convection_setup(op, w, fold=self._fold(nu, dt_eff), backflow=self.backflow)
 
-        def A(x):
-            return self._pack(*ops.apply_system(op, nu, dt_eff, conv, *self._unpack(x)))
+        with span("step.build"):
+            pst = build_precond_state(
+                op, nu, dt_eff, conv, pc.kind, s_solver=pc.s_solver, f_solver=pc.f_solver,
+                f_lam=f_lam0,
+            )
 
-        def M(x):
-            return self._pack(*apply_precond(pc.kind, pc, op, pst, nu, dt_eff, *self._unpack(x)))
+        with span("step.rhs"):
+            g = self._dirichlet_values(t_new).view(mask.shape[0], -1, *(1,) * len(tail))
+            rhs_u = ops.apply_mass(op, hist)
+            ext = self._external_rhs(t_new)
+            if ext is not None:
+                rhs_u = rhs_u + ext.view(g.shape)
+            rhs_u = torch.where(mask, g, rhs_u)
+            rhs_p = torch.zeros((self.space.n_pnodes, *tail), dtype=self.dtype, device=self.device)
 
-        b = self._pack(rhs_u, rhs_p)
-        u_guess, p_guess = self._warm_guess(state)
-        x0 = self._pack(torch.where(mask, g, u_guess), p_guess)
-        # increment form: the M/dt bulk of b cancels analytically
-        dx, info = fgmres(
-            A, b - A(x0), M=M, restart=cfg.solver.restart, maxiter=cfg.solver.maxiter,
-            precise=cfg.numerics.precise_dots, **self._tol_kwargs(b),
-        )
-        u_new, p_new = self._unpack(x0 + dx)
-        new_state = State(u=u_new, p=p_new, t=t_new, step=state.step + 1, **self._next_history(state))
-        diag = self._diagnostics(u_new, p_new, t_new, nu if tail else None)
-        diag.update(iters=info.iters, residual=info.residual, iters_f=info.iters,
-                    iters_s=np.zeros_like(info.iters) if tail else 0,
-                    graphed_s=np.zeros_like(info.iters) if tail else 0)
+            def A(x):
+                return self._pack(*ops.apply_system(op, nu, dt_eff, conv, *self._unpack(x)))
+
+            def M(x):
+                return self._pack(*apply_precond(pc.kind, pc, op, pst, nu, dt_eff, *self._unpack(x)))
+
+            b = self._pack(rhs_u, rhs_p)
+
+        with span("step.guess"):
+            u_guess, p_guess = self._warm_guess(state)
+            x0 = self._pack(torch.where(mask, g, u_guess), p_guess)
+            # increment form: the M/dt bulk of b cancels analytically
+            r0 = b - A(x0)
+
+        with span("step.solve"):
+            dx, info = fgmres(
+                A, r0, M=M, restart=cfg.solver.restart, maxiter=cfg.solver.maxiter,
+                precise=cfg.numerics.precise_dots, **self._tol_kwargs(b),
+            )
+
+        with span("step.update"):
+            u_new, p_new = self._unpack(x0 + dx)
+            new_state = State(u=u_new, p=p_new, t=t_new, step=state.step + 1, **self._next_history(state))
+
+        with span("step.diagnostics"):
+            diag = self._diagnostics(u_new, p_new, t_new, nu if tail else None)
+            diag.update(iters=info.iters, residual=info.residual, iters_f=info.iters,
+                        iters_s=np.zeros_like(info.iters) if tail else 0,
+                        graphed_s=np.zeros_like(info.iters) if tail else 0)
         return new_state, diag
 
     def _step_projection(self, state: State, nu=None):

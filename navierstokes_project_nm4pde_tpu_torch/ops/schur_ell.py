@@ -21,6 +21,9 @@ grouped into two valence buckets split at 32 entries, each bucket a padded
 plus a row sum over each bucket's padded block.  The pair table is built
 from a boolean SpGEMM (the pattern) and one sorted-key lookup (each
 product's slot), not by the reference's `np.unique` over every pair.
+The assembly and the SpMV run inside spans (`utils/profiling.py`:
+`schur.ell_assemble`, `schur.ell_matvec`) that record their sizes while a
+profiler runs.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from navierstokes_project_nm4pde_tpu_torch.ops.scatter import build_segment_plan
+from navierstokes_project_nm4pde_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -251,10 +255,12 @@ def assemble_schur_values(s: SchurELL, inv_dF: torch.Tensor) -> torch.Tensor:
     """Per-step flat values [n_slots] (or [n_slots, B] for one weight
     column a member, inv_dF [n_u, B]): the upper-triangle products weighted
     by inv_dF[k], summed per slot, then the lower triangle mirrored."""
-    prod = s.prod_vals if inv_dF.dim() == 1 else s.prod_vals[:, None]
-    w = prod * inv_dF.index_select(0, s.prod_k)
-    vals = torch.segment_reduce(w, "sum", lengths=s.slot_lengths, axis=0, unsafe=True)
-    return vals.index_select(0, s.mirror)
+    with span("schur.ell_assemble", n_prod=s.prod_vals.shape[0], n_slots=s.mirror.shape[0],
+              cols=inv_dF.numel() // inv_dF.shape[0]):
+        prod = s.prod_vals if inv_dF.dim() == 1 else s.prod_vals[:, None]
+        w = prod * inv_dF.index_select(0, s.prod_k)
+        vals = torch.segment_reduce(w, "sum", lengths=s.slot_lengths, axis=0, unsafe=True)
+        return vals.index_select(0, s.mirror)
 
 
 def _bucket_views(s: SchurELL, vals: torch.Tensor):
@@ -274,9 +280,14 @@ def _spread(vb: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 def schur_ell_matvec(s: SchurELL, vals: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """S~ p for p [n_p] or [n_p, B], with values [n_slots] shared by the
     columns or [n_slots, B] one set a column: a gather of p and a row sum
-    over each bucket's padded block."""
-    outs = [(_spread(vb, p) * p[cb]).sum(1) for cb, vb in _bucket_views(s, vals)]
-    return torch.cat(outs).index_select(0, s.row_unperm)
+    over each bucket's padded block.  Its span is no cut of a captured
+    graph: the frozen ELL fallback's pressure CG keeps its graphs whole."""
+    with span("schur.ell_matvec", cut=False, rows=tuple(c.shape[0] for c in s.cols),
+              width=tuple(c.shape[1] for c in s.cols), n_p=p.shape[0], cols=p.numel() // p.shape[0],
+              vcols=vals.numel() // vals.shape[0], itemsize=vals.element_size(),
+              index_itemsize=s.cols[0].element_size()):
+        outs = [(_spread(vb, p) * p[cb]).sum(1) for cb, vb in _bucket_views(s, vals)]
+        return torch.cat(outs).index_select(0, s.row_unperm)
 
 
 def masked_bf16_vals(s: SchurELL, vals: torch.Tensor) -> tuple:

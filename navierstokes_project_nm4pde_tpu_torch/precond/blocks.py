@@ -23,6 +23,12 @@ to the host, so one application costs no synchronisation.  On the card
 each F apply is an element pass through kernels D and C.  `inv_diag_Fhat`
 is the projection stepper's Jacobi diagonal.
 
+Each application runs inside a span (`utils/profiling.py`:
+`precond.apply`, with the sizes n_u, n_p, cols, itemsize), and each
+inner solve inside its own (`precond.f_solve` with iters, rows, cols;
+`precond.s_solve` with iters); with no profiler running a span costs one
+flag check.
+
 An ensemble passes nu as a [B] tensor and its fields with the members on
 a trailing axis (v_u [n, dim, B], v_p [n_p, B]): the state then holds
 what the reference's vmapped step builds per member (the diagonals, the
@@ -59,6 +65,7 @@ from navierstokes_project_nm4pde_tpu_torch.solvers.smoothers import (
     power_lambda_max,
     richardson_fixed,
 )
+from navierstokes_project_nm4pde_tpu_torch.utils.profiling import span
 
 PRECOND_KINDS = (
     "identity",
@@ -202,76 +209,79 @@ def _solve_F(op, st: PrecondState, nu, dt, rhs_u, cfg: PrecondConfig, iters=None
     [n, dim, B] (f_solver: fixed GMRES, Richardson, Chebyshev, or the
     additive P2 -> P1 two-level correction); with cfg.low_precision the
     operator input is bfloat16."""
-    n = rhs_u.shape[0]
-    mask = _like(op.dirichlet_mask[:, None], rhs_u)
-    dtype = rhs_u.dtype
-
-    def Aflat(v):
-        u = v.reshape(rhs_u.shape)
-        x = u.to(torch.bfloat16) if cfg.low_precision else u
-        y = ops.apply_F(op, nu, dt, st.conv, x).to(dtype)
-        return _flat(torch.where(mask, u, y))
-
-    Minv = _flat(st.inv_diag_Fhat.unsqueeze(1).expand(rhs_u.shape))
     it = iters if iters is not None else cfg.f_iters
-    b = _flat(rhs_u)
-    if cfg.f_solver == "richardson":
-        omega = cfg.omega / (0.5 * (1.0 + st.f_lam_max))
-        z = richardson_fixed(Aflat, b, lambda v: Minv * v, iters=it, omega=omega)
-    elif cfg.f_solver == "chebyshev":
-        lam_max = 1.05 * st.f_lam_max
-        z = chebyshev_fixed(
-            Aflat, b, lambda v: Minv * v, iters=it, lam_min=lam_max / 8.0, lam_max=lam_max,
-        )
-    elif cfg.f_solver == "pmg":
-        omega = cfg.omega / (0.5 * (1.0 + st.f_lam_max))
-        cvals, inv_dc = pmg_vals(op.pmg, nu, dt)
-        zc = pmg_coarse_solve(op.pmg, cvals, inv_dc, restrict_p(op.pmg, rhs_u), iters=it)
-        dz = prolong_p(op.pmg, zc, n)
-        z = omega * Minv * b + _flat(torch.where(mask, torch.zeros_like(dz), dz))
-    else:
-        z = gmres_fixed(Aflat, b, lambda v: Minv * v, iters=it)
-    return z.reshape(rhs_u.shape)
+    n, d = rhs_u.shape[:2]
+    with span("precond.f_solve", iters=it, rows=n * d, cols=rhs_u.numel() // (n * d)):
+        mask = _like(op.dirichlet_mask[:, None], rhs_u)
+        dtype = rhs_u.dtype
+
+        def Aflat(v):
+            u = v.reshape(rhs_u.shape)
+            x = u.to(torch.bfloat16) if cfg.low_precision else u
+            y = ops.apply_F(op, nu, dt, st.conv, x).to(dtype)
+            return _flat(torch.where(mask, u, y))
+
+        Minv = _flat(st.inv_diag_Fhat.unsqueeze(1).expand(rhs_u.shape))
+        b = _flat(rhs_u)
+        if cfg.f_solver == "richardson":
+            omega = cfg.omega / (0.5 * (1.0 + st.f_lam_max))
+            z = richardson_fixed(Aflat, b, lambda v: Minv * v, iters=it, omega=omega)
+        elif cfg.f_solver == "chebyshev":
+            lam_max = 1.05 * st.f_lam_max
+            z = chebyshev_fixed(
+                Aflat, b, lambda v: Minv * v, iters=it, lam_min=lam_max / 8.0, lam_max=lam_max,
+            )
+        elif cfg.f_solver == "pmg":
+            omega = cfg.omega / (0.5 * (1.0 + st.f_lam_max))
+            cvals, inv_dc = pmg_vals(op.pmg, nu, dt)
+            zc = pmg_coarse_solve(op.pmg, cvals, inv_dc, restrict_p(op.pmg, rhs_u), iters=it)
+            dz = prolong_p(op.pmg, zc, n)
+            z = omega * Minv * b + _flat(torch.where(mask, torch.zeros_like(dz), dz))
+        else:
+            z = gmres_fixed(Aflat, b, lambda v: Minv * v, iters=it)
+        return z.reshape(rhs_u.shape)
 
 
 def _solve_S(op, st: PrecondState, rhs_p, cfg: PrecondConfig):
     """Approximately solve S~ z = rhs on the assembled ELL form (s_solver:
     fixed CG, Chebyshev, the two-level mg2 / mg2_cg, or SPAI / spai_cg)."""
-    if cfg.low_precision:
-        vals16 = masked_bf16_vals(op.schur, st.schur_vals)
+    single = cfg.s_solver in ("mg2", "spai")  # one application, no iteration
+    with span("precond.s_solve", iters=0 if single else cfg.s_iters):
+        if cfg.low_precision:
+            vals16 = masked_bf16_vals(op.schur, st.schur_vals)
 
-        def S(p):
-            return schur_ell_matvec_bf16(op.schur, vals16, p, rhs_p.dtype)
-    else:
-        def S(p):
-            return schur_ell_matvec(op.schur, st.schur_vals, p)
+            def S(p):
+                return schur_ell_matvec_bf16(op.schur, vals16, p, rhs_p.dtype)
+        else:
+            def S(p):
+                return schur_ell_matvec(op.schur, st.schur_vals, p)
 
-    if cfg.s_solver in ("mg2", "mg2_cg"):
-        inv_d = 1.0 / st.schur_diag  # shared, or one a member: twolevel_apply spreads it
+        if cfg.s_solver in ("mg2", "mg2_cg"):
+            inv_d = 1.0 / st.schur_diag  # shared, or one a member: twolevel_apply spreads it
 
-        def M2(v):
-            return twolevel_apply(op.coarse, st.schur_cho_L, S, inv_d, v)
+            def M2(v):
+                return twolevel_apply(op.coarse, st.schur_cho_L, S, inv_d, v)
 
-        if cfg.s_solver == "mg2":
-            return M2(rhs_p)
-        return cg_fixed(S, rhs_p, M2, iters=cfg.s_iters)
+            if cfg.s_solver == "mg2":
+                return M2(rhs_p)
+            return cg_fixed(S, rhs_p, M2, iters=cfg.s_iters)
 
-    if cfg.s_solver in ("spai", "spai_cg"):
-        def Mspai(v):
-            return schur_ell_matvec(op.schur, op.spai_vals, v)
+        if cfg.s_solver in ("spai", "spai_cg"):
+            def Mspai(v):
+                return schur_ell_matvec(op.schur, op.spai_vals, v)
 
-        if cfg.s_solver == "spai":
-            return Mspai(rhs_p)
-        return cg_fixed(S, rhs_p, Mspai, iters=cfg.s_iters)
+            if cfg.s_solver == "spai":
+                return Mspai(rhs_p)
+            return cg_fixed(S, rhs_p, Mspai, iters=cfg.s_iters)
 
-    Minv = _like(1.0 / st.schur_diag, rhs_p)
-    if cfg.s_solver == "chebyshev":
-        lam_max = 1.05 * st.schur_lam_max
-        return chebyshev_fixed(
-            S, rhs_p, lambda v: Minv * v, iters=cfg.s_iters,
-            lam_min=lam_max / 30.0, lam_max=lam_max,
-        )
-    return cg_fixed(S, rhs_p, lambda v: Minv * v, iters=cfg.s_iters)
+        Minv = _like(1.0 / st.schur_diag, rhs_p)
+        if cfg.s_solver == "chebyshev":
+            lam_max = 1.05 * st.schur_lam_max
+            return chebyshev_fixed(
+                S, rhs_p, lambda v: Minv * v, iters=cfg.s_iters,
+                lam_min=lam_max / 30.0, lam_max=lam_max,
+            )
+        return cg_fixed(S, rhs_p, lambda v: Minv * v, iters=cfg.s_iters)
 
 
 def _dt_apply(op, p):
@@ -287,38 +297,39 @@ def apply_precond(kind: str, cfg: PrecondConfig, op, st: PrecondState, nu, dt, v
     or members on a trailing axis."""
     if kind in ("identity", "block_identity"):
         return v_u, v_p
+    with span("precond.apply", n_u=v_u.shape[0] * v_u.shape[1], n_p=v_p.shape[0],
+              cols=v_p.numel() // v_p.shape[0], itemsize=v_u.element_size()):
+        if kind == "block_triangular":
+            # the full F block, then the nu-scaled pressure mass on v_p - D z_u
+            z_u = _solve_F(op, st, nu, dt, v_u, cfg)
+            rhs_p = v_p - ops.apply_divergence(op, z_u)
+            MinvP = nu / _like(op.diagMp, v_p)
+            z_p = cg_fixed(
+                lambda p: ops.apply_pressure_mass(op, p) / nu, rhs_p, lambda v: MinvP * v,
+                iters=cfg.s_iters,
+            )
+            return z_u, z_p
 
-    if kind == "block_triangular":
-        # the full F block, then the nu-scaled pressure mass on v_p - D z_u
-        z_u = _solve_F(op, st, nu, dt, v_u, cfg)
-        rhs_p = v_p - ops.apply_divergence(op, z_u)
-        MinvP = nu / _like(op.diagMp, v_p)
-        z_p = cg_fixed(
-            lambda p: ops.apply_pressure_mass(op, p) / nu, rhs_p, lambda v: MinvP * v,
-            iters=cfg.s_iters,
-        )
-        return z_u, z_p
+        if kind in ("simple", "asimple"):
+            y_u = _solve_F(op, st, nu, dt, v_u, cfg)
+            y_p = _solve_S(op, st, v_p - ops.apply_divergence(op, y_u), cfg)
+            z_p = y_p / cfg.alpha
+            return y_u + st.inv_diag_free.unsqueeze(1) * _dt_apply(op, z_p), z_p
 
-    if kind in ("simple", "asimple"):
-        y_u = _solve_F(op, st, nu, dt, v_u, cfg)
-        y_p = _solve_S(op, st, v_p - ops.apply_divergence(op, y_u), cfg)
-        z_p = y_p / cfg.alpha
-        return y_u + st.inv_diag_free.unsqueeze(1) * _dt_apply(op, z_p), z_p
+        if kind == "yosida":
+            # L-solve with S~ from dt M^-1, then a second F solve for the
+            # velocity correction
+            y_u = _solve_F(op, st, nu, dt, v_u, cfg)
+            z_p = _solve_S(op, st, v_p - ops.apply_divergence(op, y_u), cfg)
+            rhs_corr = _dt_apply(op, z_p)
+            rhs_corr = torch.where(_like(op.dirichlet_mask[:, None], rhs_corr), torch.zeros_like(rhs_corr), rhs_corr)
+            corr = _solve_F(op, st, nu, dt, rhs_corr, cfg, iters=cfg.f_corr_iters or None)
+            return y_u + corr, z_p
 
-    if kind == "yosida":
-        # L-solve with S~ from dt M^-1, then a second F solve for the
-        # velocity correction
-        y_u = _solve_F(op, st, nu, dt, v_u, cfg)
-        z_p = _solve_S(op, st, v_p - ops.apply_divergence(op, y_u), cfg)
-        rhs_corr = _dt_apply(op, z_p)
-        rhs_corr = torch.where(_like(op.dirichlet_mask[:, None], rhs_corr), torch.zeros_like(rhs_corr), rhs_corr)
-        corr = _solve_F(op, st, nu, dt, rhs_corr, cfg, iters=cfg.f_corr_iters or None)
-        return y_u + corr, z_p
-
-    if kind == "ayosida":
-        # every F solve a diagonal scaling; one CG on the lumped-mass S~
-        y_u = st.inv_diag_Fhat.unsqueeze(1) * v_u
-        z_p = _solve_S(op, st, v_p - ops.apply_divergence(op, y_u), cfg)
-        return y_u + st.inv_diag_free.unsqueeze(1) * _dt_apply(op, z_p), z_p
+        if kind == "ayosida":
+            # every F solve a diagonal scaling; one CG on the lumped-mass S~
+            y_u = st.inv_diag_Fhat.unsqueeze(1) * v_u
+            z_p = _solve_S(op, st, v_p - ops.apply_divergence(op, y_u), cfg)
+            return y_u + st.inv_diag_free.unsqueeze(1) * _dt_apply(op, z_p), z_p
 
     raise ValueError(f"unknown preconditioner kind: {kind}")

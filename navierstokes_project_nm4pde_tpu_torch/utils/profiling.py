@@ -19,7 +19,9 @@ phases.
 While a CUDA graph is captured (`solvers/krylov.py CGGraphs`), `cutting(cut)`
 hands each span that is given sizes to `cut`, which ends the graph there and
 captures the span's own work as a graph of its own: a replay then runs that
-graph inside the span, with the sizes seen at capture.
+graph inside the span, with the sizes seen at capture.  A span opened with
+`cut=False` is never a cut: its work stays in the graph around it, and a
+replay does not open it.
 
 The profiler is one per process, and so is what is recorded here;
 `reset()` clears it.
@@ -42,11 +44,12 @@ _setup_stack: list = []  # the open set-up phases' nested seconds
 _cut = None  # while a CUDA graph is captured: name, sizes -> the span's context (`cutting`)
 
 
-def span(name: str, **sizes):
+def span(name: str, *, cut: bool = True, **sizes):
     """A context manager naming the enclosed region `PREFIX + name` in a
     running torch.profiler trace (the shared null context otherwise),
-    recording `sizes` under `name` while it runs."""
-    if _cut is not None and sizes:
+    recording `sizes` under `name` while it runs; with `cut` False, never
+    a cut of a graph being captured (`cutting`)."""
+    if _cut is not None and sizes and cut:
         return _cut(name, sizes)
     if not (_profiler._is_profiler_enabled and ENABLED):
         return _NULL
